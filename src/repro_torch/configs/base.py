@@ -1,0 +1,172 @@
+"""Model configs and the arch registry of the port.
+
+A copy of the JAX package's ``ModelConfig`` (same field names and defaults,
+so a test builds the same config on both sides), its layer kinds,
+``register``/``get_model_config`` and ``reduced``.  The registry covers the
+archs the port serves so far: qwen3-1.7b and gemma2-27b.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+ATTN = "attn"          # full (global) attention
+LOCAL = "local"        # sliding-window attention
+MAMBA = "mamba"        # Mamba2 SSD mixer
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyperparameters (exact public configs; see
+    configs/<id>.py)."""
+
+    name: str
+    family: str                      # dense | ssm | hybrid | moe | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+
+    # --- attention variants -------------------------------------------------
+    qk_norm: bool = False            # qwen3: RMSNorm on q,k per head
+    qkv_bias: bool = False           # qwen1.5
+    attn_logit_softcap: Optional[float] = None    # gemma2: 50.0
+    final_logit_softcap: Optional[float] = None   # gemma2: 30.0
+    query_scale: Optional[float] = None           # gemma2: (d_model/heads)^-0.5
+    sliding_window: int = 4096       # window for LOCAL layers
+    use_rope: bool = True
+    rope_theta: float = 1e6
+
+    # --- stack structure -----------------------------------------------------
+    # One superblock of the repeating layer pattern; num_layers =
+    # k * len(pattern) + r, remainder layers take pattern[:r].
+    layer_pattern: Tuple[str, ...] = (ATTN,)
+    moe_period: int = 0
+    moe_offset: int = 0
+
+    # --- MoE -----------------------------------------------------------------
+    num_experts: int = 0
+    experts_per_tok: int = 0
+    capacity_factor: float = 1.25
+    moe_d_ff: int = 0
+
+    # --- SSM (Mamba2 / SSD) ---------------------------------------------------
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    ssm_conv_width: int = 4
+
+    # --- enc-dec / multimodal --------------------------------------------------
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    encoder_seq: int = 1500
+    num_patches: int = 0
+
+    # --- positions -------------------------------------------------------------
+    learned_pos: bool = False
+    max_pos: int = 0
+
+    # --- misc -----------------------------------------------------------------
+    mlp_gated: bool = True           # SwiGLU/GeGLU-style gated MLP
+    act: str = "silu"                # silu | gelu | relu
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = True
+    dtype: str = "bfloat16"          # embedding / residual-stream dtype
+    post_sublayer_norm: bool = False  # gemma-style norms after sublayers
+
+    @property
+    def pattern_repeats(self) -> int:
+        return self.num_layers // len(self.layer_pattern)
+
+    @property
+    def pattern_remainder(self) -> int:
+        return self.num_layers % len(self.layer_pattern)
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Expanded per-layer mixer kinds for the full stack."""
+        full = self.layer_pattern * self.pattern_repeats
+        return tuple(full) + self.layer_pattern[: self.pattern_remainder]
+
+    def layer_is_moe(self, idx: int) -> bool:
+        if self.moe_period <= 0:
+            return False
+        return idx % self.moe_period == self.moe_offset
+
+
+_REGISTRY: dict = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_model_config(name: str) -> ModelConfig:
+    _ensure_loaded()
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def list_archs() -> list:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
+def _ensure_loaded() -> None:
+    # import the config modules once (registration side effect)
+    import importlib
+    for mod in ("qwen3_1p7b", "gemma2_27b"):
+        importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """A smoke-test-sized config of the same family (tiny dims, same
+    structure)."""
+    pattern = cfg.layer_pattern
+    # keep at least one full superblock (so every mixer kind is exercised)
+    num_layers = len(pattern) * max(1, min(2, cfg.pattern_repeats))
+    base = dict(
+        name=cfg.name + "-reduced",
+        family=cfg.family,
+        num_layers=num_layers,
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=min(cfg.num_kv_heads, 2) or 2,
+        head_dim=16,
+        d_ff=0 if cfg.d_ff == 0 else 128,
+        vocab_size=512,
+        qk_norm=cfg.qk_norm,
+        qkv_bias=cfg.qkv_bias,
+        attn_logit_softcap=cfg.attn_logit_softcap,
+        final_logit_softcap=cfg.final_logit_softcap,
+        sliding_window=16,
+        use_rope=cfg.use_rope,
+        layer_pattern=pattern,
+        moe_period=cfg.moe_period,
+        moe_offset=cfg.moe_offset,
+        num_experts=min(cfg.num_experts, 4),
+        experts_per_tok=min(cfg.experts_per_tok, 2),
+        moe_d_ff=128 if cfg.moe_d_ff else 0,
+        ssm_state=min(cfg.ssm_state, 16) if cfg.ssm_state else 0,
+        ssm_expand=cfg.ssm_expand,
+        ssm_head_dim=16 if cfg.ssm_state else 64,
+        ssm_chunk=8,
+        ssm_conv_width=cfg.ssm_conv_width,
+        is_encoder_decoder=cfg.is_encoder_decoder,
+        num_encoder_layers=min(cfg.num_encoder_layers, 2),
+        encoder_seq=16,
+        num_patches=min(cfg.num_patches, 8),
+        mlp_gated=cfg.mlp_gated,
+        act=cfg.act,
+        norm=cfg.norm,
+        tie_embeddings=cfg.tie_embeddings,
+        post_sublayer_norm=cfg.post_sublayer_norm,
+    )
+    base.update(overrides)
+    return ModelConfig(**base)

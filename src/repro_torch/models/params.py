@@ -1,0 +1,123 @@
+"""Parameter init and the weight bridge from the JAX package.
+
+``init_params`` builds the LM with the JAX package's per-leaf rule
+(``repro/models/params.py::_init_leaf``): normal with std
+``1 / sqrt(fan_in)``, fan-in being the leaf's first dimension (the
+unstacked one), and zeros for RMSNorm scales and biases.  The numbers come
+from a ``torch.Generator``, so they differ from JAX's for the same seed;
+tests that compare the two packages carry weights over with
+``load_jax_flat`` instead.
+
+``load_jax_flat`` reads the flat ``{keystr: array}`` mapping that
+``repro/checkpoint/checkpointer.py`` writes to ``shard_0.npz`` (or the path
+of such a file), unstacks the ``[R, ...]`` superblock leaves into the
+per-layer blocks and keeps every other shape as it is.
+"""
+from __future__ import annotations
+
+import copy
+import os
+import re
+from typing import Dict, Mapping, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import LM
+
+
+def _maker(fill, device, dtype):
+    def make(shape, init: str = "normal"):
+        return nn.Parameter(fill(tuple(shape), init, device, dtype),
+                            requires_grad=False)
+    return make
+
+
+def init_params(cfg: ModelConfig, generator, *, device="cuda",
+                dtype=torch.float32) -> LM:
+    """A randomly initialized LM on ``device`` in ``dtype``.  ``generator``
+    is a ``torch.Generator`` on ``device``, or an int seed for one."""
+    dev = resolve_device(device)
+    if isinstance(generator, int):
+        generator = torch.Generator(dev).manual_seed(generator)
+
+    def fill(shape, init, device, dtype):
+        if init == "zeros":
+            return torch.zeros(shape, device=device, dtype=dtype)
+        if init == "ones":
+            return torch.ones(shape, device=device, dtype=dtype)
+        std = 1.0 / np.sqrt(max(1, shape[0]))
+        return (torch.randn(shape, generator=generator, device=device,
+                            dtype=torch.float32) * std).to(dtype)
+
+    return LM(cfg, _maker(fill, dev, dtype))
+
+
+_KEY = re.compile(r"\['([^'\]]*)'\]")
+
+
+def _torch_names(key: str, cfg: ModelConfig):
+    """JAX keystr -> [(torch parameter name, superblock index or None)]."""
+    path = _KEY.findall(key)
+    if not path or "".join(f"['{p}']" for p in path) != key:
+        raise KeyError(f"not a keystr of dict keys: {key!r}")
+    P, R = len(cfg.layer_pattern), cfg.pattern_repeats
+    head, rest = path[0], ".".join(path[2:])
+    if head == "blocks":
+        i = int(path[1][1:])
+        return [(f"layers.{r * P + i}.{rest}", r) for r in range(R)]
+    if head == "rem":
+        return [(f"layers.{R * P + int(path[1][1:])}.{rest}", None)]
+    return [(".".join(path), None)]
+
+
+def load_jax_flat(flat: Union[Mapping[str, np.ndarray], str, os.PathLike],
+                  cfg: ModelConfig, *, device="cuda", dtype=torch.float32,
+                  prefix: str = "") -> LM:
+    """The LM holding the JAX parameters in ``flat``: a ``{keystr: array}``
+    mapping or the path of a ``shard_0.npz``.  Only keys starting with
+    ``prefix`` are read (``"['params']"`` for a train-state checkpoint),
+    with the prefix stripped.  Missing, extra or mis-shaped leaves raise."""
+    dev = resolve_device(device)
+    if isinstance(flat, (str, os.PathLike)):
+        with np.load(flat) as npz:
+            flat = {k: npz[k] for k in npz.files}
+    model = LM(cfg, _maker(
+        lambda shape, init, device, dtype: torch.empty(
+            shape, device=device, dtype=dtype), dev, dtype))
+    want: Dict[str, nn.Parameter] = dict(model.named_parameters())
+    seen = set()
+    for key, arr in flat.items():
+        if not key.startswith(prefix):
+            continue
+        arr = np.asarray(arr)
+        for name, r in _torch_names(key[len(prefix):], cfg):
+            if name not in want:
+                raise KeyError(f"{key}: no parameter {name!r} in the port's "
+                               f"{cfg.name} model")
+            if r is not None and arr.shape[:1] != (cfg.pattern_repeats,):
+                raise ValueError(f"{key}: leading dim {arr.shape[:1]}, "
+                                 f"expected {cfg.pattern_repeats} superblocks")
+            leaf = arr if r is None else arr[r]
+            p = want[name]
+            if tuple(leaf.shape) != tuple(p.shape):
+                raise ValueError(f"{key} -> {name}: shape {leaf.shape}, "
+                                 f"expected {tuple(p.shape)}")
+            p.data.copy_(torch.tensor(leaf))
+            seen.add(name)
+    missing = sorted(set(want) - seen)
+    if missing:
+        raise KeyError(f"{cfg.name}: no value for {missing[:8]}"
+                       f"{'...' if len(missing) > 8 else ''}")
+    return model
+
+
+def cast_params(model: LM, dtype) -> LM:
+    """``model`` with floating parameters in ``dtype``: itself when they
+    already are, else a cast copy (the caller's model is left alone)."""
+    if all(p.dtype == dtype for p in model.parameters()):
+        return model
+    return copy.deepcopy(model).to(dtype)
