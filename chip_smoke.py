@@ -248,7 +248,58 @@ def phase_serve(torch, dev, build, kernel):
         f"{r['latency_p99_s'] * 1e3:.1f} ms  wall {wall:.3f} s")
     log(f"  {kernel.NAME} launches: {launches} = {cfg.num_layers} layers x "
         f"{eng.stats.steps} ticks")
-    return launches, r
+    return launches, r, eng
+
+
+def phase_tick_profile(torch, eng, kernel):
+    """Where a decode tick's time goes: host wall per tick against the
+    device time of the kernels it launches (torch.profiler), 8 slots at
+    context ~100.  Reports "not measured" when the profiler sees no device
+    activity; never changes what the engine computes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(5)
+    for _ in range(eng.ecfg.num_slots):
+        eng.submit(rng.integers(1, eng.cfg.vocab_size, (96,)), 32)
+    while eng.sched.waiting or any(r.in_prefill
+                                   for r in eng.sched.running.values()):
+        eng.step()
+    n = 8
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    out = {"decode_tick_ms": wall_ms, "device_busy_ms": None,
+           "attn_ms": None, "kernels_per_tick": None}
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                eng.step()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    except RuntimeError as e:                      # profiler unavailable
+        log(f"  torch.profiler failed ({e}); device time not measured")
+        events = []
+    eng.run()
+    busy = sum(e.self_device_time_total for e in events) / n / 1e3
+    log(f"  decode tick (8 slots, context ~100): {wall_ms:.2f} ms wall")
+    if busy <= 0:
+        log("  device time per tick: not measured (no device events)")
+        return out
+    attn = sum(e.self_device_time_total for e in events
+               if kernel.NAME in e.key) / n / 1e3
+    out.update(device_busy_ms=busy, attn_ms=attn, kernels_per_tick=sum(
+        e.count for e in events) / n)
+    log(f"  device busy {busy:.2f} ms a tick ({busy / wall_ms:.1%} of the "
+        f"wall, profiled), {out['kernels_per_tick']:.0f} device ops a tick, "
+        f"{kernel.NAME} {attn:.3f} ms")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    {e.self_device_time_total / n / 1e3:7.3f} ms  "
+            f"x{e.count / n:5.0f}  {e.key[:90]}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -409,7 +460,9 @@ def main() -> int:
     phase_parity(torch, dev)
 
     log("phase 5: serve qwen3-1.7b (28 layers, bf16)")
-    launches, served = phase_serve(torch, dev, build, kernel)
+    launches, served, eng = phase_serve(torch, dev, build, kernel)
+    served["tick_profile"] = phase_tick_profile(torch, eng, kernel)
+    del eng
 
     log("phase 6: timing")
     shapes = phase_timing(torch, dev, kernel, ref)

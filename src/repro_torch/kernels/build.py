@@ -74,7 +74,7 @@ def build(sources: Sequence[Path]) -> List[Path]:
         if proc.returncode != 0:
             errors.append(f"{lib.name}:\n{out.decode(errors='replace')}")
             continue
-        os.replace(tmp, lib)            # atomic: concurrent builders agree
+        os.replace(tmp, lib)            # atomic: concurrent builds agree
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     return [library_path(src) for src in sources]

@@ -20,13 +20,15 @@
 // does ~4 flops per K/V element read, far below the card's ~295 flops/byte
 // balance point, so the floor is live K/V bytes / 3.35 TB/s.  What the
 // design does about it: one block owns one (slot, kv head, group of query
-// rows); it walks the slot's live keys in tiles of 32, stages each tile of
-// K and V in shared memory once, and every query row of the block (all G
-// grouped heads, up to ROWS chunk rows) consumes it from there.  So each
-// page is read once per (slot, kv head) block at decode, and once per row
-// group of a prompt chunk.  Pages past the live length are never read, and
-// the block table entry of a page is read only when the page is live: a
-// stale or garbage entry there is never dereferenced.
+// rows); it walks the slot's live keys in tiles of 32, copies each tile of
+// K and V into shared memory once (16-byte cp.async copies, two stages, so
+// the next tile is in flight while this one is consumed), and every query
+// row of the block (all G grouped heads, up to ROWS chunk rows) reads it
+// from there.  So each page is read once per (slot, kv head) block at
+// decode, and once per row group of a prompt chunk.  Pages past the live
+// length are never read, and the block table entry of a page is read only
+// when the page is live: a stale or garbage entry there is never
+// dereferenced.
 //
 // Masks: key kpos is visible to a row at position qpos when
 // kpos < start + clen, kpos <= qpos and, with a window, kpos > qpos - window.
@@ -74,12 +76,34 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D>
+// cp.async: 16-byte global -> shared copies that bypass registers; with
+// src_bytes == 0 the destination is zero-filled and nothing is read
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// A K or V tile row holds D elements plus 16 bytes of padding, so the 16-byte
+// reads of 8 lanes on 8 different rows fall on 32 different banks.
+template <typename T, int D>
+__host__ __device__ constexpr int row_stride() {
+  return D + 16 / (int)sizeof(T);
+}
+
+template <typename T, int D>
 constexpr size_t smem_bytes() {
-  // K tile padded to D + 1 floats a key (lane j reads key j: no bank
-  // conflicts), V tile, the block's query rows, the tile's row offsets.
-  return sizeof(float) * (KT * (D + 1) + KT * D + ROWS * D) +
-         sizeof(long long) * KT;
+  // two stages of K and V tiles in T, the block's query rows in f32
+  return sizeof(T) * 2 * 2 * KT * row_stride<T, D>() +
+         sizeof(float) * ROWS * D;
 }
 
 template <typename T, int D>
@@ -93,12 +117,15 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
                              T* __restrict__ out, int C, int H, int KH,
                              int psize, int maxp, float scale, int window,
                              float softcap) {
-  constexpr int NE = D / 32;
-  extern __shared__ float smem[];
-  float* Ks = smem;                       // [KT][D + 1]
-  float* Vs = Ks + KT * (D + 1);          // [KT][D]
-  float* Qs = Vs + KT * D;                // [ROWS][D]
-  long long* base = reinterpret_cast<long long*>(Qs + ROWS * D);  // [KT]
+  constexpr int NE = D / 32;                 // accumulator elements a lane
+  constexpr int VEC = 16 / sizeof(T);        // elements a 16-byte copy
+  constexpr int RS = row_stride<T, D>();
+  constexpr int CPR = D / VEC;               // 16-byte chunks a key row
+  constexpr int COPIES = KT * CPR / NT;      // chunks a thread, a tensor
+  static_assert(KT * CPR % NT == 0, "tile must split evenly over threads");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tiles = reinterpret_cast<T*>(smem_raw);  // [stage][K|V][KT][RS]
+  float* Qs = reinterpret_cast<float*>(tiles + 2 * 2 * KT * RS);  // [ROWS][D]
 
   const int b = blockIdx.z, kh = blockIdx.y;
   const int G = H / KH;
@@ -127,11 +154,39 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
   }
 
   // key range any row of the block can see (block-uniform)
-  const int r_first = row0, r_last = min(row0 + ROWS, CG) - 1;
-  const int t_first = r_first / G, t_last = min(r_last / G, clen - 1);
+  const int r_last = min(row0 + ROWS, CG) - 1;
+  const int t_first = row0 / G, t_last = min(r_last / G, clen - 1);
   const bool block_live = t_first < clen;
   const int k_hi = start + t_last;                 // causal, < start + clen
   const int k_lo = window > 0 ? max(0, start + t_first - window + 1) : 0;
+
+  // copy the K/V rows of keys [k0, k0 + KT) into stage st; keys past k_hi
+  // are zero-filled, and only live pages' block-table entries are read
+  auto issue_tile = [&](int k0, int st) {
+    T* Kt = tiles + (st * 2) * KT * RS;
+    T* Vt = Kt + KT * RS;
+#pragma unroll
+    for (int i = 0; i < COPIES; ++i) {
+      const int c = threadIdx.x + i * NT;
+      const int j = c / CPR, dv = (c % CPR) * VEC;
+      const int kpos = k0 + j;
+      const T* ks = k_pages;
+      const T* vs = v_pages;
+      int nbytes = 0;
+      if (kpos <= k_hi) {
+        const int pg = kpos / psize;
+        const long long page = block_tables[(size_t)b * maxp + pg];
+        const long long off =
+            ((page * psize + (kpos - pg * psize)) * KH + kh) * D + dv;
+        ks += off;
+        vs += off;
+        nbytes = 16;
+      }
+      cp_async16(Kt + j * RS + dv, ks, nbytes);
+      cp_async16(Vt + j * RS + dv, vs, nbytes);
+    }
+    cp_async_commit();
+  };
 
   float m[RPW], l[RPW], acc[RPW][NE];
 #pragma unroll
@@ -141,45 +196,39 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < NE; ++e) acc[i][e] = 0.f;
   }
-  __syncthreads();
 
-  for (int k0 = k_lo; block_live && k0 <= k_hi; k0 += KT) {
-    // resolve this tile's page offsets once (live pages only)
-    if (threadIdx.x < KT) {
-      const int kpos = k0 + threadIdx.x;
-      long long off = -1;
-      if (kpos <= k_hi) {
-        const int pg = kpos / psize;
-        const long long page = block_tables[(size_t)b * maxp + pg];
-        off = ((page * psize + (kpos - pg * psize)) * KH + kh) * D;
-      }
-      base[threadIdx.x] = off;
+  if (block_live) issue_tile(k_lo, 0);
+  __syncthreads();                                 // Qs written
+  int st = 0;
+  for (int k0 = k_lo; block_live && k0 <= k_hi; k0 += KT, st ^= 1) {
+    // the next tile's copies fly while this one is consumed
+    if (k0 + KT <= k_hi) {
+      issue_tile(k0 + KT, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    for (int idx = threadIdx.x; idx < KT * D; idx += NT) {
-      const int j = idx / D, d = idx % D;
-      const long long off = base[j];
-      float kx = 0.f, vx = 0.f;
-      if (off >= 0) {
-        kx = to_f32(k_pages[off + d]);
-        vx = to_f32(v_pages[off + d]);
-      }
-      Ks[j * (D + 1) + d] = kx;
-      Vs[j * D + d] = vx;
-    }
-    __syncthreads();
+    const T* Kt = tiles + (st * 2) * KT * RS;
+    const T* Vt = Kt + KT * RS;
 
     // scores: lane j holds key k0 + j for each of the warp's rows
     float s[RPW];
 #pragma unroll
     for (int i = 0; i < RPW; ++i) s[i] = 0.f;
-    const float* kr = Ks + lane * (D + 1);
+    const T* kr = Kt + lane * RS;
     const float* qw = Qs + warp * RPW * D;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float kv = kr[d];
+#pragma unroll 2
+    for (int d = 0; d < D; d += VEC) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(kr + d);
+      const T* kv = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-      for (int i = 0; i < RPW; ++i) s[i] = fmaf(qw[i * D + d], kv, s[i]);
+      for (int e = 0; e < VEC; ++e) {
+        const float kx = to_f32(kv[e]);
+#pragma unroll
+        for (int i = 0; i < RPW; ++i)
+          s[i] = fmaf(qw[i * D + d + e], kx, s[i]);
+      }
     }
     const int kpos = k0 + lane;
 #pragma unroll
@@ -203,11 +252,11 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
         const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
         for (int e = 0; e < NE; ++e)
-          acc[i][e] = fmaf(pj, Vs[j * D + lane + 32 * e], acc[i][e]);
+          acc[i][e] = fmaf(pj, to_f32(Vt[j * RS + lane + 32 * e]), acc[i][e]);
       }
       m[i] = m_new;
     }
-    __syncthreads();                               // tile reused next turn
+    __syncthreads();                   // stage st is refilled next turn
   }
 
 #pragma unroll
@@ -228,7 +277,7 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const int* chunk_lens, void* out, int B, int C, int H,
                    int KH, int psize, int maxp, float scale, int window,
                    float softcap, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<T, D>();
   auto kernel = paged_chunk_attention_kernel<T, D>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(

@@ -69,6 +69,9 @@ def _check(q, k_pages, v_pages, block_tables, starts, chunk_lens):
     if D % 32 or not 32 <= D <= 256:
         raise ValueError(f"{NAME}: head dim {D} must be a multiple of 32 "
                          f"up to 256")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError(f"{NAME}: pools must start on a 16-byte boundary "
+                         f"(the kernel copies them in 16-byte pieces)")
     if (block_tables.dim() != 2 or block_tables.shape[0] != B
             or starts.shape != (B,) or chunk_lens.shape != (B,)):
         raise ValueError(f"{NAME}: block_tables must be [B, maxp] and "

@@ -31,33 +31,24 @@ from repro_torch.serving import Engine, EngineConfig, EngineOOM
 def make_requests(n: int, vocab_size: int, rng: np.random.Generator, *,
                   stream: str = "poisson", rate: float = 16.0,
                   max_prompt: int = 64, gen: int = 16,
-                  long_frac: float = 0.0, shared_prefix: int = 0):
+                  long_frac: float = 0.0):
     """(arrival_time, prompt, max_new) triples: Poisson arrivals (or all at
     t=0 for ``stream="batch"``), prompt lengths log-uniform between 4 and
-    ``max_prompt``, max_new drawn in [gen/2, gen].  ``long_frac`` of the
-    prompts are pinned at ``max_prompt``; ``shared_prefix`` prepends one
-    fixed system prompt of that many tokens to every request.  The same
-    draws as ``repro.launch.serve.make_requests`` for the same ``rng``."""
-    if not 0 <= shared_prefix <= max_prompt - 4:
-        raise ValueError(
-            f"shared_prefix ({shared_prefix}) must leave >= 4 tokens of "
-            f"unique tail under max_prompt ({max_prompt})")
+    ``max_prompt``, max_new drawn in [gen/2, gen]; ``long_frac`` of the
+    prompts are pinned at ``max_prompt``.  The same draws as
+    ``repro.launch.serve.make_requests`` (without a shared prefix) for the
+    same ``rng``."""
     out, t = [], 0.0
-    system = rng.integers(0, vocab_size,
-                          (shared_prefix,)).astype(np.int32)
     for _ in range(n):
         if stream == "poisson":
             t += rng.exponential(1.0 / rate)
-        room = max_prompt - shared_prefix
         if long_frac > 0 and rng.uniform() < long_frac:
-            plen = room
+            plen = max_prompt
         else:
-            lo, hi = np.log(min(4, room)), np.log(room)
+            lo, hi = np.log(min(4, max_prompt)), np.log(max_prompt)
             plen = int(np.exp(rng.uniform(lo, hi)))
-        tail = rng.integers(0, vocab_size, (max(1, plen),)).astype(np.int32)
-        prompt = np.concatenate([system, tail]) if shared_prefix else tail
-        g = int(rng.integers(max(1, gen // 2), gen + 1))
-        out.append((t, prompt, g))
+        prompt = rng.integers(0, vocab_size, (max(1, plen),)).astype(np.int32)
+        out.append((t, prompt, int(rng.integers(max(1, gen // 2), gen + 1))))
     return out
 
 
@@ -153,7 +144,7 @@ def main(argv=None) -> None:
         num_slots=args.slots, num_pages=args.pages, page_size=args.page_size,
         max_prompt_len=-(-args.max_prompt // args.page_size) * args.page_size,
         max_new_tokens=args.gen, token_budget=max(args.budget, args.slots),
-        seed=args.seed, policy=args.policy, prefix_cache=args.prefix_cache,
+        policy=args.policy, prefix_cache=args.prefix_cache,
         kv_dtype=args.kv_dtype, compute_dtype=args.compute_dtype)
     params = init_params(cfg, args.seed, device=device,
                          dtype=dtype_of(args.compute_dtype))

@@ -34,6 +34,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, LOCAL, ModelConfig
 from repro_torch.core import steps as S
 from repro_torch.kernels import build
+from repro_torch.kernels.paged_attention.kernel import NAME as ATTN_KERNEL
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.params import cast_params
@@ -59,7 +60,6 @@ class EngineConfig:
     max_new_tokens: int = 64         # default + hard cap per request
     token_budget: int = 256          # tokens per unified tick (decode+chunks)
     temperature: float = 0.0         # greedy only in the port
-    seed: int = 0
     policy: str = "reserve"          # "reserve" | "on_demand" (see scheduler)
     eos_id: Optional[int] = None
     kv_dtype: str = "bfloat16"       # page-pool dtype: float32 | bfloat16
@@ -213,17 +213,11 @@ class Engine:
                                           self.pool.utilization())
 
     def _flush_copies(self, pairs) -> None:
-        """Issue the device page copies a COW swap requires, padded to a
-        power-of-two width with (0, 0) pairs (the null page onto itself)."""
+        """Issue the device page copies a COW swap requires."""
         if not pairs:
             return
-        n = pow2_bucket(len(pairs))
-        src = np.zeros((n,), np.int32)
-        dst = np.zeros((n,), np.int32)
-        for i, (s, d) in enumerate(pairs):
-            src[i], dst[i] = s, d
-        d_src, d_dst = marshal_i32(self.device, src, dst)
-        self.cache = self._page_copy(self.cache, d_src.long(), d_dst.long())
+        src, dst = marshal_i32(self.device, *zip(*pairs))
+        self.cache = self._page_copy(self.cache, src.long(), dst.long())
         self.stats.cow_page_copies += len(pairs)
 
     def _prepare_entry_write(self, req: Request, start: int,
@@ -330,12 +324,12 @@ class Engine:
         self._sync_block_tables()
         d_tokens, d_starts, d_chunk_lens = marshal_i32(
             self.device, tokens, starts, chunk_lens)
-        launches = build.LAUNCHES.get("paged_chunk_attention", 0)
+        launches = build.LAUNCHES[ATTN_KERNEL]
         sampled = self._step(self.params, self.cache, d_tokens, d_starts,
                              d_chunk_lens, self._bt.dev)
-        sampled = sampled.cpu().numpy()           # the one host pull a tick
-        self.stats.attn_launches += \
-            build.LAUNCHES.get("paged_chunk_attention", 0) - launches
+        # the one deliberate host pull of a tick
+        sampled = np.asarray(sampled.cpu())  # hornlint: sync-ok
+        self.stats.attn_launches += build.LAUNCHES[ATTN_KERNEL] - launches
         self.stats.steps += 1
         post = tick_now()
 

@@ -158,6 +158,21 @@ def test_decode_is_one_tick_per_token(models):
     assert eng.stats.prefill_tokens == 8
 
 
+@pytest.mark.parametrize("stream,long_frac", [("poisson", 0.0),
+                                              ("batch", 0.25)])
+def test_make_requests_draws_match_jax(stream, long_frac):
+    """The same request stream as the JAX launcher for the same seed."""
+    from repro.launch.serve import make_requests as jax_make_requests
+    from repro_torch.launch.serve import make_requests
+
+    kw = dict(stream=stream, max_prompt=64, gen=16, long_frac=long_frac)
+    want = jax_make_requests(12, 512, np.random.default_rng(3), **kw)
+    got = make_requests(12, 512, np.random.default_rng(3), **kw)
+    assert len(got) == len(want)
+    for (t0, p0, g0), (t1, p1, g1) in zip(got, want):
+        assert t0 == t1 and g0 == g1 and np.array_equal(p0, p1)
+
+
 def test_page_copy_duplicates_pages_in_every_layer():
     cache = [(torch.arange(4 * 3.).reshape(4, 3),
               torch.arange(4 * 3.).reshape(4, 3) + 100) for _ in range(2)]
@@ -166,6 +181,28 @@ def test_page_copy_duplicates_pages_in_every_layer():
     for (k, v), (k0, v0) in zip(cache, want):
         assert torch.equal(k[3], k0[2]) and torch.equal(v[3], v0[2])
         assert torch.equal(k[:3], k0[:3]) and torch.equal(v[:3], v0[:3])
+
+
+def test_copy_on_write_copies_the_shared_page(models):
+    """A write into a page another table maps swaps in a fresh page whose
+    K/V bytes are the old page's, in every layer."""
+    _, _, cfg, model = models["qwen3-1.7b"]
+    eng = _prefix_engine(cfg, model, prefix_cache=True)
+    req = eng.submit(np.arange(1, 13, dtype=np.int32), 5)
+    while not req.out_tokens:
+        eng.step()
+    old = eng.pool.table(req.id)
+    eng.pool.fork(req.id, 999)                   # a second holder
+    eng._prepare_entry_write(req, 8, 12)         # writes into page 1
+    new = eng.pool.table(req.id)
+    assert new[0] == old[0] and new[1] != old[1]
+    assert eng.stats.cow_page_copies == 1
+    for pools in eng.cache:
+        for pool in pools:
+            assert torch.equal(pool[new[1]], pool[old[1]])
+    eng.pool.free_seq(999)
+    eng.run()
+    eng.pool.check_invariants()
 
 
 # ---------------------------------------------------------------------------

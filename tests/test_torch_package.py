@@ -109,3 +109,17 @@ def test_configs_match_the_jax_package():
         assert dataclasses.asdict(reduced(ours)) == \
             dataclasses.asdict(jbase.reduced(theirs))
         assert ours.layer_kinds() == theirs.layer_kinds()
+
+
+def test_serve_cli_runs_on_the_cpu(capsys):
+    """The launcher end to end at the reduced size, on the plain versions:
+    every request finishes and the report names the kernel's launches
+    (none on the CPU)."""
+    from repro_torch.launch import serve
+
+    serve.main(["--device", "cpu", "--requests", "5", "--gen", "6",
+                "--stream", "batch", "--slots", "2", "--budget", "8"])
+    out = capsys.readouterr().out
+    assert out.count(" done: ") == 5
+    assert "throughput:" in out and "TTFT" in out
+    assert "paged_chunk_attention launches: 0" in out
