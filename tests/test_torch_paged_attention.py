@@ -23,9 +23,10 @@ VARIANTS = {"plain": {}, "window": {"window": PSIZE + 3},
 
 def chunk_case(B, H, KH, D, maxp, C, seed, *, psize=PSIZE):
     """Disjoint-page chunk-attention inputs: chunks start mid-page, straddle
-    pages, slot 0 is a full chunk and the others are partial or idle (the
-    fixture of tests/test_serving_engine.py).  Returns numpy arrays plus a
-    copy of the block table with every dead entry poisoned."""
+    pages, slot 0 is a full chunk, the others partial, slot 2 (when B > 2)
+    idle: the fixture of tests/test_serving_engine.py with the idle slot
+    made certain.  Returns numpy arrays plus a copy of the block table with
+    every dead entry poisoned."""
     rng = np.random.default_rng(seed)
     P = B * maxp + 1
     q = rng.normal(size=(B, C, H, D)).astype(np.float32)
@@ -37,6 +38,8 @@ def chunk_case(B, H, KH, D, maxp, C, seed, *, psize=PSIZE):
     for b in range(B):
         starts[b] = int(rng.integers(0, maxp * psize - C + 1))
         clens[b] = C if b == 0 else int(rng.integers(0, C + 1))
+        if b == 2:
+            clens[b] = 0                         # an idle slot
         npg = max(1, -(-(int(starts[b]) + int(clens[b])) // psize))
         bt[b, :npg] = 1 + b * maxp + np.arange(npg)
     poisoned = bt.copy()
