@@ -6,30 +6,44 @@
 Phases, each of which fails the script (non-zero exit, no result line):
   1. device   a CUDA card is visible; prints its name and power limit, and
               turns TF32 off for matmuls and cuDNN (f32 stays f32).
-  2. build    builds every kernel of the serving path from ``csrc/`` with
-              nvcc (one process per source, all at once).
-  3. kernels  each kernel against its plain PyTorch version on the card:
-              qwen3-1.7b and gemma2-27b attention geometries, chunk widths
-              1/7/64/256, ragged starts, idle slots, poisoned dead
-              block-table entries, f32 and bf16.
+  2. build    builds every kernel of the serving and training paths from
+              ``csrc/`` with nvcc (one process per source, all at once).
+  3. kernels  each kernel against its plain PyTorch version on the card.
+              Paged attention: qwen3-1.7b and gemma2-27b geometries, chunk
+              widths 1/7/64/256, ragged starts, idle slots, poisoned dead
+              block-table entries.  Flash attention forward and backward
+              (dq, dk, dv against torch autograd through the plain
+              version, same dO): qwen3-1.7b and gemma2-27b geometries,
+              causal / window / softcap / non-causal, S 1/7/256/1024.  All
+              in f32 and bf16.
   4. parity   the paged engine (qwen3-1.7b at full width, 2 layers, f32)
               against a plain non-paged recompute of the same model on the
               card: identical greedy streams.
-  5. serve    the main path: qwen3-1.7b at full width (28 layers, bf16,
+  5. serve    the serving path: qwen3-1.7b at full width (28 layers, bf16,
               random weights from a seed) serving 16 requests through
               ``Engine``; every request finishes, the attention kernel is
               launched once per layer per tick.
-  6. timing   each kernel, its plain version and one PyTorch library call
-              with CUDA events at a decode tick's shape and a 256-token
-              prompt-chunk tick's shape, beside the least time the card
-              could take.
+  6. train    the training path: ``repro_torch.launch.train`` on
+              qwen3-1.7b at full width (28 layers, f32 masters, bf16
+              compute, Horn on with 4 groups, AdamW at lr 3e-4), batch 8 x
+              seq 1024 from the synthetic pipeline, 4 steps; every loss
+              finite (the first near ln(vocab), the loss of a uniform
+              guess), every grad norm above 0, the flash forward launched
+              2 x 28 times a step (remat recomputes each block) and the
+              backward 28 times; then one profiled step.
+  7. timing   each kernel, its plain version and one PyTorch library call
+              with CUDA events at the shapes its path gives it (paged: a
+              decode tick and a 256-token prompt-chunk tick; flash: the
+              train step's), beside the least time the card could take.
 Prints one JSON line of kernel numbers, then, as the last line,
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,6 +57,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_S = 3.35e12            # H100 SXM device memory rate
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 CUDA cores; bf16
 TPU_KERNEL = "src/repro/kernels/paged_attention/kernel.py:264"
+FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention/kernel.py:85"
+TRAIN_STEPS = 4
 
 
 def log(msg: str) -> None:
@@ -100,6 +116,64 @@ def phase_kernels(torch, dev, kernel, ref):
                     assert torch.all(got[b, int(cl):] == 0), (name, C, b)
                 log(f"  {name:11s} {dtype:8s} C={C:3d}: max |kernel - "
                     f"plain| = {err:.3g} (tol {tol[dtype]:g})")
+
+
+def flash_case(torch, dev, dtype, B, H, KH, S, D, seed):
+    gen = torch.Generator(dev).manual_seed(seed)
+    return [torch.randn(B, h, S, D, generator=gen, device=dev).to(dtype)
+            for h in (H, KH, KH, H)]                  # q, k, v, dO
+
+
+def phase_flash_kernels(torch, dev, fkernel, fref):
+    """Forward (o) and backward (dq, dk, dv) kernels against the plain
+    version and torch autograd through it, same dO.  f32: atol/rtol 1e-4
+    (summation order over up to 1024 keys); bf16 inputs and outputs,
+    compared in f32: atol/rtol 2e-2 (both sides compute in f32 and round
+    once; one bf16 ulp at |x| ~ 1 is 7.8e-3)."""
+    geoms = {
+        "qwen3-1.7b": dict(H=16, KH=8, D=128, scale=128 ** -0.5, variants={
+            "causal": {}, "window": {"window": 64},
+            "softcap": {"softcap": 50.0}, "non-causal": {"causal": False}}),
+        "gemma2-27b": dict(H=32, KH=16, D=128, scale=144.0 ** -0.5,
+                           variants={
+            "causal": {}, "window": {"window": 64},
+            "softcap": {"softcap": 50.0}, "non-causal": {"causal": False},
+            "local": {"window": 64, "softcap": 50.0}}),
+    }
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}
+    worst = 0.0
+    for name, g in geoms.items():
+        for dtype in ("float32", "bfloat16"):
+            errs = {}
+            for vname, vkw in g["variants"].items():
+                for S in (1, 7, 256, 1024):
+                    q, k, v, do = flash_case(torch, dev, getattr(torch, dtype),
+                                             2, g["H"], g["KH"], S, g["D"],
+                                             seed=S)
+                    kw = dict(dict(causal=True, scale=g["scale"]), **vkw)
+                    o, lse = fkernel.flash_attention_fwd(q, k, v, **kw)
+                    grads = fkernel.flash_attention_bwd(q, k, v, o, lse, do,
+                                                        **kw)
+                    leaves = [t.clone().requires_grad_(True)
+                              for t in (q, k, v)]
+                    want = fref.attention_ref(*leaves, **kw)
+                    wgrads = torch.autograd.grad(want, leaves, do)
+                    torch.cuda.synchronize()
+                    for what, got, w in zip(("o", "dq", "dk", "dv"),
+                                            (o, *grads), (want, *wgrads)):
+                        err = (got.float() - w.float()).abs().max().item()
+                        errs[what] = max(errs.get(what, 0.0), err)
+                        torch.testing.assert_close(
+                            got.float(), w.float(), atol=tol[dtype],
+                            rtol=tol[dtype],
+                            msg=lambda m: f"{name} {vname} S={S} {what}: {m}")
+                    del leaves, want, wgrads, grads
+            worst = max([worst] + list(errs.values()))
+            log(f"  flash {name:11s} {dtype:8s} {len(g['variants'])} "
+                f"variants x S 1/7/256/1024: max |kernel - plain| "
+                + " ".join(f"{k} {e:.3g}" for k, e in errs.items())
+                + f" (tol {tol[dtype]:g})")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -188,7 +262,7 @@ def phase_parity(torch, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the main path
+# phase 5: the serving path
 # ---------------------------------------------------------------------------
 def phase_serve(torch, dev, build, kernel):
     from repro_torch.configs.base import get_model_config
@@ -251,13 +325,28 @@ def phase_serve(torch, dev, build, kernel):
     return launches, r, eng
 
 
+def device_events(torch, fn):
+    """CUDA kernel events of ``fn()`` under torch.profiler, or [] when the
+    profiler sees none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    except RuntimeError as e:                      # profiler unavailable
+        log(f"  torch.profiler failed ({e}); device time not measured")
+        return []
+
+
 def phase_tick_profile(torch, eng, kernel):
     """Where a decode tick's time goes: host wall per tick against the
     device time of the kernels it launches (torch.profiler), 8 slots at
     context ~100.  Reports "not measured" when the profiler sees no device
     activity; never changes what the engine computes."""
-    from torch.profiler import ProfilerActivity, profile
-
     rng = np.random.default_rng(5)
     for _ in range(eng.ecfg.num_slots):
         eng.submit(rng.integers(1, eng.cfg.vocab_size, (96,)), 32)
@@ -272,17 +361,7 @@ def phase_tick_profile(torch, eng, kernel):
     wall_ms = (time.perf_counter() - t0) / n * 1e3
     out = {"decode_tick_ms": wall_ms, "device_busy_ms": None,
            "attn_ms": None, "kernels_per_tick": None}
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                eng.step()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    except RuntimeError as e:                      # profiler unavailable
-        log(f"  torch.profiler failed ({e}); device time not measured")
-        events = []
+    events = device_events(torch, lambda: [eng.step() for _ in range(n)])
     eng.run()
     busy = sum(e.self_device_time_total for e in events) / n / 1e3
     log(f"  decode tick (8 slots, context ~100): {wall_ms:.2f} ms wall")
@@ -303,7 +382,80 @@ def phase_tick_profile(torch, eng, kernel):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: timing
+# phase 6: the training path
+# ---------------------------------------------------------------------------
+def phase_train(torch, build, fkernel):
+    from repro_torch.launch import train
+
+    argv = ["--arch", "qwen3-1.7b", "--full-config", "--steps",
+            str(TRAIN_STEPS), "--batch", "8", "--seq", "1024",
+            "--horn-groups", "4", "--optimizer", "adamw", "--lr", "3e-4",
+            "--log-every", "1", "--seed", "0", "--device", "cuda"]
+    t0 = time.perf_counter()
+    sess = train.setup(argv)
+    cfg, a = sess.run.model, sess.args
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}; f32 masters + AdamW moments "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    recs = train.run_steps(sess, TRAIN_STEPS, log=lambda m: log("  " + m))
+    fwd, bwd = build.LAUNCHES[fkernel.FWD], build.LAUNCHES[fkernel.BWD]
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    assert fwd == 2 * L * TRAIN_STEPS and bwd == L * TRAIN_STEPS, \
+        (fwd, bwd, L)
+    for r in recs:
+        assert math.isfinite(r["loss"]) and r["grad_norm"] > 0, r
+    # random init predicts a near-uniform distribution: xent ~ ln(vocab)
+    assert abs(recs[0]["loss"] - math.log(cfg.vocab_size)) < 0.5, recs[0]
+    steady = recs[1:]
+    step_s = sum(r["step_s"] for r in steady) / len(steady)
+    tok_s = a.batch * a.seq / step_s
+    log(f"  {fkernel.FWD} launches: {fwd} = 2 x {L} layers x "
+        f"{TRAIN_STEPS} steps (remat); {fkernel.BWD} launches: {bwd} = "
+        f"{L} x {TRAIN_STEPS}")
+    log(f"  step wall {step_s * 1e3:.1f} ms (mean of steps 2-{TRAIN_STEPS})"
+        f", {tok_s:,.0f} tok/s, peak memory "
+        f"{peak / 2**30:.2f} GiB allocated")
+
+    def one_step():
+        sess.state, m = sess.step_fn(sess.state,
+                                     sess.batch_at(sess.state["step"]))
+        float(m["loss"])
+
+    events = device_events(torch, one_step)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    out = {"steps": recs, "step_ms": step_s * 1e3, "tok_s": tok_s,
+           "peak_bytes": peak, "launches": {fkernel.FWD: fwd,
+                                            fkernel.BWD: bwd},
+           "device_busy_ms": busy or None, "busy_share": None,
+           "top_kernels": []}
+    if busy <= 0:
+        log("  device time per step: not measured (no device events)")
+    else:
+        out["busy_share"] = busy / (step_s * 1e3)
+        flash_ms = {n: sum(e.self_device_time_total for e in events
+                           if n in e.key) / 1e3
+                    for n in ("flash_fwd", "flash_bwd")}
+        out["flash_ms"] = flash_ms
+        log(f"  profiled step: device busy {busy:.1f} ms = "
+            f"{out['busy_share']:.1%} of the unprofiled step wall; flash "
+            f"forward {flash_ms['flash_fwd']:.1f} ms, backward "
+            f"{flash_ms['flash_bwd']:.1f} ms")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            out["top_kernels"].append(
+                [e.key[:90], e.self_device_time_total / 1e3, e.count])
+            log(f"    {e.self_device_time_total / 1e3:8.2f} ms  "
+                f"x{e.count:5d}  {e.key[:90]}")
+    del sess
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: timing
 # ---------------------------------------------------------------------------
 def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     for i in range(warmup):
@@ -357,6 +509,12 @@ def work(q, KH, starts, clens, itemsize):
     return nbytes, flops
 
 
+def bound(nbytes, flops, dtype="bfloat16"):
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def phase_timing(torch, dev, kernel, ref):
     import torch.nn.functional as F
 
@@ -408,13 +566,11 @@ def phase_timing(torch, dev, kernel, ref):
         plain_ms = cuda_ms(torch, run_plain, 20)
         library_ms = cuda_ms(torch, run_library, 200)
         nbytes, flops = work(q, KH, starts, clens, 2)
-        t_bytes = nbytes / HBM_BYTES_S * 1e3
-        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        b_ms, b_by = bound(nbytes, flops)
         out[shape] = {
             "B": B, "C": C, "H": H, "KH": KH, "D": D, "psize": psize,
             "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "flops": flops, "max_abs_err": err,
             "grid_blocks": -(-C * (H // KH) // 16) * KH * B,
         }
@@ -423,6 +579,83 @@ def phase_timing(torch, dev, kernel, ref):
             f"bound {out[shape]['bound_ms'] * 1e3:6.2f} us "
             f"({out[shape]['bound_by']}, {nbytes / 1e6:.2f} MB)  "
             f"max err {err:.3g}")
+    return out
+
+
+def flash_work(B, H, KH, S, D, itemsize):
+    """(forward bytes, forward flops, backward bytes, backward flops) of
+    causal attention at these shapes.  Each input read once and each output
+    written once; forward 2 products (QK^T, PV), backward 5 (S recomputed
+    from the inputs, dP, dV, dQ, dK), 2 * D flops each per visible
+    (row, key) pair."""
+    pairs = B * H * S * (S + 1) // 2
+    q = B * H * S * D * itemsize
+    kv = B * KH * S * D * itemsize
+    lse = B * H * S * 4
+    fwd_bytes = q + 2 * kv + q + lse          # q, k, v -> o, lse
+    # q, k, v, o, dO, lse -> dq, dk, dv
+    bwd_bytes = 3 * q + 2 * kv + lse + q + 2 * kv
+    return fwd_bytes, 4 * D * pairs, bwd_bytes, 10 * D * pairs
+
+
+def phase_flash_timing(torch, dev, fkernel, fref):
+    """Forward and backward at the train step's shape (B 8, S 1024, H 16,
+    KH 8, D 128, bf16, causal): kernel, plain version (autograd for the
+    backward) and SDPA with ``enable_gqa`` as the library yardstick."""
+    import torch.nn.functional as F
+
+    B, H, KH, S, D = 8, 16, 8, 1024, 128
+    scale = D ** -0.5
+    q, k, v, do = flash_case(torch, dev, torch.bfloat16, B, H, KH, S, D, 11)
+    kw = dict(scale=scale, causal=True)
+    o, lse = fkernel.flash_attention_fwd(q, k, v, **kw)
+    grads = fkernel.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain_out = fref.attention_ref(*leaves, **kw)
+    want = torch.autograd.grad(plain_out, leaves, do, retain_graph=True)
+    torch.cuda.synchronize()
+    fwd_err = (o.float() - plain_out.float()).abs().max().item()
+    bwd_err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(grads, want))
+    for got, w in zip((o, *grads), (plain_out, *want)):
+        torch.testing.assert_close(got.float(), w.float(), atol=2e-2,
+                                   rtol=2e-2)
+    lib_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(
+        *lib_leaves, is_causal=True, scale=scale, enable_gqa=True)
+
+    times = {
+        "fwd": cuda_ms(torch, lambda i: fkernel.flash_attention_fwd(
+            q, k, v, **kw), 20),
+        "fwd_plain": cuda_ms(torch, lambda i: fref.attention_ref(
+            q, k, v, **kw), 5),
+        "fwd_library": cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True), 20),
+        "bwd": cuda_ms(torch, lambda i: fkernel.flash_attention_bwd(
+            q, k, v, o, lse, do, **kw), 20),
+        "bwd_plain": cuda_ms(torch, lambda i: torch.autograd.grad(
+            plain_out, leaves, do, retain_graph=True), 5),
+        "bwd_library": cuda_ms(torch, lambda i: torch.autograd.grad(
+            lib_out, lib_leaves, do, retain_graph=True), 20),
+    }
+    fb, ff, bb, bf = flash_work(B, H, KH, S, D, 2)
+    out = {}
+    for name, nbytes, flops, err in (("fwd", fb, ff, fwd_err),
+                                     ("bwd", bb, bf, bwd_err)):
+        b_ms, b_by = bound(nbytes, flops)
+        out[name] = {
+            "B": B, "S": S, "H": H, "KH": KH, "D": D, "dtype": "bfloat16",
+            "causal": True, "ms": times[name],
+            "plain_ms": times[f"{name}_plain"],
+            "library_ms": times[f"{name}_library"], "bound_ms": b_ms,
+            "bound_by": b_by, "bytes": nbytes, "flops": flops,
+            "max_abs_err": err,
+            "tflops": flops / (times[name] * 1e-3) / 1e12}
+        log(f"  flash {name}  kernel {times[name]:8.3f} ms  plain "
+            f"{times[name + '_plain']:8.3f} ms  SDPA "
+            f"{times[name + '_library']:7.3f} ms  bound {b_ms:.3f} ms "
+            f"({b_by}, {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)  "
+            f"{out[name]['tflops']:.1f} TFLOP/s  max err {err:.3g}")
     return out
 
 
@@ -445,16 +678,20 @@ def main() -> int:
     torch.cuda.set_device(dev)
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.paged_attention import kernel, ref
 
     log("phase 2: build")
     t0 = time.perf_counter()
-    build.build([kernel.SOURCE])
-    log(f"  {kernel.SOURCE.relative_to(ROOT)} built in "
+    build.build([kernel.SOURCE, fkernel.SOURCE])
+    log(f"  {kernel.SOURCE.relative_to(ROOT)} and "
+        f"{fkernel.SOURCE.relative_to(ROOT)} built in "
         f"{time.perf_counter() - t0:.1f} s")
 
     log("phase 3: kernels against their plain versions")
     phase_kernels(torch, dev, kernel, ref)
+    flash_sweep_err = phase_flash_kernels(torch, dev, fkernel, fref)
 
     log("phase 4: paged engine against a dense recompute")
     phase_parity(torch, dev)
@@ -463,12 +700,21 @@ def main() -> int:
     launches, served, eng = phase_serve(torch, dev, build, kernel)
     served["tick_profile"] = phase_tick_profile(torch, eng, kernel)
     del eng
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    log("phase 6: timing")
+    log("phase 6: train qwen3-1.7b (28 layers, f32 masters, bf16 compute, "
+        "Horn, AdamW)")
+    trained = phase_train(torch, build, fkernel)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 7: timing")
     shapes = phase_timing(torch, dev, kernel, ref)
+    flash = phase_flash_timing(torch, dev, fkernel, fref)
 
     d = shapes["decode"]
-    line = {"kernels": [{
+    kernels = [{
         "name": kernel.NAME, "route": "cuda",
         "source": str(kernel.SOURCE.relative_to(ROOT)),
         "replaces": TPU_KERNEL, "launches": launches,
@@ -476,7 +722,21 @@ def main() -> int:
         "ms": d["ms"], "kernel_ms": d["ms"], "plain_ms": d["plain_ms"],
         "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
         "library_ms": d["library_ms"], "shapes": shapes,
-    }], "card": card, "serve": served}
+    }]
+    for part, name in (("fwd", fkernel.FWD), ("bwd", fkernel.BWD)):
+        f = flash[part]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": str(fkernel.SOURCE.relative_to(ROOT)),
+            "replaces": FLASH_TPU_KERNEL,
+            "launches": trained["launches"][name],
+            "max_abs_err": max(f["max_abs_err"], flash_sweep_err),
+            "ms": f["ms"], "kernel_ms": f["ms"], "plain_ms": f["plain_ms"],
+            "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+            "library_ms": f["library_ms"], "shapes": {"train": f},
+        })
+    line = {"kernels": kernels, "card": card, "serve": served,
+            "train": trained}
     log("chip_smoke: all phases passed")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

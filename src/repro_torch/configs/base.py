@@ -1,13 +1,15 @@
-"""Model configs and the arch registry of the port.
+"""Model and run configs and the arch registry of the port.
 
-A copy of the JAX package's ``ModelConfig`` (same field names and defaults,
-so a test builds the same config on both sides), its layer kinds,
+A copy of the JAX package's ``ModelConfig`` and of the run configs
+(``ShapeConfig``, ``HornConfig``, ``TopologyConfig``, ``RunConfig``) with
+the same field names and defaults, so a test builds the same config on
+both sides, its layer kinds,
 ``register``/``get_model_config`` and ``reduced``.  The registry covers the
 archs the port serves so far: qwen3-1.7b and gemma2-27b.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 ATTN = "attn"          # full (global) attention
@@ -96,6 +98,60 @@ class ModelConfig:
         if self.moe_period <= 0:
             return False
         return idx % self.moe_period == self.moe_offset
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str                        # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                        # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+@dataclass(frozen=True)
+class HornConfig:
+    """Horn's collective & parallel dropout (the paper's technique).
+
+    ``num_groups`` worker groups each draw an independent structured
+    sub-model (block-aligned neuron dropout) per step; updates are
+    batch-averaged."""
+
+    enabled: bool = True
+    num_groups: int = 0              # 0 => one group per data-parallel shard
+    keep_input: float = 0.8          # paper: input-layer keep rate
+    keep_hidden: float = 0.5         # paper: hidden-layer keep rate
+    block_size: int = 128            # neuron blocks (beyond-paper)
+    mask_attention_heads: bool = False   # also drop whole attention heads
+    seed_salt: int = 0x484F524E      # "HORN"
+
+
+@dataclass(frozen=True)
+class TopologyConfig:
+    """Horn topology choice: how groups merge updates (paper §2)."""
+
+    kind: str = "allreduce"          # allreduce | zero1 | local_sgd
+    local_sgd_period: int = 1        # H: steps between group merges
+    grad_compression: str = "none"   # none | int8 (error feedback)
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    horn: HornConfig = field(default_factory=HornConfig)
+    topology: TopologyConfig = field(default_factory=TopologyConfig)
+    optimizer: str = "sgdm"          # sgdm (paper) | adamw
+    learning_rate: float = 0.3
+    momentum: float = 0.98
+    weight_decay: float = 0.0
+    remat: str = "block"             # none | block (remat each block)
+    microbatches: int = 1            # gradient accumulation steps
+    multi_pod: bool = False
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    seed: int = 0
 
 
 _REGISTRY: dict = {}

@@ -1,17 +1,119 @@
-"""Step factories of the serving path: the unified paged step (greedy) and
-the device-side KV page copy.
+"""Step factories: the train step, the unified paged serving step (greedy)
+and the device-side KV page copy.
 
 PyTorch runs eagerly, so a "step" is a plain function; nothing is traced
-or compiled per chunk width.  Parameters are cast to the compute dtype
-once, when the engine is built (``models/params.py::cast_params``), not on
-every tick.
+or compiled per shape.  Serving casts the parameters to the compute dtype
+once, when the engine is built (``models/params.py::cast_params``); the
+train step refreshes a compute-dtype copy from the f32 masters every step
+and differentiates that copy, as the JAX step differentiates
+``cast_tree(params, compute_dtype)``.
 """
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core.parallel_dropout import make_horn_state
 from repro_torch.models import api
+from repro_torch.models.layers import dtype_of
+from repro_torch.models.params import cast_params, copy_into, init_params
+from repro_torch.optim.sgd import clip_by_global_norm, make_optimizer
+
+f32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Train state and step
+# ---------------------------------------------------------------------------
+def init_state(run: RunConfig, device="cuda") -> Dict:
+    """{"params", "opt", "step", "rng"}: f32 (``run.param_dtype``) master
+    parameters drawn from ``run.seed``, the optimizer's zero moments, step 0
+    and the run's seed (the Horn masks' root)."""
+    params = init_params(run.model, run.seed, device=device,
+                         dtype=dtype_of(run.param_dtype))
+    opt_init, _ = make_optimizer(run.optimizer)
+    return {"params": params, "opt": opt_init(list(params.parameters())),
+            "step": 0, "rng": run.seed}
+
+
+def make_train_step(run: RunConfig, device="cuda"):
+    """step(state, batch) -> (state, metrics).
+
+    ``batch`` holds "tokens" and "labels" [B, S] (numpy or tensors).  The
+    loss is differentiated against a compute-dtype copy of the masters
+    (bf16 by default: the gradients come out in bf16, as in JAX), clipped
+    at global norm 1.0 and applied to the masters by the optimizer, in
+    place.  With ``run.microbatches`` M > 1 the batch splits into M equal
+    parts whose gradients are summed in f32 and averaged; every
+    microbatch sees the step's Horn masks (the same step and seed).
+    ``state["step"]`` advances by one; ``state["rng"]`` stays.  Metrics
+    are 0-dim device tensors: "loss", "xent", "grad_norm"."""
+    cfg = run.model
+    dev = resolve_device(device)
+    _, opt_update = make_optimizer(run.optimizer)
+    cdtype = dtype_of(run.compute_dtype)
+    held = {}                       # the masters and their compute copy
+
+    def grads_of(cparams, batch, horn):
+        leaves = list(cparams.parameters())
+        loss, metrics = api.model_loss(cparams, batch, cfg, horn=horn,
+                                       remat=run.remat != "none")
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        return loss, metrics, list(grads)
+
+    def train_step(state, batch):
+        params = state["params"]
+        if held.get("params") is not params:
+            held.update(params=params, cparams=cast_params(params, cdtype))
+            for p in held["cparams"].parameters():
+                p.requires_grad_(True)
+        cparams = copy_into(held["cparams"], params)
+        batch = {k: torch.as_tensor(batch[k], device=dev)
+                 for k in ("tokens", "labels")}
+        horn = make_horn_state(state["rng"], run.horn, state["step"], dev)
+        M = max(1, run.microbatches)
+        if M == 1:
+            _, metrics, grads = grads_of(cparams, batch, horn)
+        else:
+            per = batch["tokens"].shape[0] // M
+            grads, parts = None, []
+            for i in range(M):
+                mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+                _, m, g = grads_of(cparams, mb, horn)
+                if grads is None:
+                    grads = [gi.to(f32) for gi in g]
+                else:
+                    for a, gi in zip(grads, g):
+                        a.add_(gi)
+                parts.append(m)
+            for a in grads:
+                a.div_(M)
+            metrics = {k: torch.stack([m[k] for m in parts]).mean()
+                       for k in parts[0]}
+        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        masters = list(params.parameters())
+        if run.optimizer == "sgdm":
+            opt_update(grads, state["opt"], masters, lr=run.learning_rate,
+                       momentum=run.momentum,
+                       weight_decay=run.weight_decay)
+        else:
+            opt_update(grads, state["opt"], masters, lr=run.learning_rate,
+                       weight_decay=run.weight_decay)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = gnorm
+        state["step"] += 1
+        return state, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serving steps
+# ---------------------------------------------------------------------------
 
 
 def make_unified_paged_step(cfg: ModelConfig):

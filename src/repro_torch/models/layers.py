@@ -105,15 +105,21 @@ class MLP(nn.Module):
             self.wg = make((d, ff))
 
 
-def mlp_apply(params, x, cfg: ModelConfig):
+def mlp_apply(params, x, cfg: ModelConfig, *, hidden_mask=None):
     """x: [B, S, d] -> [B, S, d] in x.dtype (the down projection keeps the
-    activation dtype, as ``preferred_element_type=x.dtype`` does)."""
+    activation dtype, as ``preferred_element_type=x.dtype`` does).
+
+    ``hidden_mask`` ([B, 1, ff]-broadcastable, or None) is Horn's per-group
+    structured neuron mask, already scaled by 1/keep; it multiplies the
+    hidden units before the down projection."""
     act = ACTS[cfg.act]
     up = mm("...d,df->...f", x, params.wi)
     if cfg.mlp_gated:
         h = act(mm("...d,df->...f", x, params.wg)) * up
     else:
         h = act(up)
+    if hidden_mask is not None:
+        h = h * hidden_mask.to(h.dtype)
     return mm("...f,fd->...d", h, params.wo, x.dtype)
 
 

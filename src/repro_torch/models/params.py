@@ -11,7 +11,12 @@ tests that compare the two packages carry weights over with
 ``load_jax_flat`` reads the flat ``{keystr: array}`` mapping that
 ``repro/checkpoint/checkpointer.py`` writes to ``shard_0.npz`` (or the path
 of such a file), unstacks the ``[R, ...]`` superblock leaves into the
-per-layer blocks and keeps every other shape as it is.
+per-layer blocks and keeps every other shape as it is; ``to_jax_flat`` is
+its inverse.
+
+A train step differentiates a ``cast_params`` copy of the f32 masters (the
+JAX step differentiates ``cast_tree(params, compute_dtype)``), refreshed
+from them by ``copy_into`` each step.
 """
 from __future__ import annotations
 
@@ -113,6 +118,42 @@ def load_jax_flat(flat: Union[Mapping[str, np.ndarray], str, os.PathLike],
         raise KeyError(f"{cfg.name}: no value for {missing[:8]}"
                        f"{'...' if len(missing) > 8 else ''}")
     return model
+
+
+def to_jax_flat(model: LM, cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """The JAX package's flat ``{keystr: array}`` layout of ``model``: the
+    per-layer blocks restacked into ``[R, ...]`` superblock leaves
+    (``['blocks']['l{i}']``) and remainder layers (``['rem']['r{i}']``);
+    bf16 leaves come out as f32 arrays."""
+    P, R = len(cfg.layer_pattern), cfg.pattern_repeats
+    stacks: Dict[str, list] = {}
+    flat: Dict[str, np.ndarray] = {}
+    for name, p in model.named_parameters():
+        t = p.detach().cpu()
+        arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        parts = name.split(".")
+        if parts[0] == "layers":
+            idx, rest = int(parts[1]), parts[2:]
+            if idx < R * P:
+                r, i = divmod(idx, P)
+                key = "".join(f"['{s}']" for s in ["blocks", f"l{i}", *rest])
+                stacks.setdefault(key, [None] * R)[r] = arr
+                continue
+            parts = ["rem", f"r{idx - R * P}", *rest]
+        flat["".join(f"['{s}']" for s in parts)] = arr
+    for key, leaves in stacks.items():
+        flat[key] = np.stack(leaves)
+    return flat
+
+
+@torch.no_grad()
+def copy_into(dst: LM, src: LM) -> LM:
+    """Cast ``src``'s parameters into ``dst``'s, in place (a no-op when they
+    are the same LM)."""
+    if dst is not src:
+        for d, s in zip(dst.parameters(), src.parameters()):
+            d.copy_(s)
+    return dst
 
 
 def cast_params(model: LM, dtype) -> LM:

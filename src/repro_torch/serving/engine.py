@@ -43,7 +43,7 @@ from repro_torch.serving.block_table import (BlockTableMirror, marshal_i32,
 from repro_torch.serving.kv_cache import PagePool, PagePoolOOM
 from repro_torch.serving.scheduler import FCFSScheduler, Request
 
-NOT_PORTED = "is not ported yet (ROADMAP slice 2)"
+NOT_PORTED = "is not ported yet (ROADMAP slice 3)"
 
 
 class EngineOOM(RuntimeError):

@@ -1,0 +1,158 @@
+"""The port's flash attention against the JAX package's.
+
+The plain PyTorch ``attention_ref`` gets the same numpy inputs as the JAX
+oracle ``repro.kernels.flash_attention.ref.attention_ref`` (forward), and
+torch autograd through it gets the same cotangent as ``jax.vjp`` of that
+oracle (backward).  The ``cuda`` tests hold the hand-written forward and
+backward kernels against the plain version on the card and skip elsewhere;
+they need no JAX, so JAX is imported inside the parity tests only.
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_flash_attention.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import kernel, ops, ref
+
+VARIANTS = {"causal": dict(causal=True),
+            "window": dict(causal=True, window=64),
+            "softcap": dict(causal=True, softcap=50.0),
+            "full": dict(causal=False)}
+# the sweep of tests/test_kernels.py, plus a ragged S = 7
+GEOMS = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 128, 128),
+         (2, 4, 2, 7, 32)]
+
+
+def case(B, H, KH, S, D, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32) for shape in
+            ((B, H, S, D), (B, KH, S, D), (B, KH, S, D), (B, H, S, D))]
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=lambda g: "x".join(map(str, g)))
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_plain_forward_matches_jax_ref(geom, variant):
+    """f32 on both sides; atol/rtol 1e-5 covers the different summation
+    order of the two einsum/softmax implementations."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention.ref import attention_ref
+
+    q, k, v, _ = case(*geom, seed=(*geom, list(VARIANTS).index(variant)))
+    kw = dict(VARIANTS[variant], scale=geom[-1] ** -0.5)
+    want = np.asarray(attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), **kw))
+    got = ops.flash_attention(torch.tensor(q), torch.tensor(k),
+                              torch.tensor(v), **kw).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=lambda g: "x".join(map(str, g)))
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_plain_backward_matches_jax_vjp(geom, variant):
+    """dq, dk, dv from torch autograd through the plain version against
+    ``jax.vjp`` of the JAX oracle, same cotangent, f32.  atol/rtol 1e-4:
+    each gradient entry sums up to S products of O(1) terms, so summation
+    order alone moves it by ~S * 2^-24 relative."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention.ref import attention_ref
+
+    q, k, v, do = case(*geom, seed=(*geom, 9, list(VARIANTS).index(variant)))
+    kw = dict(VARIANTS[variant], scale=geom[-1] ** -0.5)
+    _, vjp = jax.vjp(lambda a, b, c: attention_ref(a, b, c, **kw),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    out = ops.flash_attention(tq, tk, tv, **kw)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.tensor(do))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-4, rtol=1e-4,
+                                   err_msg=name)
+
+
+def test_cpu_tensors_never_reach_the_kernels():
+    """The CPU path is the plain version with its own autograd; the CUDA
+    wrappers refuse CPU tensors instead of computing anything."""
+    q, k, v, do = (torch.tensor(a) for a in case(1, 2, 1, 9, 32, 0))
+    before = dict(build.LAUNCHES)
+    q.requires_grad_(True)
+    out = ops.flash_attention(q, k, v, scale=0.2)
+    out.backward(do)
+    assert q.grad is not None
+    assert build.LAUNCHES[kernel.FWD] == before[kernel.FWD]
+    assert build.LAUNCHES[kernel.BWD] == before[kernel.BWD]
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.flash_attention_fwd(q.detach(), k, v, scale=0.2)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.flash_attention_bwd(q.detach(), k, v, q.detach(),
+                                   torch.zeros(1, 2, 9), do, scale=0.2)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+CUDA_GEOMS = [
+    # B, H, KH, S, D, kw
+    (2, 4, 2, 7, 32, dict(causal=True)),
+    (1, 4, 4, 130, 64, dict(causal=True, window=20)),
+    (2, 16, 8, 256, 128, dict(causal=True)),
+    (1, 32, 16, 200, 128, dict(causal=True, window=64, softcap=50.0)),
+    (1, 8, 2, 100, 96, dict(causal=False, softcap=30.0)),
+    (1, 2, 1, 1, 128, dict(causal=True)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom", CUDA_GEOMS, ids=lambda g: str(g[:5]))
+def test_kernels_match_plain(cuda, dtype, geom):
+    """Forward and dq/dk/dv of the kernels against the plain version and
+    its autograd on the same card and inputs.  f32: atol/rtol 1e-4
+    (summation order over up to S terms).  bf16 inputs and outputs,
+    compared in f32: atol/rtol 2e-2, one bf16 ulp at |x| ~ 1 being 7.8e-3
+    (both sides compute in f32 and round once)."""
+    B, H, KH, S, D, kw = geom
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.tensor(a, device=cuda).to(dt)
+                   for a in case(B, H, KH, S, D, seed=(B, H, S, D)))
+    kw = dict(kw, scale=D ** -0.5)
+    o, lse = kernel.flash_attention_fwd(q, k, v, **kw)
+    dq, dk, dv = kernel.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = ref.attention_ref(*leaves, **kw)
+    grads = torch.autograd.grad(want, leaves, do)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for name, got, w in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv),
+                            (want, *grads)):
+        assert got.dtype == dt, name
+        torch.testing.assert_close(got.float(), w.float(), atol=tol,
+                                   rtol=tol, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_autograd_function_launches_each_kernel_once(cuda):
+    """``ops.flash_attention`` on CUDA tensors runs the forward kernel once
+    and, on backward, the backward kernel once; its grads equal those of
+    the plain version on the CPU (f32, atol/rtol 1e-4)."""
+    arrays = case(2, 8, 4, 96, 64, seed=3)
+    cpu = [torch.tensor(a, requires_grad=True) for a in arrays[:3]]
+    dev = [torch.tensor(a, device=cuda, requires_grad=True)
+           for a in arrays[:3]]
+    kw = dict(scale=0.125, causal=True, window=40)
+    build.reset_launches()
+    out = ops.flash_attention(*dev, **kw)
+    out.backward(torch.tensor(arrays[3], device=cuda))
+    assert build.LAUNCHES[kernel.FWD] == 1
+    assert build.LAUNCHES[kernel.BWD] == 1
+    ops.flash_attention(*cpu, **kw).backward(torch.tensor(arrays[3]))
+    for a, b in zip(dev, cpu):
+        torch.testing.assert_close(a.grad.cpu(), b.grad, atol=1e-4,
+                                   rtol=1e-4)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs import base
 from repro_torch.configs.base import get_model_config, reduced
 from repro_torch.models.params import init_params
 from repro_torch.serving import Engine, EngineConfig
@@ -40,8 +41,11 @@ def test_port_imports_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert "repro_torch.serving.engine" in mods
-    assert "repro_torch.launch.serve" in mods
+    for m in ("serving.engine", "launch.serve", "launch.train",
+              "kernels.flash_attention.kernel", "kernels.flash_attention.ops",
+              "core.parallel_dropout", "core.steps", "optim.sgd",
+              "data.pipeline"):
+        assert f"repro_torch.{m}" in mods, m
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -79,6 +83,9 @@ def test_entry_points_refuse_missing_cuda(no_cuda):
         Engine(cfg, params, EngineConfig(), device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA"):
         Engine(cfg, params, EngineConfig())
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        train.main(["--arch", "qwen3-1.7b", "--steps", "1"])  # cuda default
 
 
 @pytest.mark.parametrize("what", ["bank", "router", "draft", "speculate_k",
@@ -93,13 +100,31 @@ def test_engine_refuses_unported_features(what):
     else:
         value = {"speculate_k": 2, "temperature": 0.8, "kv_dtype": "int8"}
         ecfg = dataclasses.replace(ecfg, **{what: value[what]})
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="slice 3"):
         Engine(cfg, params, ecfg, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--arch", "horn-mnist"], "slice 2, item 9"),
+    (["--topology", "local_sgd"], "slice 2, item 10"),
+    (["--checkpoint-dir", "ckpt"], "slice 2, item 9"),
+    (["--mesh-data", "2"], "slice 5"),
+])
+def test_train_cli_refuses_unported_features(argv, item):
+    """The trainer names the ROADMAP item that ports what it refuses,
+    before it builds anything."""
+    from repro_torch.launch import train
+
+    if "--arch" not in argv:
+        argv = ["--arch", "qwen3-1.7b"] + argv
+    with pytest.raises(NotImplementedError, match=item):
+        train.main(argv + ["--device", "cpu"])
 
 
 def test_configs_match_the_jax_package():
     """Same field names, defaults and values for every arch the port
-    registers, full and reduced."""
+    registers, full and reduced, and for the run configs (``RunConfig``,
+    ``HornConfig``, ``TopologyConfig``, ``ShapeConfig``)."""
     pytest.importorskip("jax")
     from repro.configs import base as jbase
 
@@ -109,6 +134,17 @@ def test_configs_match_the_jax_package():
         assert dataclasses.asdict(reduced(ours)) == \
             dataclasses.asdict(jbase.reduced(theirs))
         assert ours.layer_kinds() == theirs.layer_kinds()
+        shape = ("t", "train", 128, 4)
+        ours_run = base.RunConfig(model=ours, shape=base.ShapeConfig(*shape))
+        theirs_run = jbase.RunConfig(model=theirs,
+                                     shape=jbase.ShapeConfig(*shape))
+        assert dataclasses.asdict(ours_run) == dataclasses.asdict(theirs_run)
+    for name in ("HornConfig", "TopologyConfig", "ShapeConfig", "RunConfig"):
+        ours, theirs = getattr(base, name), getattr(jbase, name)
+        assert [(f.name, f.default) for f in dataclasses.fields(ours)] == \
+            [(f.name, f.default) for f in dataclasses.fields(theirs)], name
+    assert dataclasses.asdict(base.HornConfig()) == \
+        dataclasses.asdict(jbase.HornConfig())
 
 
 def test_serve_cli_runs_on_the_cpu(capsys):
