@@ -14,8 +14,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
               block-table entries.  Flash attention forward and backward
               (dq, dk, dv against torch autograd through the plain
               version, same dO): qwen3-1.7b and gemma2-27b geometries,
-              causal / window / softcap / non-causal, S 1/7/256/1024.  All
-              in f32 and bf16.
+              causal / window / softcap / non-causal, S 1/7/256/1024.
+              Dropout matmul: the JAX sweep's shapes and the full-width
+              Horn MLP shape with a random, an all-dropped, an all-live and
+              a one-live-block mask.  All in f32 and bf16.
   4. parity   the paged engine (qwen3-1.7b at full width, 2 layers, f32)
               against a plain non-paged recompute of the same model on the
               card: identical greedy streams.
@@ -31,10 +33,19 @@ Phases, each of which fails the script (non-zero exit, no result line):
               guess), every grad norm above 0, the flash forward launched
               2 x 28 times a step (remat recomputes each block) and the
               backward 28 times; then one profiled step.
-  7. timing   each kernel, its plain version and one PyTorch library call
+  7. horn mlp Horn's block-sparse MLP, ``mlp_apply(mask_blocks=...)``, on
+              all 28 qwen3-1.7b layers at full width (bf16 weights from
+              seed 0, x [8, 1024, 2048] through each layer's ffn_norm, 4
+              groups at keep 0.5 drawn as the train step draws them): the
+              dropout_matmul kernel launched 2 x 28 times, each layer's
+              output equal to the dense masked path's; then both paths
+              timed over the 28 layers, and the block path profiled.
+  8. timing   each kernel, its plain version and one PyTorch library call
               with CUDA events at the shapes its path gives it (paged: a
               decode tick and a 256-token prompt-chunk tick; flash: the
-              train step's), beside the least time the card could take.
+              train step's; dropout matmul: the Horn MLP's at keep 1, 0.5
+              and 0.25, beside cuBLAS on the kept columns only), beside the
+              least time the card could take.
 Prints one JSON line of kernel numbers, then, as the last line,
 ``{"ok": true, "device": {...}}``.
 """
@@ -58,6 +69,7 @@ HBM_BYTES_S = 3.35e12            # H100 SXM device memory rate
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 CUDA cores; bf16
 TPU_KERNEL = "src/repro/kernels/paged_attention/kernel.py:264"
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention/kernel.py:85"
+DM_TPU_KERNEL = "src/repro/kernels/dropout_matmul/kernel.py:48"
 TRAIN_STEPS = 4
 
 
@@ -173,6 +185,61 @@ def phase_flash_kernels(torch, dev, fkernel, fref):
                 f"variants x S 1/7/256/1024: max |kernel - plain| "
                 + " ".join(f"{k} {e:.3g}" for k, e in errs.items())
                 + f" (tol {tol[dtype]:g})")
+    return worst
+
+
+# (G, M, K, N, block_n): the JAX sweep (tests/test_kernels.py) and the Horn
+# MLP's up/gate product at qwen3-1.7b width, 4 groups of 2 x 1024 tokens
+DM_SWEEP = [(1, 128, 128, 128, 128), (2, 256, 128, 512, 128),
+            (4, 128, 256, 256, 64), (3, 128, 384, 640, 128)]
+DM_FULL = (4, 2048, 2048, 6144, 128)
+
+
+def dm_inputs(torch, dev, dtype, G, M, K, N, seed):
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(G, M, K, generator=gen, device=dev).to(dtype)
+    w = torch.randn(K, N, generator=gen, device=dev).to(dtype)
+    return x, w, gen
+
+
+def phase_dropout_kernels(torch, dev, dkernel, dref):
+    """The kernel against the plain version with the JAX sweep's
+    tolerances: atol tol * sqrt(K), rtol tol, tol 1e-4 in f32 and 0.15 in
+    bf16.  Masks in {0, 2}: random (each block live with probability 0.5)
+    on every shape; at full width also all dropped (the output must be
+    exactly 0), all live, and group 0 with a single live block."""
+    tol = {"float32": 1e-4, "bfloat16": 0.15}
+    worst = 0.0
+    for dtype in ("float32", "bfloat16"):
+        errs = []
+        for i, (G, M, K, N, bn) in enumerate(DM_SWEEP + [DM_FULL]):
+            x, w, gen = dm_inputs(torch, dev, getattr(torch, dtype), G, M, K,
+                                  N, seed=i)
+            nb = N // bn
+            masks = {"random": 2.0 * (torch.rand(G, nb, generator=gen,
+                                                 device=dev) < 0.5).float()}
+            if (G, M, K, N, bn) == DM_FULL:
+                one = torch.full((G, nb), 2.0, device=dev)
+                one[0] = 0.0
+                one[0, nb // 3] = 2.0
+                masks.update(dropped=torch.zeros(G, nb, device=dev),
+                             live=torch.full((G, nb), 2.0, device=dev),
+                             one_block=one)
+            for mname, mask in masks.items():
+                got = dkernel.dropout_matmul(x, w, mask, block_n=bn)
+                want = dref.dropout_matmul_ref(x, w, mask, block_n=bn)
+                torch.cuda.synchronize()
+                errs.append((got - want).abs().max().item())
+                torch.testing.assert_close(
+                    got, want, atol=tol[dtype] * K ** 0.5, rtol=tol[dtype],
+                    msg=lambda m: f"{(G, M, K, N, bn)} {mname}: {m}")
+                if mname == "dropped":
+                    assert torch.all(got == 0), "dropped tiles not zero"
+                del got, want
+        worst = max([worst] + errs)
+        log(f"  dropout_matmul {dtype:8s} {len(DM_SWEEP)} sweep shapes + "
+            f"full width x 4 masks: max |kernel - plain| = {max(errs):.3g} "
+            f"(tol {tol[dtype]:g} * sqrt(K))")
     return worst
 
 
@@ -455,7 +522,118 @@ def phase_train(torch, build, fkernel):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: timing
+# phase 7: Horn's block-sparse MLP
+# ---------------------------------------------------------------------------
+def phase_horn_mlp(torch, dev, build, dkernel):
+    """``mlp_apply(mask_blocks=...)`` on every qwen3-1.7b layer at full
+    width against ``mlp_apply(hidden_mask=expand_mask(...))``, the dense
+    masked path, on the same bf16 inputs.  The two round differently: the
+    dense path rounds up, gate, the activation and the product to bf16
+    (2^-9 relative each), the block path only h; the down projection sums
+    3072 live units, so the difference has a std of ~0.5 % of |y| (rms
+    ~0.9), and its largest of 28 x 16.8M outputs lies ~6 std out, plus one
+    output ulp.  Tolerance: atol 6e-2, rtol 2e-2 on every element, and a
+    mean |difference| below 1e-2 (a wrong block would move |y| by ~0.2)."""
+    from repro_torch.configs.base import HornConfig, get_model_config
+    from repro_torch.core import parallel_dropout as pd
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import init_params
+
+    cfg = get_model_config("qwen3-1.7b")
+    params = init_params(cfg, 0, device=dev, dtype=torch.bfloat16)
+    B, S, G = 8, 1024, 4
+    horn = pd.make_horn_state(0, HornConfig(num_groups=G), 0, dev)
+    nb = cfg.d_ff // horn.cfg.block_size
+    # the train step's draw: layer i, salt 5, keep_hidden
+    masks = [pd.group_block_mask(horn.uniform(i, 5, (G, nb)),
+                                 horn.cfg.keep_hidden)
+             for i in range(cfg.num_layers)]
+    gen = torch.Generator(dev).manual_seed(1)
+    worst, mean_diff, kept = 0.0, 0.0, []
+    with torch.inference_mode():
+        build.reset_launches()
+        for i, bp in enumerate(params.layers):
+            x = torch.randn(B, S, cfg.d_model, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            h = L.norm_apply(bp.ffn_norm, x, cfg)
+            got = L.mlp_apply(bp.mlp, h, cfg, mask_blocks=masks[i])
+            want = L.mlp_apply(bp.mlp, h, cfg, hidden_mask=pd.expand_mask(
+                masks[i], cfg.d_ff, B))
+            torch.cuda.synchronize()
+            assert got.dtype == torch.bfloat16 and got.shape == x.shape
+            assert torch.isfinite(got).all(), i
+            diff = (got.float() - want.float()).abs()
+            worst = max(worst, diff.max().item())
+            mean_diff = max(mean_diff, diff.mean().item())
+            torch.testing.assert_close(got.float(), want.float(), atol=6e-2,
+                                       rtol=2e-2, msg=lambda m: f"layer {i}: "
+                                       f"{m}")
+            assert mean_diff < 1e-2, (i, mean_diff)
+            kept.append((masks[i] > 0).float().mean().item())
+            del x, h, got, want, diff
+        launches = build.LAUNCHES[dkernel.NAME]
+        assert launches == 2 * cfg.num_layers, launches
+
+        # both paths over the 28 layers, one input, masks drawn in advance
+        x = torch.randn(B, S, cfg.d_model, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        hs = [L.norm_apply(bp.ffn_norm, x, cfg) for bp in params.layers]
+        dense_masks = [pd.expand_mask(m, cfg.d_ff, B) for m in masks]
+
+        def all_layers(kw_of):
+            for i, bp in enumerate(params.layers):
+                L.mlp_apply(bp.mlp, hs[i], cfg, **kw_of(i))
+
+        times = {}
+        for name, kw_of in (("block", lambda i: {"mask_blocks": masks[i]}),
+                            ("dense", lambda i: {
+                                "hidden_mask": dense_masks[i]})):
+            all_layers(kw_of)                                  # warm up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                all_layers(kw_of)
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0) / 3 * 1e3
+        events = device_events(torch, lambda: all_layers(
+            lambda i: {"mask_blocks": masks[i]}))
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    out = {"layers": cfg.num_layers, "B": B, "S": S, "groups": G,
+           "keep": horn.cfg.keep_hidden, "kept_frac_mean": sum(kept) /
+           len(kept), "launches": launches, "max_abs_err_vs_dense": worst,
+           "mean_abs_err_vs_dense": mean_diff,
+           "block_ms": times["block"], "dense_ms": times["dense"],
+           "block_device_ms": busy or None, "block_kernel_ms": None,
+           "top_kernels": []}
+    log(f"  {cfg.num_layers} layers, x [{B}, {S}, {cfg.d_model}] bf16, "
+        f"{G} groups, keep {horn.cfg.keep_hidden} (kept blocks "
+        f"{out['kept_frac_mean']:.3f}): block path == dense masked path, "
+        f"max |diff| {worst:.3g} (tol 6e-2 + 2e-2 |y|), largest layer mean "
+        f"|diff| {mean_diff:.3g} (tol 1e-2)")
+    log(f"  {dkernel.NAME} launches: {launches} = 2 x {cfg.num_layers} "
+        f"layers (gate + up)")
+    log(f"  {cfg.num_layers} MLP forwards: block-sparse path "
+        f"{times['block']:.2f} ms, dense masked path {times['dense']:.2f} "
+        f"ms (host clock, mean of 3)")
+    if busy <= 0:
+        log("  device time of the block path: not measured (no device "
+            "events)")
+    else:
+        out["block_kernel_ms"] = sum(e.self_device_time_total for e in events
+                                     if dkernel.NAME in e.key) / 1e3
+        log(f"  profiled block path: device busy {busy:.2f} ms, "
+            f"{dkernel.NAME} {out['block_kernel_ms']:.2f} ms of it")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+            out["top_kernels"].append(
+                [e.key[:90], e.self_device_time_total / 1e3, e.count])
+            log(f"    {e.self_device_time_total / 1e3:8.2f} ms  "
+                f"x{e.count:5d}  {e.key[:90]}")
+    del params, hs
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: timing
 # ---------------------------------------------------------------------------
 def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     for i in range(warmup):
@@ -659,6 +837,64 @@ def phase_flash_timing(torch, dev, fkernel, fref):
     return out
 
 
+def phase_dropout_timing(torch, dev, dkernel, dref):
+    """The Horn MLP's up/gate product (x [4, 2048, 2048], w [2048, 6144],
+    bf16, 128-unit blocks) at keep 1, 0.5 and 0.25: the kernel, its plain
+    version, cuBLAS on the dense weights (the product without the skip,
+    bf16 out) and the sub-model yardstick, one cuBLAS product per group on
+    ``submodel.materialize``'s kept columns (gathered in advance).  The
+    bound counts x, the w blocks some group keeps and the f32 output once,
+    and 2 * M * K flops per kept column of each group."""
+    from repro_torch.core import parallel_dropout as pd
+    from repro_torch.core import submodel
+
+    G, M, K, N, bn = DM_FULL
+    x, w, gen = dm_inputs(torch, dev, torch.bfloat16, G, M, K, N, seed=13)
+    w = (w.float() * K ** -0.5).to(torch.bfloat16)
+    library_ms = cuda_ms(torch, lambda i: torch.matmul(x, w), 20)
+    out = {}
+    for keep in (1.0, 0.5, 0.25):
+        mask = pd.group_block_mask(torch.rand(G, N // bn, generator=gen,
+                                              device=dev), keep)
+        got = dkernel.dropout_matmul(x, w, mask, block_n=bn)
+        want = dref.dropout_matmul_ref(x, w, mask, block_n=bn)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, atol=0.15 * K ** 0.5,
+                                   rtol=0.15)
+        del got, want
+        kept = [submodel.materialize(w, w.t(), mask[g], bn)[0].contiguous()
+                for g in range(G)]
+        ms = cuda_ms(torch, lambda i: dkernel.dropout_matmul(
+            x, w, mask, block_n=bn), 20)
+        plain_ms = cuda_ms(torch, lambda i: dref.dropout_matmul_ref(
+            x, w, mask, block_n=bn), 5)
+        sub_ms = cuda_ms(torch, lambda i: [torch.matmul(x[g], kept[g])
+                                           for g in range(G)], 20)
+        live = mask > 0
+        flops = 2 * M * K * bn * int(live.sum())
+        nbytes = (G * M * K * 2 + K * bn * int(live.any(0).sum()) * 2
+                  + G * M * N * 4)
+        b_ms, b_by = bound(nbytes, flops)
+        out[str(keep)] = {
+            "G": G, "M": M, "K": K, "N": N, "block_n": bn,
+            "dtype": "bfloat16", "keep": keep,
+            "kept_frac": float(live.float().mean()), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "submodel_ms": sub_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "flops": flops, "max_abs_err": err,
+            "tflops": flops / (ms * 1e-3) / 1e12}
+        log(f"  dropout_matmul keep {keep:4}: kernel {ms:7.3f} ms  plain "
+            f"{plain_ms:7.3f} ms  cuBLAS dense {library_ms:6.3f} ms  "
+            f"sub-model {sub_ms:6.3f} ms  bound {b_ms:.3f} ms ({b_by}, "
+            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)  "
+            f"{out[str(keep)]['tflops']:.1f} TFLOP/s  max err {err:.3g}")
+    ratio = out["0.25"]["ms"] / out["1.0"]["ms"]
+    log(f"  the skip: keep 0.25 takes {ratio:.3f} x the time of keep 1.0")
+    assert ratio < 0.6, f"dropped tiles do not save time ({ratio:.3f})"
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -678,20 +914,23 @@ def main() -> int:
     torch.cuda.set_device(dev)
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.dropout_matmul import kernel as dkernel
+    from repro_torch.kernels.dropout_matmul import ref as dref
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.paged_attention import kernel, ref
 
     log("phase 2: build")
     t0 = time.perf_counter()
-    build.build([kernel.SOURCE, fkernel.SOURCE])
-    log(f"  {kernel.SOURCE.relative_to(ROOT)} and "
-        f"{fkernel.SOURCE.relative_to(ROOT)} built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    sources = [kernel.SOURCE, fkernel.SOURCE, dkernel.SOURCE]
+    build.build(sources)
+    log(f"  {', '.join(str(s.relative_to(ROOT)) for s in sources)} built "
+        f"in {time.perf_counter() - t0:.1f} s")
 
     log("phase 3: kernels against their plain versions")
     phase_kernels(torch, dev, kernel, ref)
     flash_sweep_err = phase_flash_kernels(torch, dev, fkernel, fref)
+    dm_sweep_err = phase_dropout_kernels(torch, dev, dkernel, dref)
 
     log("phase 4: paged engine against a dense recompute")
     phase_parity(torch, dev)
@@ -709,9 +948,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("phase 7: timing")
+    log("phase 7: Horn block-sparse MLP, qwen3-1.7b (28 layers, bf16)")
+    horn_mlp = phase_horn_mlp(torch, dev, build, dkernel)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 8: timing")
     shapes = phase_timing(torch, dev, kernel, ref)
     flash = phase_flash_timing(torch, dev, fkernel, fref)
+    dm = phase_dropout_timing(torch, dev, dkernel, dref)
 
     d = shapes["decode"]
     kernels = [{
@@ -735,8 +980,20 @@ def main() -> int:
             "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
             "library_ms": f["library_ms"], "shapes": {"train": f},
         })
+    d = dm["0.5"]                       # the Horn MLP's keep rate
+    kernels.append({
+        "name": dkernel.NAME, "route": "cuda",
+        "source": str(dkernel.SOURCE.relative_to(ROOT)),
+        "replaces": DM_TPU_KERNEL, "launches": horn_mlp["launches"],
+        "max_abs_err": max([dm_sweep_err] + [s["max_abs_err"]
+                                             for s in dm.values()]),
+        "ms": d["ms"], "kernel_ms": d["ms"], "plain_ms": d["plain_ms"],
+        "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+        "library_ms": d["library_ms"], "submodel_ms": d["submodel_ms"],
+        "keep_sweep": dm,
+    })
     line = {"kernels": kernels, "card": card, "serve": served,
-            "train": trained}
+            "train": trained, "horn_mlp": horn_mlp}
     log("chip_smoke: all phases passed")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

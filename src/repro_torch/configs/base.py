@@ -82,6 +82,14 @@ class ModelConfig:
     post_sublayer_norm: bool = False  # gemma-style norms after sublayers
 
     @property
+    def moe_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
+    @property
+    def has_attention(self) -> bool:
+        return any(k in (ATTN, LOCAL) for k in self.layer_pattern)
+
+    @property
     def pattern_repeats(self) -> int:
         return self.num_layers // len(self.layer_pattern)
 

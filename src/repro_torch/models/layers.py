@@ -1,4 +1,5 @@
-"""Shared layers: norms, RoPE, the dense gated MLP, embeddings.
+"""Shared layers: norms, RoPE, the gated MLP (dense and block-sparse),
+embeddings.
 
 Parameters live in ``nn.Module`` containers whose attributes keep the JAX
 package's names and shapes (``scale``, ``wi``/``wg``/``wo``,
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.dropout_matmul.ops import dropout_matmul
 
 f32 = torch.float32
 
@@ -93,7 +95,7 @@ def apply_rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# Gated MLP (SwiGLU / GeGLU), dense path
+# Gated MLP (SwiGLU / GeGLU): dense path and Horn's block-sparse path
 # ---------------------------------------------------------------------------
 class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig, make):
@@ -105,14 +107,23 @@ class MLP(nn.Module):
             self.wg = make((d, ff))
 
 
-def mlp_apply(params, x, cfg: ModelConfig, *, hidden_mask=None):
-    """x: [B, S, d] -> [B, S, d] in x.dtype (the down projection keeps the
-    activation dtype, as ``preferred_element_type=x.dtype`` does).
+def mlp_apply(params, x, cfg: ModelConfig, *, hidden_mask=None,
+              mask_blocks=None):
+    """x: [B, S, d] -> [B, S, d], in x.dtype on the dense path (the down
+    projection keeps the activation dtype, as
+    ``preferred_element_type=x.dtype`` does).
 
     ``hidden_mask`` ([B, 1, ff]-broadcastable, or None) is Horn's per-group
     structured neuron mask, already scaled by 1/keep; it multiplies the
-    hidden units before the down projection."""
+    hidden units before the down projection.
+
+    ``mask_blocks`` ([G, ff / block] in {0, 1/keep}) takes the block-sparse
+    path instead (and wins over ``hidden_mask``): the up and gate products
+    run through ``dropout_matmul``, whose dropped blocks skip their work.
+    Same semantics as the masked dense path, forward-only."""
     act = ACTS[cfg.act]
+    if mask_blocks is not None:
+        return _mlp_blocks(params, x, cfg, act, mask_blocks)
     up = mm("...d,df->...f", x, params.wi)
     if cfg.mlp_gated:
         h = act(mm("...d,df->...f", x, params.wg)) * up
@@ -121,6 +132,40 @@ def mlp_apply(params, x, cfg: ModelConfig, *, hidden_mask=None):
     if hidden_mask is not None:
         h = h * hidden_mask.to(h.dtype)
     return mm("...f,fd->...d", h, params.wo, x.dtype)
+
+
+def _mlp_blocks(params, x, cfg: ModelConfig, act, mask_blocks):
+    """The block branch of the JAX ``mlp_apply``, rule for rule.  Sample b
+    belongs to group ``b // (B // G)`` (``expand_mask``'s rule).  The
+    activation runs on the kernel's f32 output; ``h`` is then cast to
+    x.dtype and the down projection keeps the promoted dtype (f32 weights
+    give f32 out, unlike the dense path)."""
+    B, S, d = x.shape
+    G, nb = mask_blocks.shape
+    if B % G:
+        raise ValueError(f"mlp_apply: batch {B} does not split into {G} "
+                         f"groups of mask_blocks")
+    block_n = cfg.d_ff // nb
+    xg = x.reshape(G, (B // G) * S, d)
+    mask_blocks = mask_blocks.to(f32).contiguous()
+    # gate uses a {0, 1} mask (masking inside the activation is wrong);
+    # the 1/keep scale rides on the up projection
+    blocks01 = (mask_blocks > 0).to(f32)
+
+    def product(w, mask):
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return dropout_matmul(xg.to(dt).contiguous(), w.to(dt).contiguous(),
+                              mask, block_n=block_n)
+
+    if cfg.mlp_gated:
+        h = act(product(params.wg, blocks01)) * product(params.wi,
+                                                        mask_blocks)
+    else:
+        # act(up * s) != act(up) * s, so mask {0, 1} first, scale after
+        mask = torch.repeat_interleave(mask_blocks, block_n, dim=-1)
+        h = act(product(params.wi, blocks01)) * mask[:, None, :]
+    h = h.to(x.dtype).reshape(B, S, cfg.d_ff)
+    return mm("...f,fd->...d", h, params.wo)
 
 
 # ---------------------------------------------------------------------------

@@ -43,8 +43,9 @@ def test_port_imports_with_jax_blocked():
     assert r.returncode == 0, r.stderr
     for m in ("serving.engine", "launch.serve", "launch.train",
               "kernels.flash_attention.kernel", "kernels.flash_attention.ops",
-              "core.parallel_dropout", "core.steps", "optim.sgd",
-              "data.pipeline"):
+              "kernels.dropout_matmul.kernel", "kernels.dropout_matmul.ops",
+              "core.parallel_dropout", "core.submodel", "core.steps",
+              "optim.sgd", "data.pipeline"):
         assert f"repro_torch.{m}" in mods, m
 
 
