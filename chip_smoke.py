@@ -44,8 +44,22 @@ Phases, each of which fails the script (non-zero exit, no result line):
               with CUDA events at the shapes its path gives it (paged: a
               decode tick and a 256-token prompt-chunk tick; flash: the
               train step's; dropout matmul: the Horn MLP's at keep 1, 0.5
-              and 0.25, beside cuBLAS on the kept columns only), beside the
-              least time the card could take.
+              and 0.25, beside cuBLAS on the kept columns only; SSD chunk
+              scan: mamba2-2.7b's prefill, where no single PyTorch call
+              computes the same function), beside the least time the card
+              could take.
+  9. ssm      mamba2-2.7b through ``make_prefill_step``/``make_decode_step``.
+              First 2 layers at full width in f32: the kernel path against
+              the plain path (logits, final SSM states), and prefill(S) + 4
+              decode steps against prefill(S + k).  Then all 64 layers in
+              bf16 (random weights from seed 0): a prefill of 4 x 2048
+              seeded tokens and 32 greedy decode steps from its cache; the
+              SSD kernel launched 64 times by the prefill and never by
+              decode, every logit finite; prefill wall and tok/s, decode
+              tok/s, peak memory and a profiled prefill's device busy share.
+Phase 3 also holds the SSD chunk scan against its plain version (y and the
+final state): the JAX sweep's shapes, S 257 (chunks of 1 token) and the
+full-width shape B 2, S 2048, H 80, P 64, N 128, chunk 256, f32 and bf16.
 Prints one JSON line of kernel numbers, then, as the last line,
 ``{"ok": true, "device": {...}}``.
 """
@@ -59,6 +73,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -70,7 +85,9 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 CUDA cores; bf16
 TPU_KERNEL = "src/repro/kernels/paged_attention/kernel.py:264"
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention/kernel.py:85"
 DM_TPU_KERNEL = "src/repro/kernels/dropout_matmul/kernel.py:48"
+SSD_TPU_KERNEL = "src/repro/kernels/ssd/kernel.py:65"
 TRAIN_STEPS = 4
+SSM_BATCH, SSM_SEQ, SSM_DECODE = 4, 2048, 32    # the ssm phase's prefill
 
 
 def log(msg: str) -> None:
@@ -240,6 +257,59 @@ def phase_dropout_kernels(torch, dev, dkernel, dref):
         log(f"  dropout_matmul {dtype:8s} {len(DM_SWEEP)} sweep shapes + "
             f"full width x 4 masks: max |kernel - plain| = {max(errs):.3g} "
             f"(tol {tol[dtype]:g} * sqrt(K))")
+    return worst
+
+
+# (B, S, H, P, N, chunk): the JAX sweep (tests/test_kernels.py), S 257 at
+# the published chunk (257 is prime: chunks of 1 token), and mamba2-2.7b's
+# SSD at full width
+SSD_SWEEP = [(1, 64, 2, 16, 16, 16), (2, 128, 3, 16, 32, 32),
+             (1, 256, 1, 32, 64, 64), (1, 257, 4, 64, 128, 256)]
+SSD_FULL = (2, 2048, 80, 64, 128, 256)
+
+
+def ssd_inputs(torch, dev, dtype, B, S, H, P, N, seed):
+    """x, dt, A, Bm, Cm drawn as the JAX sweep draws them: x, B, C normal
+    x 0.5 (x, B, C in ``dtype``), dt = |normal| + 0.1, A = -(|normal| +
+    0.5), dt and A f32."""
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    x = (normal(B, S, H, P) * 0.5).to(dtype)
+    dt = normal(B, S, H).abs() + 0.1
+    A = -(normal(H).abs() + 0.5)
+    Bm = (normal(B, S, N) * 0.5).to(dtype)
+    Cm = (normal(B, S, N) * 0.5).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+def phase_ssd_kernels(torch, dev, skernel, sref):
+    """y and the final state against the plain version on the same inputs.
+    Both compute in f32 from the same (bf16-rounded) values and differ in
+    summation order only: atol 2e-4 / rtol 1e-3, the JAX tests'
+    tolerance, at every shape and in both dtypes."""
+    worst = 0.0
+    for dtype in ("float32", "bfloat16"):
+        errs = []
+        for i, (B, S, H, P, N, chunk) in enumerate(SSD_SWEEP + [SSD_FULL]):
+            args = ssd_inputs(torch, dev, getattr(torch, dtype), B, S, H, P,
+                              N, seed=i)
+            y, st = skernel.ssd_chunk_scan(*args, chunk=chunk)
+            y_want, st_want = sref.ssd_chunk_scan_ref(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            for what, got, want in (("y", y, y_want), ("state", st, st_want)):
+                assert torch.isfinite(got).all(), (B, S, H, what)
+                errs.append((got - want).abs().max().item())
+                torch.testing.assert_close(
+                    got, want, atol=2e-4, rtol=1e-3,
+                    msg=lambda m: f"{(B, S, H, P, N, chunk)} {what}: {m}")
+            del args, y, st, y_want, st_want
+        worst = max([worst] + errs)
+        log(f"  ssd_chunk_scan {dtype:8s} {len(SSD_SWEEP)} sweep shapes + "
+            f"full width {SSD_FULL}: max |kernel - plain| = {max(errs):.3g}"
+            f" (tol 2e-4 + 1e-3 |y|)")
     return worst
 
 
@@ -895,6 +965,228 @@ def phase_dropout_timing(torch, dev, dkernel, dref):
     return out
 
 
+def ssd_work(B, S, H, P, N, Q, itemsize):
+    """(bytes, flops) of the chunk scan: x, dt, Bm, Cm and A read once, y
+    (f32) and the final state (f32) written once; C.B^T counted once per
+    (b, chunk) on its causal triangle (2 N flops a pair), and per (b, h,
+    chunk) the triangle times x (2 P a pair), C times the carried state and
+    the state update (2 Q N P each)."""
+    nc = S // Q
+    pairs = Q * (Q + 1) // 2
+    nbytes = (B * S * H * P * itemsize + B * S * H * 4 + H * 4
+              + 2 * B * S * N * itemsize + B * S * H * P * 4
+              + B * H * P * N * 4)
+    flops = B * nc * (2 * N * pairs + H * (2 * P * pairs + 4 * Q * N * P))
+    return nbytes, flops
+
+
+def phase_ssd_timing(torch, dev, skernel, sref):
+    """The chunk scan at the ssm phase's prefill shape (B 4, S 2048, H 80,
+    P 64, N 128, chunk 256, bf16 x/B/C, with the final state): the kernel
+    and its plain version, beside the bound at the f32 CUDA-core rate (the
+    kernel's arithmetic is f32).  No single PyTorch call computes an SSD
+    scan, so there is no library time."""
+    B, S, H, P, N, chunk = SSM_BATCH, SSM_SEQ, 80, 64, 128, 256
+    args = ssd_inputs(torch, dev, torch.bfloat16, B, S, H, P, N, seed=21)
+    y, st = skernel.ssd_chunk_scan(*args, chunk=chunk)
+    y_want, st_want = sref.ssd_chunk_scan_ref(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    err = max((y - y_want).abs().max().item(),
+              (st - st_want).abs().max().item())
+    torch.testing.assert_close(y, y_want, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(st, st_want, atol=2e-4, rtol=1e-3)
+    del y, st, y_want, st_want
+    ms = cuda_ms(torch, lambda i: skernel.ssd_chunk_scan(
+        *args, chunk=chunk), 20)
+    plain_ms = cuda_ms(torch, lambda i: sref.ssd_chunk_scan_ref(
+        *args, chunk=chunk), 5, warmup=1)
+    nbytes, flops = ssd_work(B, S, H, P, N, chunk, 2)
+    b_ms, b_by = bound(nbytes, flops, "float32")
+    out = {"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": chunk,
+           "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bytes": nbytes, "flops": flops, "max_abs_err": err,
+           "tflops": flops / (ms * 1e-3) / 1e12}
+    log(f"  ssd_chunk_scan prefill (B {B}, S {S}, H {H}, P {P}, N {N}, Q "
+        f"{chunk}, bf16): kernel {ms:7.3f} ms  plain {plain_ms:7.3f} ms  "
+        f"library: none (no single PyTorch call)  bound {b_ms:.3f} ms "
+        f"({b_by}, {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)  "
+        f"{out['tflops']:.1f} TFLOP/s counted  max err {err:.3g}")
+    return out
+
+
+def phase_ssm_parity(torch, dev, build, skernel, sref):
+    """mamba2-2.7b at full width, 2 layers, f32 weights and compute, batch
+    2 x 512 tokens (two 256-token chunks): the prefill through the kernel
+    against the same prefill with the plain chunk scan (logits and final
+    SSM states), then prefill(512) + 4 decode steps against prefill(512 +
+    k), k = 1..4 (chunks of 1 token at 513, 2 at 514, ...).  Tolerance
+    atol/rtol 1e-3: the kernel and the plain scan differ by summation order
+    (~1e-4 on y at |y| ~ 1, phase 3), diluted through the gated norm and
+    two projections; logits here are ~0.2 in size."""
+    from repro_torch.configs.base import (RunConfig, ShapeConfig,
+                                          get_model_config)
+    from repro_torch.core import steps
+    from repro_torch.models import ssm
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(get_model_config("mamba2-2.7b"), num_layers=2,
+                              dtype="float32")
+    B, S, K = 2, 512, 4
+    run = RunConfig(model=cfg, shape=ShapeConfig("ssm", "prefill", S, B),
+                    compute_dtype="float32")
+    params = init_params(cfg, 1234, device=dev, dtype=torch.float32)
+    prefill = steps.make_prefill_step(run, dev)
+    decode = steps.make_decode_step(run, dev)
+    gen = torch.Generator(dev).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + K), generator=gen,
+                           device=dev)
+    build.reset_launches()
+    logits, cache = prefill(params, {"tokens": tokens[:, :S]})
+    assert build.LAUNCHES[skernel.NAME] == cfg.num_layers
+    # the reference path: models/ssm.py takes the plain scan on the card
+    with mock.patch.object(ssm, "ssd_chunk_scan", sref.ssd_chunk_scan_ref):
+        want, wcache = prefill(params, {"tokens": tokens[:, :S]})
+    assert build.LAUNCHES[skernel.NAME] == cfg.num_layers
+    torch.cuda.synchronize()
+    errs = {"logits": (logits - want).abs().max().item(),
+            "state": max((c[1] - w[1]).abs().max().item()
+                         for c, w in zip(cache, wcache))}
+    torch.testing.assert_close(logits, want, atol=1e-3, rtol=1e-3)
+    for (_, st), (_, wst) in zip(cache, wcache):
+        torch.testing.assert_close(st, wst, atol=1e-3, rtol=1e-3)
+    chain = []
+    for k in range(K):
+        launches = build.LAUNCHES[skernel.NAME]
+        got, cache = decode(params, cache, tokens[:, S + k:S + k + 1], S + k)
+        assert build.LAUNCHES[skernel.NAME] == launches     # decode: none
+        longer, _ = prefill(params, {"tokens": tokens[:, :S + k + 1]})
+        torch.cuda.synchronize()
+        chain.append((got - longer).abs().max().item())
+        torch.testing.assert_close(got, longer, atol=1e-3, rtol=1e-3,
+                                   msg=lambda m: f"decode step {k}: {m}")
+    log(f"  2 layers, f32, batch {B} x {S}: kernel path == plain path, max "
+        f"|diff| logits {errs['logits']:.3g}, final states "
+        f"{errs['state']:.3g} (tol 1e-3); prefill({S}) + {K} decode steps "
+        f"== prefill({S} + k): max |diff| "
+        + " ".join(f"{e:.3g}" for e in chain) + " (tol 1e-3)")
+    del params, cache, wcache
+    return {"kernel_vs_plain": errs, "chain": chain}
+
+
+def phase_ssm(torch, dev, build, skernel):
+    """All 64 layers of mamba2-2.7b in bf16 through the step factories:
+    a prefill of 4 x 2048 seeded tokens, then 32 greedy decode steps from
+    its cache (tokens fed back), after a warm-up on the same steps."""
+    from repro_torch.configs.base import (RunConfig, ShapeConfig,
+                                          get_model_config)
+    from repro_torch.core import steps
+    from repro_torch.models.params import init_params
+
+    cfg = get_model_config("mamba2-2.7b")
+    B, S, G = SSM_BATCH, SSM_SEQ, SSM_DECODE
+    run = RunConfig(model=cfg, shape=ShapeConfig("ssm", "prefill", S, B))
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"d_inner {cfg.ssm_expand * cfg.d_model}, "
+        f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} heads x "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, vocab {cfg.vocab_size}"
+        f"; {n_params / 1e9:.3f} B bf16 parameters built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prefill = steps.make_prefill_step(run, dev)
+    decode = steps.make_decode_step(run, dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+
+    logits, cache = prefill(params, {"tokens": tokens})      # warm up
+    for i in range(2):
+        logits, cache = decode(params, cache,
+                               torch.argmax(logits, -1)[:, None], S + i)
+    del logits, cache
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = build.LAUNCHES[skernel.NAME]
+    assert launches == cfg.num_layers, launches
+    assert logits.shape == (B, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    prefill_cache = cache
+    t0 = time.perf_counter()
+    for i in range(G):
+        nxt = torch.argmax(logits, -1)[:, None]
+        logits, cache = decode(params, cache, nxt, S + i)
+        assert torch.isfinite(logits).all(), i
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    assert build.LAUNCHES[skernel.NAME] == launches, "decode ran the scan"
+    for conv, st in cache:
+        assert torch.isfinite(conv).all() and torch.isfinite(st).all()
+    peak = torch.cuda.max_memory_allocated()
+    out = {"layers": cfg.num_layers, "batch": B, "seq": S,
+           "decode_steps": G, "launches_per_prefill": launches,
+           "prefill_s": prefill_s, "prefill_tok_s": B * S / prefill_s,
+           "decode_step_ms": decode_s / G * 1e3,
+           "decode_tok_s": B * G / decode_s, "peak_bytes": peak,
+           "device_busy_ms": None, "busy_share": None, "ssd_ms": None,
+           "top_kernels": []}
+    log(f"  prefill {B} x {S}: {prefill_s * 1e3:.1f} ms wall, "
+        f"{out['prefill_tok_s']:,.0f} tok/s; {skernel.NAME} launches: "
+        f"{launches} = {cfg.num_layers} layers x 1 prefill")
+    log(f"  {G} greedy decode steps at batch {B}: "
+        f"{out['decode_step_ms']:.2f} ms a step, {out['decode_tok_s']:.1f} "
+        f"tok/s; {skernel.NAME} launches in decode: 0; peak memory "
+        f"{peak / 2**30:.2f} GiB allocated")
+    n = 8
+
+    def decode_steps():
+        c, lg = prefill_cache, logits
+        for i in range(n):
+            lg, c = decode(params, c, torch.argmax(lg, -1)[:, None],
+                           S + G + i)
+
+    events = device_events(torch, decode_steps)
+    busy = sum(e.self_device_time_total for e in events) / n / 1e3
+    out.update(decode_device_busy_ms=busy or None, decode_busy_share=None,
+               decode_ops_per_step=None)
+    if busy <= 0:
+        log("  device time of a decode step: not measured (no device "
+            "events)")
+    else:
+        out.update(decode_busy_share=busy / out["decode_step_ms"],
+                   decode_ops_per_step=sum(e.count for e in events) / n)
+        log(f"  profiled decode: device busy {busy:.2f} ms a step = "
+            f"{out['decode_busy_share']:.1%} of the unprofiled step wall, "
+            f"{out['decode_ops_per_step']:.0f} device ops a step")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:4]:
+            log(f"    {e.self_device_time_total / n / 1e3:7.3f} ms  "
+                f"x{e.count / n:5.0f}  {e.key[:90]}")
+    events = device_events(torch, lambda: prefill(params, {"tokens": tokens}))
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    if busy <= 0:
+        log("  device time of a prefill: not measured (no device events)")
+    else:
+        out.update(device_busy_ms=busy, busy_share=busy / (prefill_s * 1e3),
+                   ssd_ms=sum(e.self_device_time_total for e in events
+                              if "ssd_chunk_scan" in e.key) / 1e3)
+        log(f"  profiled prefill: device busy {busy:.1f} ms = "
+            f"{out['busy_share']:.1%} of the unprofiled prefill wall; "
+            f"{skernel.NAME} {out['ssd_ms']:.1f} ms")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            out["top_kernels"].append(
+                [e.key[:90], e.self_device_time_total / 1e3, e.count])
+            log(f"    {e.self_device_time_total / 1e3:8.2f} ms  "
+                f"x{e.count:5d}  {e.key[:90]}")
+    del params, cache, prefill_cache
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -919,10 +1211,12 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.paged_attention import kernel, ref
+    from repro_torch.kernels.ssd import kernel as skernel
+    from repro_torch.kernels.ssd import ref as sref
 
     log("phase 2: build")
     t0 = time.perf_counter()
-    sources = [kernel.SOURCE, fkernel.SOURCE, dkernel.SOURCE]
+    sources = [kernel.SOURCE, fkernel.SOURCE, dkernel.SOURCE, skernel.SOURCE]
     build.build(sources)
     log(f"  {', '.join(str(s.relative_to(ROOT)) for s in sources)} built "
         f"in {time.perf_counter() - t0:.1f} s")
@@ -931,6 +1225,7 @@ def main() -> int:
     phase_kernels(torch, dev, kernel, ref)
     flash_sweep_err = phase_flash_kernels(torch, dev, fkernel, fref)
     dm_sweep_err = phase_dropout_kernels(torch, dev, dkernel, dref)
+    ssd_sweep_err = phase_ssd_kernels(torch, dev, skernel, sref)
 
     log("phase 4: paged engine against a dense recompute")
     phase_parity(torch, dev)
@@ -957,6 +1252,16 @@ def main() -> int:
     shapes = phase_timing(torch, dev, kernel, ref)
     flash = phase_flash_timing(torch, dev, fkernel, fref)
     dm = phase_dropout_timing(torch, dev, dkernel, dref)
+    ssd = phase_ssd_timing(torch, dev, skernel, sref)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 9: ssm, mamba2-2.7b prefill and greedy decode")
+    ssm_parity = phase_ssm_parity(torch, dev, build, skernel, sref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm = phase_ssm(torch, dev, build, skernel)
+    ssm["parity"] = ssm_parity
 
     d = shapes["decode"]
     kernels = [{
@@ -992,8 +1297,19 @@ def main() -> int:
         "library_ms": d["library_ms"], "submodel_ms": d["submodel_ms"],
         "keep_sweep": dm,
     })
+    kernels.append({
+        "name": skernel.NAME, "route": "cuda",
+        "source": str(skernel.SOURCE.relative_to(ROOT)),
+        "replaces": SSD_TPU_KERNEL, "launches": ssm["launches_per_prefill"],
+        "max_abs_err": max(ssd_sweep_err, ssd["max_abs_err"]),
+        "ms": ssd["ms"], "kernel_ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
+        "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes an SSD chunk scan",
+        "shapes": {"prefill": ssd},
+    })
     line = {"kernels": kernels, "card": card, "serve": served,
-            "train": trained, "horn_mlp": horn_mlp}
+            "train": trained, "horn_mlp": horn_mlp, "ssm": ssm}
     log("chip_smoke: all phases passed")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
-"""Step factories: the train step, the unified paged serving step (greedy)
-and the device-side KV page copy.
+"""Step factories: the train step, prefill and dense-cache decode, the
+unified paged serving step (greedy) and the device-side KV page copy.
 
 PyTorch runs eagerly, so a "step" is a plain function; nothing is traced
 or compiled per shape.  Serving casts the parameters to the compute dtype
 once, when the engine is built (``models/params.py::cast_params``); the
-train step refreshes a compute-dtype copy from the f32 masters every step
+prefill and decode steps cast on every call, which costs nothing when the
+caller passes compute-dtype parameters; the train step refreshes a compute-dtype copy from the f32 masters every step
 and differentiates that copy, as the JAX step differentiates
 ``cast_tree(params, compute_dtype)``.
 """
@@ -18,6 +19,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.parallel_dropout import make_horn_state
 from repro_torch.models import api
+from repro_torch.models import transformer as T
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.params import cast_params, copy_into, init_params
 from repro_torch.optim.sgd import clip_by_global_norm, make_optimizer
@@ -114,6 +116,58 @@ def make_train_step(run: RunConfig, device="cuda"):
 # ---------------------------------------------------------------------------
 # Serving steps
 # ---------------------------------------------------------------------------
+def make_prefill_step(run: RunConfig, device="cuda"):
+    """step(params, batch) -> (logits [B, vocab] at the last position, the
+    decode cache of this shape cell), ``batch["tokens"]`` [B, S] (numpy or
+    a tensor), S at most ``run.shape.seq_len``.  Runs ``api.prefill`` under
+    inference mode on ``params`` cast to the compute dtype on every call,
+    as the JAX step casts inside every call (``cast_params`` returns
+    ``params`` itself when they already are in it: a caller that steps
+    many times casts once and passes that).  Mamba layers run their
+    chunked SSD through ``ssd_chunk_scan``.  Each attention layer's (k, v)
+    is copied into buffers of ``run.shape.seq_len`` tokens
+    (``T.decode_cache_of_prefill``), so ``make_decode_step`` continues the
+    cache at position S."""
+    cfg = run.model
+    dev = resolve_device(device)
+    cdtype = dtype_of(run.compute_dtype)
+
+    @torch.inference_mode()
+    def prefill_step(params, batch):
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        logits, cache = api.prefill(cast_params(params, cdtype),
+                                    {"tokens": tokens}, cfg)
+        return logits, T.decode_cache_of_prefill(cfg, cache,
+                                                 run.shape.seq_len)
+
+    return prefill_step
+
+
+def decode_cache_specs(run: RunConfig):
+    """The decode cache of this shape cell (batch ``global_batch``, length
+    ``seq_len``, bf16 buffers as in the JAX package) on the meta device:
+    shapes and dtypes, no memory."""
+    return T.init_cache(run.model, run.shape.global_batch, run.shape.seq_len,
+                        device="meta")
+
+
+def make_decode_step(run: RunConfig, device="cuda"):
+    """step(params, cache, tokens [B, 1], pos) -> (logits [B, vocab], the
+    new cache): one token at position ``pos`` (an int) for every sequence,
+    under inference mode, on ``params`` cast to the compute dtype on every
+    call as in ``make_prefill_step``.  Attention buffers are written in
+    place (``pos`` must lie inside them); mamba states are replaced."""
+    cfg = run.model
+    dev = resolve_device(device)
+    cdtype = dtype_of(run.compute_dtype)
+
+    @torch.inference_mode()
+    def decode_step(params, cache, tokens, pos):
+        tokens = torch.as_tensor(tokens, device=dev)
+        return api.decode_step(cast_params(params, cdtype), cache, tokens,
+                               pos, cfg)
+
+    return decode_step
 
 
 def make_unified_paged_step(cfg: ModelConfig):

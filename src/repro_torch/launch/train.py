@@ -12,8 +12,8 @@ tokens per second; the run ends with the first and last loss and each
 kernel's launch count.
 
 Not ported yet, and refused with the ROADMAP item that ports them:
-``--arch horn-mnist``, ``--topology`` other than allreduce,
-``--checkpoint-dir`` and a mesh larger than 1 x 1.
+``--arch horn-mnist``, archs with Mamba layers (mamba2-2.7b), ``--topology``
+other than allreduce, ``--checkpoint-dir`` and a mesh larger than 1 x 1.
 """
 from __future__ import annotations
 
@@ -25,9 +25,9 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import (HornConfig, RunConfig, ShapeConfig,
-                                      TopologyConfig, get_model_config,
-                                      list_archs, reduced)
+from repro_torch.configs.base import (MAMBA, HornConfig, RunConfig,
+                                      ShapeConfig, TopologyConfig,
+                                      get_model_config, list_archs, reduced)
 from repro_torch.core import steps as S
 from repro_torch.data.pipeline import (SyntheticTokenPipeline,
                                        TokenPipelineConfig)
@@ -39,6 +39,9 @@ NOT_PORTED = {
     "topology": "ROADMAP slice 2, item 10: group topologies",
     "checkpoint": "ROADMAP slice 2, item 9: checkpoint/checkpointer.py",
     "mesh": "ROADMAP slice 5: scale-out",
+    "mamba": "ROADMAP slice 4, item 18: training through SSM layers needs "
+             "an SSD backward kernel; the ported ssd_chunk_scan is "
+             "forward-only, for prefill",
 }
 
 
@@ -71,6 +74,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 def refuse_unported(args: argparse.Namespace) -> None:
     if args.arch == "horn-mnist":
         what = "horn-mnist"
+    elif MAMBA in get_model_config(args.arch).layer_pattern:
+        what = "mamba"
     elif args.topology != "allreduce":
         what = "topology"
     elif args.checkpoint_dir:

@@ -1,5 +1,5 @@
-"""Model API of the port: the train loss and the unified paged serving
-step (decoder-only LMs)."""
+"""Model API of the port (decoder-only LMs): the train loss, prefill and
+one-token decode over a dense cache, and the unified paged serving step."""
 from __future__ import annotations
 
 import torch
@@ -22,16 +22,45 @@ def paged_step(params, cache, tokens, starts, chunk_lens, block_tables,
     ``logit_index`` ([B, n]) the logits are [B, n, vocab] at those chunk
     positions instead.  The lm head only ever runs on the selected rows."""
     if logit_index is not None:
-        hidden = T.lm_forward(params, tokens, cfg, mode="decode",
-                              cache=cache, cache_index=starts,
-                              block_tables=block_tables,
-                              chunk_lens=chunk_lens, logit_index=logit_index)
+        hidden, _ = T.lm_forward(params, tokens, cfg, mode="decode",
+                                 cache=cache, cache_index=starts,
+                                 block_tables=block_tables,
+                                 chunk_lens=chunk_lens,
+                                 logit_index=logit_index)
         return T.lm_logits(params, hidden, cfg), cache
     last = torch.clamp(chunk_lens.long() - 1, min=0)[:, None]
-    hidden = T.lm_forward(params, tokens, cfg, mode="decode", cache=cache,
-                          cache_index=starts, block_tables=block_tables,
-                          chunk_lens=chunk_lens, logit_index=last)
+    hidden, _ = T.lm_forward(params, tokens, cfg, mode="decode", cache=cache,
+                             cache_index=starts, block_tables=block_tables,
+                             chunk_lens=chunk_lens, logit_index=last)
     return T.lm_logits(params, hidden, cfg)[:, 0], cache
+
+
+def prefill(params, batch, cfg: ModelConfig):
+    """Full-sequence forward for serving: (logits [B, vocab] at the last
+    position, the per-layer cache: attention (k, v) [B, S, KH, D], mamba
+    (raw conv tail, final SSM state)).  The last position is gathered
+    before the final norm (bitwise the same: the norm is row-wise), so the
+    norm and the lm head run on one row per sequence.  The JAX function
+    also returns an encoder output and takes right-padded prompts'
+    ``last_index``; the port's LMs are decoder-only and its callers pass
+    whole prompts."""
+    tokens = torch.as_tensor(batch["tokens"])
+    B, S = tokens.shape
+    idx = torch.full((B, 1), S - 1, device=tokens.device)
+    hidden, cache = T.lm_forward(params, tokens, cfg, mode="prefill",
+                                 remat=False, logit_index=idx)
+    return T.lm_logits(params, hidden, cfg)[:, 0], cache
+
+
+def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig):
+    """One-token decode over a dense cache.  tokens: [B, 1]; cache_index:
+    the position of that token (an int or 0-dim tensor), the same for
+    every sequence.  Returns (logits [B, vocab], the new cache); attention
+    buffers are written in place."""
+    hidden, new_cache = T.lm_forward(params, tokens, cfg, mode="decode",
+                                     remat=False, cache=cache,
+                                     cache_index=cache_index)
+    return T.lm_logits(params, hidden, cfg)[:, 0], new_cache
 
 
 def forward_hidden(params, batch, cfg: ModelConfig, *, horn=None,
@@ -39,7 +68,7 @@ def forward_hidden(params, batch, cfg: ModelConfig, *, horn=None,
     """Train-mode hidden states [B, S, d] (final-normed) of
     ``batch["tokens"]`` [B, S]; ``horn`` as in ``lm_forward``."""
     return T.lm_forward(params, batch["tokens"], cfg, mode="train",
-                        horn=horn, remat=remat)
+                        horn=horn, remat=remat)[0]
 
 
 def model_loss(params, batch, cfg: ModelConfig, *, horn=None,

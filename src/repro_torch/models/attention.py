@@ -1,16 +1,23 @@
-"""GQA attention: the non-paged self-attention branch (training) and the
-paged serving branch.
+"""GQA attention: the non-paged self-attention branch (train and
+prefill), the dense-cache decode branch and the paged serving branch.
 
-``attn_apply`` ports two branches of ``repro.models.attention.attn_apply``.
-Both project q/k/v (qkv bias, qk-norm, RoPE).  With ``cache=None`` (train):
-transpose to [B, H, S, D], run ``flash_attention`` (the CUDA forward and
-backward kernels on a card, the plain version on the CPU) and transpose
-back.  With a page-pool ``cache`` (the unified serving step): append the
-chunk's K/V to the pools in place and run ``paged_chunk_attention``.  Then
-the optional Horn head mask and the out-projection.
+``attn_apply`` ports three branches of
+``repro.models.attention.attn_apply``.  All project q/k/v (qkv bias,
+qk-norm, RoPE).  With ``cache=None`` (train, prefill): transpose to
+[B, H, S, D], run ``flash_attention`` (the CUDA forward and backward
+kernels on a card, the plain version on the CPU) and transpose back; the
+new K/V are returned for a prefill cache.  With a dense ``(k_buf, v_buf)``
+cache and a scalar ``cache_index`` (one-token decode): write the token's
+K/V into the buffers in place (``cache_update``) and run
+``decode_attention``, one masked softmax over the whole buffer.  With a
+page-pool ``cache`` and ``block_tables`` (the unified serving step):
+append the chunk's K/V to the pools in place and run
+``paged_chunk_attention``.  Then the optional Horn head mask and the
+out-projection.
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from repro_torch.configs.base import LOCAL, ModelConfig
@@ -19,6 +26,8 @@ from repro_torch.kernels.paged_attention.ops import (paged_chunk_attention,
                                                      paged_pool_append)
 from repro_torch.models.layers import Norm, apply_rope, mm, norm_apply
 
+f32 = torch.float32
+NEG_INF = -1e30
 
 class Attention(nn.Module):
     """``wq [d, H, hd]``, ``wk``/``wv [d, KH, hd]``, ``wo [H, hd, d]``,
@@ -57,18 +66,64 @@ def _project_qkv(params, x, cfg: ModelConfig, positions, *, use_rope: bool,
     return q, k, v
 
 
+def cache_update(buf, new, pos: int):
+    """Write ``new`` [B, Sq, KH, D] into ``buf`` [B, S_max, KH, D] at
+    token ``pos``, in place.  An update that does not fit raises, where
+    ``dynamic_update_slice`` would clamp ``pos`` and overwrite the last
+    tokens: the same result wherever the JAX function is in range."""
+    pos, Sq = int(pos), new.shape[1]
+    if pos < 0 or pos + Sq > buf.shape[1]:
+        raise ValueError(
+            f"cache_update: tokens {pos}..{pos + Sq - 1} do not fit a cache "
+            f"of {buf.shape[1]} tokens (a prefill's own (k, v) holds only "
+            f"the prompt: decode continues T.decode_cache_of_prefill's)")
+    buf[:, pos:pos + Sq] = new.to(buf.dtype)
+    return buf
+
+
+def decode_attention(q, k_buf, v_buf, *, scale: float, window, softcap,
+                     kv_len, q_positions):
+    """Attention of a few query tokens over a whole dense cache: one masked
+    softmax over [B, KH, G, Sq, S] in f32, keys at or past ``kv_len`` [B]
+    and (with ``window``) keys at or before ``q_position - window``
+    masked.  q: [B, Sq, H, D]; k_buf/v_buf: [B, S, KH, D] -> [B, Sq, H, D]
+    in q's dtype."""
+    B, Sq, H, D = q.shape
+    S, KH = k_buf.shape[1], k_buf.shape[2]
+    qg = q.reshape(B, Sq, KH, H // KH, D)
+    s = torch.einsum("bqhgd,bshd->bhgqs", qg.to(f32), k_buf.to(f32)) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    kp = torch.arange(S, device=q.device)[None, None, :]
+    mask = torch.zeros(B, Sq, S, dtype=f32, device=q.device)
+    qp = q_positions[..., :, None]
+    if window is not None:
+        mask = torch.where(kp <= qp - window, NEG_INF, mask)
+    if kv_len is not None:
+        mask = torch.where(kp >= kv_len[:, None, None], NEG_INF, mask)
+    p = torch.softmax(s + mask[:, None, None], dim=-1)
+    out = torch.einsum("bhgqs,bshd->bqhgd", p.to(v_buf.dtype).to(f32),
+                       v_buf.to(f32))
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
 def attn_apply(params, x, cfg: ModelConfig, *, kind: str, positions,
                cache=None, cache_index=None, block_tables=None,
                chunk_lens=None, head_mask=None):
-    """Attention sublayer for one layer; returns [B, S, d] in x.dtype.
+    """Attention sublayer for one layer; returns (out [B, S, d] in x.dtype,
+    new_kv).
 
-    Train (``cache is None``): x [B, S, d] attends to itself, ``positions``
-    [1, S].  Paged step: x [B, C, d] chunk activations; ``cache`` is this
-    layer's (k_pages, v_pages) [P, psize, KH, D] pair, written in place;
-    ``cache_index`` [B] counts KV tokens already in pages per slot and
-    ``chunk_lens`` [B] the valid tokens of each slot's chunk (decode slots
-    1, prompt chunks up to C, idle slots 0).  ``head_mask`` ([B, 1, H, 1]
-    or None) is Horn's per-group head dropout."""
+    Train and prefill (``cache is None``): x [B, S, d] attends to itself,
+    ``positions`` [1, S]; new_kv is the layer's (k, v) [B, S, KH, D].
+    Dense decode (``cache`` a (k_buf, v_buf) [B, S_max, KH, D] pair,
+    ``block_tables`` None): x [B, 1, d] at position ``cache_index`` (an int
+    or 0-dim tensor); the buffers are written in place and returned.  Paged
+    step: x [B, C, d] chunk activations; ``cache`` is this layer's
+    (k_pages, v_pages) [P, psize, KH, D] pair, written in place and
+    returned; ``cache_index`` [B] counts KV tokens already in pages per
+    slot and ``chunk_lens`` [B] the valid tokens of each slot's chunk
+    (decode slots 1, prompt chunks up to C, idle slots 0).  ``head_mask``
+    ([B, 1, H, 1] or None) is Horn's per-group head dropout."""
     window = cfg.sliding_window if kind == LOCAL else None
     theta = 10_000.0 if (kind == LOCAL and cfg.rope_theta > 1e5) \
         else cfg.rope_theta
@@ -81,6 +136,16 @@ def attn_apply(params, x, cfg: ModelConfig, *, kind: str, positions,
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             scale=scale, causal=True, window=window,
             softcap=cfg.attn_logit_softcap).transpose(1, 2)
+        new_kv = (k, v)
+    elif block_tables is None:
+        k_buf = cache_update(cache[0], k, cache_index)
+        v_buf = cache_update(cache[1], v, cache_index)
+        kv_len = torch.full((x.shape[0],), int(cache_index) + x.shape[1],
+                            device=x.device)
+        out = decode_attention(q, k_buf, v_buf, scale=scale, window=window,
+                               softcap=cfg.attn_logit_softcap, kv_len=kv_len,
+                               q_positions=positions)
+        new_kv = (k_buf, v_buf)
     else:
         k_pages, v_pages = cache
         paged_pool_append(k_pages, k, block_tables, cache_index, chunk_lens)
@@ -89,6 +154,7 @@ def attn_apply(params, x, cfg: ModelConfig, *, kind: str, positions,
             q.contiguous(), k_pages, v_pages, block_tables, cache_index,
             chunk_lens, scale=scale, window=window,
             softcap=cfg.attn_logit_softcap)
+        new_kv = cache
     if head_mask is not None:
         out = out * head_mask.to(out.dtype)
-    return mm("bshk,hkd->bsd", out, params.wo, x.dtype)
+    return mm("bshk,hkd->bsd", out, params.wo, x.dtype), new_kv

@@ -2,8 +2,9 @@
 
 ``init_params`` builds the LM with the JAX package's per-leaf rule
 (``repro/models/params.py::_init_leaf``): normal with std
-``1 / sqrt(fan_in)``, fan-in being the leaf's first dimension (the
-unstacked one), and zeros for RMSNorm scales and biases.  The numbers come
+``scale / sqrt(fan_in)``, fan-in being the leaf's first dimension (the
+unstacked one), ``ones * scale``, and zeros for RMSNorm scales and biases
+(``scale`` is the spec's: 0.5 for mamba's ``A_log`` and convs, else 1).  The numbers come
 from a ``torch.Generator``, so they differ from JAX's for the same seed;
 tests that compare the two packages carry weights over with
 ``load_jax_flat`` instead.
@@ -12,7 +13,9 @@ tests that compare the two packages carry weights over with
 ``repro/checkpoint/checkpointer.py`` writes to ``shard_0.npz`` (or the path
 of such a file), unstacks the ``[R, ...]`` superblock leaves into the
 per-layer blocks and keeps every other shape as it is; ``to_jax_flat`` is
-its inverse.
+its inverse.  ``load_jax_cache``/``to_jax_cache`` carry a dense decode
+cache (``repro/models/transformer.py::init_cache``'s pytree, numpy leaves)
+to and from the port's per-layer list the same way.
 
 A train step differentiates a ``cast_params`` copy of the f32 masters (the
 JAX step differentiates ``cast_tree(params, compute_dtype)``), refreshed
@@ -23,7 +26,7 @@ from __future__ import annotations
 import copy
 import os
 import re
-from typing import Dict, Mapping, Union
+from typing import Dict, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,8 +38,8 @@ from repro_torch.models.transformer import LM
 
 
 def _maker(fill, device, dtype):
-    def make(shape, init: str = "normal"):
-        return nn.Parameter(fill(tuple(shape), init, device, dtype),
+    def make(shape, init: str = "normal", scale: float = 1.0):
+        return nn.Parameter(fill(tuple(shape), init, scale, device, dtype),
                             requires_grad=False)
     return make
 
@@ -49,12 +52,12 @@ def init_params(cfg: ModelConfig, generator, *, device="cuda",
     if isinstance(generator, int):
         generator = torch.Generator(dev).manual_seed(generator)
 
-    def fill(shape, init, device, dtype):
+    def fill(shape, init, scale, device, dtype):
         if init == "zeros":
             return torch.zeros(shape, device=device, dtype=dtype)
         if init == "ones":
-            return torch.ones(shape, device=device, dtype=dtype)
-        std = 1.0 / np.sqrt(max(1, shape[0]))
+            return torch.full(shape, scale, device=device, dtype=dtype)
+        std = scale / np.sqrt(max(1, shape[0]))
         return (torch.randn(shape, generator=generator, device=device,
                             dtype=torch.float32) * std).to(dtype)
 
@@ -91,7 +94,7 @@ def load_jax_flat(flat: Union[Mapping[str, np.ndarray], str, os.PathLike],
         with np.load(flat) as npz:
             flat = {k: npz[k] for k in npz.files}
     model = LM(cfg, _maker(
-        lambda shape, init, device, dtype: torch.empty(
+        lambda shape, init, scale, device, dtype: torch.empty(
             shape, device=device, dtype=dtype), dev, dtype))
     want: Dict[str, nn.Parameter] = dict(model.named_parameters())
     seen = set()
@@ -144,6 +147,51 @@ def to_jax_flat(model: LM, cfg: ModelConfig) -> Dict[str, np.ndarray]:
     for key, leaves in stacks.items():
         flat[key] = np.stack(leaves)
     return flat
+
+
+def load_jax_cache(tree: Mapping, cfg: ModelConfig, *, device="cuda"
+                   ) -> List[Tuple[torch.Tensor, ...]]:
+    """The port's per-layer decode cache holding the JAX cache ``tree``:
+    ``{"blocks": {"l{i}": (a, b)}}`` with ``[R, ...]`` stacked leaves, and
+    ``{"rem": {"r{i}": (a, b)}}`` for remainder layers.  Each layer gets
+    its ``(k, v)`` or ``(conv_state, ssm_state)`` pair, in the leaves'
+    dtypes (bf16 arrives as f32 numpy and stays f32; cast after loading
+    where it matters)."""
+    dev = resolve_device(device)
+    P, R = len(cfg.layer_pattern), cfg.pattern_repeats
+    cache: List = [None] * cfg.num_layers
+    for r in range(R):
+        for i in range(P):
+            cache[r * P + i] = tuple(
+                torch.tensor(np.asarray(leaf)[r], device=dev)
+                for leaf in tree["blocks"][f"l{i}"])
+    for i in range(cfg.pattern_remainder):
+        cache[R * P + i] = tuple(torch.tensor(np.asarray(leaf), device=dev)
+                                 for leaf in tree["rem"][f"r{i}"])
+    return cache
+
+
+def to_jax_cache(cache, cfg: ModelConfig) -> Dict[str, Dict]:
+    """The JAX package's cache pytree of the port's per-layer ``cache``:
+    numpy leaves, superblock layers restacked into ``[R, ...]``; bf16
+    leaves come out as f32 arrays."""
+    P, R = len(cfg.layer_pattern), cfg.pattern_repeats
+
+    def arr(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    tree: Dict[str, Dict] = {}
+    if R:
+        tree["blocks"] = {
+            f"l{i}": tuple(np.stack([arr(cache[r * P + i][k])
+                                     for r in range(R)])
+                           for k in range(len(cache[i])))
+            for i in range(P)}
+    if cfg.pattern_remainder:
+        tree["rem"] = {f"r{i}": tuple(arr(t) for t in cache[R * P + i])
+                       for i in range(cfg.pattern_remainder)}
+    return tree
 
 
 @torch.no_grad()

@@ -1,12 +1,16 @@
-"""Decoder LM assembly: the train forward and the paged serving step.
+"""Decoder LM assembly: the train forward, prefill, dense-cache decode and
+the paged serving step.
 
 The JAX package scans a stacked ``[R, ...]`` superblock; here the stack is
 a ``ModuleList`` of per-layer ``Block``s run by a Python loop, layer ``i``
-having kind ``cfg.layer_kinds()[i]``.  Training rematerialises each block
-in the backward (``torch.utils.checkpoint``) where the JAX package
-checkpoints the superblock scan body; the gradients are the same.  The
-paged KV cache is one ``(k_pages, v_pages)`` pair per layer, written in
-place by every step.
+having kind ``cfg.layer_kinds()[i]`` (attention, local attention or
+Mamba2).  Training rematerialises each block in the backward
+(``torch.utils.checkpoint``) where the JAX package checkpoints the
+superblock scan body; the gradients are the same.  Caches are lists with
+one entry per layer: a dense ``(k_buf, v_buf)`` or ``(conv_state,
+ssm_state)`` pair (``init_cache``), or a paged ``(k_pages, v_pages)`` pair
+(``init_paged_cache``).  Attention buffers and pools are written in place
+by every step; Mamba states are replaced.
 """
 from __future__ import annotations
 
@@ -17,23 +21,29 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN, LOCAL, ModelConfig
+from repro_torch import resolve_device
+from repro_torch.configs.base import ATTN, LOCAL, MAMBA, ModelConfig
 from repro_torch.core import parallel_dropout as pdrop
 from repro_torch.models import layers as L
 from repro_torch.models.attention import Attention, attn_apply
+from repro_torch.models.ssm import Mamba, mamba_apply, ssm_dims
 
 
 class Block(nn.Module):
-    """One decoder layer: ``pre_norm``, ``attn``, ``ffn_norm``, ``mlp`` and,
-    for gemma, ``post_mixer_norm``/``post_ffn_norm``."""
+    """One decoder layer: ``pre_norm``, the mixer (``attn`` or ``mamba``),
+    ``ffn_norm`` and ``mlp`` when ``d_ff > 0`` and, for gemma,
+    ``post_mixer_norm``/``post_ffn_norm``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, make):
         super().__init__()
-        if kind not in (ATTN, LOCAL):
-            raise ValueError(f"the port runs attention layers only, got "
-                             f"{kind!r}")
         self.pre_norm = L.Norm(cfg, cfg.d_model, make)
-        self.attn = Attention(cfg, make)
+        if kind in (ATTN, LOCAL):
+            self.attn = Attention(cfg, make)
+        elif kind == MAMBA:
+            self.mamba = Mamba(cfg, make)
+        else:
+            raise ValueError(f"the port runs attention and mamba layers, "
+                             f"got {kind!r}")
         if cfg.post_sublayer_norm:
             self.post_mixer_norm = L.Norm(cfg, cfg.d_model, make)
         if cfg.d_ff > 0:
@@ -58,6 +68,50 @@ class LM(nn.Module):
         self.final_norm = L.Norm(cfg, cfg.d_model, make)
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               dtype=torch.bfloat16, device="cuda"
+               ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Dense decode caches, one zero-filled pair per layer: attention
+    ``(k, v)`` [B, max_len, KH, D] in ``dtype``; mamba ``(conv_state
+    [B, W-1, d_in + 2N]`` in ``dtype``, ``ssm_state [B, H, P, N]`` f32).
+    ``device="meta"`` gives the shapes and dtypes without memory."""
+    dev = resolve_device(device)
+
+    def mix_cache(kind):
+        if kind in (ATTN, LOCAL):
+            shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+            return (torch.zeros(shape, dtype=dtype, device=dev),
+                    torch.zeros(shape, dtype=dtype, device=dev))
+        d_in, H, P, N = ssm_dims(cfg)
+        return (torch.zeros(batch, cfg.ssm_conv_width - 1, d_in + 2 * N,
+                            dtype=dtype, device=dev),
+                torch.zeros(batch, H, P, N, dtype=torch.float32, device=dev))
+
+    return [mix_cache(kind) for kind in cfg.layer_kinds()]
+
+
+def decode_cache_of_prefill(cfg: ModelConfig, cache, max_len: int):
+    """A prefill's per-layer cache, laid out for dense decode: each
+    attention layer's (k, v) [B, S, KH, D] is copied into the front of
+    zero buffers [B, max_len, KH, D] of the same dtype, so decode
+    continues at position S; mamba entries are kept as they are."""
+    out = []
+    for kind, entry in zip(cfg.layer_kinds(), cache):
+        if kind in (ATTN, LOCAL):
+            S = entry[0].shape[1]
+            if S > max_len:
+                raise ValueError(f"a prompt of {S} tokens does not fit a "
+                                 f"decode cache of {max_len}")
+            bufs = []
+            for t in entry:
+                buf = t.new_zeros((t.shape[0], max_len, *t.shape[2:]))
+                buf[:, :S] = t
+                bufs.append(buf)
+            entry = tuple(bufs)
+        out.append(entry)
+    return out
+
+
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, *,
                      dtype=torch.bfloat16, device="cuda"
                      ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -73,16 +127,21 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, *,
 def _block_apply(bp, x, cfg: ModelConfig, *, kind: str, layer_idx: int,
                  horn=None, positions, cache=None, cache_index=None,
                  block_tables=None, chunk_lens=None):
-    """One decoder layer.  ``horn`` (train only) draws this layer's head
-    and FFN masks with the JAX package's layer index and salts (13 and
-    5)."""
+    """One decoder layer; returns (x, the mixer's new cache).  ``horn``
+    (train only) draws this layer's head, channel and FFN masks with the
+    JAX package's layer index and salts (13, 3 and 5)."""
     B = x.shape[0]
     h = L.norm_apply(bp.pre_norm, x, cfg)
-    out = attn_apply(bp.attn, h, cfg, kind=kind, positions=positions,
-                     cache=cache, cache_index=cache_index,
-                     block_tables=block_tables, chunk_lens=chunk_lens,
-                     head_mask=pdrop.head_mask(horn, layer_idx, B,
-                                               cfg.num_heads))
+    if kind in (ATTN, LOCAL):
+        out, new_cache = attn_apply(
+            bp.attn, h, cfg, kind=kind, positions=positions, cache=cache,
+            cache_index=cache_index, block_tables=block_tables,
+            chunk_lens=chunk_lens,
+            head_mask=pdrop.head_mask(horn, layer_idx, B, cfg.num_heads))
+    else:
+        cm = pdrop.unit_mask(horn, layer_idx, B, ssm_dims(cfg)[0], salt=3)
+        out, new_cache = mamba_apply(bp.mamba, h, cfg, cache=cache,
+                                     channel_mask=cm)
     if cfg.post_sublayer_norm:
         out = L.norm_apply(bp.post_mixer_norm, out, cfg)
     x = x + out.to(x.dtype)
@@ -93,57 +152,74 @@ def _block_apply(bp, x, cfg: ModelConfig, *, kind: str, layer_idx: int,
         if cfg.post_sublayer_norm:
             out = L.norm_apply(bp.post_ffn_norm, out, cfg)
         x = x + out.to(x.dtype)
-    return x
+    return x, new_cache
 
 
 def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
                horn=None, remat: bool = True, cache=None, cache_index=None,
                block_tables=None, chunk_lens=None, logit_index=None):
-    """Returns hidden [B, S, d] (final-normed), or [B, n, d] with
-    ``logit_index``.
+    """Returns (hidden [B, S, d] final-normed, or [B, n, d] with
+    ``logit_index``; the new per-layer cache, None in train mode).
 
     mode "train": tokens [B, S] attend causally to themselves at positions
     ``arange(S)``; ``horn`` (a ``HornState`` or None) masks the embedding
-    channels, each layer's FFN units and, optionally, heads; with
-    ``remat`` every block is recomputed in the backward instead of keeping
-    its activations.
+    channels, each layer's FFN units and mamba channels and, optionally,
+    heads; with ``remat`` every block is recomputed in the backward
+    instead of keeping its activations.
 
-    mode "decode" (the paged serving step): tokens [B, C] right-padded
-    chunks; cache_index: [B] KV tokens already in pages (token j of slot b
-    sits at ``cache_index[b] + j``); chunk_lens: [B]; block_tables:
-    [B, maxp]; ``cache`` from ``init_paged_cache``, appended to in place.
-    ``logit_index`` ([B, n]) gathers n chunk rows from the residual stream
-    before the final norm, so the norm runs on those rows only (bitwise the
-    same as gathering after it: the norm is row-wise); None keeps all C
-    rows."""
-    if mode not in ("train", "decode"):
+    mode "prefill": the same forward without masks; the cache holds each
+    layer's (k, v) [B, S, KH, D] or (raw conv tail, final SSM state).
+
+    mode "decode" with a dense ``cache`` (``init_cache``, or
+    ``decode_cache_of_prefill`` of a prefill's) and no ``block_tables``:
+    tokens [B, 1] at position ``cache_index`` (an int or 0-dim tensor),
+    which must lie inside the attention buffers; they are written in
+    place.
+
+    mode "decode" with ``block_tables`` (the paged serving step): tokens
+    [B, C] right-padded chunks; cache_index: [B] KV tokens already in pages
+    (token j of slot b sits at ``cache_index[b] + j``); chunk_lens: [B];
+    block_tables: [B, maxp]; ``cache`` from ``init_paged_cache``, appended
+    to in place.  ``logit_index`` ([B, n]) gathers n chunk rows from the
+    residual stream before the final norm, so the norm runs on those rows
+    only (bitwise the same as gathering after it: the norm is row-wise);
+    None keeps all C rows."""
+    if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"lm_forward: mode {mode!r} is not ported")
     x = L.embed_apply(params.embed, tokens, cfg)
     B, S = x.shape[:2]
+    steps = torch.arange(S, device=x.device)[None, :]
     if mode == "train":
         im = pdrop.input_mask(horn, B, cfg.d_model)
         if im is not None:
             x = x * im.to(x.dtype)
-        positions = torch.arange(S, device=x.device)[None, :]
-        for li, (bp, kind) in enumerate(zip(params.layers,
-                                            cfg.layer_kinds())):
-            fn = partial(_block_apply, bp, cfg=cfg, kind=kind, layer_idx=li,
-                         horn=horn, positions=positions)
-            x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+    if mode != "decode":
+        positions = steps
+    elif block_tables is None:
+        cache_index = int(cache_index)
+        positions = (cache_index + steps).expand(B, S)
     else:
-        positions = cache_index.long()[:, None] \
-            + torch.arange(S, device=x.device)[None, :]
-        for li, (bp, kind, layer_cache) in enumerate(
-                zip(params.layers, cfg.layer_kinds(), cache)):
-            x = _block_apply(bp, x, cfg, kind=kind, layer_idx=li,
-                             positions=positions, cache=layer_cache,
-                             cache_index=cache_index,
-                             block_tables=block_tables,
-                             chunk_lens=chunk_lens)
+        positions = cache_index.long()[:, None] + steps
+    new_cache = None if mode == "train" else []
+    for li, (bp, kind) in enumerate(zip(params.layers, cfg.layer_kinds())):
+        fn = partial(_block_apply, bp, cfg=cfg, kind=kind, layer_idx=li,
+                     horn=horn, positions=positions,
+                     cache=cache[li] if mode == "decode" else None,
+                     cache_index=cache_index, block_tables=block_tables,
+                     chunk_lens=chunk_lens)
+        if mode == "train":
+            if remat:
+                x = checkpoint(lambda x, fn=fn: fn(x)[0], x,
+                               use_reentrant=False)
+            else:
+                x = fn(x)[0]
+        else:
+            x, layer_cache = fn(x)
+            new_cache.append(layer_cache)
     if logit_index is not None:
         idx = logit_index.long()[..., None].expand(-1, -1, x.shape[-1])
         x = torch.gather(x, 1, idx)
-    return L.norm_apply(params.final_norm, x, cfg)
+    return L.norm_apply(params.final_norm, x, cfg), new_cache
 
 
 def lm_logits(params, hidden, cfg: ModelConfig):

@@ -44,6 +44,7 @@ def test_port_imports_with_jax_blocked():
     for m in ("serving.engine", "launch.serve", "launch.train",
               "kernels.flash_attention.kernel", "kernels.flash_attention.ops",
               "kernels.dropout_matmul.kernel", "kernels.dropout_matmul.ops",
+              "kernels.ssd.kernel", "kernels.ssd.ops", "models.ssm",
               "core.parallel_dropout", "core.submodel", "core.steps",
               "optim.sgd", "data.pipeline"):
         assert f"repro_torch.{m}" in mods, m
@@ -87,6 +88,13 @@ def test_entry_points_refuse_missing_cuda(no_cuda):
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="no CUDA"):
         train.main(["--arch", "qwen3-1.7b", "--steps", "1"])  # cuda default
+    from repro_torch.core import steps
+    run = base.RunConfig(model=reduced(get_model_config("mamba2-2.7b")),
+                         shape=base.ShapeConfig("p", "prefill", 16, 2))
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        steps.make_prefill_step(run)
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        steps.make_decode_step(run)
 
 
 @pytest.mark.parametrize("what", ["bank", "router", "draft", "speculate_k",
@@ -110,6 +118,7 @@ def test_engine_refuses_unported_features(what):
     (["--topology", "local_sgd"], "slice 2, item 10"),
     (["--checkpoint-dir", "ckpt"], "slice 2, item 9"),
     (["--mesh-data", "2"], "slice 5"),
+    (["--arch", "mamba2-2.7b"], "slice 4"),
 ])
 def test_train_cli_refuses_unported_features(argv, item):
     """The trainer names the ROADMAP item that ports what it refuses,
@@ -129,7 +138,7 @@ def test_configs_match_the_jax_package():
     pytest.importorskip("jax")
     from repro.configs import base as jbase
 
-    for arch in ("qwen3-1.7b", "gemma2-27b"):
+    for arch in ("qwen3-1.7b", "gemma2-27b", "mamba2-2.7b"):
         ours, theirs = get_model_config(arch), jbase.get_model_config(arch)
         assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
         assert dataclasses.asdict(reduced(ours)) == \
