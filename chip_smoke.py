@@ -9,22 +9,36 @@ Phases, each of which fails the script (non-zero exit, no result line):
   2. build    builds every kernel of the serving and training paths from
               ``csrc/`` with nvcc (one process per source, all at once).
   3. kernels  each kernel against its plain PyTorch version on the card.
-              Paged attention: qwen3-1.7b and gemma2-27b geometries, chunk
-              widths 1/7/64/256, ragged starts, idle slots, poisoned dead
-              block-table entries.  Flash attention forward and backward
+              Paged chunk attention: qwen3-1.7b and gemma2-27b geometries,
+              chunk widths 1/7/64/256, ragged starts, idle slots, poisoned
+              dead block-table entries, pools of q's dtype and int8.  Paged
+              decode attention: MHA, GQA, MQA (two row groups), qwen3-1.7b
+              and gemma2-27b geometries; plain, window, softcap; lengths
+              that straddle pages, an empty slot, poisoned dead entries;
+              pools of q's dtype and int8; against its plain version and
+              against the chunk kernel at C == 1.  Flash attention forward
+              and backward
               (dq, dk, dv against torch autograd through the plain
               version, same dO): qwen3-1.7b and gemma2-27b geometries,
               causal / window / softcap / non-causal, S 1/7/256/1024.
               Dropout matmul: the JAX sweep's shapes and the full-width
               Horn MLP shape with a random, an all-dropped, an all-live and
-              a one-live-block mask.  All in f32 and bf16.
+              a one-live-block mask.  All with q (or x) in f32 and bf16.
   4. parity   the paged engine (qwen3-1.7b at full width, 2 layers, f32)
               against a plain non-paged recompute of the same model on the
-              card: identical greedy streams.
+              card: identical greedy streams.  Then the same engine on int8
+              pools, on the card and on the CPU plain path: the streams
+              are compared and the first parting token printed.
   5. serve    the serving path: qwen3-1.7b at full width (28 layers, bf16,
               random weights from a seed) serving 16 requests through
-              ``Engine``; every request finishes, the attention kernel is
-              launched once per layer per tick.
+              ``Engine``; every request finishes, and each tick launches
+              one paged kernel once per layer: ``paged_attention`` on the
+              decode-only ticks, ``paged_chunk_attention`` on the others.
+  5b. int8    phase 5's load twice at one HBM budget: bf16 pools of 28
+              pages (below the load's peak, so it preempts), then int8
+              pools of the pages the same bytes hold; int8 preempts
+              strictly less; tok/s, TTFT, latency, tick time, preemptions
+              and the greedy match against bf16 printed.
   6. train    the training path: ``repro_torch.launch.train`` on
               qwen3-1.7b at full width (28 layers, f32 masters, bf16
               compute, Horn on with 4 groups, AdamW at lr 3e-4), batch 8 x
@@ -41,8 +55,11 @@ Phases, each of which fails the script (non-zero exit, no result line):
               output equal to the dense masked path's; then both paths
               timed over the 28 layers, and the block path profiled.
   8. timing   each kernel, its plain version and one PyTorch library call
-              with CUDA events at the shapes its path gives it (paged: a
-              decode tick and a 256-token prompt-chunk tick; flash: the
+              with CUDA events at the shapes its path gives it (paged, on
+              bf16 and on int8 pools: the decode kernel at a decode tick,
+              the chunk kernel at a decode tick and a 256-token
+              prompt-chunk tick, by device time; then both at C == 1 over
+              contexts 16-4096 and at 64 slots; flash: the
               train step's; dropout matmul: the Horn MLP's at keep 1, 0.5
               and 0.25, beside cuBLAS on the kept columns only; SSD chunk
               scan: mamba2-2.7b's prefill, where no single PyTorch call
@@ -65,6 +82,7 @@ Prints one JSON line of kernel numbers, then, as the last line,
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import gc
 import json
@@ -83,11 +101,15 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_S = 3.35e12            # H100 SXM device memory rate
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 CUDA cores; bf16
 TPU_KERNEL = "src/repro/kernels/paged_attention/kernel.py:264"
+DECODE_TPU_KERNEL = "src/repro/kernels/paged_attention/kernel.py:349"
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention/kernel.py:85"
 DM_TPU_KERNEL = "src/repro/kernels/dropout_matmul/kernel.py:48"
 SSD_TPU_KERNEL = "src/repro/kernels/ssd/kernel.py:65"
 TRAIN_STEPS = 4
 SSM_BATCH, SSM_SEQ, SSM_DECODE = 4, 2048, 32    # the ssm phase's prefill
+# the int8 serve phase: phase 5's load on a bf16 pool of this many pages
+# (its peak is 49, so it preempts), against int8 pools of the same bytes
+INT8_SERVE_BF16_PAGES = 28
 
 
 def log(msg: str) -> None:
@@ -122,29 +144,132 @@ def paged_case(torch, dev, dtype, *, B, H, KH, D, psize, maxp, C, seed,
     return (q, kp, vp, *ints), clens
 
 
+def quantize_pools(torch, kp, vp):
+    """int8 pools of ``kp``/``vp`` with their [P, KH] f32 scales, one per
+    (page, kv head), as the int8 serving cache holds them."""
+    from repro_torch.optim.compression import quantize_int8
+
+    (kq, ks), (vq, vs) = (quantize_int8(x.float(), axis=(1, 3))
+                          for x in (kp, vp))
+    return kq, vq, {"k_scale": ks[:, 0, :, 0].contiguous(),
+                    "v_scale": vs[:, 0, :, 0].contiguous()}
+
+
 def phase_kernels(torch, dev, kernel, ref):
+    """The chunk kernel against its plain version, pools of q's dtype and
+    int8 pools (q f32 or bf16); returns the largest error."""
     geoms = {
         "qwen3-1.7b": dict(B=8, H=16, KH=8, D=128, psize=16, maxp=40, kw={}),
         "gemma2-27b": dict(B=8, H=32, KH=16, D=128, psize=16, maxp=38,
                            kw={"window": 64, "softcap": 50.0}),
     }
     tol = {"float32": 2e-5, "bfloat16": 2e-2}
+    worst = 0.0
     for name, g in geoms.items():
-        kw = dict(g.pop("kw"), scale=g["D"] ** -0.5)
-        for dtype in ("float32", "bfloat16"):
-            for C in (1, 7, 64, 256):
-                args, clens = paged_case(torch, dev, getattr(torch, dtype),
-                                         C=C, seed=C, **g)
-                got = kernel.paged_chunk_attention(*args, **kw)
-                want = ref.paged_chunk_attention_ref(*args, **kw)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                torch.testing.assert_close(got.float(), want.float(),
-                                           atol=tol[dtype], rtol=tol[dtype])
-                for b, cl in enumerate(clens):
-                    assert torch.all(got[b, int(cl):] == 0), (name, C, b)
-                log(f"  {name:11s} {dtype:8s} C={C:3d}: max |kernel - "
-                    f"plain| = {err:.3g} (tol {tol[dtype]:g})")
+        kw0 = dict(g.pop("kw"), scale=g["D"] ** -0.5)
+        for pools in ("native", "int8"):
+            for dtype in ("float32", "bfloat16"):
+                for C in (1, 7, 64, 256):
+                    args, clens = paged_case(
+                        torch, dev, getattr(torch, dtype), C=C, seed=C, **g)
+                    kw = dict(kw0)
+                    if pools == "int8":
+                        kq, vq, scales = quantize_pools(torch, *args[1:3])
+                        args = (args[0], kq, vq, *args[3:])
+                        kw.update(scales)
+                    got = kernel.paged_chunk_attention(*args, **kw)
+                    want = ref.paged_chunk_attention_ref(*args, **kw)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    worst = max(worst, err)
+                    torch.testing.assert_close(
+                        got.float(), want.float(), atol=tol[dtype],
+                        rtol=tol[dtype])
+                    for b, cl in enumerate(clens):
+                        assert torch.all(got[b, int(cl):] == 0), (name, C, b)
+                    log(f"  {name:11s} {pools:6s} pools, q {dtype:8s} "
+                        f"C={C:3d}: max |kernel - plain| = {err:.3g} "
+                        f"(tol {tol[dtype]:g})")
+    return worst
+
+
+def decode_case(torch, dev, dtype, *, B, H, KH, D, psize, maxp, seed,
+                int8):
+    """Decode inputs: disjoint pages per slot, slot 0 at the full table,
+    the others at lengths that straddle pages, the last slot empty (length
+    0); dead block-table entries poisoned far outside the pool."""
+    rng = np.random.default_rng(seed)
+    P = B * maxp + 1
+    gen = torch.Generator(dev).manual_seed(seed)
+    q = torch.randn(B, H, D, generator=gen, device=dev).to(dtype)
+    kp, vp = (torch.randn(P, psize, KH, D, generator=gen, device=dev)
+              for _ in range(2))
+    scales = {}
+    if int8:
+        kp, vp, scales = quantize_pools(torch, kp, vp)
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    bt = np.full((B, maxp), 999_999, np.int32)
+    lengths = rng.integers(1, maxp * psize + 1, size=B).astype(np.int32)
+    lengths[0], lengths[-1] = maxp * psize, 0
+    for b in range(B):
+        live = -(-int(lengths[b]) // psize)
+        bt[b, :live] = 1 + b * maxp + np.arange(live)
+    return (q, kp, vp, torch.from_numpy(bt).to(dev),
+            torch.from_numpy(lengths).to(dev)), scales
+
+
+def phase_decode_kernels(torch, dev, kernel, ref):
+    """The decode kernel against its plain version, and against the chunk
+    kernel at C == 1 (starts = lengths - 1, chunk_lens = 1; a length-0
+    slot as an idle row): MHA, GQA, MQA with 16 heads on one kv head (two
+    row groups), qwen3-1.7b's and gemma2-27b's decode geometries; plain,
+    window and softcap; pools of q's dtype and int8; q f32 and bf16.
+    Tolerance f32 2e-5, bf16 2e-2 against both (summation order; one bf16
+    ulp at |x| ~ 1 is 7.8e-3).  Returns the largest error of each check."""
+    geoms = {
+        "MHA": dict(B=3, H=4, KH=4, D=32, psize=8, maxp=5),
+        "GQA": dict(B=3, H=8, KH=2, D=64, psize=16, maxp=6),
+        "MQA": dict(B=2, H=16, KH=1, D=128, psize=16, maxp=10),
+        "qwen3-1.7b": dict(B=8, H=16, KH=8, D=128, psize=16, maxp=40),
+        "gemma2-27b": dict(B=8, H=32, KH=16, D=128, psize=16, maxp=38),
+    }
+    variants = {"plain": {}, "window": {"window": 64},
+                "softcap": {"softcap": 50.0}}
+    tol = {"float32": 2e-5, "bfloat16": 2e-2}
+    worst = {"plain": 0.0, "chunk_c1": 0.0}
+    for name, g in geoms.items():
+        for pools in ("native", "int8"):
+            for dtype in ("float32", "bfloat16"):
+                errs = {"plain": 0.0, "chunk_c1": 0.0}
+                for i, (vname, vkw) in enumerate(variants.items()):
+                    args, scales = decode_case(
+                        torch, dev, getattr(torch, dtype), seed=i,
+                        int8=pools == "int8", **g)
+                    kw = dict(vkw, scale=g["D"] ** -0.5, **scales)
+                    q, kp, vp, bt, lengths = args
+                    got = kernel.paged_attention(*args, **kw)
+                    want = ref.paged_attention_ref(*args, **kw)
+                    live = (lengths > 0).to(torch.int32)
+                    chk = kernel.paged_chunk_attention(
+                        q[:, None].contiguous(), kp, vp, bt,
+                        (lengths - 1) * live, live, **kw)[:, 0]
+                    torch.cuda.synchronize()
+                    assert torch.all(got[-1] == 0), (name, vname)
+                    for what, w in (("plain", want), ("chunk_c1", chk)):
+                        errs[what] = max(errs[what], (got.float() - w.float())
+                                         .abs().max().item())
+                        torch.testing.assert_close(
+                            got.float(), w.float(), atol=tol[dtype],
+                            rtol=tol[dtype], msg=lambda m: f"{name} {pools} "
+                            f"{dtype} {vname} vs {what}: {m}")
+                for k in worst:
+                    worst[k] = max(worst[k], errs[k])
+                log(f"  decode {name:11s} {pools:6s} pools, q {dtype:8s} "
+                    f"plain/window/softcap: max |kernel - plain| = "
+                    f"{errs['plain']:.3g}, |kernel - chunk kernel at C=1| = "
+                    f"{errs['chunk_c1']:.3g} (tol {tol[dtype]:g})")
+    return worst
 
 
 def flash_case(torch, dev, dtype, B, H, KH, S, D, seed):
@@ -396,6 +521,52 @@ def phase_parity(torch, dev):
         f"{eng.stats.prefill_tokens} prefill tokens): paged streams == "
         f"dense recompute")
     eng.pool.check_invariants()
+    return phase_parity_int8(torch, dev, cfg, params, ecfg, prompts, max_new)
+
+
+def phase_parity_int8(torch, dev, cfg, params, ecfg, prompts, max_new):
+    """The same engine with int8 pools on the card (both paged kernels)
+    and on the CPU (the plain versions), same weights: the greedy streams
+    are compared token by token.  Quantize-on-append rounds K/V that
+    differ in the last bit between the two devices' GEMMs to neighbouring
+    int8 values now and then, so a stream may part; the first parting
+    token is printed, not asserted."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import kernel
+    from repro_torch.serving import Engine
+
+    ecfg = dataclasses.replace(ecfg, kv_dtype="int8")
+    streams = {}
+    for where, p in (("card", params), ("cpu", copy.deepcopy(params).to(
+            "cpu"))):
+        eng = Engine(cfg, p, ecfg, device=dev if where == "card" else "cpu")
+        for prompt in prompts:
+            eng.submit(prompt, max_new)
+        build.reset_launches()
+        streams[where] = {r.id: list(r.out_tokens) for r in eng.run()}
+        eng.pool.check_invariants()
+        assert all(len(t) == max_new for t in streams[where].values())
+        if where == "card":
+            s = eng.stats
+            assert s.decode_launches == cfg.num_layers * s.decode_ticks > 0
+            assert build.LAUNCHES[kernel.NAME_DECODE] == s.decode_launches
+            assert build.LAUNCHES[kernel.NAME] + s.decode_launches == \
+                cfg.num_layers * s.steps
+        del eng
+    card, cpu = streams["card"], streams["cpu"]
+    same = sum(a == b for i in card for a, b in zip(card[i], cpu[i]))
+    total = sum(len(t) for t in card.values())
+    first = next(((i, j, card[i][j], cpu[i][j]) for i in sorted(card)
+                  for j in range(max_new) if card[i][j] != cpu[i][j]), None)
+    if first is None:
+        log(f"  int8 pools: streams on the card == streams of the CPU plain "
+            f"path ({total} tokens)")
+    else:
+        log(f"  int8 pools: {same}/{total} tokens equal card vs CPU plain "
+            f"path; first parting: request {first[0]} token {first[1]} "
+            f"(card {first[2]}, CPU {first[3]})")
+    return {"int8_tokens": total, "int8_equal": same,
+            "int8_first_parting": first}
 
 
 # ---------------------------------------------------------------------------
@@ -428,15 +599,20 @@ def phase_serve(torch, dev, build, kernel):
                              max_prompt=256, gen=gen)]
     build.reset_launches()
     wall = drive(eng, pending)
-    launches = build.LAUNCHES[kernel.NAME]
+    launches = {n: build.LAUNCHES[n] for n in (kernel.NAME,
+                                               kernel.NAME_DECODE)}
     r = summarize(eng, wall)
 
     assert r["requests"] == len(pending), r
     for req in eng.sched.finished:
         assert len(req.out_tokens) == gen, (req.id, len(req.out_tokens))
         assert all(0 <= t < cfg.vocab_size for t in req.out_tokens)
-    assert launches == cfg.num_layers * eng.stats.steps > 0, \
-        (launches, eng.stats.steps)
+    s = eng.stats
+    assert sum(launches.values()) == cfg.num_layers * s.steps > 0, \
+        (launches, s.steps)
+    assert launches[kernel.NAME_DECODE] == s.decode_launches == \
+        cfg.num_layers * s.decode_ticks > 0, (launches, s.decode_ticks)
+    assert launches[kernel.NAME] > 0, launches
     for k, v in eng.cache:
         assert torch.isfinite(k).all() and torch.isfinite(v).all()
     # the lm head on a fresh prompt is finite too (NaN would hide in argmax)
@@ -457,9 +633,99 @@ def phase_serve(torch, dev, build, kernel):
         f"{r['ttft_p50_s'] * 1e3:.1f} ms  latency p50 "
         f"{r['latency_p50_s'] * 1e3:.1f} ms  p99 "
         f"{r['latency_p99_s'] * 1e3:.1f} ms  wall {wall:.3f} s")
-    log(f"  {kernel.NAME} launches: {launches} = {cfg.num_layers} layers x "
-        f"{eng.stats.steps} ticks")
+    log(f"  {kernel.NAME_DECODE} launches: {launches[kernel.NAME_DECODE]}"
+        f" = {cfg.num_layers} layers x {s.decode_ticks} decode-only ticks; "
+        f"{kernel.NAME} launches: {launches[kernel.NAME]} = "
+        f"{cfg.num_layers} layers x {s.steps - s.decode_ticks} ticks with "
+        f"prompt chunks")
     return launches, r, eng
+
+
+def phase_int8_serve(torch, dev, build, kernel):
+    """Phase 5's load (the same 16 prompts after the same 2 warm-up
+    requests, 8 slots, 32 new tokens each) on qwen3-1.7b at full width,
+    bf16 weights and compute, twice at one HBM budget: bf16 pools of
+    ``INT8_SERVE_BF16_PAGES`` pages, below the load's peak of 49, so it
+    preempts, then int8 pools of as many pages as the same bytes hold
+    (``kv_page_bytes``: 65,536 against 32,832 bytes a page and layer).
+    Every request finishes with 32 in-vocabulary tokens, both kernels
+    launch once per layer per tick, the pools and scales are finite, and
+    int8 preempts strictly less than bf16 (the JAX benchmark's own
+    condition, ``serving_bench.py::int8_phase``).  The greedy match
+    against the bf16 run is printed: the weights are random."""
+    from repro_torch.configs.base import get_model_config
+    from repro_torch.launch.serve import drive, make_requests, summarize
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.serving.kv_cache import kv_page_bytes
+
+    cfg = get_model_config("qwen3-1.7b")
+    params = init_params(cfg, 0, device=dev, dtype=torch.bfloat16)
+    gen = 32
+    rng = np.random.default_rng(0)            # phase 5's draws
+    warm = [(0.0, p, 4) for _, p, _ in make_requests(
+        2, cfg.vocab_size, rng, stream="batch", max_prompt=256, gen=4)]
+    pending = [(0.0, p, gen) for _, p, _ in make_requests(
+        16, cfg.vocab_size, rng, stream="batch", max_prompt=256, gen=gen)]
+    geom = (16, cfg.num_kv_heads, cfg.head_dim)
+    page_bytes = {kv: kv_page_bytes(*geom, kv) for kv in ("bfloat16", "int8")}
+    budget = INT8_SERVE_BF16_PAGES * page_bytes["bfloat16"]
+    out, streams = {}, {}
+    for kv in ("bfloat16", "int8"):
+        pages = budget // page_bytes[kv]
+        eng = Engine(cfg, params, EngineConfig(
+            num_slots=8, num_pages=pages, page_size=16, max_prompt_len=256,
+            max_new_tokens=gen, token_budget=256, policy="on_demand",
+            kv_dtype=kv, compute_dtype="bfloat16"), device=dev)
+        drive(eng, warm)
+        eng.reset_stats()
+        build.reset_launches()
+        wall = drive(eng, pending)
+        launches = {n: build.LAUNCHES[n] for n in (kernel.NAME,
+                                                   kernel.NAME_DECODE)}
+        r = summarize(eng, wall)
+        s = eng.stats
+        assert r["requests"] == len(pending), r
+        for req in eng.sched.finished:
+            assert len(req.out_tokens) == gen, (kv, req.id)
+            assert all(0 <= t < cfg.vocab_size for t in req.out_tokens)
+        assert sum(launches.values()) == cfg.num_layers * s.steps, launches
+        assert launches[kernel.NAME_DECODE] == \
+            cfg.num_layers * s.decode_ticks > 0, launches
+        for layer in eng.cache:
+            for t in layer:
+                assert t.dtype == torch.int8 or torch.isfinite(t).all(), kv
+        streams[kv] = {req.id: list(req.out_tokens)
+                       for req in eng.sched.finished}
+        r.update(kv_dtype=kv, num_pages=pages, pool_bytes_per_layer=pages *
+                 page_bytes[kv], tick_ms=wall / max(s.steps, 1) * 1e3,
+                 launches=launches)
+        out[kv] = r
+        mib = pages * page_bytes[kv] / 2**20
+        log(f"  {kv:8s} pools, {pages} pages x 16 tokens ({mib:.2f} MiB a "
+            f"layer): {r['ticks']} ticks, "
+            f"preemptions {r['preemptions']}, peak use "
+            f"{r['peak_utilization']:.0%}; {r['tok_s']:.1f} tok/s  TTFT p50 "
+            f"{r['ttft_p50_s'] * 1e3:.1f} ms  latency p50 "
+            f"{r['latency_p50_s'] * 1e3:.1f} ms  p99 "
+            f"{r['latency_p99_s'] * 1e3:.1f} ms  tick {r['tick_ms']:.2f} ms")
+        log(f"    {kernel.NAME_DECODE} launches "
+            f"{launches[kernel.NAME_DECODE]} = {cfg.num_layers} x "
+            f"{s.decode_ticks} decode-only ticks; {kernel.NAME} launches "
+            f"{launches[kernel.NAME]}")
+        del eng
+        gc.collect()
+    assert out["int8"]["preemptions"] < out["bfloat16"]["preemptions"], out
+    a, b = streams["bfloat16"], streams["int8"]
+    same = sum(x == y for i in a for x, y in zip(a[i], b[i]))
+    total = sum(len(t) for t in a.values())
+    out["greedy_match"] = same / total
+    log(f"  int8 preemptions {out['int8']['preemptions']} < bf16 "
+        f"{out['bfloat16']['preemptions']} at {budget / 2**20:.2f} MiB a "
+        f"layer; greedy tokens equal to the bf16 run: {same}/{total} "
+        f"({same / total:.1%}, random weights)")
+    del params
+    return out
 
 
 def device_events(torch, fn):
@@ -506,12 +772,13 @@ def phase_tick_profile(torch, eng, kernel):
         log("  device time per tick: not measured (no device events)")
         return out
     attn = sum(e.self_device_time_total for e in events
-               if kernel.NAME in e.key) / n / 1e3
+               if kernel.NAME in e.key or kernel.NAME_DECODE in e.key
+               ) / n / 1e3
     out.update(device_busy_ms=busy, attn_ms=attn, kernels_per_tick=sum(
         e.count for e in events) / n)
     log(f"  device busy {busy:.2f} ms a tick ({busy / wall_ms:.1%} of the "
         f"wall, profiled), {out['kernels_per_tick']:.0f} device ops a tick, "
-        f"{kernel.NAME} {attn:.3f} ms")
+        f"paged attention kernels {attn:.3f} ms")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"    {e.self_device_time_total / n / 1e3:7.3f} ms  "
             f"x{e.count / n:5.0f}  {e.key[:90]}")
@@ -719,12 +986,25 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
-def tick_inputs(torch, dev, shape: str, copies: int):
-    """A tick of the serve phase at bf16: ``decode`` is 8 slots at context
-    288 (a 256-token prompt plus 32 generated); ``prefill_chunk`` is slot 0
-    admitting a 256-token prompt chunk beside 7 decode slots.  ``copies``
-    independent pools (76 MB together, more than the 50 MB L2) keep each
-    launch's K/V cold, as between the layers of a real tick."""
+def device_ms(torch, fn, iters: int = 50):
+    """Device time per call of ``fn(i)``: the device time of every kernel
+    it launches, summed under torch.profiler over ``iters`` calls; None
+    when the profiler sees no device activity.  For a kernel shorter than
+    its wrapper's host time (~30 us for the paged kernels) CUDA events
+    over back-to-back calls time the host's enqueue, not the device."""
+    events = device_events(torch, lambda: [fn(i) for i in range(iters)])
+    busy = sum(e.self_device_time_total for e in events)
+    return busy / iters / 1e3 if busy > 0 else None
+
+
+def tick_inputs(torch, dev, shape: str, copies: int, int8: bool):
+    """A tick of the serve phase, q in bf16: ``decode`` is 8 slots at
+    context 288 (a 256-token prompt plus 32 generated); ``prefill_chunk`` is
+    slot 0 admitting a 256-token prompt chunk beside 7 decode slots.
+    ``copies`` independent pools (76 MB together in bf16, more than the 50
+    MB L2) keep each launch's K/V cold, as between the layers of a real
+    tick; with ``int8`` each pool is quantized per (page, kv head) and
+    carries its scales."""
     B, H, KH, D, psize, ctx = 8, 16, 8, 128, 16, 288
     C = 1 if shape == "decode" else 256
     maxp = ctx // psize
@@ -732,9 +1012,12 @@ def tick_inputs(torch, dev, shape: str, copies: int):
     gen = torch.Generator(dev).manual_seed(7)
     q = torch.randn(B, C, H, D, generator=gen, device=dev,
                     dtype=torch.float32).to(torch.bfloat16)
-    pools = [tuple(torch.randn(P, psize, KH, D, generator=gen, device=dev,
-                               dtype=torch.float32).to(torch.bfloat16)
-                   for _ in range(2)) for _ in range(copies)]
+    pools = []
+    for _ in range(copies):
+        kp, vp = (torch.randn(P, psize, KH, D, generator=gen, device=dev,
+                              dtype=torch.float32).to(torch.bfloat16)
+                  for _ in range(2))
+        pools.append(quantize_pools(torch, kp, vp) if int8 else (kp, vp, {}))
     bt = (1 + torch.arange(B * maxp, dtype=torch.int32, device=dev)
           ).reshape(B, maxp)
     starts = torch.full((B,), ctx - 1, dtype=torch.int32, device=dev)
@@ -744,15 +1027,19 @@ def tick_inputs(torch, dev, shape: str, copies: int):
     return q, pools, bt, starts, clens
 
 
-def work(q, KH, starts, clens, itemsize):
+def work(q, KH, starts, clens, psize, int8):
     """Bytes the function must move and flops it must do on these inputs
-    (no window): each live key's K and V once per (slot, kv head), each
-    valid q row once, the whole output once; 4 flops per (row, visible
-    key, dim)."""
+    (bf16 q and output, no window): each live key's K and V once per
+    (slot, kv head), in bf16 or in int8 plus the f32 K and V scale of each
+    live (page, kv head); each valid q row once, the whole output once; 4
+    flops per (row, visible key, dim)."""
     B, C, H, D = q.shape
-    nbytes, flops = B * C * H * D * itemsize, 0
+    kv_bytes = 1 if int8 else 2
+    nbytes, flops = B * C * H * D * 2, 0
     for s, c in zip(starts.tolist(), clens.tolist()):
-        nbytes += (s + c) * KH * D * 2 * itemsize + c * H * D * itemsize
+        nbytes += (s + c) * KH * D * 2 * kv_bytes + c * H * D * 2
+        if int8:
+            nbytes += -(-(s + c) // psize) * KH * 4 * 2
         flops += sum(4 * H * D * (s + j + 1) for j in range(c))
     return nbytes, flops
 
@@ -764,69 +1051,159 @@ def bound(nbytes, flops, dtype="bfloat16"):
 
 
 def phase_timing(torch, dev, kernel, ref):
+    """Both paged kernels at the serve phase's tick shapes, bf16 q, bf16 and
+    int8 pools: the decode kernel at the decode tick, the chunk kernel at
+    the decode tick and at the prompt-chunk tick; each beside its plain
+    version, SDPA with ``enable_gqa`` on K/V gathered (and dequantized to
+    bf16) in advance, the gather not timed, and the bound.  ``ms``,
+    ``plain_ms`` and ``library_ms`` are device time per call
+    (``device_ms``); the CUDA-event times of back-to-back calls, which
+    include the host's enqueue where it is the slower side, are kept as
+    ``*_event_ms``.  Returns {kernel name: {shape: numbers}}."""
     import torch.nn.functional as F
 
-    out = {}
+    out = {kernel.NAME: {}, kernel.NAME_DECODE: {}}
     scale = 128 ** -0.5
-    for shape in ("decode", "prefill_chunk"):
-        copies = 8
-        q, pools, bt, starts, clens = tick_inputs(torch, dev, shape, copies)
-        psize, KH = pools[0][0].shape[1], pools[0][0].shape[2]
+    copies = 8
+    runs = [(kernel.NAME_DECODE, "decode"), (kernel.NAME, "decode"),
+            (kernel.NAME, "prefill_chunk")]
+    for int8 in (False, True):
+        for name, shape in runs:
+            q, pools, bt, starts, clens = tick_inputs(torch, dev, shape,
+                                                      copies, int8)
+            psize, KH = pools[0][0].shape[1], pools[0][0].shape[2]
+            if name == kernel.NAME_DECODE:
+                qd, lengths = q[:, 0].contiguous(), starts + clens
+                fns = (kernel.paged_attention, ref.paged_attention_ref)
 
-        def run_kernel(i):
-            kp, vp = pools[i % copies]
-            return kernel.paged_chunk_attention(q, kp, vp, bt, starts, clens,
-                                                scale=scale)
+                def call(fn, i):
+                    kp, vp, sc = pools[i % copies]
+                    return fn(qd, kp, vp, bt, lengths, scale=scale, **sc)
+            else:
+                fns = (kernel.paged_chunk_attention,
+                       ref.paged_chunk_attention_ref)
 
-        def run_plain(i):
-            kp, vp = pools[i % copies]
-            return ref.paged_chunk_attention_ref(q, kp, vp, bt, starts,
-                                                 clens, scale=scale)
+                def call(fn, i):
+                    kp, vp, sc = pools[i % copies]
+                    return fn(q, kp, vp, bt, starts, clens, scale=scale,
+                              **sc)
 
-        got, want = run_kernel(0), run_plain(0)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
-                                   rtol=2e-2)
-        # the library yardstick: SDPA on K/V gathered in advance (the
-        # gather is not timed), GQA without repeating K/V
-        B, C, H, D = q.shape
-        S = bt.shape[1] * psize
-        gathered = []
-        for kp, vp in pools:
-            g = [x[bt.long()].reshape(B, S, KH, D).transpose(1, 2)
-                 .contiguous() for x in (kp, vp)]
-            gathered.append(g)
-        qt = q.transpose(1, 2).contiguous()
-        kpos = torch.arange(S, device=dev)[None, None, :]
-        qpos = (starts.long()[:, None]
-                + torch.arange(C, device=dev)[None, :])[..., None]
-        mask = (kpos < (starts + clens).long()[:, None, None]) & \
-            (kpos <= qpos)
-        mask = None if shape == "decode" else mask[:, None]
+            got, want = call(fns[0], 0), call(fns[1], 0)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                       rtol=2e-2)
+            # the library yardstick: SDPA on K/V gathered (and dequantized)
+            # in advance, GQA without repeating K/V
+            B, C, H, D = q.shape
+            S = bt.shape[1] * psize
+            gathered = []
+            for kp, vp, sc in pools:
+                g = []
+                for x, xs in ((kp, sc.get("k_scale")),
+                              (vp, sc.get("v_scale"))):
+                    x = ref.dequantize_pages(x[bt.long()], None if xs is None
+                                             else xs[bt.long()])
+                    g.append(x.to(torch.bfloat16).reshape(B, S, KH, D)
+                             .transpose(1, 2).contiguous())
+                gathered.append(g)
+            qt = q.transpose(1, 2).contiguous()
+            kpos = torch.arange(S, device=dev)[None, None, :]
+            qpos = (starts.long()[:, None]
+                    + torch.arange(C, device=dev)[None, :])[..., None]
+            mask = (kpos < (starts + clens).long()[:, None, None]) & \
+                (kpos <= qpos)
+            mask = None if shape == "decode" else mask[:, None]
 
-        def run_library(i):
-            k, v = gathered[i % copies]
-            return F.scaled_dot_product_attention(
-                qt, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
+            def run_library(i):
+                k, v = gathered[i % copies]
+                return F.scaled_dot_product_attention(
+                    qt, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
 
-        ms = cuda_ms(torch, run_kernel, 200)
-        plain_ms = cuda_ms(torch, run_plain, 20)
-        library_ms = cuda_ms(torch, run_library, 200)
-        nbytes, flops = work(q, KH, starts, clens, 2)
-        b_ms, b_by = bound(nbytes, flops)
-        out[shape] = {
-            "B": B, "C": C, "H": H, "KH": KH, "D": D, "psize": psize,
-            "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": nbytes, "flops": flops, "max_abs_err": err,
-            "grid_blocks": -(-C * (H // KH) // 16) * KH * B,
-        }
-        log(f"  {shape:13s} kernel {ms * 1e3:8.2f} us  plain "
-            f"{plain_ms * 1e3:9.2f} us  SDPA {library_ms * 1e3:8.2f} us  "
-            f"bound {out[shape]['bound_ms'] * 1e3:6.2f} us "
-            f"({out[shape]['bound_by']}, {nbytes / 1e6:.2f} MB)  "
-            f"max err {err:.3g}")
+            ev = {"ms": cuda_ms(torch, lambda i: call(fns[0], i), 200),
+                  "plain_ms": cuda_ms(torch, lambda i: call(fns[1], i), 20),
+                  "library_ms": cuda_ms(torch, run_library, 200)}
+            dv = {"ms": device_ms(torch, lambda i: call(fns[0], i)),
+                  "plain_ms": device_ms(torch, lambda i: call(fns[1], i), 10),
+                  "library_ms": device_ms(torch, run_library)}
+            ms, plain_ms, library_ms = (dv[k] if dv[k] is not None else ev[k]
+                                        for k in ("ms", "plain_ms",
+                                                  "library_ms"))
+            nbytes, flops = work(q, KH, starts, clens, psize, int8)
+            b_ms, b_by = bound(nbytes, flops)
+            key = shape + ("_int8" if int8 else "")
+            out[name][key] = {
+                "B": B, "C": C, "H": H, "KH": KH, "D": D, "psize": psize,
+                "dtype": "bfloat16", "pools": "int8" if int8 else "bfloat16",
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "timed_by": "device" if dv["ms"] is not None else "events",
+                "event_ms": ev["ms"], "plain_event_ms": ev["plain_ms"],
+                "library_event_ms": ev["library_ms"],
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                "flops": flops, "max_abs_err": err,
+                "grid_blocks": (-(-(H // KH) // 8) * KH * B
+                                if name == kernel.NAME_DECODE else
+                                -(-C * (H // KH) // 16) * KH * B),
+            }
+            log(f"  {name:21s} {key:18s} device: kernel {ms * 1e3:7.2f} us "
+                f" plain {plain_ms * 1e3:8.2f} us  SDPA "
+                f"{library_ms * 1e3:7.2f} us  bound {b_ms * 1e3:5.2f} us "
+                f"({b_by}, {nbytes / 1e6:.2f} MB); events: kernel "
+                f"{ev['ms'] * 1e3:.2f} us  max err {err:.3g}")
+            del pools, gathered
+    return out
+
+
+def phase_decode_sweep(torch, dev, kernel):
+    """Device time of the decode kernel against the chunk kernel at C == 1
+    on the same decode ticks (qwen3-1.7b heads, bf16 q, bf16 and int8
+    pools, every slot at one context): 8 slots at context 16 to 4096, and
+    64 slots at context 288, where 512 blocks no longer fit the card at
+    once.  Where the split over pages (flash-decoding) would pay."""
+    H, KH, D, psize = 16, 8, 128, 16
+    out = []
+    points = [(8, ctx) for ctx in (16, 128, 288, 1024, 4096)] + [(64, 288)]
+    for int8 in (False, True):
+        for B, ctx in points:
+            maxp = ctx // psize
+            gen = torch.Generator(dev).manual_seed(ctx)
+            q = torch.randn(B, H, D, generator=gen, device=dev).to(
+                torch.bfloat16)
+            kp, vp = (torch.randn(B * maxp + 1, psize, KH, D, generator=gen,
+                                  device=dev).to(torch.bfloat16)
+                      for _ in range(2))
+            sc = {}
+            if int8:
+                kp, vp, sc = quantize_pools(torch, kp, vp)
+            bt = (1 + torch.arange(B * maxp, dtype=torch.int32, device=dev)
+                  ).reshape(B, maxp)
+            lengths = torch.full((B,), ctx, dtype=torch.int32, device=dev)
+            qc = q[:, None].contiguous()
+            kw = dict(scale=D ** -0.5, **sc)
+
+            def dec(i):
+                return kernel.paged_attention(q, kp, vp, bt, lengths, **kw)
+
+            def chk(i):
+                return kernel.paged_chunk_attention(
+                    qc, kp, vp, bt, lengths - 1, torch.ones_like(lengths),
+                    **kw)
+
+            torch.testing.assert_close(dec(0).float(), chk(0)[:, 0].float(),
+                                       atol=2e-2, rtol=2e-2)
+            row = {"pools": "int8" if int8 else "bfloat16", "B": B,
+                   "ctx": ctx, "decode_ms": device_ms(torch, dec),
+                   "chunk_ms": device_ms(torch, chk)}
+            out.append(row)
+            if row["decode_ms"] is None or row["chunk_ms"] is None:
+                log(f"  sweep {row['pools']:8s} B {B:2d} ctx {ctx:4d}: "
+                    f"device time not measured (no device events)")
+                continue
+            log(f"  sweep {row['pools']:8s} B {B:2d} ctx {ctx:4d}: "
+                f"{kernel.NAME_DECODE} {row['decode_ms'] * 1e3:7.2f} us, "
+                f"{kernel.NAME} at C=1 {row['chunk_ms'] * 1e3:7.2f} us "
+                f"(device)")
+            del q, kp, vp, sc
     return out
 
 
@@ -1216,24 +1593,33 @@ def main() -> int:
 
     log("phase 2: build")
     t0 = time.perf_counter()
-    sources = [kernel.SOURCE, fkernel.SOURCE, dkernel.SOURCE, skernel.SOURCE]
+    sources = [kernel.SOURCE, kernel.SOURCE_DECODE, fkernel.SOURCE,
+               dkernel.SOURCE, skernel.SOURCE]
     build.build(sources)
     log(f"  {', '.join(str(s.relative_to(ROOT)) for s in sources)} built "
         f"in {time.perf_counter() - t0:.1f} s")
 
     log("phase 3: kernels against their plain versions")
-    phase_kernels(torch, dev, kernel, ref)
+    chunk_sweep_err = phase_kernels(torch, dev, kernel, ref)
+    decode_sweep_err = phase_decode_kernels(torch, dev, kernel, ref)
     flash_sweep_err = phase_flash_kernels(torch, dev, fkernel, fref)
     dm_sweep_err = phase_dropout_kernels(torch, dev, dkernel, dref)
     ssd_sweep_err = phase_ssd_kernels(torch, dev, skernel, sref)
 
     log("phase 4: paged engine against a dense recompute")
-    phase_parity(torch, dev)
+    parity = phase_parity(torch, dev)
 
     log("phase 5: serve qwen3-1.7b (28 layers, bf16)")
     launches, served, eng = phase_serve(torch, dev, build, kernel)
     served["tick_profile"] = phase_tick_profile(torch, eng, kernel)
+    served["parity_int8"] = parity
     del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 5b: serve qwen3-1.7b (28 layers, bf16) on bf16 and on int8 "
+        "pools of equal bytes")
+    served["int8"] = phase_int8_serve(torch, dev, build, kernel)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1250,6 +1636,7 @@ def main() -> int:
 
     log("phase 8: timing")
     shapes = phase_timing(torch, dev, kernel, ref)
+    decode_sweep = phase_decode_sweep(torch, dev, kernel)
     flash = phase_flash_timing(torch, dev, fkernel, fref)
     dm = phase_dropout_timing(torch, dev, dkernel, dref)
     ssd = phase_ssd_timing(torch, dev, skernel, sref)
@@ -1263,16 +1650,27 @@ def main() -> int:
     ssm = phase_ssm(torch, dev, build, skernel)
     ssm["parity"] = ssm_parity
 
-    d = shapes["decode"]
-    kernels = [{
-        "name": kernel.NAME, "route": "cuda",
-        "source": str(kernel.SOURCE.relative_to(ROOT)),
-        "replaces": TPU_KERNEL, "launches": launches,
-        "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
-        "ms": d["ms"], "kernel_ms": d["ms"], "plain_ms": d["plain_ms"],
-        "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
-        "library_ms": d["library_ms"], "shapes": shapes,
-    }]
+    # headline shapes: the prompt-chunk tick for the chunk kernel (decode
+    # ticks go to the decode kernel), the decode tick for the decode kernel
+    kernels = []
+    for name, source, tpu, shape, sweep_err in (
+            (kernel.NAME, kernel.SOURCE, TPU_KERNEL, "prefill_chunk",
+             chunk_sweep_err),
+            (kernel.NAME_DECODE, kernel.SOURCE_DECODE, DECODE_TPU_KERNEL,
+             "decode", max(decode_sweep_err.values()))):
+        d = shapes[name][shape]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": str(source.relative_to(ROOT)), "replaces": tpu,
+            "launches": launches[name],
+            "max_abs_err": max([sweep_err] + [s["max_abs_err"] for s in
+                                              shapes[name].values()]),
+            "ms": d["ms"], "kernel_ms": d["ms"], "plain_ms": d["plain_ms"],
+            "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+            "library_ms": d["library_ms"], "headline_shape": shape,
+            "shapes": shapes[name],
+        })
+    kernels[-1]["context_sweep"] = decode_sweep
     for part, name in (("fwd", fkernel.FWD), ("bwd", fkernel.BWD)):
         f = flash[part]
         kernels.append({

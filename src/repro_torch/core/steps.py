@@ -197,8 +197,8 @@ def make_unified_paged_step(cfg: ModelConfig):
 def make_page_copy_step():
     """Device-side KV page copy for copy-on-write: ``copy(cache, src, dst)``
     duplicates page ``src[i]`` into page ``dst[i]`` in every layer's K and
-    V pool, in place.  Pools are [P, ...] per layer, so the page axis is
-    always 0."""
+    V pool, in place, and in the int8 mode the pages' [P, KH] scale rows
+    with them.  Every leaf is [P, ...], so the page axis is always 0."""
 
     @torch.inference_mode()
     def copy(cache, src, dst):

@@ -1,103 +1,167 @@
-"""The CUDA ``paged_chunk_attention`` kernel: build, ctypes binding, wrapper.
+"""The CUDA paged-attention kernels: build, ctypes bindings, wrappers.
 
-The kernel itself is ``csrc/paged_chunk_attention.cu`` (it replaces the TPU
-kernel ``src/repro/kernels/paged_attention/kernel.py:264``).  This wrapper
-takes CUDA tensors only: it checks them, allocates the output, launches the
-kernel on the current stream and raises when the launch is refused.  CPU
-tensors go to the plain version through ``ops.py``.
+Two kernels, one source each:
+  ``paged_chunk_attention`` (``csrc/paged_chunk_attention.cu``) replaces
+  the TPU kernel ``src/repro/kernels/paged_attention/kernel.py:264``;
+  ``paged_attention`` (``csrc/paged_attention.cu``), its decode special
+  case, replaces ``kernel.py:349``.
+Both take f32 or bf16 pools of q's dtype, or int8 pools with their
+``[P, KH]`` f32 scales.  The wrappers take CUDA tensors only: they check
+them, allocate the output, launch the kernel on the current stream and
+raise when the launch is refused.  CPU tensors go to the plain versions
+through ``ops.py``.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.kernels import build
 
 NAME = "paged_chunk_attention"
-SOURCE = Path(__file__).resolve().parent / "csrc" / f"{NAME}.cu"
+NAME_DECODE = "paged_attention"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / f"{NAME}.cu"
+SOURCE_DECODE = CSRC / f"{NAME_DECODE}.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 build.LAUNCHES.setdefault(NAME, 0)
+build.LAUNCHES.setdefault(NAME_DECODE, 0)
 
-_fn = None
+_fns: Dict[str, object] = {}
 
 
-def _entry():
-    """The bound C entry point (built from ``SOURCE`` at first use)."""
-    global _fn
-    if _fn is None:
-        fn = build.load(SOURCE).paged_chunk_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+def _entry(name: str, source: Path, n_ptrs: int, n_ints: int):
+    """The bound C entry point ``<name>_launch`` (built from ``source`` at
+    first use): ``n_ptrs`` pointers, ``n_ints`` ints, then scale, window,
+    softcap, dtype, kv_int8 and the stream."""
+    if name not in _fns:
+        fn = getattr(build.load(source), f"{name}_launch")
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_int, ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
 
 
-def _check(q, k_pages, v_pages, block_tables, starts, chunk_lens):
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block_tables", block_tables), ("starts", starts),
-                    ("chunk_lens", chunk_lens)):
+def _check(name, q, k_pages, v_pages, block_tables, per_slot, k_scale,
+           v_scale, q_dims: int) -> int:
+    """Validate one launch's operands; returns 1 for int8 pools, else 0.
+    ``per_slot`` maps names to the [B] int32 operands; q has ``q_dims``
+    dims, [B, (C,) H, D]."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: k_scale and v_scale must be passed "
+                         f"together")
+    quant = k_scale is not None
+    tensors = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
+               "block_tables": block_tables, **per_slot}
+    if quant:
+        tensors.update(k_scale=k_scale, v_scale=v_scale)
+    for what, t in tensors.items():
         if t.device != q.device or not t.is_cuda:
-            raise ValueError(f"{NAME}: {name} is on {t.device}, expected "
+            raise ValueError(f"{name}: {what} is on {t.device}, expected "
                              f"the CUDA device of q ({q.device})")
         if not t.is_contiguous():
-            raise ValueError(f"{NAME}: {name} must be contiguous")
+            raise ValueError(f"{name}: {what} must be contiguous")
     if q.dtype not in DTYPES:
-        raise TypeError(f"{NAME}: q is {q.dtype}; the kernel takes "
+        raise TypeError(f"{name}: q is {q.dtype}; the kernel takes "
                         f"float32 or bfloat16")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError(f"{NAME}: pools are {k_pages.dtype}/{v_pages.dtype}"
-                        f", q is {q.dtype}; they must match")
-    for name, t in (("block_tables", block_tables), ("starts", starts),
-                    ("chunk_lens", chunk_lens)):
+    pool_dtype = torch.int8 if quant else q.dtype
+    if k_pages.dtype != pool_dtype or v_pages.dtype != pool_dtype:
+        raise TypeError(
+            f"{name}: pools are {k_pages.dtype}/{v_pages.dtype} with q "
+            f"{q.dtype} and {'' if quant else 'no '}scales; expected "
+            f"{pool_dtype} (int8 pools need k_scale and v_scale)")
+    for what, t in (("block_tables", block_tables), *per_slot.items()):
         if t.dtype != torch.int32:
-            raise TypeError(f"{NAME}: {name} is {t.dtype}, expected int32")
-    if q.dim() != 4 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
-        raise ValueError(f"{NAME}: q must be [B, C, H, D] and both pools "
-                         f"[P, psize, KH, D]; got {tuple(q.shape)}, "
+            raise TypeError(f"{name}: {what} is {t.dtype}, expected int32")
+    if q.dim() != q_dims or k_pages.dim() != 4 \
+            or k_pages.shape != v_pages.shape:
+        raise ValueError(f"{name}: q must have {q_dims} dims and both pools "
+                         f"be [P, psize, KH, D]; got {tuple(q.shape)}, "
                          f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
-    B, C, H, D = q.shape
-    KH = k_pages.shape[2]
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+    P, KH = k_pages.shape[0], k_pages.shape[2]
     if k_pages.shape[3] != D or H % KH:
-        raise ValueError(f"{NAME}: q {tuple(q.shape)} does not fit pools "
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not fit pools "
                          f"{tuple(k_pages.shape)} (head dim, H % KH)")
     if D % 32 or not 32 <= D <= 256:
-        raise ValueError(f"{NAME}: head dim {D} must be a multiple of 32 "
+        raise ValueError(f"{name}: head dim {D} must be a multiple of 32 "
                          f"up to 256")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError(f"{NAME}: pools must start on a 16-byte boundary "
+        raise ValueError(f"{name}: pools must start on a 16-byte boundary "
                          f"(the kernel copies them in 16-byte pieces)")
-    if (block_tables.dim() != 2 or block_tables.shape[0] != B
-            or starts.shape != (B,) or chunk_lens.shape != (B,)):
-        raise ValueError(f"{NAME}: block_tables must be [B, maxp] and "
-                         f"starts/chunk_lens [B] with B = {B}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B or any(
+            t.shape != (B,) for t in per_slot.values()):
+        raise ValueError(f"{name}: block_tables must be [B, maxp] and "
+                         f"{'/'.join(per_slot)} [B] with B = {B}")
+    if quant:
+        for what, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.dtype != torch.float32 or t.shape != (P, KH):
+                raise ValueError(f"{name}: {what} must be float32 "
+                                 f"[P, KH] = {(P, KH)}; got {t.dtype} "
+                                 f"{tuple(t.shape)}")
+    return int(quant)
+
+
+def _launch(name, fn, ptrs, ints, q, scale, window, softcap, quant):
+    err = fn(*ptrs, *ints, float(scale), int(window or 0),
+             float(softcap or 0.0), DTYPES[q.dtype], quant,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")
+    build.LAUNCHES[name] += 1
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def paged_chunk_attention(q, k_pages, v_pages, block_tables, starts,
                           chunk_lens, *, scale: float,
                           window: Optional[int] = None,
-                          softcap: Optional[float] = None):
-    """Launch the CUDA kernel; same contract as
+                          softcap: Optional[float] = None, k_scale=None,
+                          v_scale=None):
+    """Launch the chunk kernel; same contract as
     ``ref.paged_chunk_attention_ref``.  Every block-table entry of a live
     page (index < ceil((start + chunk_len) / psize)) must be a valid page
     id; entries past it are never read."""
-    _check(q, k_pages, v_pages, block_tables, starts, chunk_lens)
+    quant = _check(NAME, q, k_pages, v_pages, block_tables,
+                   {"starts": starts, "chunk_lens": chunk_lens}, k_scale,
+                   v_scale, 4)
     B, C, H, D = q.shape
     psize, KH = k_pages.shape[1], k_pages.shape[2]
     out = torch.empty_like(q)
-    err = _entry()(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), starts.data_ptr(), chunk_lens.data_ptr(),
-        out.data_ptr(), B, C, H, KH, D, psize, block_tables.shape[1],
-        float(scale), int(window or 0), float(softcap or 0.0),
-        DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{NAME}: kernel launch failed with CUDA error "
-                           f"{err}")
-    build.LAUNCHES[NAME] += 1
+    _launch(NAME, _entry(NAME, SOURCE, 9, 7),
+            [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
+             starts.data_ptr(), chunk_lens.data_ptr(), out.data_ptr()],
+            [B, C, H, KH, D, psize, block_tables.shape[1]],
+            q, scale, window, softcap, quant)
+    return out
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
+                    scale: float, window: Optional[int] = None,
+                    softcap: Optional[float] = None, k_scale=None,
+                    v_scale=None):
+    """Launch the decode kernel; same contract as
+    ``ref.paged_attention_ref``.  Only block-table entries below
+    ceil(length / psize) are read."""
+    quant = _check(NAME_DECODE, q, k_pages, v_pages, block_tables,
+                   {"lengths": lengths}, k_scale, v_scale, 3)
+    B, H, D = q.shape
+    psize, KH = k_pages.shape[1], k_pages.shape[2]
+    out = torch.empty_like(q)
+    _launch(NAME_DECODE, _entry(NAME_DECODE, SOURCE_DECODE, 8, 6),
+            [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
+             lengths.data_ptr(), out.data_ptr()],
+            [B, H, KH, D, psize, block_tables.shape[1]],
+            q, scale, window, softcap, quant)
     return out

@@ -1,10 +1,17 @@
 """Plain PyTorch versions of the paged-attention kernels.
 
 Gathers the K/V pages named by each sequence's block table into a contiguous
-[B, maxp * psize, KH, D] view and runs a masked softmax in f32: the same
-math the CUDA kernel performs tile by tile in shared memory.  The wrappers
-in ``ops.py`` run it for CPU tensors; tests and ``chip_smoke.py`` hold the
-kernel against it.
+[B, maxp * psize, KH, D] view (int8 pages dequantized by their
+per-(page, kv head) scale right after the gather) and runs a masked softmax
+in f32: the same math the CUDA kernels perform tile by tile in shared
+memory.  Two entry points, sharing one softmax:
+
+  paged_attention_ref        one query token per sequence (decode)
+  paged_chunk_attention_ref  a C-token chunk per sequence (the unified
+                             serving step)
+
+The wrappers in ``ops.py`` run them for CPU tensors; tests and
+``chip_smoke.py`` hold the kernels against them.
 """
 from __future__ import annotations
 
@@ -21,11 +28,11 @@ NULL_PAGE = 0
 
 
 def dequantize_pages(pages, scale):
-    """int8 pool [P, psize, KH, D] + per-(page, kv-head) scale [P, KH] ->
-    f32 pool; ``scale=None`` returns the pool as it is."""
+    """int8 pages [..., psize, KH, D] + per-(page, kv-head) scale [..., KH]
+    -> f32 pages; ``scale=None`` returns the pages as they are."""
     if scale is None:
         return pages
-    return pages.to(f32) * scale[:, None, :, None]
+    return pages.to(f32) * scale[..., None, :, None]
 
 
 def live_block_tables(block_tables, lengths, psize: int):
@@ -37,49 +44,97 @@ def live_block_tables(block_tables, lengths, psize: int):
     return torch.where(live, block_tables, NULL_PAGE).long()
 
 
+def _gather(pages, scale, bt):
+    """[B, maxp * psize, KH, D] f32 keys or values of the pages ``bt``."""
+    B, maxp = bt.shape
+    x = dequantize_pages(pages[bt], None if scale is None else scale[bt])
+    return x.reshape(B, maxp * pages.shape[1], *pages.shape[2:]).to(f32)
+
+
+def _attend(qg, k, v, masked, *, scale: float, softcap):
+    """qg [B, C, KH, G, D], k/v [B, S, KH, D] in f32, masked [B, C, S] ->
+    softmax(q k^T) v [B, C, KH, G, D] over the unmasked keys."""
+    s = torch.einsum("bchgd,bshd->bhgcs", qg, k) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    mask = torch.where(masked, NEG_INF, 0.0).to(f32)
+    s = s + mask[:, None, None]                           # [B, KH, G, C, S]
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgcs,bshd->bchgd", p, v)
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
+                        scale: float, window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        k_scale=None, v_scale=None):
+    """Single-token decode attention over a block-paged KV pool.
+
+    q:            [B, H, D]   one query token per sequence
+    k/v_pages:    [P, psize, KH, D]  shared page pool (page 0 = null page),
+                  q's dtype, or int8 with ``k_scale``/``v_scale``
+    block_tables: [B, maxp] int32    page ids per sequence
+    lengths:      [B] int32          valid KV tokens per sequence, the
+                                     token just written at length - 1
+    k/v_scale:    [P, KH] f32        int8-pool mode
+    Returns [B, H, D] in q's dtype; a slot of length 0 emits zeros.
+
+    The same function as ``paged_chunk_attention_ref`` at C == 1 with
+    ``starts = lengths - 1`` and ``chunk_lens = 1``, and on the CPU the
+    same bits: both run ``_attend`` on identical masks.
+    """
+    B, H, D = q.shape
+    psize, KH = k_pages.shape[1], k_pages.shape[2]
+    S = block_tables.shape[1] * psize
+    lengths = lengths.long()
+    bt = live_block_tables(block_tables, lengths, psize)
+    k, v = _gather(k_pages, k_scale, bt), _gather(v_pages, v_scale, bt)
+    qg = q.reshape(B, 1, KH, H // KH, D).to(f32)
+    kp = torch.arange(S, device=q.device)[None, None, :]          # [1, 1, S]
+    last = (lengths - 1)[:, None, None]
+    masked = kp >= lengths[:, None, None]
+    if window is not None:
+        masked = masked | (kp <= last - window)
+    out = _attend(qg, k, v, masked, scale=scale, softcap=softcap)
+    # an empty slot's row is all masked: softmax would average garbage
+    out = torch.where((lengths > 0)[:, None, None, None, None], out, 0.0)
+    return out.reshape(B, H, D).to(q.dtype)
+
+
 def paged_chunk_attention_ref(q, k_pages, v_pages, block_tables, starts,
                               chunk_lens, *, scale: float,
                               window: Optional[int] = None,
-                              softcap: Optional[float] = None):
+                              softcap: Optional[float] = None,
+                              k_scale=None, v_scale=None):
     """Chunk-append attention over a block-paged KV pool.
 
     q:            [B, C, H, D]  a chunk of C tokens per sequence, right-padded
                   (token j of sequence b sits at absolute position
                   ``starts[b] + j``; rows with j >= chunk_lens[b] are padding)
-    k/v_pages:    [P, psize, KH, D]  shared page pool.  The chunk's own K/V
-                  must already be written (append-then-attend)
+    k/v_pages:    [P, psize, KH, D]  shared page pool, q's dtype or int8.
+                  The chunk's own K/V must already be written
+                  (append-then-attend)
     block_tables: [B, maxp] int32    page ids per sequence
     starts:       [B] int32          KV tokens in pages *before* this chunk
     chunk_lens:   [B] int32          valid tokens in this chunk (0 = idle slot)
+    k/v_scale:    [P, KH] f32        int8-pool mode
     Returns [B, C, H, D] in q's dtype; padding rows and idle slots are 0.
     """
     B, C, H, D = q.shape
     psize, KH = k_pages.shape[1], k_pages.shape[2]
-    maxp = block_tables.shape[1]
-    G = H // KH
-    S = maxp * psize
+    S = block_tables.shape[1] * psize
     dev = q.device
     starts, chunk_lens = starts.long(), chunk_lens.long()
     lengths = starts + chunk_lens
     bt = live_block_tables(block_tables, lengths, psize)
-
-    k = k_pages[bt].reshape(B, S, KH, D).to(f32)
-    v = v_pages[bt].reshape(B, S, KH, D).to(f32)
-    qg = q.reshape(B, C, KH, G, D).to(f32)
-
-    s = torch.einsum("bchgd,bshd->bhgcs", qg, k) * scale
-    if softcap:
-        s = torch.tanh(s / softcap) * softcap
+    k, v = _gather(k_pages, k_scale, bt), _gather(v_pages, v_scale, bt)
+    qg = q.reshape(B, C, KH, H // KH, D).to(f32)
     kp = torch.arange(S, device=dev)[None, None, :]               # [1, 1, S]
     qpos = starts[:, None] + torch.arange(C, device=dev)[None, :]  # [B, C]
     masked = kp >= lengths[:, None, None]
     masked = masked | (kp > qpos[..., None])              # causal own-chunk
     if window is not None:
         masked = masked | (kp <= qpos[..., None] - window)
-    mask = torch.where(masked, NEG_INF, 0.0).to(f32)
-    s = s + mask[:, None, None]                           # [B, KH, G, C, S]
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgcs,bshd->bchgd", p, v)
+    out = _attend(qg, k, v, masked, scale=scale, softcap=softcap)
     # padding rows (j >= chunk_len) attend to the prior context too; zero
     # them, as the kernel does when it writes its output
     valid = torch.arange(C, device=dev)[None, :] < chunk_lens[:, None]

@@ -4,13 +4,15 @@ synthetic load, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --full-config --stream poisson --requests 32
 
-Drives ``repro_torch.serving.Engine`` (paged KV cache, FCFS continuous
-batching, chunked prefill, the CUDA paged-attention kernel) from a
-synthetic request stream: Poisson arrivals with mixed prompt lengths, or
-everything at t=0 with ``--stream batch``.  Weights are random, from
-``--seed``.  Reports decode tok/s, time-to-first-token, p50/p99 end-to-end
-latency, preemptions and the attention kernel's launches.  Exits with
-status 2 on a request the pool can never serve.
+Drives ``repro_torch.serving.Engine`` (paged KV cache in f32, bf16 or
+int8 pools, FCFS continuous batching, chunked prefill, the CUDA paged
+attention kernels: ``paged_attention`` on decode-only ticks,
+``paged_chunk_attention`` on the others) from a synthetic request stream:
+Poisson arrivals with mixed prompt lengths, or everything at t=0 with
+``--stream batch``.  Weights are random, from ``--seed``.  Reports decode
+tok/s, time-to-first-token, p50/p99 end-to-end latency, preemptions and
+both kernels' launches.  Exits with status 2 on a request the pool can
+never serve.
 """
 from __future__ import annotations
 
@@ -101,6 +103,8 @@ def summarize(engine: Engine, wall: float) -> dict:
         "peak_utilization": s.peak_utilization,
         "preemptions": engine.preemptions,
         "attn_launches": s.attn_launches,
+        "decode_launches": s.decode_launches,
+        "decode_ticks": s.decode_ticks,
     }
 
 
@@ -128,8 +132,10 @@ def main(argv=None) -> None:
                     default="on_demand")
     ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
                     default=True)
-    ap.add_argument("--kv-dtype", choices=["bfloat16", "float32"],
-                    default="bfloat16")
+    ap.add_argument("--kv-dtype", choices=["bfloat16", "float32", "int8"],
+                    default="bfloat16",
+                    help="page pools; int8 quantizes on append, ~2x the "
+                         "pages of bfloat16 in the same bytes")
     ap.add_argument("--compute-dtype", choices=["bfloat16", "float32"],
                     default="bfloat16")
     ap.add_argument("--seed", type=int, default=0)
@@ -193,9 +199,13 @@ def main(argv=None) -> None:
               f"{'n/a' if hr is None else format(hr, '.0%')}  "
               f"evictions {engine.cache_evictions}  "
               f"COW copies {s.cow_page_copies}")
-    print(f"paged_chunk_attention launches: {r['attn_launches']} "
-          f"({cfg.num_layers} layers x {r['ticks']} ticks on a card; "
-          f"0 on the CPU, which runs the plain version)")
+    print(f"paged_chunk_attention launches: "
+          f"{r['attn_launches'] - r['decode_launches']} ({cfg.num_layers} "
+          f"layers x {r['ticks'] - r['decode_ticks']} ticks with prompt "
+          f"chunks on a card; 0 on the CPU, which runs the plain versions)")
+    print(f"paged_attention launches: {r['decode_launches']} "
+          f"({cfg.num_layers} layers x {r['decode_ticks']} decode-only ticks "
+          f"on a card)")
 
 
 if __name__ == "__main__":

@@ -11,9 +11,12 @@ cache and a scalar ``cache_index`` (one-token decode): write the token's
 K/V into the buffers in place (``cache_update``) and run
 ``decode_attention``, one masked softmax over the whole buffer.  With a
 page-pool ``cache`` and ``block_tables`` (the unified serving step):
-append the chunk's K/V to the pools in place and run
-``paged_chunk_attention``.  Then the optional Horn head mask and the
-out-projection.
+append the chunk's K/V to the pools in place (``paged_pool_append``, or
+``paged_pool_append_quant`` for int8 pools, whose cache is the 4-tuple
+``(k_pages, v_pages, k_scale, v_scale)``), then run ``paged_attention``
+when the tick's chunk width is 1 (a decode-only tick) and
+``paged_chunk_attention`` otherwise; both are CUDA kernels on a card.
+Then the optional Horn head mask and the out-projection.
 """
 from __future__ import annotations
 
@@ -22,8 +25,9 @@ from torch import nn
 
 from repro_torch.configs.base import LOCAL, ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.paged_attention.ops import (paged_chunk_attention,
-                                                     paged_pool_append)
+from repro_torch.kernels.paged_attention.ops import (
+    paged_attention, paged_chunk_attention, paged_pool_append,
+    paged_pool_append_quant)
 from repro_torch.models.layers import Norm, apply_rope, mm, norm_apply
 
 f32 = torch.float32
@@ -119,10 +123,12 @@ def attn_apply(params, x, cfg: ModelConfig, *, kind: str, positions,
     ``block_tables`` None): x [B, 1, d] at position ``cache_index`` (an int
     or 0-dim tensor); the buffers are written in place and returned.  Paged
     step: x [B, C, d] chunk activations; ``cache`` is this layer's
-    (k_pages, v_pages) [P, psize, KH, D] pair, written in place and
-    returned; ``cache_index`` [B] counts KV tokens already in pages per
-    slot and ``chunk_lens`` [B] the valid tokens of each slot's chunk
-    (decode slots 1, prompt chunks up to C, idle slots 0).  ``head_mask``
+    (k_pages, v_pages) [P, psize, KH, D] pair, or the int8 4-tuple
+    (k_pages, v_pages, k_scale, v_scale) with [P, KH] f32 scales, written
+    in place and returned; ``cache_index`` [B] counts KV tokens already in
+    pages per slot and ``chunk_lens`` [B] the valid tokens of each slot's
+    chunk (decode slots 1, prompt chunks up to C, idle slots 0 with
+    ``cache_index`` 0, so that at C == 1 their length is 0).  ``head_mask``
     ([B, 1, H, 1] or None) is Horn's per-group head dropout."""
     window = cfg.sliding_window if kind == LOCAL else None
     theta = 10_000.0 if (kind == LOCAL and cfg.rope_theta > 1e5) \
@@ -147,13 +153,25 @@ def attn_apply(params, x, cfg: ModelConfig, *, kind: str, positions,
                                q_positions=positions)
         new_kv = (k_buf, v_buf)
     else:
-        k_pages, v_pages = cache
-        paged_pool_append(k_pages, k, block_tables, cache_index, chunk_lens)
-        paged_pool_append(v_pages, v, block_tables, cache_index, chunk_lens)
-        out = paged_chunk_attention(
-            q.contiguous(), k_pages, v_pages, block_tables, cache_index,
-            chunk_lens, scale=scale, window=window,
-            softcap=cfg.attn_logit_softcap)
+        k_pages, v_pages = cache[:2]
+        k_scale, v_scale = cache[2:] if len(cache) == 4 else (None, None)
+        for pool, sc, new in ((k_pages, k_scale, k), (v_pages, v_scale, v)):
+            if sc is None:
+                paged_pool_append(pool, new, block_tables, cache_index,
+                                  chunk_lens)
+            else:
+                paged_pool_append_quant(pool, sc, new, block_tables,
+                                        cache_index, chunk_lens)
+        kw = dict(scale=scale, window=window, softcap=cfg.attn_logit_softcap,
+                  k_scale=k_scale, v_scale=v_scale)
+        if x.shape[1] == 1:          # a decode-only tick: the decode kernel
+            out = paged_attention(
+                q[:, 0].contiguous(), k_pages, v_pages, block_tables,
+                cache_index + chunk_lens, **kw)[:, None]
+        else:
+            out = paged_chunk_attention(
+                q.contiguous(), k_pages, v_pages, block_tables, cache_index,
+                chunk_lens, **kw)
         new_kv = cache
     if head_mask is not None:
         out = out * head_mask.to(out.dtype)

@@ -13,9 +13,11 @@ tests that compare the two packages carry weights over with
 ``repro/checkpoint/checkpointer.py`` writes to ``shard_0.npz`` (or the path
 of such a file), unstacks the ``[R, ...]`` superblock leaves into the
 per-layer blocks and keeps every other shape as it is; ``to_jax_flat`` is
-its inverse.  ``load_jax_cache``/``to_jax_cache`` carry a dense decode
-cache (``repro/models/transformer.py::init_cache``'s pytree, numpy leaves)
-to and from the port's per-layer list the same way.
+its inverse.  ``load_jax_cache``/``to_jax_cache`` carry a cache pytree
+(numpy leaves) to and from the port's per-layer list the same way: a dense
+decode cache (``repro/models/transformer.py::init_cache``) or a paged one
+(``init_paged_cache``), whose int8 layers are 4-tuples of int8 pools and
+f32 [P, KH] scales, bit for bit.
 
 A train step differentiates a ``cast_params`` copy of the f32 masters (the
 JAX step differentiates ``cast_tree(params, compute_dtype)``), refreshed
@@ -151,12 +153,14 @@ def to_jax_flat(model: LM, cfg: ModelConfig) -> Dict[str, np.ndarray]:
 
 def load_jax_cache(tree: Mapping, cfg: ModelConfig, *, device="cuda"
                    ) -> List[Tuple[torch.Tensor, ...]]:
-    """The port's per-layer decode cache holding the JAX cache ``tree``:
-    ``{"blocks": {"l{i}": (a, b)}}`` with ``[R, ...]`` stacked leaves, and
-    ``{"rem": {"r{i}": (a, b)}}`` for remainder layers.  Each layer gets
-    its ``(k, v)`` or ``(conv_state, ssm_state)`` pair, in the leaves'
-    dtypes (bf16 arrives as f32 numpy and stays f32; cast after loading
-    where it matters)."""
+    """The port's per-layer cache holding the JAX cache ``tree``:
+    ``{"blocks": {"l{i}": (a, b, ...)}}`` with ``[R, ...]`` stacked leaves,
+    and ``{"rem": {"r{i}": (a, b, ...)}}`` for remainder layers.  Each
+    layer gets its tuple as it is: ``(k, v)``, ``(conv_state,
+    ssm_state)``, paged ``(k_pages, v_pages)`` or the int8 paged
+    ``(k_pages, v_pages, k_scale, v_scale)``, in the leaves' dtypes (bf16
+    arrives as f32 numpy and stays f32; cast after loading where it
+    matters)."""
     dev = resolve_device(device)
     P, R = len(cfg.layer_pattern), cfg.pattern_repeats
     cache: List = [None] * cfg.num_layers
@@ -172,9 +176,10 @@ def load_jax_cache(tree: Mapping, cfg: ModelConfig, *, device="cuda"
 
 
 def to_jax_cache(cache, cfg: ModelConfig) -> Dict[str, Dict]:
-    """The JAX package's cache pytree of the port's per-layer ``cache``:
-    numpy leaves, superblock layers restacked into ``[R, ...]``; bf16
-    leaves come out as f32 arrays."""
+    """The JAX package's cache pytree of the port's per-layer ``cache``
+    (tuples of any length, as ``load_jax_cache`` takes them): numpy leaves,
+    superblock layers restacked into ``[R, ...]``; bf16 leaves come out as
+    f32 arrays, int8 and f32 leaves as they are."""
     P, R = len(cfg.layer_pattern), cfg.pattern_repeats
 
     def arr(t):

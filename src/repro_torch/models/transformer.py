@@ -9,6 +9,7 @@ Mamba2).  Training rematerialises each block in the backward
 superblock scan body; the gradients are the same.  Caches are lists with
 one entry per layer: a dense ``(k_buf, v_buf)`` or ``(conv_state,
 ssm_state)`` pair (``init_cache``), or a paged ``(k_pages, v_pages)`` pair
+or int8 ``(k_pages, v_pages, k_scale, v_scale)`` 4-tuple
 (``init_paged_cache``).  Attention buffers and pools are written in place
 by every step; Mamba states are replaced.
 """
@@ -114,14 +115,28 @@ def decode_cache_of_prefill(cfg: ModelConfig, cache, max_len: int):
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, *,
                      dtype=torch.bfloat16, device="cuda"
-                     ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+                     ) -> List[Tuple[torch.Tensor, ...]]:
     """One ``(k_pages, v_pages)`` pool pair [P, psize, KH, D] per layer,
     zero-filled.  Page ids are layer-agnostic (page j of every layer belongs
-    to the same sequence); page 0 is the reserved null page."""
-    shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
-    return [(torch.zeros(shape, dtype=dtype, device=device),
-             torch.zeros(shape, dtype=dtype, device=device))
-            for _ in range(cfg.num_layers)]
+    to the same sequence); page 0 is the reserved null page.
+
+    ``dtype=torch.int8`` selects the quantized pools: each layer holds
+    ``(k_pages, v_pages, k_scale, v_scale)``, int8 pools and one f32 scale
+    per (page, kv head) [P, KH], zero-filled, so a page costs about half
+    the bytes of bf16 and its scales follow it through every page copy (the
+    same page ids index both)."""
+    KH = cfg.num_kv_heads
+    shape = (num_pages, page_size, KH, cfg.head_dim)
+
+    def layer():
+        pools = (torch.zeros(shape, dtype=dtype, device=device),
+                 torch.zeros(shape, dtype=dtype, device=device))
+        if dtype == torch.int8:
+            pools += tuple(torch.zeros(num_pages, KH, dtype=torch.float32,
+                                       device=device) for _ in range(2))
+        return pools
+
+    return [layer() for _ in range(cfg.num_layers)]
 
 
 def _block_apply(bp, x, cfg: ModelConfig, *, kind: str, layer_idx: int,

@@ -3,10 +3,15 @@
 One engine tick = one call of the unified paged step, whatever the tick
 holds.  The scheduler fills a fixed *token budget* with a mix of decode
 tokens (one per running slot) and prompt chunks from admitting requests;
-the step appends every token's K/V to the page pools in place, runs chunked
-paged attention (the CUDA kernel on a card) and returns the greedy next
-token of every slot.  Positions are per slot: slot b's chunk starts at the
-number of KV tokens it already has in pages.
+the step appends every token's K/V to the page pools in place, runs paged
+attention and returns the greedy next token of every slot.  A tick whose
+chunk bucket is 1 holds decode tokens only and runs the decode kernel
+``paged_attention``; wider ticks run ``paged_chunk_attention`` (both CUDA
+kernels on a card).  Positions are per slot: slot b's chunk starts at the
+number of KV tokens it already has in pages.  KV pools are f32, bf16 or
+int8; int8 pools quantize on append, with one f32 scale per (page, kv
+head) riding beside them, and hold about twice the pages of bf16 in the
+same bytes.
 
 Under the ``on_demand`` policy, pool pressure preempts the youngest running
 sequence back to the head of the waiting queue (its KV is recomputed on
@@ -17,9 +22,9 @@ later requests with the same prefix; writes into shared pages copy them
 first (copy-on-write, ``core/steps.py::make_page_copy_step``).
 
 Chunk widths are bucketed to powers of two, as in the JAX engine.  This
-port serves one decoder-only attention model, greedy, with f32 or bf16 KV
-pools; the ModelBank/Router/draft paths, speculation, sampling at
-temperature > 0 and int8 pools are not ported yet and raise.
+port serves one decoder-only attention model, greedy; the
+ModelBank/Router/draft paths, speculation and sampling at temperature > 0
+are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, LOCAL, ModelConfig
 from repro_torch.core import steps as S
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_attention.kernel import NAME as ATTN_KERNEL
+from repro_torch.kernels.paged_attention.kernel import NAME, NAME_DECODE
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.params import cast_params
@@ -62,7 +67,7 @@ class EngineConfig:
     temperature: float = 0.0         # greedy only in the port
     policy: str = "reserve"          # "reserve" | "on_demand" (see scheduler)
     eos_id: Optional[int] = None
-    kv_dtype: str = "bfloat16"       # page-pool dtype: float32 | bfloat16
+    kv_dtype: str = "bfloat16"       # page pools: float32 | bfloat16 | int8
     compute_dtype: str = "bfloat16"  # parameter dtype during serving
     prefix_cache: bool = True        # content-addressed page reuse + COW
     speculate_k: int = 0             # must stay 0 in the port
@@ -84,7 +89,9 @@ class EngineStats:
     cache_hit_tokens: int = 0        # prompt tokens served from cache
     cache_eligible_tokens: int = 0   # prompt tokens lookups could cover
     cow_page_copies: int = 0         # device page copies issued
-    attn_launches: int = 0           # CUDA paged-attention kernel launches
+    attn_launches: int = 0           # launches of both paged kernels
+    decode_launches: int = 0         # of them, the decode kernel's
+    decode_ticks: int = 0            # ticks of chunk bucket 1 (decode only)
 
     def reset(self) -> None:
         for f in dataclasses.fields(self):
@@ -119,10 +126,12 @@ class Engine:
                             ("a Router", router is not None),
                             ("a DraftModel", draft is not None),
                             ("speculate_k > 0", ecfg.speculate_k > 0),
-                            ("temperature > 0", ecfg.temperature > 0),
-                            ("kv_dtype='int8'", ecfg.kv_dtype == "int8")):
+                            ("temperature > 0", ecfg.temperature > 0)):
             if given:
                 raise NotImplementedError(f"serving with {what} {NOT_PORTED}")
+        if ecfg.kv_dtype not in ("float32", "bfloat16", "int8"):
+            raise ValueError(f"kv_dtype {ecfg.kv_dtype!r}: expected "
+                             f"float32, bfloat16 or int8")
         if ecfg.max_prompt_len % ecfg.page_size:
             raise ValueError("max_prompt_len must be page-aligned")
         if ecfg.token_budget < ecfg.num_slots:
@@ -324,12 +333,15 @@ class Engine:
         self._sync_block_tables()
         d_tokens, d_starts, d_chunk_lens = marshal_i32(
             self.device, tokens, starts, chunk_lens)
-        launches = build.LAUNCHES[ATTN_KERNEL]
+        chunk0, decode0 = build.LAUNCHES[NAME], build.LAUNCHES[NAME_DECODE]
         sampled = self._step(self.params, self.cache, d_tokens, d_starts,
                              d_chunk_lens, self._bt.dev)
         # the one deliberate host pull of a tick
         sampled = np.asarray(sampled.cpu())  # hornlint: sync-ok
-        self.stats.attn_launches += build.LAUNCHES[ATTN_KERNEL] - launches
+        decode = build.LAUNCHES[NAME_DECODE] - decode0
+        self.stats.decode_launches += decode
+        self.stats.attn_launches += build.LAUNCHES[NAME] - chunk0 + decode
+        self.stats.decode_ticks += C == 1
         self.stats.steps += 1
         post = tick_now()
 

@@ -100,16 +100,21 @@ def test_entry_points_refuse_missing_cuda(no_cuda):
 @pytest.mark.parametrize("what", ["bank", "router", "draft", "speculate_k",
                                   "temperature", "kv_dtype"])
 def test_engine_refuses_unported_features(what):
-    """Slice-2 features raise instead of being silently ignored."""
+    """Slice-2 features raise instead of being silently ignored, and so
+    does a KV pool dtype the engine has no kernel for (int8 pools are
+    served since the decode kernel's slice)."""
     cfg = reduced(get_model_config("qwen3-1.7b"))
     params = init_params(cfg, 0, device="cpu")
     kw, ecfg = {}, EngineConfig()
     if what in ("bank", "router", "draft"):
         kw[what] = object()
     else:
-        value = {"speculate_k": 2, "temperature": 0.8, "kv_dtype": "int8"}
+        value = {"speculate_k": 2, "temperature": 0.8,
+                 "kv_dtype": "float16"}
         ecfg = dataclasses.replace(ecfg, **{what: value[what]})
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    err, match = (ValueError, "float32, bfloat16 or int8") \
+        if what == "kv_dtype" else (NotImplementedError, "slice 3")
+    with pytest.raises(err, match=match):
         Engine(cfg, params, ecfg, device="cpu", **kw)
 
 
