@@ -7,7 +7,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
   1. device   a CUDA card is visible; prints its name and power limit, and
               turns TF32 off for matmuls and cuDNN (f32 stays f32).
   2. build    builds every kernel of the serving and training paths from
-              ``csrc/`` with nvcc (one process per source, all at once).
+              ``csrc/`` with nvcc (one process per source, all at once),
+              and prints each source's own nvcc time.
   3. kernels  each kernel against its plain PyTorch version on the card.
               Paged chunk attention: qwen3-1.7b and gemma2-27b geometries,
               chunk widths 1/7/64/256, ragged starts, idle slots, poisoned
@@ -17,10 +18,11 @@ Phases, each of which fails the script (non-zero exit, no result line):
               that straddle pages, an empty slot, poisoned dead entries;
               pools of q's dtype and int8; against its plain version and
               against the chunk kernel at C == 1.  Flash attention forward
-              and backward
-              (dq, dk, dv against torch autograd through the plain
-              version, same dO): qwen3-1.7b and gemma2-27b geometries,
-              causal / window / softcap / non-causal, S 1/7/256/1024.
+              and backward (dq, dk, dv against torch autograd through the
+              plain version, same dO; bf16 on the tensor-core kernels, f32
+              on the CUDA-core ones): qwen3-1.7b and gemma2-27b
+              geometries, causal / window / softcap / non-causal, S
+              1/7/256/1024.
               Dropout matmul: the JAX sweep's shapes and the full-width
               Horn MLP shape with a random, an all-dropped, an all-live and
               a one-live-block mask.  All with q (or x) in f32 and bf16.
@@ -60,11 +62,13 @@ Phases, each of which fails the script (non-zero exit, no result line):
               the chunk kernel at a decode tick and a 256-token
               prompt-chunk tick, by device time; then both at C == 1 over
               contexts 16-4096 and at 64 slots; flash: the
-              train step's; dropout matmul: the Horn MLP's at keep 1, 0.5
-              and 0.25, beside cuBLAS on the kept columns only; SSD chunk
-              scan: mamba2-2.7b's prefill, where no single PyTorch call
-              computes the same function), beside the least time the card
-              could take.
+              train step's, with |SDPA - plain| beside |kernel - plain|,
+              TFLOP/s and the share of the bound, and the wrapper's host
+              time per call with and without tensor maps; dropout matmul:
+              the Horn MLP's at keep 1, 0.5 and 0.25, beside cuBLAS on
+              the kept columns only; SSD chunk scan: mamba2-2.7b's
+              prefill, where no single PyTorch call computes the same
+              function), beside the least time the card could take.
   9. ssm      mamba2-2.7b through ``make_prefill_step``/``make_decode_step``.
               First 2 layers at full width in f32: the kernel path against
               the plain path (logits, final SSM states), and prefill(S) + 4
@@ -1223,10 +1227,26 @@ def flash_work(B, H, KH, S, D, itemsize):
     return fwd_bytes, 4 * D * pairs, bwd_bytes, 10 * D * pairs
 
 
+def host_us(torch, fn, iters: int = 200) -> float:
+    """Host time per call of ``fn``: back-to-back calls at a shape whose
+    kernels are shorter than the call, so the queue never fills."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
 def phase_flash_timing(torch, dev, fkernel, fref):
     """Forward and backward at the train step's shape (B 8, S 1024, H 16,
     KH 8, D 128, bf16, causal): kernel, plain version (autograd for the
-    backward) and SDPA with ``enable_gqa`` as the library yardstick."""
+    backward) and SDPA with ``enable_gqa`` as the library yardstick.  Also
+    |SDPA - plain| at the same inputs (SDPA rounds P to bf16 as the
+    kernels do), and the forward wrapper's host time per call in bf16
+    (three tensor maps encoded) and f32 (none) at a small shape."""
     import torch.nn.functional as F
 
     B, H, KH, S, D = 8, 16, 8, 1024, 128
@@ -1238,16 +1258,24 @@ def phase_flash_timing(torch, dev, fkernel, fref):
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     plain_out = fref.attention_ref(*leaves, **kw)
     want = torch.autograd.grad(plain_out, leaves, do, retain_graph=True)
-    torch.cuda.synchronize()
-    fwd_err = (o.float() - plain_out.float()).abs().max().item()
-    bwd_err = max((g.float() - w.float()).abs().max().item()
-                  for g, w in zip(grads, want))
-    for got, w in zip((o, *grads), (plain_out, *want)):
-        torch.testing.assert_close(got.float(), w.float(), atol=2e-2,
-                                   rtol=2e-2)
     lib_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     lib_out = F.scaled_dot_product_attention(
         *lib_leaves, is_causal=True, scale=scale, enable_gqa=True)
+    lib_grads = torch.autograd.grad(lib_out, lib_leaves, do,
+                                    retain_graph=True)
+    torch.cuda.synchronize()
+
+    def max_err(got, ref):
+        return max((g.float() - w.float()).abs().max().item()
+                   for g, w in zip(got, ref))
+
+    errs = {"fwd": max_err([o], [plain_out]), "bwd": max_err(grads, want)}
+    lib_errs = {"fwd": max_err([lib_out], [plain_out]),
+                "bwd": max_err(lib_grads, want)}
+    for got, w in zip((o, *grads), (plain_out, *want)):
+        torch.testing.assert_close(got.float(), w.float(), atol=2e-2,
+                                   rtol=2e-2)
+    del lib_grads
 
     times = {
         "fwd": cuda_ms(torch, lambda i: fkernel.flash_attention_fwd(
@@ -1263,10 +1291,17 @@ def phase_flash_timing(torch, dev, fkernel, fref):
         "bwd_library": cuda_ms(torch, lambda i: torch.autograd.grad(
             lib_out, lib_leaves, do, retain_graph=True), 20),
     }
+    small = {dt: flash_case(torch, dev, dt, 1, 2, 1, 64, D, 12)[:3]
+             for dt in (torch.bfloat16, torch.float32)}
+    host = {str(dt).split(".")[1]: host_us(
+        torch, lambda a=a: fkernel.flash_attention_fwd(*a, **kw))
+        for dt, a in small.items()}
+    log(f"  flash forward wrapper host time per call (B 1, H 2, S 64): "
+        f"bf16 {host['bfloat16']:.1f} us (3 tensor maps), f32 "
+        f"{host['float32']:.1f} us (none)")
     fb, ff, bb, bf = flash_work(B, H, KH, S, D, 2)
-    out = {}
-    for name, nbytes, flops, err in (("fwd", fb, ff, fwd_err),
-                                     ("bwd", bb, bf, bwd_err)):
+    out = {"host_us": host}
+    for name, nbytes, flops in (("fwd", fb, ff), ("bwd", bb, bf)):
         b_ms, b_by = bound(nbytes, flops)
         out[name] = {
             "B": B, "S": S, "H": H, "KH": KH, "D": D, "dtype": "bfloat16",
@@ -1274,13 +1309,16 @@ def phase_flash_timing(torch, dev, fkernel, fref):
             "plain_ms": times[f"{name}_plain"],
             "library_ms": times[f"{name}_library"], "bound_ms": b_ms,
             "bound_by": b_by, "bytes": nbytes, "flops": flops,
-            "max_abs_err": err,
-            "tflops": flops / (times[name] * 1e-3) / 1e12}
+            "max_abs_err": errs[name], "library_max_abs_err": lib_errs[name],
+            "tflops": flops / (times[name] * 1e-3) / 1e12,
+            "bound_share": b_ms / times[name]}
         log(f"  flash {name}  kernel {times[name]:8.3f} ms  plain "
             f"{times[name + '_plain']:8.3f} ms  SDPA "
             f"{times[name + '_library']:7.3f} ms  bound {b_ms:.3f} ms "
             f"({b_by}, {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)  "
-            f"{out[name]['tflops']:.1f} TFLOP/s  max err {err:.3g}")
+            f"{out[name]['tflops']:.1f} TFLOP/s = "
+            f"{out[name]['bound_share']:.1%} of the bound; max |kernel - "
+            f"plain| {errs[name]:.3g}, |SDPA - plain| {lib_errs[name]:.3g}")
     return out
 
 
@@ -1597,7 +1635,10 @@ def main() -> int:
                dkernel.SOURCE, skernel.SOURCE]
     build.build(sources)
     log(f"  {', '.join(str(s.relative_to(ROOT)) for s in sources)} built "
-        f"in {time.perf_counter() - t0:.1f} s")
+        f"in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    for src in sources:
+        log(f"    nvcc {src.name}: "
+            f"{build.BUILD_SECONDS.get(src.name, 0.0):.1f} s")
 
     log("phase 3: kernels against their plain versions")
     chunk_sweep_err = phase_kernels(torch, dev, kernel, ref)

@@ -12,7 +12,8 @@ this machine may have no ``nvcc``.  A missing compiler or a failed build
 raises; there is no fallback.
 
 ``LAUNCHES`` holds one plain integer per kernel: its wrapper adds one each
-time it launches the kernel, and nowhere else.
+time it launches the kernel, and nowhere else.  ``BUILD_SECONDS`` holds the
+wall time of each source's own ``nvcc`` in this process.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, List, Sequence
 
@@ -29,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 LAUNCHES: Dict[str, int] = {}
+BUILD_SECONDS: Dict[str, float] = {}
 
 _loaded: Dict[Path, ctypes.CDLL] = {}
 
@@ -59,22 +62,33 @@ def build(sources: Sequence[Path]) -> List[Path]:
     each, all started together.  Raises with the compiler's output when
     any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    missing = [src for src in sources if not library_path(src).exists()]
+    nvcc = _nvcc() if missing else None
     jobs = []
-    for src in sources:
+    t0 = time.perf_counter()
+    for src in missing:
         lib = library_path(src)
-        if lib.exists():
-            continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        jobs.append((lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    errors = []
-    for lib, tmp, proc in jobs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"{lib.name}:\n{out.decode(errors='replace')}")
-            continue
-        os.replace(tmp, lib)            # atomic: concurrent builds agree
+        log = open(tmp.with_suffix(".log"), "w+b")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        jobs.append((src, lib, tmp, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT)))
+    errors, pending = [], list(jobs)
+    while pending:                      # poll, so each job gets its own time
+        for job in [j for j in pending if j[4].poll() is not None]:
+            pending.remove(job)
+            src, lib, tmp, log, proc = job
+            BUILD_SECONDS[src.name] = time.perf_counter() - t0
+            log.seek(0)
+            out = log.read()
+            log.close()
+            os.unlink(log.name)
+            if proc.returncode != 0:
+                errors.append(f"{lib.name}:\n{out.decode(errors='replace')}")
+                continue
+            os.replace(tmp, lib)        # atomic: concurrent builds agree
+        if pending:
+            time.sleep(0.05)
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     return [library_path(src) for src in sources]

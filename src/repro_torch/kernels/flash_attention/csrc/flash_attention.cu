@@ -22,32 +22,61 @@
 //   Every query row must see at least one key (the wrapper refuses shapes
 //   where a window leaves a row without any).
 //
-// What bounds it on an H100: at the training shape (S 1024, D 128) the work
-// is operations: 4 * D flops per (row, visible key) forward, five products of
-// that size backward, against ~2 bytes of traffic per element of q/k/v/o.
-// This first version does its products with f32 FMAs on the CUDA cores (no
-// tensor cores), so it sits far above the bf16 tensor-core bound; making it
-// fast (mma.sync / wgmma, TMA) is later work.  What the design does about
-// the bound it has: each block stages 64-row tiles in shared memory and every
-// thread computes a 4 x 8 register tile of scores (rows ty + 16 i, columns
-// tx + 8 j), so each shared-memory read feeds several FMAs; tile rows are
-// padded so those reads are free of bank conflicts; whole tiles that the
-// causal mask or the window hide are never loaded.
+// What bounds it on an H100: at the training shape (B 8, S 1024, H 16, D
+// 128, causal) the work is operations: 4 * D flops per (row, visible key)
+// forward (34.4 GFLOP against 1.6e8 bytes), five products of that size
+// backward.  Only the tensor cores reach the card's bf16 rate (989 TFLOP/s,
+// against 67 TFLOP/s of f32 FMAs), and only through wgmma.  So:
 //
-// Launches:
+// bf16 (every head dim): tensor-core kernels, all products wgmma.
+//   forward  grid (ceil(Sq / 128), H, B), 256 threads: one block per (b, q
+//            head, 128-row q tile), two warpgroups of 64 rows.  Thread 0
+//            copies Q once and 128-key K/V tiles by TMA (3-d tensor maps,
+//            128-byte swizzle where D is a multiple of 64, else 64-byte)
+//            into a two-stage ring ordered by mbarriers: tile j + 1 is in
+//            flight while tile j is computed, and a stage is refilled only
+//            after all 256 threads released it.  S = Q K^T is a wgmma with
+//            both operands in shared memory and f32 accumulators; the online
+//            softmax (scale, softcap, mask, row max and sum, in the log2
+//            domain) runs on those registers; P is rounded to bf16 in
+//            registers, whose layout is the A-fragment layout of the next
+//            wgmma, O += P V, with V read transposed from shared memory.
+//            Only tiles that cross the diagonal, a window edge or a ragged
+//            end apply the mask (a branch uniform across the block); tiles
+//            that the mask hides entirely are never loaded.
+//   backward three kernels on the stream, deterministic (no atomics):
+//            1. Di = rowsum(dO * O), one warp per row (the CUDA cores: it
+//               is a reduction, not a product);
+//            2. dK, dV: grid (ceil(Skv / 64), KH, B), one warpgroup per
+//               (b, kv head, 64-key tile) holding K and V, with Q and dO
+//               tiles of the G query heads streamed through the TMA ring:
+//               S^T = K Q^T and dP^T = V dO^T (wgmma, shared-memory
+//               operands), P^T and dS^T formed in f32 registers and rounded
+//               once to bf16, then dV += P^T dO and dK += dS^T Q with them
+//               as register A operands; the group sums in registers;
+//            3. dQ: grid (ceil(Sq / 64), H, B), one warpgroup per (b, q
+//               head, 64-row q tile) holding Q and dO, K and V streamed:
+//               S and dP again, then dQ += dS K.
+//            The recompute of S and dP in the dQ pass is the price of no
+//            atomics: 7 products of 2 * D flops per visible (row, key) pair
+//            where 5 would do, 1.4x the backward's minimum.
+//   Tensor maps are built on the host per launch (see make_map); rows past
+//   a head's end read as zeros and the mask hides keys at or past Skv.
+//
+// f32: the CUDA-core kernels (no tensor-core path computes f32 products in
+//   full f32).  Each block stages 64-row tiles in shared memory and every
+//   thread computes a 4 x 8 register tile of scores (rows ty + 16 i,
+//   columns tx + 8 j), so each shared-memory read feeds several FMAs; tile
+//   rows are padded so those reads are free of bank conflicts; whole tiles
+//   that the causal mask or the window hide are never loaded.
 //   forward  grid (ceil(Sq / 64), H, B): one block per (b, q head, q tile),
 //            walking the visible K/V tiles with an online softmax.  A row
 //            whose visible keys all lie in later tiles keeps m = -inf and
 //            skips the rescale, so exp(-inf - -inf) never happens.
-//   backward three kernels on the stream:
-//            1. Di = rowsum(dO * O), one warp per row;
-//            2. dK, dV: grid (ceil(Skv / 64), KH, B), one block per
-//               (b, kv head, key tile) looping over the G query heads of its
-//               kv head and their visible q tiles, so dK and dV sum over the
-//               group in registers, with no atomics;
-//            3. dQ: grid (ceil(Sq / 64), H, B), a second pass that recomputes
-//               P and dS per (b, q head, q tile).  No atomics anywhere: the
-//               backward is deterministic.
+//   backward Di as above; dK, dV one block per (b, kv head, key tile)
+//            looping over the G query heads; dQ a second pass that
+//            recomputes P and dS per (b, q head, q tile).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,10 +97,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // reductions over the 8 lanes (tx = 0..7) that share a row group
@@ -558,6 +583,746 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernels (wgmma fed by TMA)
+// ---------------------------------------------------------------------------
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarriers: ``full`` barriers complete when a TMA copy's bytes land,
+// ``empty`` barriers when every consumer thread has released a stage.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+// wait until the barrier's phase with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// One TMA copy of a [rows][CW] box of a 3-d map (d, row, head) into shared
+// memory, completing on ``bar``.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int d, int row,
+                                         int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d),
+      "r"(row), "r"(head) : "memory");
+}
+
+// Shared-memory tiles of the bf16 kernels: a [rows][D] tile is D / CW
+// chunks of [rows][CW], each row of a chunk SW bytes, swizzled as TMA's
+// CU_TENSOR_MAP_SWIZZLE_{SW}B writes it.  SW is 128 bytes where D is a
+// multiple of 64 and 64 bytes otherwise (D 32 and 96).
+template <int D> struct Tiles {
+  static constexpr int SW = D % 64 == 0 ? 128 : 64;
+  static constexpr int CW = SW / 2;            // bf16 columns a chunk
+  static constexpr int NCH = D / CW;
+};
+
+// The rows [row0, row0 + rows) of head ``head`` of a map, all chunks.
+template <int D>
+__device__ __forceinline__ void tma_tile(uint8_t* tile, const CUtensorMap* map,
+                                         uint64_t* bar, int rows, int row0,
+                                         int head) {
+#pragma unroll
+  for (int c = 0; c < Tiles<D>::NCH; ++c)
+    tma_load(tile + c * rows * Tiles<D>::SW, map, bar, c * Tiles<D>::CW,
+             row0, head);
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle mode (1: 128B, 2: 64B).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int sw) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(sw == 128 ? 1 : 2) << 62;
+}
+// K-major operand (the product's depth runs along D): rows [r0, r0 + 64 or
+// N) of a chunked tile of ``rows`` rows, depth step kk (16 columns).  Rows
+// go in 8-row atoms of 8 * SW bytes; a depth step moves the start inside
+// the swizzle atom, or to the next chunk.
+template <int D>
+__device__ __forceinline__ uint64_t kmajor(const uint8_t* tile, int rows,
+                                           int r0, int kk) {
+  constexpr int SW = Tiles<D>::SW, CW = Tiles<D>::CW;
+  const int e = kk * 16;
+  return make_desc(smem_u32(tile) + (e / CW) * rows * SW + r0 * SW +
+                       (e % CW) * 2,
+                   16, 8 * SW, SW);
+}
+// MN-major B operand (the depth runs along the tile's rows, N = D along
+// its columns): depth step kk covers rows [16 kk, 16 kk + 16); the leading
+// offset steps from one chunk of CW columns to the next.
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor(const uint8_t* tile, int rows,
+                                            int kk) {
+  constexpr int SW = Tiles<D>::SW;
+  return make_desc(smem_u32(tile) + kk * 16 * SW, rows * SW, 8 * SW, SW);
+}
+
+#define ACC8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// S-type products, D[64 x N] (+)= A[64 x 16] B[16 x N] with A and B both
+// K-major in shared memory (N 64 or 128).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24),
+        ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O-type products, D[64 x N] (+)= A[64 x 16] B[16 x N] with A in registers
+// and B MN-major (transposed) in shared memory (N = the head dim).
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[48],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24),
+        ACC8(32), ACC8(40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24),
+        ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+
+#undef ACC8
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pin registers in place around a wgmma: the compiler may neither move a
+// write of an operand past the wgmma.fence nor a read of an accumulator
+// ahead of the wgmma.wait_group.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// An accumulator of m64nN holds, in thread t (warp w = t / 32, lane l) of
+// its warpgroup, entry 4 j + i at row 16 w + l / 4 + 8 (i / 2) and column
+// 8 j + 2 (l % 4) + i % 2.  Columns [16 kk, 16 kk + 16) of it are, rounded
+// to bf16 pairwise, exactly the A fragment of the product's depth step kk:
+// a score tile turns into the register A operand of the next product.
+template <int N>
+__device__ __forceinline__ void to_a_frags(const float (&s)[N / 2],
+                                           uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+}
+
+// Can any (row, key) pair of the tile be hidden?  Uniform across the
+// block: only such tiles (the diagonal, a window edge, ragged ends) pay
+// for the mask.
+__device__ __forceinline__ bool tile_masked(int q0, int bq, int k0, int bk,
+                                            int Sq, int Skv, int causal,
+                                            int window) {
+  return k0 + bk > Skv || q0 + bq > Sq || (causal && k0 + bk - 1 > q0) ||
+         (window > 0 && k0 <= q0 + bq - 1 - window);
+}
+
+// A two-stage ring of TMA tiles ordered by mbarriers: thread 0 issues the
+// copies, every thread of the block releases a stage it has used.
+struct Ring {
+  uint64_t full[2], empty[2];
+  __device__ void init(int consumers) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], consumers);
+    }
+  }
+  // thread 0: claim the stage of the n-th tile (waiting until the tile two
+  // before it is released) and announce ``bytes`` of copies into it
+  __device__ uint64_t* produce(int n, uint32_t bytes) {
+    const int s = n & 1;
+    if (n >= 2) mbar_wait(&empty[s], ((n - 2) >> 1) & 1);
+    mbar_expect_tx(&full[s], bytes);
+    return &full[s];
+  }
+  __device__ void consume(int n) { mbar_wait(&full[n & 1], (n >> 1) & 1); }
+  __device__ void release(int n) { mbar_arrive(&empty[n & 1]); }
+};
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ uint8_t* align1024(unsigned char* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// Forward: one block per (b, q head, 128-row q tile), two warpgroups of 64
+// rows; 128-key K/V tiles through the ring.
+constexpr int FBM = 128, FBN = 128, FNT = 256;
+
+template <int D>
+constexpr size_t fwd_tc_smem() {
+  return 1024 + 2 * (size_t)FBM * D + 4 * 2 * (size_t)FBN * D;
+}
+
+template <int D>
+__global__ void __launch_bounds__(FNT, 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    int H, int KH, int Sq, int Skv, float scale, int causal,
+                    int window, float softcap) {
+  constexpr int KV = 2 * FBN * D;              // bytes of a K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ Ring ring;
+  __shared__ uint64_t qbar;
+  uint8_t* Qs = align1024(smem_raw);
+  uint8_t* Ks = Qs + 2 * FBM * D;              // stages at Ks + s * KV
+  uint8_t* Vs = Ks + 2 * KV;
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid % 128 / 32;
+  const int lane = tid % 32;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * FBM;
+  const int bh = b * H + h, bkh = b * KH + h / (H / KH);
+  const int q_last = min(q0 + FBM, Sq) - 1;
+  const int k_end = causal ? min(Skv, q_last + 1) : Skv;
+  const int kb0 = (window > 0 ? max(0, q0 - window + 1) : 0) / FBN * FBN;
+  const int n = (k_end - kb0 + FBN - 1) / FBN;
+
+  if (tid == 0) {
+    ring.init(FNT);
+    mbar_init(&qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&qbar, 2 * FBM * D);
+    tma_tile<D>(Qs, &tq, &qbar, FBM, q0, bh);
+    if (n > 0) {
+      uint64_t* bar = ring.produce(0, 2 * KV);
+      tma_tile<D>(Ks, &tk, bar, FBN, kb0, bkh);
+      tma_tile<D>(Vs, &tv, bar, FBN, kb0, bkh);
+    }
+  }
+
+  // this thread's two rows: r = 0 at ``row``, r = 1 at row + 8
+  const int row = q0 + 64 * wg + 16 * warp + lane / 4;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  mbar_wait(&qbar, 0);
+
+  for (int it = 0; it < n; ++it) {
+    const int k0 = kb0 + it * FBN, s = it & 1;
+    if (tid == 0 && it + 1 < n) {              // copy tile it + 1 meanwhile
+      uint64_t* bar = ring.produce(it + 1, 2 * KV);
+      tma_tile<D>(Ks + (s ^ 1) * KV, &tk, bar, FBN, k0 + FBN, bkh);
+      tma_tile<D>(Vs + (s ^ 1) * KV, &tv, bar, FBN, k0 + FBN, bkh);
+    }
+    ring.consume(it);
+    const uint8_t* Kt = Ks + s * KV;
+    const uint8_t* Vt = Vs + s * KV;
+
+    // S = Q K^T for this warpgroup's 64 rows; a score tile is live for
+    // one key tile only, so it never shares registers with the next
+    float sc[FBN / 2];
+#pragma unroll
+    for (int i = 0; i < FBN / 2; ++i) sc[i] = 0.f;
+    pin(sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(sc, kmajor<D>(Qs, FBM, 64 * wg, kk),
+               kmajor<D>(Kt, FBN, 0, kk), kk > 0);
+    wg_commit();
+    wg_wait_all();
+    pin(sc);
+
+    // online softmax in f32, in the log2 domain
+    const bool masked =
+        tile_masked(q0, FBM, k0, FBN, Sq, Skv, causal, window);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int e = 0; e < FBN / 2; ++e) {
+      float x = sc[e] * scale;
+      if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+      x *= LOG2E;
+      if (masked) {
+        const int qi = row + 8 * ((e >> 1) & 1);
+        const int kj = k0 + 8 * (e >> 2) + 2 * (lane % 4) + (e & 1);
+        if (!visible(qi, kj, Sq, Skv, causal, window)) x = -INFINITY;
+      }
+      sc[e] = x;
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);
+    }
+    float corr[2], base[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      // m_new == -inf: no key of this row visible yet; P is 0, keep state
+      corr[r] = m_new == -INFINITY ? 1.f : exp2f(m[r] - m_new);
+      base[r] = m_new == -INFINITY ? 0.f : m_new;
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int e = 0; e < FBN / 2; ++e) {
+      sc[e] = exp2f(sc[e] - base[(e >> 1) & 1]);
+      l[(e >> 1) & 1] += sc[e];                // this thread's columns
+    }
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[e] *= corr[(e >> 1) & 1];
+    uint32_t pa[FBN / 16][4];
+    to_a_frags<FBN>(sc, pa);
+
+    // O += P V, P from registers
+    pin(acc);
+    pin(pa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < FBN / 16; ++kk)
+      wgmma_rs(acc, pa[kk], mnmajor<D>(Vt, FBN, kk), 1);
+    wg_commit();
+    wg_wait_all();
+    pin(acc);
+    ring.release(it);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row + 8 * r;
+    const float lsum = quad_sum(l[r]);
+    if (qi >= Sq) continue;
+    const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
+    __nv_bfloat16* orow = o + ((size_t)bh * Sq + qi) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
+                                acc[4 * j + 2 * r + 1] * inv);
+    if (lane % 4 == 0)
+      lse[(size_t)bh * Sq + qi] =
+          lsum > 0.f ? (m[r] + log2f(lsum)) * LN2 : -INFINITY;
+  }
+}
+
+// Backward: 64-row tiles (keys or queries), one warpgroup a block.
+constexpr int BB = 64, BNT = 128;
+
+template <int D>
+constexpr size_t bwd_tc_smem() {
+  // two tiles held for the whole block, and two stages of two tiles
+  return 1024 + 6 * 2 * (size_t)BB * D;
+}
+
+// dK and dV of one 64-key tile: S^T = K Q^T and dP^T = V dO^T (K and V
+// held, Q and dO streamed through the ring) for every visible q tile of
+// each of the G query heads of this kv head, then dV += P^T dO and
+// dK += dS^T Q with P^T and dS^T as register A operands.
+template <int D>
+__global__ void __launch_bounds__(BNT)
+flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ di,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int H, int KH,
+                         int Sq, int Skv, float scale, int causal, int window,
+                         float softcap) {
+  constexpr int T = 2 * BB * D;                // bytes of a tile
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ Ring ring;
+  __shared__ uint64_t kvbar;
+  __shared__ float Ls[2][BB], Ds[2][BB];       // lse * log2(e) and Di
+  uint8_t* Ks = align1024(smem_raw);
+  uint8_t* Vs = Ks + T;
+  uint8_t* Qs = Vs + T;                        // stages at Qs + s * T
+  uint8_t* dOs = Qs + 2 * T;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.z, kh = blockIdx.y, k0 = blockIdx.x * BB;
+  const int G = H / KH, bkh = b * KH + kh;
+  const int k_last = min(k0 + BB, Skv) - 1;
+  const int qb0 = (causal ? k0 : 0) / BB * BB;
+  const int q_end = window > 0 ? min(Sq, k_last + window) : Sq;
+  const int nq = max(0, (q_end - qb0 + BB - 1) / BB);
+  const int n = G * nq;                        // (head, q tile) pairs
+
+  if (tid == 0) {
+    ring.init(BNT);
+    mbar_init(&kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&kvbar, 2 * T);
+    tma_tile<D>(Ks, &tk, &kvbar, BB, k0, bkh);
+    tma_tile<D>(Vs, &tv, &kvbar, BB, k0, bkh);
+    if (n > 0) {
+      uint64_t* bar = ring.produce(0, 2 * T);
+      tma_tile<D>(Qs, &tq, bar, BB, qb0, b * H + kh * G);
+      tma_tile<D>(dOs, &tdo, bar, BB, qb0, b * H + kh * G);
+    }
+  }
+
+  const int key = k0 + 16 * warp + lane / 4;   // rows key and key + 8
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  mbar_wait(&kvbar, 0);
+
+  for (int it = 0; it < n; ++it) {
+    const int q0 = qb0 + it % nq * BB, bh = b * H + kh * G + it / nq;
+    const int s = it & 1;
+    const int c = tid % BB, qc = q0 + c;
+    const float stat = qc >= Sq ? 0.f
+                       : tid < BB ? lse[(size_t)bh * Sq + qc] * LOG2E
+                                  : di[(size_t)bh * Sq + qc];
+    if (tid == 0 && it + 1 < n) {
+      const int nq0 = qb0 + (it + 1) % nq * BB;
+      const int nbh = b * H + kh * G + (it + 1) / nq;
+      uint64_t* bar = ring.produce(it + 1, 2 * T);
+      tma_tile<D>(Qs + (s ^ 1) * T, &tq, bar, BB, nq0, nbh);
+      tma_tile<D>(dOs + (s ^ 1) * T, &tdo, bar, BB, nq0, nbh);
+    }
+    ring.consume(it);
+    const uint8_t* Qt = Qs + s * T;
+    const uint8_t* dOt = dOs + s * T;
+
+    float st[BB / 2], dpt[BB / 2];
+#pragma unroll
+    for (int i = 0; i < BB / 2; ++i) st[i] = dpt[i] = 0.f;
+    pin(st);
+    pin(dpt);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(st, kmajor<D>(Ks, BB, 0, kk), kmajor<D>(Qt, BB, 0, kk),
+               kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dpt, kmajor<D>(Vs, BB, 0, kk), kmajor<D>(dOt, BB, 0, kk),
+               kk > 0);
+    wg_commit();
+    // the stage's Ls / Ds were last read two tiles ago, before every
+    // thread reached the previous tile's barrier
+    (tid < BB ? Ls : Ds)[s][c] = stat;
+    __syncthreads();
+    wg_wait_all();
+    pin(st);
+    pin(dpt);
+
+    const bool masked = tile_masked(q0, BB, k0, BB, Sq, Skv, causal, window);
+#pragma unroll
+    for (int e = 0; e < BB / 2; ++e) {
+      const int qcol = 8 * (e >> 2) + 2 * (lane % 4) + (e & 1);
+      float dcap;
+      const float x = cap_score(st[e], scale, softcap, &dcap);
+      float p = exp2f(x * LOG2E - Ls[s][qcol]);
+      if (masked && !visible(q0 + qcol, key + 8 * ((e >> 1) & 1), Sq, Skv,
+                             causal, window))
+        p = 0.f;
+      st[e] = p;
+      dpt[e] = p * (dpt[e] - Ds[s][qcol]) * dcap;
+    }
+    uint32_t pa[BB / 16][4], da[BB / 16][4];
+    to_a_frags<BB>(st, pa);
+    to_a_frags<BB>(dpt, da);
+
+    pin(dva);
+    pin(dka);
+    pin(pa);
+    pin(da);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BB / 16; ++kk)
+      wgmma_rs(dva, pa[kk], mnmajor<D>(dOt, BB, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < BB / 16; ++kk)
+      wgmma_rs(dka, da[kk], mnmajor<D>(Qt, BB, kk), 1);
+    wg_commit();
+    wg_wait_all();
+    pin(dva);
+    pin(dka);
+    ring.release(it);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = key + 8 * r;
+    if (kj >= Skv) continue;
+    const size_t off = ((size_t)bkh * Skv + kj) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
+          __floats2bfloat162_rn(dka[4 * j + 2 * r] * scale,
+                                dka[4 * j + 2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
+          __floats2bfloat162_rn(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// dQ of one 64-row q tile: S = Q K^T and dP = dO V^T again (Q and dO held,
+// K and V streamed through the ring), then dQ += dS K with dS as the
+// register A operand.
+template <int D>
+__global__ void __launch_bounds__(BNT)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ di,
+                       __nv_bfloat16* __restrict__ dq, int H, int KH, int Sq,
+                       int Skv, float scale, int causal, int window,
+                       float softcap) {
+  constexpr int T = 2 * BB * D;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ Ring ring;
+  __shared__ uint64_t qbar;
+  uint8_t* Qs = align1024(smem_raw);
+  uint8_t* dOs = Qs + T;
+  uint8_t* Ks = dOs + T;                       // stages at Ks + s * T
+  uint8_t* Vs = Ks + 2 * T;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BB;
+  const int bh = b * H + h, bkh = b * KH + h / (H / KH);
+  const int q_last = min(q0 + BB, Sq) - 1;
+  const int k_end = causal ? min(Skv, q_last + 1) : Skv;
+  const int kb0 = (window > 0 ? max(0, q0 - window + 1) : 0) / BB * BB;
+  const int n = (k_end - kb0 + BB - 1) / BB;
+
+  if (tid == 0) {
+    ring.init(BNT);
+    mbar_init(&qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&qbar, 2 * T);
+    tma_tile<D>(Qs, &tq, &qbar, BB, q0, bh);
+    tma_tile<D>(dOs, &tdo, &qbar, BB, q0, bh);
+    if (n > 0) {
+      uint64_t* bar = ring.produce(0, 2 * T);
+      tma_tile<D>(Ks, &tk, bar, BB, kb0, bkh);
+      tma_tile<D>(Vs, &tv, bar, BB, kb0, bkh);
+    }
+  }
+
+  const int row = q0 + 16 * warp + lane / 4;   // rows row and row + 8
+  float l2[2], d2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row + 8 * r;
+    l2[r] = qi < Sq ? lse[(size_t)bh * Sq + qi] * LOG2E : 0.f;
+    d2[r] = qi < Sq ? di[(size_t)bh * Sq + qi] : 0.f;
+  }
+  float dqa[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+  mbar_wait(&qbar, 0);
+
+  for (int it = 0; it < n; ++it) {
+    const int k0 = kb0 + it * BB, s = it & 1;
+    if (tid == 0 && it + 1 < n) {
+      uint64_t* bar = ring.produce(it + 1, 2 * T);
+      tma_tile<D>(Ks + (s ^ 1) * T, &tk, bar, BB, k0 + BB, bkh);
+      tma_tile<D>(Vs + (s ^ 1) * T, &tv, bar, BB, k0 + BB, bkh);
+    }
+    ring.consume(it);
+    const uint8_t* Kt = Ks + s * T;
+    const uint8_t* Vt = Vs + s * T;
+
+    float sa[BB / 2], dpa[BB / 2];
+#pragma unroll
+    for (int i = 0; i < BB / 2; ++i) sa[i] = dpa[i] = 0.f;
+    pin(sa);
+    pin(dpa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(sa, kmajor<D>(Qs, BB, 0, kk), kmajor<D>(Kt, BB, 0, kk),
+               kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dpa, kmajor<D>(dOs, BB, 0, kk), kmajor<D>(Vt, BB, 0, kk),
+               kk > 0);
+    wg_commit();
+    wg_wait_all();
+    pin(sa);
+    pin(dpa);
+
+    const bool masked = tile_masked(q0, BB, k0, BB, Sq, Skv, causal, window);
+#pragma unroll
+    for (int e = 0; e < BB / 2; ++e) {
+      const int r = (e >> 1) & 1;
+      float dcap;
+      const float x = cap_score(sa[e], scale, softcap, &dcap);
+      float p = exp2f(x * LOG2E - l2[r]);
+      if (masked && !visible(row + 8 * r,
+                             k0 + 8 * (e >> 2) + 2 * (lane % 4) + (e & 1),
+                             Sq, Skv, causal, window))
+        p = 0.f;
+      dpa[e] = p * (dpa[e] - d2[r]) * dcap;
+    }
+    uint32_t da[BB / 16][4];
+    to_a_frags<BB>(dpa, da);
+
+    pin(dqa);
+    pin(da);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BB / 16; ++kk)
+      wgmma_rs(dqa, da[kk], mnmajor<D>(Kt, BB, kk), 1);
+    wg_commit();
+    wg_wait_all();
+    pin(dqa);
+    ring.release(it);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row + 8 * r;
+    if (qi >= Sq) continue;
+    __nv_bfloat16* drow = dq + ((size_t)bh * Sq + qi) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(drow + 8 * j) =
+          __floats2bfloat162_rn(dqa[4 * j + 2 * r] * scale,
+                                dqa[4 * j + 2 * r + 1] * scale);
+  }
+}
+
 // Host side: launch configuration and the C entry points.
 
 template <typename K>
@@ -590,17 +1355,23 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v,
-                       const void* o, const float* lse, const void* dout,
-                       float* di, void* dq, void* dk, void* dv,
-                       const Shape& s, cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_dot(const void* o, const void* dout, float* di,
+                       const Shape& s, int D, cudaStream_t stream) {
   const int rows = s.B * s.H * s.Sq;
   flash_bwd_dot_kernel<T><<<(rows + NT / 32 - 1) / (NT / 32), NT, 0,
                             stream>>>(static_cast<const T*>(o),
                                       static_cast<const T*>(dout), di, rows,
                                       D);
-  cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* o, const float* lse, const void* dout,
+                       float* di, void* dq, void* dk, void* dv,
+                       const Shape& s, cudaStream_t stream) {
+  cudaError_t err = launch_dot<T>(o, dout, di, s, D, stream);
   if (err != cudaSuccess) return err;
 
   auto dkdv = flash_bwd_dkdv_kernel<T, D>;
@@ -624,6 +1395,111 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
       static_cast<T*>(dq), s.H, s.KH, s.Sq, s.Skv, s.scale, s.causal,
       s.window, s.softcap);
+  return cudaGetLastError();
+}
+
+// Host side of the bf16 kernels: tensor maps.  cuTensorMapEncodeTiled is a
+// driver-API call; the library is not linked with -lcuda but reaches it
+// through the runtime's cudaGetDriverEntryPoint(ByVersion), which finds it
+// in the driver the process has loaded.  A map is a 128-byte value built
+// on the host for every launch and passed by value (__grid_constant__).
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A contiguous [heads][rows][D] bf16 tensor as a 3-d map of [box_rows][CW]
+// boxes, swizzled as the kernels' tiles are; rows past ``rows`` read as
+// zeros, so a ragged last tile never reads the next head.
+template <int D>
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int heads,
+              int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)Tiles<D>::CW, (cuuint32_t)box_rows,
+                             1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                Tiles<D>::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A map that cannot be encoded is reported as cudaErrorInvalidValue.
+template <int D>
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
+                          void* o, float* lse, const Shape& s,
+                          cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map<D>(&tq, q, s.Sq, s.B * s.H, FBM) ||
+      !make_map<D>(&tk, k, s.Skv, s.B * s.KH, FBN) ||
+      !make_map<D>(&tv, v, s.Skv, s.B * s.KH, FBN))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_tc_kernel<D>;
+  constexpr size_t smem = fwd_tc_smem<D>();
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((s.Sq + FBM - 1) / FBM, s.H, s.B), FNT, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, s.H, s.KH, s.Sq,
+      s.Skv, s.scale, s.causal, s.window, s.softcap);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
+                          const void* o, const float* lse, const void* dout,
+                          float* di, void* dq, void* dk, void* dv,
+                          const Shape& s, cudaStream_t stream) {
+  cudaError_t err = launch_dot<__nv_bfloat16>(o, dout, di, s, D, stream);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_map<D>(&tq, q, s.Sq, s.B * s.H, BB) ||
+      !make_map<D>(&tk, k, s.Skv, s.B * s.KH, BB) ||
+      !make_map<D>(&tv, v, s.Skv, s.B * s.KH, BB) ||
+      !make_map<D>(&tdo, dout, s.Sq, s.B * s.H, BB))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = bwd_tc_smem<D>();
+  auto dkdv = flash_bwd_dkdv_tc_kernel<D>;
+  err = allow_smem(dkdv, smem);
+  if (err != cudaSuccess) return err;
+  dkdv<<<dim3((s.Skv + BB - 1) / BB, s.KH, s.B), BNT, smem, stream>>>(
+      tq, tk, tv, tdo, lse, di, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), s.H, s.KH, s.Sq, s.Skv, s.scale,
+      s.causal, s.window, s.softcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto dqk = flash_bwd_dq_tc_kernel<D>;
+  err = allow_smem(dqk, smem);
+  if (err != cudaSuccess) return err;
+  dqk<<<dim3((s.Sq + BB - 1) / BB, s.H, s.B), BNT, smem, stream>>>(
+      tq, tk, tv, tdo, lse, di, static_cast<__nv_bfloat16*>(dq), s.H, s.KH,
+      s.Sq, s.Skv, s.scale, s.causal, s.window, s.softcap);
   return cudaGetLastError();
 }
 
@@ -655,7 +1531,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     FLASH_DISPATCH(CALL)
 #undef CALL
   } else if (dtype == 1) {
-#define CALL(DD) launch_fwd<__nv_bfloat16, DD>(q, k, v, o, l, s, st)
+#define CALL(DD) launch_fwd_tc<DD>(q, k, v, o, l, s, st)
     FLASH_DISPATCH(CALL)
 #undef CALL
   } else {
@@ -685,7 +1561,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
 #undef CALL
   } else if (dtype == 1) {
 #define CALL(DD) \
-  launch_bwd<__nv_bfloat16, DD>(q, k, v, o, l, dout, dd, dq, dk, dv, s, st)
+  launch_bwd_tc<DD>(q, k, v, o, l, dout, dd, dq, dk, dv, s, st)
     FLASH_DISPATCH(CALL)
 #undef CALL
   } else {

@@ -2,7 +2,8 @@
 
 The kernels are ``csrc/flash_attention.cu`` (they replace the TPU kernel
 ``src/repro/kernels/flash_attention/kernel.py:85`` and add the backward it
-lacks).  ``flash_attention_fwd`` and ``flash_attention_bwd`` take CUDA
+lacks): bf16 on the tensor cores (wgmma fed by TMA), f32 on the CUDA
+cores.  ``flash_attention_fwd`` and ``flash_attention_bwd`` take CUDA
 tensors only: they check them, allocate outputs and scratch, launch on the
 current stream and raise when a launch is refused.  ``FlashAttention`` is
 the ``torch.autograd.Function`` whose forward and backward are the two.

@@ -33,6 +33,14 @@ from repro_torch.models.layers import Norm, apply_rope, mm, norm_apply
 f32 = torch.float32
 NEG_INF = -1e30
 
+
+def paged_decode_lengths(cache_index, chunk_lens):
+    """Keys each slot attends to in a C == 1 paged step: its cached tokens
+    plus its new one, and none for an idle slot (``chunk_lens`` 0), which
+    then emits zeros as ``paged_chunk_attention`` does."""
+    return torch.where(chunk_lens > 0, cache_index + chunk_lens, 0)
+
+
 class Attention(nn.Module):
     """``wq [d, H, hd]``, ``wk``/``wv [d, KH, hd]``, ``wo [H, hd, d]``,
     optional ``bq``/``bk``/``bv`` and ``q_norm``/``k_norm``."""
@@ -113,7 +121,7 @@ def decode_attention(q, k_buf, v_buf, *, scale: float, window, softcap,
 
 def attn_apply(params, x, cfg: ModelConfig, *, kind: str, positions,
                cache=None, cache_index=None, block_tables=None,
-               chunk_lens=None, head_mask=None):
+               chunk_lens=None, decode_lengths=None, head_mask=None):
     """Attention sublayer for one layer; returns (out [B, S, d] in x.dtype,
     new_kv).
 
@@ -127,9 +135,13 @@ def attn_apply(params, x, cfg: ModelConfig, *, kind: str, positions,
     (k_pages, v_pages, k_scale, v_scale) with [P, KH] f32 scales, written
     in place and returned; ``cache_index`` [B] counts KV tokens already in
     pages per slot and ``chunk_lens`` [B] the valid tokens of each slot's
-    chunk (decode slots 1, prompt chunks up to C, idle slots 0 with
-    ``cache_index`` 0, so that at C == 1 their length is 0).  ``head_mask``
-    ([B, 1, H, 1] or None) is Horn's per-group head dropout."""
+    chunk (decode slots 1, prompt chunks up to C, idle slots 0 at any
+    ``cache_index``).  A C == 1 step runs the decode kernel over
+    ``decode_lengths`` [B] keys a slot: ``cache_index + chunk_lens``, and 0
+    for an idle slot, so that it emits zeros as the chunk kernel does;
+    ``lm_forward`` computes it once a tick, and it is computed here when
+    not given.  ``head_mask`` ([B, 1, H, 1] or None) is Horn's per-group
+    head dropout."""
     window = cfg.sliding_window if kind == LOCAL else None
     theta = 10_000.0 if (kind == LOCAL and cfg.rope_theta > 1e5) \
         else cfg.rope_theta
@@ -165,9 +177,11 @@ def attn_apply(params, x, cfg: ModelConfig, *, kind: str, positions,
         kw = dict(scale=scale, window=window, softcap=cfg.attn_logit_softcap,
                   k_scale=k_scale, v_scale=v_scale)
         if x.shape[1] == 1:          # a decode-only tick: the decode kernel
+            if decode_lengths is None:
+                decode_lengths = paged_decode_lengths(cache_index, chunk_lens)
             out = paged_attention(
                 q[:, 0].contiguous(), k_pages, v_pages, block_tables,
-                cache_index + chunk_lens, **kw)[:, None]
+                decode_lengths, **kw)[:, None]
         else:
             out = paged_chunk_attention(
                 q.contiguous(), k_pages, v_pages, block_tables, cache_index,

@@ -26,7 +26,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, LOCAL, MAMBA, ModelConfig
 from repro_torch.core import parallel_dropout as pdrop
 from repro_torch.models import layers as L
-from repro_torch.models.attention import Attention, attn_apply
+from repro_torch.models.attention import (Attention, attn_apply,
+                                         paged_decode_lengths)
 from repro_torch.models.ssm import Mamba, mamba_apply, ssm_dims
 
 
@@ -141,7 +142,7 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, *,
 
 def _block_apply(bp, x, cfg: ModelConfig, *, kind: str, layer_idx: int,
                  horn=None, positions, cache=None, cache_index=None,
-                 block_tables=None, chunk_lens=None):
+                 block_tables=None, chunk_lens=None, decode_lengths=None):
     """One decoder layer; returns (x, the mixer's new cache).  ``horn``
     (train only) draws this layer's head, channel and FFN masks with the
     JAX package's layer index and salts (13, 3 and 5)."""
@@ -151,7 +152,7 @@ def _block_apply(bp, x, cfg: ModelConfig, *, kind: str, layer_idx: int,
         out, new_cache = attn_apply(
             bp.attn, h, cfg, kind=kind, positions=positions, cache=cache,
             cache_index=cache_index, block_tables=block_tables,
-            chunk_lens=chunk_lens,
+            chunk_lens=chunk_lens, decode_lengths=decode_lengths,
             head_mask=pdrop.head_mask(horn, layer_idx, B, cfg.num_heads))
     else:
         cm = pdrop.unit_mask(horn, layer_idx, B, ssm_dims(cfg)[0], salt=3)
@@ -208,6 +209,7 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
         im = pdrop.input_mask(horn, B, cfg.d_model)
         if im is not None:
             x = x * im.to(x.dtype)
+    decode_lengths = None
     if mode != "decode":
         positions = steps
     elif block_tables is None:
@@ -215,13 +217,15 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
         positions = (cache_index + steps).expand(B, S)
     else:
         positions = cache_index.long()[:, None] + steps
+        if S == 1:                   # once a tick, not once a layer
+            decode_lengths = paged_decode_lengths(cache_index, chunk_lens)
     new_cache = None if mode == "train" else []
     for li, (bp, kind) in enumerate(zip(params.layers, cfg.layer_kinds())):
         fn = partial(_block_apply, bp, cfg=cfg, kind=kind, layer_idx=li,
                      horn=horn, positions=positions,
                      cache=cache[li] if mode == "decode" else None,
                      cache_index=cache_index, block_tables=block_tables,
-                     chunk_lens=chunk_lens)
+                     chunk_lens=chunk_lens, decode_lengths=decode_lengths)
         if mode == "train":
             if remat:
                 x = checkpoint(lambda x, fn=fn: fn(x)[0], x,

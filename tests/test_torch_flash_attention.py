@@ -156,3 +156,93 @@ def test_autograd_function_launches_each_kernel_once(cuda):
     for a, b in zip(dev, cpu):
         torch.testing.assert_close(a.grad.cpu(), b.grad, atol=1e-4,
                                    rtol=1e-4)
+
+
+# the bf16 tensor-core kernels: every head dim, ragged and tile-sized
+# lengths, MHA and GQA, every mask variant
+TC_VARIANTS = {"causal": dict(causal=True),
+               "non-causal": dict(causal=False),
+               "window": dict(causal=True, window=48),
+               "softcap": dict(causal=True, softcap=30.0),
+               "window-softcap": dict(causal=True, window=48, softcap=30.0)}
+BF16_TOL = 2e-2
+
+
+def tc_check(cuda, B, KH, G, Sq, Skv, D, kw, seed):
+    """bf16 forward and dq/dk/dv of the kernels against the plain version
+    and its autograd on the same card and inputs, compared in f32 at
+    atol/rtol 2e-2: both sides take bf16 inputs and round the outputs to
+    bf16 (one ulp at |x| ~ 1 is 7.8e-3); the kernels also round P and dS
+    to bf16 before their second products, as any bf16 tensor-core
+    attention does."""
+    gen = torch.Generator(cuda).manual_seed(seed)
+    H = KH * G
+    q, do = (torch.randn(B, H, Sq, D, generator=gen, device=cuda)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, KH, Skv, D, generator=gen, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    kw = dict(kw, scale=D ** -0.5)
+    o, lse = kernel.flash_attention_fwd(q, k, v, **kw)
+    dq, dk, dv = kernel.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = ref.attention_ref(*leaves, **kw)
+    grads = torch.autograd.grad(want, leaves, do)
+    torch.cuda.synchronize()
+    for name, got, w in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv),
+                            (want, *grads)):
+        assert got.dtype == torch.bfloat16 and got.shape == w.shape, name
+        torch.testing.assert_close(got.float(), w.float(), atol=BF16_TOL,
+                                   rtol=BF16_TOL,
+                                   msg=lambda m: f"{name}: {m}")
+    assert torch.isfinite(lse).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(TC_VARIANTS))
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("S", [1, 7, 65, 1000, 1024])
+@pytest.mark.parametrize("D", [32, 64, 96, 128])
+def test_bf16_tensor_core_kernels_match_plain(cuda, D, S, G, variant):
+    """Sq == Skv == S, two kv heads of G query heads each."""
+    tc_check(cuda, 1, 2, G, S, S, D, TC_VARIANTS[variant],
+             seed=D * 10_000 + S * 10 + G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(TC_VARIANTS))
+@pytest.mark.parametrize("Sq,Skv", [(7, 1000), (1000, 65), (130, 257),
+                                    (1, 64), (257, 130)])
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_tensor_core_kernels_sq_ne_skv(cuda, D, Sq, Skv, variant):
+    """Sq != Skv: positions count from 0 in both sequences, so with Sq <
+    Skv under the causal mask the keys past Sq - 1 get zero dk and dv, and
+    with Sq > Skv the late rows see every key (the window is refused where
+    it would leave a row none)."""
+    kw = TC_VARIANTS[variant]
+    if kw.get("window") and Sq >= Skv + kw["window"]:
+        with pytest.raises(ValueError, match="see no key"):
+            tc_check(cuda, 2, 2, 2, Sq, Skv, D, kw, seed=Sq + Skv)
+        return
+    tc_check(cuda, 2, 2, 2, Sq, Skv, D, kw, seed=Sq + Skv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(causal=True),
+                                dict(causal=True, window=100, softcap=30.0)],
+                         ids=["causal", "window-softcap"])
+def test_bf16_backward_is_bitwise_repeatable(cuda, kw):
+    """No atomics: two backward runs on the same inputs give the same bits
+    (GQA, S 1000, D 128)."""
+    gen = torch.Generator(cuda).manual_seed(7)
+    B, H, KH, S, D = 2, 8, 2, 1000, 128
+    q, do = (torch.randn(B, H, S, D, generator=gen, device=cuda)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, KH, S, D, generator=gen, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    kw = dict(kw, scale=D ** -0.5)
+    o, lse = kernel.flash_attention_fwd(q, k, v, **kw)
+    first = kernel.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    second = kernel.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

@@ -213,6 +213,76 @@ def test_attn_apply_decode_route_is_the_chunk_route(monkeypatch, arch, kv):
         assert torch.equal(a, b)
 
 
+def test_idle_slot_with_cached_tokens_matches_jax_paged_step(monkeypatch):
+    """A C == 1 ``api.paged_step`` on reduced qwen3 in f32, after a prompt
+    tick filled both slots' pages: slot 0 decodes one token, slot 1 is idle
+    (``chunk_lens`` 0) with ``starts`` 6 > 0.  JAX runs the chunk kernel
+    for every paged step, which gives an idle slot zeros; the port's
+    decode route must do the same, so the logits of every slot, the idle
+    one included, match JAX's ``paged_step``, and layer 0's attention
+    output matches JAX's ``paged_chunk_attention_ref`` on the same q and
+    pools.  f32 throughout: logits atol/rtol 1e-4 (summation order of the
+    matmuls, as ``test_paged_step_logits_match``), attention 1e-5 (one
+    softmax over at most 6 keys)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.configs.base import get_model_config as jax_config
+    from repro.configs.base import reduced as jax_reduced
+    from repro.core.steps import make_ctx
+    from repro.kernels.paged_attention.ref import paged_chunk_attention_ref
+    from repro.models import api as jax_api
+    from repro.models import transformer as JT
+    from repro_torch.models import api
+    from repro_torch.models.params import load_jax_flat
+
+    jcfg = jax_reduced(jax_config("qwen3-1.7b"), dtype="float32")
+    cfg = reduced(get_model_config("qwen3-1.7b"), dtype="float32")
+    params = jax_api.model_init(jax.random.key(2), jcfg)
+    model = load_jax_flat(
+        {jax.tree_util.keystr(p): np.asarray(leaf) for p, leaf in
+         jax.tree_util.tree_leaves_with_path(params)}, cfg, device="cpu")
+    ctx = make_ctx(jcfg, None)
+    P, psize = 8, 4
+    jcache = JT.init_paged_cache(jcfg, P, psize, dtype=jnp.float32)
+    tcache = T.init_paged_cache(cfg, P, psize, dtype=torch.float32,
+                                device="cpu")
+    bt = np.asarray([[1, 2, 3], [4, 5, 6]], np.int32)
+    rng = np.random.default_rng(5)
+
+    seen = []
+    real = attention.paged_attention
+
+    def record(q, kp, vp, bt_, lengths, **kw):
+        out = real(q, kp, vp, bt_, lengths, **kw)
+        seen.append((q.clone(), kp.clone(), vp.clone(), kw, out))
+        return out
+
+    monkeypatch.setattr(attention, "paged_attention", record)
+    for C, st, cl in ((8, [0, 0], [5, 6]), (1, [5, 6], [1, 0])):
+        tok = rng.integers(1, jcfg.vocab_size, size=(2, C)).astype(np.int32)
+        st, cl = np.asarray(st, np.int32), np.asarray(cl, np.int32)
+        want, jcache = jax_api.paged_step(
+            params, jcache, jnp.asarray(tok), jnp.asarray(st),
+            jnp.asarray(cl), jnp.asarray(bt), jcfg, ctx)
+        got, tcache = api.paged_step(
+            model, tcache, torch.tensor(tok), torch.tensor(st),
+            torch.tensor(cl), torch.tensor(bt), cfg)
+        live = cl > 0 if C > 1 else np.ones(2, bool)
+        np.testing.assert_allclose(got.numpy()[live],
+                                   np.asarray(want)[live], atol=1e-4,
+                                   rtol=1e-4)
+    assert len(seen) == cfg.num_layers          # the C == 1 tick only
+    q, kp, vp, kw, out = seen[0]
+    ref_out = paged_chunk_attention_ref(
+        jnp.asarray(q.numpy()[:, None]), jnp.asarray(kp.numpy()),
+        jnp.asarray(vp.numpy()), jnp.asarray(bt), jnp.asarray(st),
+        jnp.asarray(cl), scale=kw["scale"], window=kw["window"],
+        softcap=kw["softcap"])
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out)[:, 0],
+                               atol=1e-5, rtol=1e-5)
+    assert torch.all(out[1] == 0)
+
+
 def test_cpu_tensors_never_reach_the_decode_kernel():
     """The CPU path is the plain version; the CUDA wrapper refuses CPU
     tensors instead of computing anything."""
