@@ -12,7 +12,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
   3. kernels  each kernel against its plain PyTorch version on the card.
               Paged chunk attention: qwen3-1.7b and gemma2-27b geometries,
               chunk widths 1/7/64/256, ragged starts, idle slots, poisoned
-              dead block-table entries, pools of q's dtype and int8.  Paged
+              dead block-table entries, pools of q's dtype and int8 (bf16
+              on the tensor-core kernel, f32 and int8 on the CUDA-core
+              one), each case also with a ``logit_index`` window whose
+              rows are held against the plain version's.  Paged
               decode attention: MHA, GQA, MQA (two row groups), qwen3-1.7b
               and gemma2-27b geometries; plain, window, softcap; lengths
               that straddle pages, an empty slot, poisoned dead entries;
@@ -23,9 +26,11 @@ Phases, each of which fails the script (non-zero exit, no result line):
               on the CUDA-core ones): qwen3-1.7b and gemma2-27b
               geometries, causal / window / softcap / non-causal, S
               1/7/256/1024.
-              Dropout matmul: the JAX sweep's shapes and the full-width
-              Horn MLP shape with a random, an all-dropped, an all-live and
-              a one-live-block mask.  All with q (or x) in f32 and bf16.
+              Dropout matmul: the JAX sweep's shapes, a ragged one (K 13:
+              bf16 on the mma.sync kernel) and the full-width Horn MLP
+              shape with a random, an all-dropped, an all-live and a
+              one-live-block mask (bf16 on the wgmma kernel).  All with q
+              (or x) in f32 and bf16.
   4. parity   the paged engine (qwen3-1.7b at full width, 2 layers, f32)
               against a plain non-paged recompute of the same model on the
               card: identical greedy streams.  Then the same engine on int8
@@ -35,7 +40,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
               random weights from a seed) serving 16 requests through
               ``Engine``; every request finishes, and each tick launches
               one paged kernel once per layer: ``paged_attention`` on the
-              decode-only ticks, ``paged_chunk_attention`` on the others.
+              decode-only ticks, ``paged_chunk_attention`` (every launch
+              on its tensor-core kernel) on the others.
   5b. int8    phase 5's load twice at one HBM budget: bf16 pools of 28
               pages (below the load's peak, so it preempts), then int8
               pools of the pages the same bytes hold; int8 preempts
@@ -53,7 +59,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
               all 28 qwen3-1.7b layers at full width (bf16 weights from
               seed 0, x [8, 1024, 2048] through each layer's ffn_norm, 4
               groups at keep 0.5 drawn as the train step draws them): the
-              dropout_matmul kernel launched 2 x 28 times, each layer's
+              dropout_matmul kernel launched 2 x 28 times, every launch on
+              its wgmma kernel, each layer's
               output equal to the dense masked path's; then both paths
               timed over the 28 layers, and the block path profiled.
   8. timing   each kernel, its plain version and one PyTorch library call
@@ -159,9 +166,11 @@ def quantize_pools(torch, kp, vp):
                     "v_scale": vs[:, 0, :, 0].contiguous()}
 
 
-def phase_kernels(torch, dev, kernel, ref):
+def phase_kernels(torch, dev, kernel, ref, build):
     """The chunk kernel against its plain version, pools of q's dtype and
-    int8 pools (q f32 or bf16); returns the largest error."""
+    int8 pools (q f32 or bf16); each case again with a ``logit_index`` of
+    4 chunk positions a slot (valid and padding rows), whose window rows
+    must match the plain version's.  Returns the largest error."""
     geoms = {
         "qwen3-1.7b": dict(B=8, H=16, KH=8, D=128, psize=16, maxp=40, kw={}),
         "gemma2-27b": dict(B=8, H=32, KH=16, D=128, psize=16, maxp=38,
@@ -181,19 +190,36 @@ def phase_kernels(torch, dev, kernel, ref):
                         kq, vq, scales = quantize_pools(torch, *args[1:3])
                         args = (args[0], kq, vq, *args[3:])
                         kw.update(scales)
+                    build.reset_launches()
                     got = kernel.paged_chunk_attention(*args, **kw)
                     want = ref.paged_chunk_attention_ref(*args, **kw)
+                    rng = np.random.default_rng(C)
+                    widx = torch.from_numpy(rng.integers(
+                        0, C, size=(g["B"], 4)).astype(np.int32)).to(dev)
+                    got_w = kernel.paged_chunk_attention(
+                        *args, **kw, logit_index=widx)[1]
+                    want_w = ref.paged_chunk_attention_ref(
+                        *args, **kw, logit_index=widx)[1]
                     torch.cuda.synchronize()
-                    err = (got.float() - want.float()).abs().max().item()
+                    routes = [k.split(":")[1] for k, v in
+                              build.ROUTE_LAUNCHES.items()
+                              if k.startswith(kernel.NAME + ":") and v]
+                    want_route = kernel.chunk_route(
+                        args[0].dtype, pools == "int8", g["D"], g["psize"],
+                        g["H"] // g["KH"])
+                    assert routes == [want_route], (routes, want_route)
+                    err = max((x.float() - y.float()).abs().max().item()
+                              for x, y in ((got, want), (got_w, want_w)))
                     worst = max(worst, err)
-                    torch.testing.assert_close(
-                        got.float(), want.float(), atol=tol[dtype],
-                        rtol=tol[dtype])
+                    for x, y in ((got, want), (got_w, want_w)):
+                        torch.testing.assert_close(
+                            x.float(), y.float(), atol=tol[dtype],
+                            rtol=tol[dtype])
                     for b, cl in enumerate(clens):
                         assert torch.all(got[b, int(cl):] == 0), (name, C, b)
                     log(f"  {name:11s} {pools:6s} pools, q {dtype:8s} "
-                        f"C={C:3d}: max |kernel - plain| = {err:.3g} "
-                        f"(tol {tol[dtype]:g})")
+                        f"C={C:3d} ({want_route:9s}): max |kernel - plain| "
+                        f"= {err:.3g} with the window (tol {tol[dtype]:g})")
     return worst
 
 
@@ -334,10 +360,13 @@ def phase_flash_kernels(torch, dev, fkernel, fref):
     return worst
 
 
-# (G, M, K, N, block_n): the JAX sweep (tests/test_kernels.py) and the Horn
-# MLP's up/gate product at qwen3-1.7b width, 4 groups of 2 x 1024 tokens
+# (G, M, K, N, block_n): the JAX sweep (tests/test_kernels.py) plus a
+# ragged shape whose K has no tensor map (the mma.sync kernel's), and the
+# Horn MLP's up/gate product at qwen3-1.7b width, 4 groups of 2 x 1024
+# tokens
 DM_SWEEP = [(1, 128, 128, 128, 128), (2, 256, 128, 512, 128),
-            (4, 128, 256, 256, 64), (3, 128, 384, 640, 128)]
+            (4, 128, 256, 256, 64), (3, 128, 384, 640, 128),
+            (2, 7, 13, 128, 64)]
 DM_FULL = (4, 2048, 2048, 6144, 128)
 
 
@@ -348,16 +377,19 @@ def dm_inputs(torch, dev, dtype, G, M, K, N, seed):
     return x, w, gen
 
 
-def phase_dropout_kernels(torch, dev, dkernel, dref):
+def phase_dropout_kernels(torch, dev, dkernel, dref, build):
     """The kernel against the plain version with the JAX sweep's
     tolerances: atol tol * sqrt(K), rtol tol, tol 1e-4 in f32 and 0.15 in
     bf16.  Masks in {0, 2}: random (each block live with probability 0.5)
     on every shape; at full width also all dropped (the output must be
-    exactly 0), all live, and group 0 with a single live block."""
+    exactly 0), all live, and group 0 with a single live block.  The last
+    sweep shape (K 13) takes the mma.sync kernel in bf16, the others the
+    wgmma kernel; f32 takes the CUDA-core kernel."""
     tol = {"float32": 1e-4, "bfloat16": 0.15}
     worst = 0.0
     for dtype in ("float32", "bfloat16"):
         errs = []
+        build.reset_launches()
         for i, (G, M, K, N, bn) in enumerate(DM_SWEEP + [DM_FULL]):
             x, w, gen = dm_inputs(torch, dev, getattr(torch, dtype), G, M, K,
                                   N, seed=i)
@@ -383,9 +415,14 @@ def phase_dropout_kernels(torch, dev, dkernel, dref):
                     assert torch.all(got == 0), "dropped tiles not zero"
                 del got, want
         worst = max([worst] + errs)
+        routes = {k.split(":")[1]: v for k, v in build.ROUTE_LAUNCHES.items()
+                  if k.startswith(dkernel.NAME + ":") and v}
+        want = ({"f32": len(errs)} if dtype == "float32" else
+                {"wgmma": len(errs) - 1, "mma_sync": 1})
+        assert routes == want, (routes, want)
         log(f"  dropout_matmul {dtype:8s} {len(DM_SWEEP)} sweep shapes + "
             f"full width x 4 masks: max |kernel - plain| = {max(errs):.3g} "
-            f"(tol {tol[dtype]:g} * sqrt(K))")
+            f"(tol {tol[dtype]:g} * sqrt(K)); launches by kernel {routes}")
     return worst
 
 
@@ -605,6 +642,7 @@ def phase_serve(torch, dev, build, kernel):
     wall = drive(eng, pending)
     launches = {n: build.LAUNCHES[n] for n in (kernel.NAME,
                                                kernel.NAME_DECODE)}
+    chunk_tc = build.ROUTE_LAUNCHES.get(f"{kernel.NAME}:wgmma", 0)
     r = summarize(eng, wall)
 
     assert r["requests"] == len(pending), r
@@ -617,6 +655,8 @@ def phase_serve(torch, dev, build, kernel):
     assert launches[kernel.NAME_DECODE] == s.decode_launches == \
         cfg.num_layers * s.decode_ticks > 0, (launches, s.decode_ticks)
     assert launches[kernel.NAME] > 0, launches
+    assert chunk_tc == launches[kernel.NAME], (chunk_tc, launches)
+    r["chunk_wgmma_launches"] = chunk_tc
     for k, v in eng.cache:
         assert torch.isfinite(k).all() and torch.isfinite(v).all()
     # the lm head on a fresh prompt is finite too (NaN would hide in argmax)
@@ -641,7 +681,7 @@ def phase_serve(torch, dev, build, kernel):
         f" = {cfg.num_layers} layers x {s.decode_ticks} decode-only ticks; "
         f"{kernel.NAME} launches: {launches[kernel.NAME]} = "
         f"{cfg.num_layers} layers x {s.steps - s.decode_ticks} ticks with "
-        f"prompt chunks")
+        f"prompt chunks, all {chunk_tc} on the tensor-core kernel")
     return launches, r, eng
 
 
@@ -914,6 +954,8 @@ def phase_horn_mlp(torch, dev, build, dkernel):
             del x, h, got, want, diff
         launches = build.LAUNCHES[dkernel.NAME]
         assert launches == 2 * cfg.num_layers, launches
+        on_wgmma = build.ROUTE_LAUNCHES.get(f"{dkernel.NAME}:wgmma", 0)
+        assert on_wgmma == launches, (on_wgmma, launches)
 
         # both paths over the 28 layers, one input, masks drawn in advance
         x = torch.randn(B, S, cfg.d_model, generator=gen,
@@ -942,7 +984,7 @@ def phase_horn_mlp(torch, dev, build, dkernel):
     out = {"layers": cfg.num_layers, "B": B, "S": S, "groups": G,
            "keep": horn.cfg.keep_hidden, "kept_frac_mean": sum(kept) /
            len(kept), "launches": launches, "max_abs_err_vs_dense": worst,
-           "mean_abs_err_vs_dense": mean_diff,
+           "mean_abs_err_vs_dense": mean_diff, "wgmma_launches": on_wgmma,
            "block_ms": times["block"], "dense_ms": times["dense"],
            "block_device_ms": busy or None, "block_kernel_ms": None,
            "top_kernels": []}
@@ -952,7 +994,7 @@ def phase_horn_mlp(torch, dev, build, dkernel):
         f"max |diff| {worst:.3g} (tol 6e-2 + 2e-2 |y|), largest layer mean "
         f"|diff| {mean_diff:.3g} (tol 1e-2)")
     log(f"  {dkernel.NAME} launches: {launches} = 2 x {cfg.num_layers} "
-        f"layers (gate + up)")
+        f"layers (gate + up), all {on_wgmma} on the wgmma kernel")
     log(f"  {cfg.num_layers} MLP forwards: block-sparse path "
         f"{times['block']:.2f} ms, dense masked path {times['dense']:.2f} "
         f"ms (host clock, mean of 3)")
@@ -1136,7 +1178,11 @@ def phase_timing(torch, dev, kernel, ref):
             nbytes, flops = work(q, KH, starts, clens, psize, int8)
             b_ms, b_by = bound(nbytes, flops)
             key = shape + ("_int8" if int8 else "")
+            route = ("cuda_core" if name == kernel.NAME_DECODE else
+                     kernel.chunk_route(q.dtype, int8, D, psize, H // KH))
+            rows = (kernel.TC_ROWS if route == "wgmma" else 16)
             out[name][key] = {
+                "kernel_route": route,
                 "B": B, "C": C, "H": H, "KH": KH, "D": D, "psize": psize,
                 "dtype": "bfloat16", "pools": "int8" if int8 else "bfloat16",
                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1147,9 +1193,10 @@ def phase_timing(torch, dev, kernel, ref):
                 "flops": flops, "max_abs_err": err,
                 "grid_blocks": (-(-(H // KH) // 8) * KH * B
                                 if name == kernel.NAME_DECODE else
-                                -(-C * (H // KH) // 16) * KH * B),
+                                -(-C * (H // KH) // rows) * KH * B),
             }
-            log(f"  {name:21s} {key:18s} device: kernel {ms * 1e3:7.2f} us "
+            log(f"  {name:21s} {key:18s} ({route:9s}) device: kernel "
+                f"{ms * 1e3:7.2f} us "
                 f" plain {plain_ms * 1e3:8.2f} us  SDPA "
                 f"{library_ms * 1e3:7.2f} us  bound {b_ms * 1e3:5.2f} us "
                 f"({b_by}, {nbytes / 1e6:.2f} MB); events: kernel "
@@ -1641,10 +1688,10 @@ def main() -> int:
             f"{build.BUILD_SECONDS.get(src.name, 0.0):.1f} s")
 
     log("phase 3: kernels against their plain versions")
-    chunk_sweep_err = phase_kernels(torch, dev, kernel, ref)
+    chunk_sweep_err = phase_kernels(torch, dev, kernel, ref, build)
     decode_sweep_err = phase_decode_kernels(torch, dev, kernel, ref)
     flash_sweep_err = phase_flash_kernels(torch, dev, fkernel, fref)
-    dm_sweep_err = phase_dropout_kernels(torch, dev, dkernel, dref)
+    dm_sweep_err = phase_dropout_kernels(torch, dev, dkernel, dref, build)
     ssd_sweep_err = phase_ssd_kernels(torch, dev, skernel, sref)
 
     log("phase 4: paged engine against a dense recompute")
@@ -1711,6 +1758,8 @@ def main() -> int:
             "library_ms": d["library_ms"], "headline_shape": shape,
             "shapes": shapes[name],
         })
+    kernels[0]["launches_by_kernel"] = {
+        "wgmma": served["chunk_wgmma_launches"]}
     kernels[-1]["context_sweep"] = decode_sweep
     for part, name in (("fwd", fkernel.FWD), ("bwd", fkernel.BWD)):
         f = flash[part]
@@ -1734,6 +1783,7 @@ def main() -> int:
         "ms": d["ms"], "kernel_ms": d["ms"], "plain_ms": d["plain_ms"],
         "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
         "library_ms": d["library_ms"], "submodel_ms": d["submodel_ms"],
+        "launches_by_kernel": {"wgmma": horn_mlp["wgmma_launches"]},
         "keep_sweep": dm,
     })
     kernels.append({

@@ -1,11 +1,11 @@
 """The CUDA block-sparse dropout matmul: ctypes binding and wrapper.
 
-The kernel is ``csrc/dropout_matmul.cu`` (it replaces the TPU kernel
+The kernels are ``csrc/dropout_matmul.cu`` (they replace the TPU kernel
 ``src/repro/kernels/dropout_matmul/kernel.py:48``).  ``dropout_matmul``
-takes CUDA tensors only: it checks them, allocates the f32 output, launches
-on the current stream and raises when a launch is refused.  Like the TPU
-kernel it is forward-only.  CPU tensors go to the plain version through
-``ops.py``.
+takes CUDA tensors only: it checks them, picks a kernel by ``route``,
+allocates the f32 output, launches on the current stream and raises when a
+launch is refused.  Like the TPU kernel it is forward-only.  CPU tensors go
+to the plain version through ``ops.py``.
 """
 from __future__ import annotations
 
@@ -19,8 +19,10 @@ from repro_torch.kernels.dropout_matmul.ref import refuse_grad
 
 NAME = "dropout_matmul"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "dropout_matmul.cu"
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = (torch.float32, torch.bfloat16)
 TILE_N = 64                     # output columns of a tile; divides block_n
+# the kernels of the source, by the number the C entry point takes
+ROUTES = ("f32", "mma_sync", "wgmma")
 
 build.LAUNCHES.setdefault(NAME, 0)
 
@@ -70,6 +72,19 @@ def _check(x, w, mask_blocks, block_n):
                          f"block of {block_n} columns)")
 
 
+def route(dtype: torch.dtype, K: int) -> str:
+    """Which kernel takes a product of depth ``K`` in ``dtype``: bf16 goes
+    to the wgmma kernel, whose TMA copies need 16-byte row strides in x (K
+    a multiple of 8, and K > 0); other bf16 depths to the mma.sync kernel,
+    which copies such rows element by element; f32 to the CUDA-core
+    kernel.  A pure function of the shape: nothing is tried and retried."""
+    if dtype == torch.float32:
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"{NAME}: no kernel for {dtype}")
+    return "wgmma" if K > 0 and K % 8 == 0 else "mma_sync"
+
+
 def dropout_matmul(x, w, mask_blocks, *, block_n: int = 128):
     """Launch the kernel: x [G, M, K], w [K, N] (f32 or bf16, one type),
     mask_blocks [G, N / block_n] f32 -> y [G, M, N] f32.  Same contract as
@@ -78,12 +93,13 @@ def dropout_matmul(x, w, mask_blocks, *, block_n: int = 128):
     _check(x, w, mask_blocks, block_n)
     G, M, K = x.shape
     N = w.shape[1]
+    how = route(x.dtype, K)
     y = torch.empty((G, M, N), dtype=torch.float32, device=x.device)
     err = _entry()(x.data_ptr(), w.data_ptr(), mask_blocks.data_ptr(),
-                   y.data_ptr(), G, M, K, N, block_n, DTYPES[x.dtype],
+                   y.data_ptr(), G, M, K, N, block_n, ROUTES.index(how),
                    torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"{NAME}: kernel launch failed with CUDA error "
-                           f"{err}")
-    build.LAUNCHES[NAME] += 1
+        raise RuntimeError(f"{NAME}: kernel launch ({how}) failed with CUDA "
+                           f"error {err}")
+    build.count_launch(NAME, how)
     return y

@@ -82,7 +82,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+// the Hopper building blocks (mbarriers, TMA, wgmma descriptors and
+// products, tensor maps) shared with the other tensor-core kernels
+using namespace hopper;
 
 constexpr int TILE = 64;        // rows (queries or keys) of a tile
 constexpr int NT = 128;         // threads a block: 16 row groups x 8 lanes
@@ -590,248 +596,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// mbarriers: ``full`` barriers complete when a TMA copy's bytes land,
-// ``empty`` barriers when every consumer thread has released a stage.
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar)) : "memory");
-}
-// wait until the barrier's phase with this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-
-// One TMA copy of a [rows][CW] box of a 3-d map (d, row, head) into shared
-// memory, completing on ``bar``.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int d, int row,
-                                         int head) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d),
-      "r"(row), "r"(head) : "memory");
-}
-
-// Shared-memory tiles of the bf16 kernels: a [rows][D] tile is D / CW
-// chunks of [rows][CW], each row of a chunk SW bytes, swizzled as TMA's
-// CU_TENSOR_MAP_SWIZZLE_{SW}B writes it.  SW is 128 bytes where D is a
-// multiple of 64 and 64 bytes otherwise (D 32 and 96).
-template <int D> struct Tiles {
-  static constexpr int SW = D % 64 == 0 ? 128 : 64;
-  static constexpr int CW = SW / 2;            // bf16 columns a chunk
-  static constexpr int NCH = D / CW;
-};
-
-// The rows [row0, row0 + rows) of head ``head`` of a map, all chunks.
+// The rows [row0, row0 + rows) of head ``head`` of a map, all chunks of a
+// [rows][D] tile (hopper.cuh's Tiles: D / CW chunks of [rows][CW]).
 template <int D>
 __device__ __forceinline__ void tma_tile(uint8_t* tile, const CUtensorMap* map,
                                          uint64_t* bar, int rows, int row0,
                                          int head) {
 #pragma unroll
   for (int c = 0; c < Tiles<D>::NCH; ++c)
-    tma_load(tile + c * rows * Tiles<D>::SW, map, bar, c * Tiles<D>::CW,
-             row0, head);
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units) and the swizzle mode (1: 128B, 2: 64B).
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int sw) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(sw == 128 ? 1 : 2) << 62;
-}
-// K-major operand (the product's depth runs along D): rows [r0, r0 + 64 or
-// N) of a chunked tile of ``rows`` rows, depth step kk (16 columns).  Rows
-// go in 8-row atoms of 8 * SW bytes; a depth step moves the start inside
-// the swizzle atom, or to the next chunk.
-template <int D>
-__device__ __forceinline__ uint64_t kmajor(const uint8_t* tile, int rows,
-                                           int r0, int kk) {
-  constexpr int SW = Tiles<D>::SW, CW = Tiles<D>::CW;
-  const int e = kk * 16;
-  return make_desc(smem_u32(tile) + (e / CW) * rows * SW + r0 * SW +
-                       (e % CW) * 2,
-                   16, 8 * SW, SW);
-}
-// MN-major B operand (the depth runs along the tile's rows, N = D along
-// its columns): depth step kk covers rows [16 kk, 16 kk + 16); the leading
-// offset steps from one chunk of CW columns to the next.
-template <int D>
-__device__ __forceinline__ uint64_t mnmajor(const uint8_t* tile, int rows,
-                                            int kk) {
-  constexpr int SW = Tiles<D>::SW;
-  return make_desc(smem_u32(tile) + kk * 16 * SW, rows * SW, 8 * SW, SW);
-}
-
-#define ACC8(i)                                                        \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// S-type products, D[64 x N] (+)= A[64 x 16] B[16 x N] with A and B both
-// K-major in shared memory (N 64 or 128).
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24),
-        ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// O-type products, D[64 x N] (+)= A[64 x 16] B[16 x N] with A in registers
-// and B MN-major (transposed) in shared memory (N = the head dim).
-__device__ __forceinline__ void wgmma_rs(float (&d)[16],
-                                         const uint32_t (&a)[4], uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : ACC8(0), ACC8(8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4], uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[48],
-                                         const uint32_t (&a)[4], uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
-      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24),
-        ACC8(32), ACC8(40)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4], uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24),
-        ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
-}
-
-
-#undef ACC8
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Pin registers in place around a wgmma: the compiler may neither move a
-// write of an operand past the wgmma.fence nor a read of an accumulator
-// ahead of the wgmma.wait_group.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// An accumulator of m64nN holds, in thread t (warp w = t / 32, lane l) of
-// its warpgroup, entry 4 j + i at row 16 w + l / 4 + 8 (i / 2) and column
-// 8 j + 2 (l % 4) + i % 2.  Columns [16 kk, 16 kk + 16) of it are, rounded
-// to bf16 pairwise, exactly the A fragment of the product's depth step kk:
-// a score tile turns into the register A operand of the next product.
-template <int N>
-__device__ __forceinline__ void to_a_frags(const float (&s)[N / 2],
-                                           uint32_t (&a)[N / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+    tma_load_3d(tile + c * rows * Tiles<D>::SW, map, bar, c * Tiles<D>::CW,
+                row0, head);
 }
 
 // Can any (row, key) pair of the tile be hidden?  Uniform across the
@@ -865,20 +639,6 @@ struct Ring {
   __device__ void consume(int n) { mbar_wait(&full[n & 1], (n >> 1) & 1); }
   __device__ void release(int n) { mbar_arrive(&empty[n & 1]); }
 };
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ uint8_t* align1024(unsigned char* p) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
 
 // Forward: one block per (b, q head, 128-row q tile), two warpgroups of 64
 // rows; 128-key K/V tiles through the ring.
@@ -917,7 +677,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
   if (tid == 0) {
     ring.init(FNT);
     mbar_init(&qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
   if (tid == 0) {
@@ -961,7 +721,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_ss(sc, kmajor<D>(Qs, FBM, 64 * wg, kk),
                kmajor<D>(Kt, FBN, 0, kk), kk > 0);
     wg_commit();
-    wg_wait_all();
+    wg_wait<0>();
     pin(sc);
 
     // online softmax in f32, in the log2 domain
@@ -1009,7 +769,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kk = 0; kk < FBN / 16; ++kk)
       wgmma_rs(acc, pa[kk], mnmajor<D>(Vt, FBN, kk), 1);
     wg_commit();
-    wg_wait_all();
+    wg_wait<0>();
     pin(acc);
     ring.release(it);
   }
@@ -1079,7 +839,7 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   if (tid == 0) {
     ring.init(BNT);
     mbar_init(&kvbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
   if (tid == 0) {
@@ -1136,7 +896,7 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     // thread reached the previous tile's barrier
     (tid < BB ? Ls : Ds)[s][c] = stat;
     __syncthreads();
-    wg_wait_all();
+    wg_wait<0>();
     pin(st);
     pin(dpt);
 
@@ -1169,7 +929,7 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kk = 0; kk < BB / 16; ++kk)
       wgmma_rs(dka, da[kk], mnmajor<D>(Qt, BB, kk), 1);
     wg_commit();
-    wg_wait_all();
+    wg_wait<0>();
     pin(dva);
     pin(dka);
     ring.release(it);
@@ -1225,7 +985,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
   if (tid == 0) {
     ring.init(BNT);
     mbar_init(&qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
   if (tid == 0) {
@@ -1278,7 +1038,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_ss(dpa, kmajor<D>(dOs, BB, 0, kk), kmajor<D>(Vt, BB, 0, kk),
                kk > 0);
     wg_commit();
-    wg_wait_all();
+    wg_wait<0>();
     pin(sa);
     pin(dpa);
 
@@ -1305,7 +1065,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kk = 0; kk < BB / 16; ++kk)
       wgmma_rs(dqa, da[kk], mnmajor<D>(Kt, BB, kk), 1);
     wg_commit();
-    wg_wait_all();
+    wg_wait<0>();
     pin(dqa);
     ring.release(it);
   }
@@ -1324,14 +1084,6 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // Host side: launch configuration and the C entry points.
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
 
 struct Shape {
   int B, H, KH, Sq, Skv;
@@ -1398,57 +1150,22 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// Host side of the bf16 kernels: tensor maps.  cuTensorMapEncodeTiled is a
-// driver-API call; the library is not linked with -lcuda but reaches it
-// through the runtime's cudaGetDriverEntryPoint(ByVersion), which finds it
-// in the driver the process has loaded.  A map is a 128-byte value built
-// on the host for every launch and passed by value (__grid_constant__).
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A contiguous [heads][rows][D] bf16 tensor as a 3-d map of [box_rows][CW]
-// boxes, swizzled as the kernels' tiles are; rows past ``rows`` read as
-// zeros, so a ragged last tile never reads the next head.
+// Host side of the bf16 kernels: a contiguous [heads][rows][D] bf16
+// tensor as a 3-d map of [box_rows][CW] boxes, swizzled as the kernels'
+// tiles are; rows past ``rows`` read as zeros, so a ragged last tile never
+// reads the next head.  A map is built on the host for every launch and
+// passed by value (__grid_constant__).
 template <int D>
 bool make_map(CUtensorMap* map, const void* ptr, int rows, int heads,
               int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
                               (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
                                  (cuuint64_t)rows * D * 2};
   const cuuint32_t box[3] = {(cuuint32_t)Tiles<D>::CW, (cuuint32_t)box_rows,
                              1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                Tiles<D>::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                    : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptr, dims,
+                          strides, box, Tiles<D>::SW);
 }
 
 // A map that cannot be encoded is reported as cudaErrorInvalidValue.

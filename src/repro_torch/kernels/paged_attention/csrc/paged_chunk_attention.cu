@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attention/kernel.py:169
 // (_chunk_kernel) behind kernel.py:264 (paged_chunk_attention), with its
-// f32/bf16 and int8 pool modes.  The fused logit_index epilogue of the TPU
-// kernel is not ported (no caller passes it).
+// f32/bf16 and int8 pool modes and its fused logit_index epilogue
+// (kernel.py:238-250).
 //
 // Contract (the plain version is ref.py::paged_chunk_attention_ref):
 //   q           [B, C, H, D]        f32 or bf16, right-padded chunks
@@ -14,46 +14,75 @@
 //   block_tables[B, maxp] int32     only entries of live pages are read
 //   starts, chunk_lens [B] int32    token j of slot b sits at start + j
 //   out         [B, C, H, D]        q's dtype; padding rows and idle slots 0
+//   logit_index [B, S_w] int32      optional (S_w > 0): out_win [B, S_w, H,
+//                                   D] gets row logit_index[b, s] of out[b]
+//                                   (the fused verify window); an index
+//                                   outside [0, C) leaves its rows as the
+//                                   caller allocated them (zeros)
 // Query row r of a (slot, kv head) pair is chunk token r / G, query head
 // kh * G + r % G (G = H / KH), so the G heads sharing a kv head read each
 // K/V element once, without repeating K/V.
 //
-// What bounds it on an H100: the bytes of the live K/V pages.  A decode tick
-// does ~4 flops per K/V element read, far below the card's ~295 flops/byte
-// balance point, so the floor is live K/V bytes / 3.35 TB/s.  What the
-// design does about it: one block owns one (slot, kv head, group of query
-// rows); it walks the slot's live keys in tiles of 32, copies each tile of
-// K and V into shared memory once (16-byte cp.async copies, two stages, so
-// the next tile is in flight while this one is consumed), and every query
-// row of the block (all G grouped heads, up to ROWS chunk rows) reads it
-// from there.  So each page is read once per (slot, kv head) block at
-// decode, and once per row group of a prompt chunk.  Pages past the live
-// length are never read, and the block table entry of a page is read only
-// when the page is live: a stale or garbage entry there is never
-// dereferenced.
+// What bounds it on an H100: the bytes of the live K/V pages at a decode
+// tick (~4 flops per K/V element read, far below the card's ~295 flops/byte
+// balance point), and at a long prompt chunk the products: 4 * D flops per
+// (row, visible key).  Two kernels, chosen by the wrapper
+// (kernel.py::chunk_route):
 //
-// int8 pools: a tile row of D int8 is D / 16 copies of 16 bytes (not D / 8
-// as for bf16), and the row stride pads 16 bytes as for the other types.
-// Each lane loads the K and V scale of its key's page when it issues the
-// tile, into registers; every K/V element is multiplied by its scale in f32
-// right after it is read from shared memory.  The f32/bf16 instantiations
-// compile without any of it.
+// tensor cores (bf16 q and pools; D 32/64/96/128; psize 8/16/32/64; G
+//   dividing 64): paged_chunk_tc_kernel, after the flash forward
+//   (flash_attention.cu).  One block per (slot, kv head, 64-row q tile),
+//   one consumer warpgroup and one producer warp.  The producer copies the
+//   q tile once by TMA (a 5-d map (d, g, kv head, token, slot) lands the
+//   tile's 64 / G tokens x G heads as its 64 rows) and then, for each
+//   64-key tile, reads the block-table entries of its 64 / psize pages (one
+//   lane each, live pages only) and copies each page's psize rows of K and
+//   V by TMA through a 3-d map of the pool (d, kv head, page row) into a
+//   four-stage mbarrier ring.  TMA rather than cp.async: one lane per page
+//   issues whole-page boxes that land already swizzled for wgmma, the
+//   consumers spend no instructions on copies, and a page past the
+//   tile's live keys is a box outside the pool, which TMA fills with zeros
+//   without reading memory (so masked keys multiply finite zeros and no
+//   dead entry is read).  A page of psize rows is psize * SW bytes, a
+//   whole number of swizzle atoms for psize >= 8, so pages tile the
+//   swizzled layout exactly.  The consumer runs S = Q K^T (wgmma, both
+//   operands K-major in shared memory, f32 accumulators), the mask (causal
+//   within the chunk, window, padding rows) and the online softmax in f32
+//   registers, and O += P V with P as the register A operand and V read
+//   transposed.  Key tiles above the causal diagonal of the q tile's last
+//   valid token, or below its first token's window, are never loaded;
+//   a q tile of an idle slot or of padding rows only writes zeros.  Decode
+//   slots of a mixed tick have G live rows of the 64: their cost is their
+//   K/V bytes, read once per (slot, kv head).
 //
-// Masks: key kpos is visible to a row at position qpos when
-// kpos < start + clen, kpos <= qpos and, with a window, kpos > qpos - window.
-// Masked keys are skipped explicitly (probability 0, no max update), so a
-// row whose first tiles are all masked (a sliding window shorter than the
-// context) never computes exp(-inf - -inf).  Online softmax in f32.
+// CUDA cores (f32, int8 pools, and the shapes above it does not take):
+//   paged_chunk_attention_kernel.  One block owns one (slot, kv head, group
+//   of 16 query rows); it walks the slot's live keys in tiles of 32, copies
+//   each tile of K and V into shared memory once (16-byte cp.async copies,
+//   two stages), and every query row of the block reads it from there.
+//   Scores are computed one key per lane.  int8 pools: a tile row of D int8
+//   is D / 16 copies of 16 bytes; each lane loads the K and V scale of its
+//   key's page when it issues the tile, and every K/V element is
+//   multiplied by its scale in f32 right after it is read from shared
+//   memory.  Launch: grid (ceil(C * G / ROWS), KH, B), NWARPS warps; a warp
+//   owns ROWS / NWARPS rows (interleaved); a lane holds D / 32 elements of
+//   each row's accumulator.
 //
-// Launch: grid (ceil(C * G / ROWS), KH, B), NWARPS warps.  A warp owns
-// ROWS / NWARPS rows (interleaved); a lane holds D / 32 elements of each
-// row's accumulator.  Scores are computed one key per lane.
+// Both: key kpos is visible to a row at position qpos when kpos < start +
+// clen, kpos <= qpos and, with a window, kpos > qpos - window.  Masked keys
+// get probability 0 and no max update, so a row whose first tiles are all
+// masked (a sliding window shorter than the context) never computes
+// exp(-inf - -inf).  Pages past the live length are never read, and the
+// block table entry of a page is read only when the page is live: a stale
+// or garbage entry there is never dereferenced.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -131,8 +160,10 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
                              const int* __restrict__ block_tables,
                              const int* __restrict__ starts,
                              const int* __restrict__ chunk_lens,
-                             T* __restrict__ out, int C, int H, int KH,
-                             int psize, int maxp, float scale, int window,
+                             const int* __restrict__ widx,
+                             T* __restrict__ out, T* __restrict__ out_win,
+                             int C, int H, int KH, int psize, int maxp,
+                             int S_w, float scale, int window,
                              float softcap) {
   constexpr bool QUANT = std::is_same<KV, int8_t>::value;
   constexpr int NE = D / 32;                 // accumulator elements a lane
@@ -302,21 +333,38 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
   for (int i = 0; i < RPW; ++i) {
     const int r = row0 + i * NWARPS + warp;
     if (r >= CG) continue;
-    T* o = out + ((size_t)(b * C + tok[i]) * H + kh * G + r % G) * D;
+    const int head = kh * G + r % G;
+    T* o = out + ((size_t)(b * C + tok[i]) * H + head) * D;
     const float inv = active[i] ? 1.f / fmaxf(l[i], 1e-30f) : 0.f;
 #pragma unroll
     for (int e = 0; e < NE; ++e)
       o[lane + 32 * e] = from_f32<T>(active[i] ? acc[i][e] * inv : 0.f);
+    // the fused verify window: this row again for each window slot naming
+    // its token
+    for (int sw = 0; sw < S_w; ++sw) {
+      if (widx[(size_t)b * S_w + sw] != tok[i]) continue;
+      T* ow = out_win + ((size_t)(b * S_w + sw) * H + head) * D;
+#pragma unroll
+      for (int e = 0; e < NE; ++e)
+        ow[lane + 32 * e] = from_f32<T>(active[i] ? acc[i][e] * inv : 0.f);
+    }
   }
 }
 
+// The operands of one launch, as the C entry point receives them.
+struct Args {
+  const void *q, *k, *v;
+  const float *ks, *vs;
+  const int *bt, *starts, *clens, *widx;
+  void *out, *out_win;
+  int B, C, H, KH, D, psize, maxp, P, S_w;
+  float scale;
+  int window;
+  float softcap;
+};
+
 template <typename T, typename KV, int D>
-cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
-                   const float* k_scale, const float* v_scale,
-                   const int* block_tables, const int* starts,
-                   const int* chunk_lens, void* out, int B, int C, int H,
-                   int KH, int psize, int maxp, float scale, int window,
-                   float softcap, cudaStream_t stream) {
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<KV, D>();
   auto kernel = paged_chunk_attention_kernel<T, KV, D>;
   if (smem > 48 * 1024) {
@@ -324,27 +372,22 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const int G = H / KH;
-  dim3 grid((C * G + ROWS - 1) / ROWS, KH, B);
+  const int G = a.H / a.KH;
+  dim3 grid((a.C * G + ROWS - 1) / ROWS, a.KH, a.B);
   kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k_pages),
-      static_cast<const KV*>(v_pages), k_scale, v_scale, block_tables,
-      starts, chunk_lens, static_cast<T*>(out), C, H, KH, psize, maxp, scale,
-      window, softcap);
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), a.ks, a.vs, a.bt, a.starts, a.clens,
+      a.widx, static_cast<T*>(a.out), static_cast<T*>(a.out_win), a.C, a.H,
+      a.KH, a.psize, a.maxp, a.S_w, a.scale, a.window, a.softcap);
   return cudaGetLastError();
 }
 
 template <typename T, typename KV>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       const float* ks, const float* vs, const int* bt,
-                       const int* st, const int* cl, void* o, int B, int C,
-                       int H, int KH, int psize, int maxp, float scale,
-                       int window, float softcap, cudaStream_t s) {
-#define CASE(DD)                                                         \
-  case DD:                                                               \
-    return launch<T, KV, DD>(q, k, v, ks, vs, bt, st, cl, o, B, C, H, KH, \
-                             psize, maxp, scale, window, softcap, s);
-  switch (D) {
+cudaError_t dispatch_d(const Args& a, cudaStream_t s) {
+#define CASE(DD)   \
+  case DD:         \
+    return launch<T, KV, DD>(a, s);
+  switch (a.D) {
     CASE(32) CASE(64) CASE(96) CASE(128) CASE(160) CASE(192) CASE(224)
     CASE(256)
     default:
@@ -353,43 +396,314 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 #undef CASE
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel (wgmma fed by TMA)
+// ---------------------------------------------------------------------------
+constexpr int TQ = 64;          // query rows of a tile: one warpgroup
+constexpr int TK = 64;          // keys of a K/V tile
+constexpr int TC_STAGES = 4;
+constexpr int TC_THREADS = 160; // the consumer warpgroup + a producer warp
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct TcLayout {
+  static constexpr int Q_BYTES = TQ * D * 2;
+  static constexpr int TILE = TK * D * 2;     // a K or a V tile
+  static constexpr size_t SMEM =
+      1024 + (size_t)Q_BYTES + 2 * (size_t)TC_STAGES * TILE;
+};
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+paged_chunk_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const int* __restrict__ block_tables,
+                      const int* __restrict__ starts,
+                      const int* __restrict__ chunk_lens,
+                      const int* __restrict__ widx,
+                      __nv_bfloat16* __restrict__ out,
+                      __nv_bfloat16* __restrict__ out_win, int C, int H,
+                      int KH, int psize, int maxp, int P, int S_w,
+                      float scale, int window, float softcap) {
+  using TL = hopper::Tiles<D>;
+  using L = TcLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[TC_STAGES], empty[TC_STAGES], qbar;
+  uint8_t* Qs = hopper::align1024(smem_raw);
+  uint8_t* Ks = Qs + L::Q_BYTES;               // stage s at Ks + s * TILE
+  uint8_t* Vs = Ks + TC_STAGES * L::TILE;
+
+  const int b = blockIdx.z, kh = blockIdx.y, row0 = blockIdx.x * TQ;
+  const int G = H / KH, CG = C * G;
+  const int start = starts[b], clen = chunk_lens[b];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // keys [kb0, k_hi] that some valid row of the tile can see, in n tiles
+  const int t_first = row0 / G;
+  int n = 0, kb0 = 0, k_hi = -1;
+  if (t_first < clen) {
+    const int t_last = min((min(row0 + TQ, CG) - 1) / G, clen - 1);
+    k_hi = start + t_last;
+    const int k_lo = window > 0 ? max(0, start + t_first - window + 1) : 0;
+    kb0 = k_lo / TK * TK;
+    n = (k_hi - kb0) / TK + 1;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TC_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 128);        // every consumer thread
+    }
+    hopper::mbar_init(&qbar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // producer: the q tile, then each key tile page by page, one lane a page
+    if (n == 0) return;
+    if (lane == 0) {
+      hopper::mbar_expect_tx(&qbar, L::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < TL::NCH; ++c)
+        hopper::tma_load_5d(Qs + c * TQ * TL::SW, &tq, &qbar, c * TL::CW, 0,
+                            kh, t_first, b);
+    }
+    const int ppt = TK / psize;                 // pages a key tile
+    for (int it = 0; it < n; ++it) {
+      const int s = it % TC_STAGES, k0 = kb0 + it * TK;
+      const int pg = k0 / psize + lane;
+      int row = P * psize;                      // outside the pool: zeros
+      if (lane < ppt && pg * psize <= k_hi)     // a live page
+        row = block_tables[(size_t)b * maxp + pg] * psize;
+      if (it >= TC_STAGES)
+        hopper::mbar_wait(&empty[s], (it / TC_STAGES - 1) & 1);
+      if (lane == 0) hopper::mbar_expect_tx(&full[s], 2 * L::TILE);
+      __syncwarp();
+      if (lane < ppt) {
+        uint8_t* kt = Ks + s * L::TILE + lane * psize * TL::SW;
+        uint8_t* vt = Vs + s * L::TILE + lane * psize * TL::SW;
+#pragma unroll
+        for (int c = 0; c < TL::NCH; ++c) {
+          hopper::tma_load_3d(kt + c * TK * TL::SW, &tk, &full[s],
+                              c * TL::CW, kh, row);
+          hopper::tma_load_3d(vt + c * TK * TL::SW, &tv, &full[s],
+                              c * TL::CW, kh, row);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: this thread's two rows, h = 0 and h = 1 (8 below)
+  int tok[2], qpos[2];
+  bool valid[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 16 * warp + lane / 4 + 8 * h;
+    tok[h] = r / G;
+    valid[h] = r < CG && tok[h] < clen;
+    qpos[h] = start + tok[h];
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  if (n > 0) hopper::mbar_wait(&qbar, 0);
+
+  for (int it = 0; it < n; ++it) {
+    const int s = it % TC_STAGES, k0 = kb0 + it * TK;
+    hopper::mbar_wait(&full[s], (it / TC_STAGES) & 1);
+    const uint8_t* Kt = Ks + s * L::TILE;
+    const uint8_t* Vt = Vs + s * L::TILE;
+
+    // S = Q K^T
+    float sc[TK / 2];
+#pragma unroll
+    for (int i = 0; i < TK / 2; ++i) sc[i] = 0.f;
+    hopper::pin(sc);
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_ss<0>(sc, hopper::kmajor<D>(Qs, TQ, 0, kk),
+                          hopper::kmajor<D>(Kt, TK, 0, kk), kk > 0);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::pin(sc);
+
+    // mask and online softmax in f32, in the log2 domain
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int e = 0; e < TK / 2; ++e) {
+      const int h = (e >> 1) & 1;
+      const int kj = k0 + 8 * (e >> 2) + 2 * (lane % 4) + (e & 1);
+      float x = sc[e] * scale;
+      if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+      x *= LOG2E;
+      if (!(valid[h] && kj <= qpos[h] &&
+            (window <= 0 || kj > qpos[h] - window)))
+        x = -INFINITY;
+      sc[e] = x;
+      mx[h] = fmaxf(mx[h], x);
+    }
+    float corr[2], base[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], hopper::quad_max(mx[h]));
+      // m_new == -inf: no key of this row visible yet; P is 0, keep state
+      corr[h] = m_new == -INFINITY ? 1.f : exp2f(m[h] - m_new);
+      base[h] = m_new == -INFINITY ? 0.f : m_new;
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int e = 0; e < TK / 2; ++e) {
+      sc[e] = exp2f(sc[e] - base[(e >> 1) & 1]);
+      l[(e >> 1) & 1] += sc[e];                 // this thread's columns
+    }
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[e] *= corr[(e >> 1) & 1];
+    uint32_t pa[TK / 16][4];
+    hopper::to_a_frags<TK>(sc, pa);
+
+    // O += P V, P from registers, V transposed
+    hopper::pin(acc);
+    hopper::pin(pa);
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk)
+      hopper::wgmma_rs(acc, pa[kk], hopper::mnmajor<D>(Vt, TK, kk), 1);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::pin(acc);
+    hopper::mbar_arrive(&empty[s]);
+  }
+
+  // epilogue: normalise; padding rows and idle slots write zeros; each
+  // window slot naming a row's token gets the row again
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 16 * warp + lane / 4 + 8 * h;
+    const float lsum = hopper::quad_sum(l[h]);
+    if (r >= CG) continue;
+    const float inv = valid[h] && lsum > 0.f ? 1.f / lsum : 0.f;
+    const int head = kh * G + r % G;
+    __nv_bfloat162 v[D / 8];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      v[j] = __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv,
+                                   acc[4 * j + 2 * h + 1] * inv);
+    __nv_bfloat16* orow = out + ((size_t)(b * C + tok[h]) * H + head) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * (lane % 4)) =
+          v[j];
+    for (int sw = 0; sw < S_w; ++sw) {
+      if (widx[(size_t)b * S_w + sw] != tok[h]) continue;
+      __nv_bfloat16* wrow =
+          out_win + ((size_t)(b * S_w + sw) * H + head) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(wrow + 8 * j + 2 * (lane % 4)) =
+            v[j];
+    }
+  }
+}
+
+// Tensor maps: q as (d, g, kv head, token, slot), the pools as (d, kv head,
+// page row); boxes of CW columns, swizzled as the kernel's tiles are.
+template <int D>
+cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
+  using TL = hopper::Tiles<D>;
+  const int G = a.H / a.KH;
+  CUtensorMap tq, tk, tv;
+  const cuuint64_t qd[5] = {(cuuint64_t)D, (cuuint64_t)G, (cuuint64_t)a.KH,
+                            (cuuint64_t)a.C, (cuuint64_t)a.B};
+  const cuuint64_t qs[4] = {(cuuint64_t)D * 2, (cuuint64_t)G * D * 2,
+                            (cuuint64_t)a.H * D * 2,
+                            (cuuint64_t)a.C * a.H * D * 2};
+  const cuuint32_t qb[5] = {(cuuint32_t)TL::CW, (cuuint32_t)G, 1,
+                            (cuuint32_t)(TQ / G), 1};
+  const cuuint64_t pd[3] = {(cuuint64_t)D, (cuuint64_t)a.KH,
+                            (cuuint64_t)a.P * a.psize};
+  const cuuint64_t ps[2] = {(cuuint64_t)D * 2, (cuuint64_t)a.KH * D * 2};
+  const cuuint32_t pb[3] = {(cuuint32_t)TL::CW, 1, (cuuint32_t)a.psize};
+  if (!hopper::make_map(&tq, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, a.q, qd,
+                        qs, qb, TL::SW) ||
+      !hopper::make_map(&tk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a.k, pd,
+                        ps, pb, TL::SW) ||
+      !hopper::make_map(&tv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a.v, pd,
+                        ps, pb, TL::SW))
+    return cudaErrorInvalidValue;
+  auto kernel = paged_chunk_tc_kernel<D>;
+  constexpr size_t smem = TcLayout<D>::SMEM;
+  cudaError_t err = hopper::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.C * G + TQ - 1) / TQ, a.KH, a.B);
+  kernel<<<grid, TC_THREADS, smem, stream>>>(
+      tq, tk, tv, a.bt, a.starts, a.clens, a.widx,
+      static_cast<__nv_bfloat16*>(a.out),
+      static_cast<__nv_bfloat16*>(a.out_win), a.C, a.H, a.KH, a.psize,
+      a.maxp, a.P, a.S_w, a.scale, a.window, a.softcap);
+  return cudaGetLastError();
+}
+
+// the shapes the tensor-core kernel takes (kernel.py::chunk_route)
+bool tc_takes(const Args& a) {
+  const int G = a.H / a.KH;
+  return (a.D == 32 || a.D == 64 || a.D == 96 || a.D == 128) &&
+         (a.psize == 8 || a.psize == 16 || a.psize == 32 || a.psize == 64) &&
+         G >= 1 && TQ % G == 0 && a.P > 0;
+}
+
 }  // namespace
 
 // dtype (q and out): 0 = float32, 1 = bfloat16.  kv_int8: 0 = pools of
 // q's dtype (scales unused, may be null), 1 = int8 pools with [P, KH] f32
-// scales.  window <= 0: none; softcap <= 0: none.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// scales.  route: 0 = the CUDA-core kernel, 1 = the tensor-core kernel
+// (bf16 pools; the shapes tc_takes accepts).  window <= 0: none; softcap
+// <= 0: none; S_w == 0: no window output (logit_index, out_win may be
+// null).  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int paged_chunk_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* block_tables,
-    const void* starts, const void* chunk_lens, void* out, int B, int C,
-    int H, int KH, int D, int psize, int maxp, float scale, int window,
-    float softcap, int dtype, int kv_int8, void* stream) {
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  const int* bt = static_cast<const int*>(block_tables);
-  const int* st = static_cast<const int*>(starts);
-  const int* cl = static_cast<const int*>(chunk_lens);
+    const void* starts, const void* chunk_lens, void* out,
+    const void* logit_index, void* out_win, int B, int C, int H, int KH,
+    int D, int psize, int maxp, int P, int S_w, int route, float scale,
+    int window, float softcap, int dtype, int kv_int8, void* stream) {
+  const Args a{q, k_pages, v_pages,
+               static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale),
+               static_cast<const int*>(block_tables),
+               static_cast<const int*>(starts),
+               static_cast<const int*>(chunk_lens),
+               static_cast<const int*>(logit_index), out, out_win,
+               B, C, H, KH, D, psize, maxp, P, S_w, scale, window, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || C == 0) return 0;
   cudaError_t err;
-  if (dtype == 0 && !kv_int8)
-    err = dispatch_d<float, float>(D, q, k_pages, v_pages, ks, vs, bt, st, cl,
-                                   out, B, C, H, KH, psize, maxp, scale,
-                                   window, softcap, s);
-  else if (dtype == 1 && !kv_int8)
-    err = dispatch_d<__nv_bfloat16, __nv_bfloat16>(
-        D, q, k_pages, v_pages, ks, vs, bt, st, cl, out, B, C, H, KH, psize,
-        maxp, scale, window, softcap, s);
-  else if (dtype == 0)
-    err = dispatch_d<float, int8_t>(D, q, k_pages, v_pages, ks, vs, bt, st,
-                                    cl, out, B, C, H, KH, psize, maxp, scale,
-                                    window, softcap, s);
-  else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16, int8_t>(
-        D, q, k_pages, v_pages, ks, vs, bt, st, cl, out, B, C, H, KH, psize,
-        maxp, scale, window, softcap, s);
-  else
+  if (route == 1) {
+    if (dtype != 1 || kv_int8 || !tc_takes(a))
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch (D) {
+      case 32: err = launch_tc<32>(a, s); break;
+      case 64: err = launch_tc<64>(a, s); break;
+      case 96: err = launch_tc<96>(a, s); break;
+      default: err = launch_tc<128>(a, s); break;
+    }
+  } else if (route != 0) {
     err = cudaErrorInvalidValue;
+  } else if (dtype == 0 && !kv_int8) {
+    err = dispatch_d<float, float>(a, s);
+  } else if (dtype == 1 && !kv_int8) {
+    err = dispatch_d<__nv_bfloat16, __nv_bfloat16>(a, s);
+  } else if (dtype == 0) {
+    err = dispatch_d<float, int8_t>(a, s);
+  } else if (dtype == 1) {
+    err = dispatch_d<__nv_bfloat16, int8_t>(a, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

@@ -6,10 +6,11 @@ Two kernels, one source each:
   ``paged_attention`` (``csrc/paged_attention.cu``), its decode special
   case, replaces ``kernel.py:349``.
 Both take f32 or bf16 pools of q's dtype, or int8 pools with their
-``[P, KH]`` f32 scales.  The wrappers take CUDA tensors only: they check
-them, allocate the output, launch the kernel on the current stream and
-raise when the launch is refused.  CPU tensors go to the plain versions
-through ``ops.py``.
+``[P, KH]`` f32 scales.  The chunk source holds two kernels, chosen by
+``chunk_route``: bf16 pools on the tensor cores, the rest on the CUDA
+cores.  The wrappers take CUDA tensors only: they check them, allocate the
+output, launch the kernel on the current stream and raise when the launch
+is refused.  CPU tensors go to the plain versions through ``ops.py``.
 """
 from __future__ import annotations
 
@@ -27,6 +28,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / f"{NAME}.cu"
 SOURCE_DECODE = CSRC / f"{NAME_DECODE}.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the chunk source's kernels, by the number its C entry point takes
+CHUNK_ROUTES = ("cuda_core", "wgmma")
+TC_HEAD_DIMS = (32, 64, 96, 128)
+TC_PAGE_SIZES = (8, 16, 32, 64)
+TC_ROWS = 64                    # query rows of the tensor-core kernel's tile
 
 build.LAUNCHES.setdefault(NAME, 0)
 build.LAUNCHES.setdefault(NAME_DECODE, 0)
@@ -115,7 +121,21 @@ def _launch(name, fn, ptrs, ints, q, scale, window, softcap, quant):
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
-    build.LAUNCHES[name] += 1
+
+
+def chunk_route(dtype: torch.dtype, quant: bool, D: int, psize: int,
+                G: int) -> str:
+    """Which kernel of the chunk source takes a launch: ``"wgmma"`` (the
+    tensor-core kernel) for bf16 q and pools with a head dim of 32, 64, 96
+    or 128, pages of 8, 16, 32 or 64 tokens (a page is then a whole number
+    of swizzle atoms and a 64-key tile a whole number of pages) and G = H /
+    KH dividing the 64 rows of its q tile; ``"cuda_core"`` for every other
+    launch (f32, int8 pools, other shapes).  A pure function of the
+    shapes: nothing is tried and retried."""
+    if dtype == torch.bfloat16 and not quant and D in TC_HEAD_DIMS \
+            and psize in TC_PAGE_SIZES and G >= 1 and TC_ROWS % G == 0:
+        return "wgmma"
+    return "cuda_core"
 
 
 def _ptr(t):
@@ -126,24 +146,45 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, starts,
                           chunk_lens, *, scale: float,
                           window: Optional[int] = None,
                           softcap: Optional[float] = None, k_scale=None,
-                          v_scale=None):
+                          v_scale=None, logit_index=None):
     """Launch the chunk kernel; same contract as
     ``ref.paged_chunk_attention_ref``.  Every block-table entry of a live
     page (index < ceil((start + chunk_len) / psize)) must be a valid page
-    id; entries past it are never read."""
+    id; entries past it are never read.  With ``logit_index`` ([B, S_w]
+    int32 chunk positions in [0, C)) returns ``(out, out_win [B, S_w, H,
+    D])``, the window rows written by the kernel's epilogue; a position
+    outside [0, C) gives zero rows."""
     quant = _check(NAME, q, k_pages, v_pages, block_tables,
                    {"starts": starts, "chunk_lens": chunk_lens}, k_scale,
                    v_scale, 4)
     B, C, H, D = q.shape
-    psize, KH = k_pages.shape[1], k_pages.shape[2]
+    P, psize, KH = k_pages.shape[:3]
+    S_w = 0
+    out_win = None
+    if logit_index is not None:
+        if logit_index.device != q.device or logit_index.dtype != \
+                torch.int32 or logit_index.dim() != 2 or \
+                logit_index.shape[0] != B or not logit_index.is_contiguous():
+            raise ValueError(f"{NAME}: logit_index must be a contiguous "
+                             f"int32 [B, S_w] tensor on {q.device} with B = "
+                             f"{B}; got {logit_index.dtype} "
+                             f"{tuple(logit_index.shape)} on "
+                             f"{logit_index.device}")
+        S_w = logit_index.shape[1]
+        out_win = torch.zeros((B, S_w, H, D), dtype=q.dtype,
+                              device=q.device)
+    how = chunk_route(q.dtype, bool(quant), D, psize, H // KH)
     out = torch.empty_like(q)
-    _launch(NAME, _entry(NAME, SOURCE, 9, 7),
+    _launch(NAME, _entry(NAME, SOURCE, 11, 10),
             [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
-             starts.data_ptr(), chunk_lens.data_ptr(), out.data_ptr()],
-            [B, C, H, KH, D, psize, block_tables.shape[1]],
+             starts.data_ptr(), chunk_lens.data_ptr(), out.data_ptr(),
+             _ptr(logit_index), _ptr(out_win)],
+            [B, C, H, KH, D, psize, block_tables.shape[1], P, S_w,
+             CHUNK_ROUTES.index(how)],
             q, scale, window, softcap, quant)
-    return out
+    build.count_launch(NAME, how)
+    return out if logit_index is None else (out, out_win)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
@@ -164,4 +205,5 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
              lengths.data_ptr(), out.data_ptr()],
             [B, H, KH, D, psize, block_tables.shape[1]],
             q, scale, window, softcap, quant)
+    build.LAUNCHES[NAME_DECODE] += 1
     return out

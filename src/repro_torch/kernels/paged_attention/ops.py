@@ -44,11 +44,13 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, starts,
                           chunk_lens, *, scale: float,
                           window: Optional[int] = None,
                           softcap: Optional[float] = None, k_scale=None,
-                          v_scale=None):
+                          v_scale=None, logit_index=None):
     """[B, C, H, D] chunk-append paged attention (the unified serving step:
-    decode tokens are C == 1 chunks, prompt chunks are wider)."""
+    decode tokens are C == 1 chunks, prompt chunks are wider).  With
+    ``logit_index`` [B, S_w] it returns ``(out, out_win [B, S_w, H, D])``,
+    the chunk rows at those positions gathered in the kernel's epilogue."""
     kw = dict(scale=scale, window=window, softcap=softcap, k_scale=k_scale,
-              v_scale=v_scale)
+              v_scale=v_scale, logit_index=logit_index)
     if q.device.type == "cpu":
         return paged_chunk_attention_ref(
             q, k_pages, v_pages, block_tables, starts, chunk_lens, **kw)

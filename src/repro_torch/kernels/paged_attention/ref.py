@@ -104,7 +104,7 @@ def paged_chunk_attention_ref(q, k_pages, v_pages, block_tables, starts,
                               chunk_lens, *, scale: float,
                               window: Optional[int] = None,
                               softcap: Optional[float] = None,
-                              k_scale=None, v_scale=None):
+                              k_scale=None, v_scale=None, logit_index=None):
     """Chunk-append attention over a block-paged KV pool.
 
     q:            [B, C, H, D]  a chunk of C tokens per sequence, right-padded
@@ -117,6 +117,10 @@ def paged_chunk_attention_ref(q, k_pages, v_pages, block_tables, starts,
     starts:       [B] int32          KV tokens in pages *before* this chunk
     chunk_lens:   [B] int32          valid tokens in this chunk (0 = idle slot)
     k/v_scale:    [P, KH] f32        int8-pool mode
+    logit_index:  [B, S_w] int       optional: chunk positions in [0, C);
+                  the return is then (out, out_win [B, S_w, H, D]) with
+                  out_win[b, s] = out[b, logit_index[b, s]] (the TPU
+                  kernel's fused verify window)
     Returns [B, C, H, D] in q's dtype; padding rows and idle slots are 0.
     """
     B, C, H, D = q.shape
@@ -139,4 +143,13 @@ def paged_chunk_attention_ref(q, k_pages, v_pages, block_tables, starts,
     # them, as the kernel does when it writes its output
     valid = torch.arange(C, device=dev)[None, :] < chunk_lens[:, None]
     out = torch.where(valid[:, :, None, None, None], out, 0.0)
-    return out.reshape(B, C, H, D).to(q.dtype)
+    out = out.reshape(B, C, H, D).to(q.dtype)
+    if logit_index is None:
+        return out
+    idx = logit_index.long()
+    if idx.dim() != 2 or idx.shape[0] != B or bool(
+            ((idx < 0) | (idx >= C)).any()):
+        raise ValueError(f"paged_chunk_attention: logit_index must be [B, "
+                         f"S_w] chunk positions in [0, {C}) with B = {B}")
+    win = torch.gather(out, 1, idx[:, :, None, None].expand(-1, -1, H, D))
+    return out, win

@@ -179,3 +179,99 @@ def test_ops_launches_the_kernel_once(cuda):
     build.reset_launches()
     ops.dropout_matmul(x, w, mask, block_n=128)
     assert build.LAUNCHES[kernel.NAME] == 1
+
+
+@pytest.mark.parametrize("dtype,K,want", [
+    (torch.bfloat16, 2048, "wgmma"), (torch.bfloat16, 8, "wgmma"),
+    (torch.bfloat16, 40, "wgmma"), (torch.bfloat16, 13, "mma_sync"),
+    (torch.bfloat16, 33, "mma_sync"), (torch.bfloat16, 0, "mma_sync"),
+    (torch.float32, 2048, "f32"), (torch.float32, 13, "f32"),
+])
+def test_route_rule(dtype, K, want):
+    """bf16 goes to the wgmma kernel where TMA can describe x (rows of a
+    multiple of 16 bytes, K > 0), else to the mma.sync kernel; f32 to the
+    CUDA-core kernel.  Other dtypes have no kernel."""
+    assert kernel.route(dtype, K) == want
+    assert want in kernel.ROUTES
+
+
+def test_route_rule_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="no kernel"):
+        kernel.route(torch.float16, 64)
+
+
+# (G, M, K, N, block_n) on the wgmma route: ragged M (past one 128-row
+# tile, and below one 64-row half), K not a multiple of the 64-deep stage,
+# block_n 64 (64-column tiles) and 128 (128-column tiles), G 1 to 4, and
+# more tiles than a card has SMs (the persistent grid walks several)
+WGMMA_CASES = [(1, 1, 8, 64, 64), (2, 130, 40, 256, 128),
+               (3, 257, 136, 384, 64), (4, 64, 2048, 512, 128),
+               (1, 300, 520, 640, 128), (2, 7, 72, 192, 64),
+               (4, 1024, 256, 2048, 128), (3, 200, 1000, 1536, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", WGMMA_CASES,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_wgmma_route_matches_plain(cuda, geom):
+    """The wgmma kernel against the plain version, bf16 inputs, the JAX
+    sweep's bf16 tolerance (atol 0.15 * sqrt(K), rtol 0.15); dropped
+    tiles exactly 0; every launch counted on the wgmma route."""
+    G, M, K, N, bn = geom
+    x, w, mask = (torch.tensor(a, device=cuda)
+                  for a in case(*geom, seed=WGMMA_CASES.index(geom) + 50))
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    assert kernel.route(x.dtype, K) == "wgmma"
+    build.reset_launches()
+    got = kernel.dropout_matmul(x, w, mask, block_n=bn)
+    want = ref.dropout_matmul_ref(x, w, mask, block_n=bn)
+    torch.cuda.synchronize()
+    assert build.ROUTE_LAUNCHES["dropout_matmul:wgmma"] == 1
+    assert build.LAUNCHES[kernel.NAME] == 1
+    assert got.dtype == torch.float32 and got.shape == (G, M, N)
+    torch.testing.assert_close(got, want, atol=0.15 * K ** 0.5, rtol=0.15)
+    dropped = torch.repeat_interleave(mask == 0, bn, dim=1)[:, None, :]
+    assert torch.all(got.masked_select(dropped.expand_as(got)) == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [64, 128])
+def test_wgmma_route_all_dropped_and_one_live(cuda, bn):
+    """An all-dropped mask gives exact zeros (no tile runs its K loop);
+    with one live block in one group, that block matches the plain
+    version and everything else is exactly 0."""
+    G, M, K, N = 3, 200, 264, 768
+    x, w, _ = case(G, M, K, N, bn, seed=bn)
+    x = torch.tensor(x, device=cuda).to(torch.bfloat16)
+    w = torch.tensor(w, device=cuda).to(torch.bfloat16)
+    nb = N // bn
+    none = torch.zeros(G, nb, device=cuda)
+    got = kernel.dropout_matmul(x, w, none, block_n=bn)
+    torch.cuda.synchronize()
+    assert torch.all(got == 0)
+    one = none.clone()
+    one[1, nb // 2] = 2.0
+    got = kernel.dropout_matmul(x, w, one, block_n=bn)
+    want = ref.dropout_matmul_ref(x, w, one, block_n=bn)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=0.15 * K ** 0.5, rtol=0.15)
+    live = torch.zeros_like(got, dtype=torch.bool)
+    live[1, :, (nb // 2) * bn:(nb // 2 + 1) * bn] = True
+    assert torch.all(got[~live] == 0)
+    assert torch.all(got[live] != 0)
+
+
+@pytest.mark.cuda
+def test_each_route_counts_its_own_launches(cuda):
+    """One launch on each of the three kernels: the total and each
+    route's count move by one."""
+    build.reset_launches()
+    for dtype, K in ((torch.bfloat16, 64), (torch.bfloat16, 13),
+                     (torch.float32, 64)):
+        x, w, mask = (torch.tensor(a, device=cuda)
+                      for a in case(2, 64, K, 256, 128, seed=K))
+        kernel.dropout_matmul(x.to(dtype), w.to(dtype), mask, block_n=128)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[kernel.NAME] == 3
+    for how in kernel.ROUTES:
+        assert build.ROUTE_LAUNCHES[f"{kernel.NAME}:{how}"] == 1
