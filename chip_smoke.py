@@ -13,19 +13,20 @@ Phases, each of which fails the script (non-zero exit, no result line):
               Paged chunk attention: qwen3-1.7b and gemma2-27b geometries,
               chunk widths 1/7/64/256, ragged starts, idle slots, poisoned
               dead block-table entries, pools of q's dtype and int8 (bf16
-              on the tensor-core kernel, f32 and int8 on the CUDA-core
-              one), each case also with a ``logit_index`` window whose
-              rows are held against the plain version's.  Paged
-              decode attention: MHA, GQA, MQA (two row groups), qwen3-1.7b
-              and gemma2-27b geometries; plain, window, softcap; lengths
-              that straddle pages, an empty slot, poisoned dead entries;
-              pools of q's dtype and int8; against its plain version and
-              against the chunk kernel at C == 1.  Flash attention forward
-              and backward (dq, dk, dv against torch autograd through the
-              plain version, same dO; bf16 on the tensor-core kernels, f32
-              on the CUDA-core ones): qwen3-1.7b and gemma2-27b
-              geometries, causal / window / softcap / non-causal, S
-              1/7/256/1024.
+              q on the tensor-core kernel over bf16 and int8 pools, f32 q
+              on the CUDA-core one), each case also with a
+              ``logit_index`` window whose rows are held against the plain
+              version's.  Paged decode attention (each slot's pages split
+              over the blocks the split rule gives): MHA, GQA, MQA (two
+              row groups), qwen3-1.7b and gemma2-27b geometries; plain,
+              window, softcap; lengths that straddle pages, an empty slot,
+              poisoned dead entries; pools of q's dtype and int8; against
+              its plain version and against the chunk kernel at C == 1.
+              Flash attention forward and backward (dq, dk, dv against
+              torch autograd through the plain version, same dO; bf16 on
+              the tensor-core kernels, f32 on the CUDA-core ones):
+              qwen3-1.7b and gemma2-27b geometries, causal / window /
+              softcap / non-causal, S 1/7/256/1024.
               Dropout matmul: the JAX sweep's shapes, a ragged one (K 13:
               bf16 on the mma.sync kernel) and the full-width Horn MLP
               shape with a random, an all-dropped, an all-live and a
@@ -40,13 +41,16 @@ Phases, each of which fails the script (non-zero exit, no result line):
               random weights from a seed) serving 16 requests through
               ``Engine``; every request finishes, and each tick launches
               one paged kernel once per layer: ``paged_attention`` on the
-              decode-only ticks, ``paged_chunk_attention`` (every launch
-              on its tensor-core kernel) on the others.
+              decode-only ticks (every launch on the route the split rule
+              gives: ``split`` at 8 slots), ``paged_chunk_attention``
+              (every launch on its tensor-core kernel) on the others.
   5b. int8    phase 5's load twice at one HBM budget: bf16 pools of 28
               pages (below the load's peak, so it preempts), then int8
               pools of the pages the same bytes hold; int8 preempts
-              strictly less; tok/s, TTFT, latency, tick time, preemptions
-              and the greedy match against bf16 printed.
+              strictly less; every chunk launch of the int8 run on the
+              tensor-core kernel's int8 route, every decode launch on the
+              split rule's route; tok/s, TTFT, latency, tick time,
+              preemptions and the greedy match against bf16 printed.
   6. train    the training path: ``repro_torch.launch.train`` on
               qwen3-1.7b at full width (28 layers, f32 masters, bf16
               compute, Horn on with 4 groups, AdamW at lr 3e-4), batch 8 x
@@ -67,8 +71,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
               with CUDA events at the shapes its path gives it (paged, on
               bf16 and on int8 pools: the decode kernel at a decode tick,
               the chunk kernel at a decode tick and a 256-token
-              prompt-chunk tick, by device time; then both at C == 1 over
-              contexts 16-4096 and at 64 slots; flash: the
+              prompt-chunk tick, by device time, the int8 decode tick in
+              three calls; then both at C == 1 over contexts 16-4096 and
+              at 64 slots, with the decode kernel's split count; flash: the
               train step's, with |SDPA - plain| beside |kernel - plain|,
               TFLOP/s and the share of the bound, and the wrapper's host
               time per call with and without tensor maps; dropout matmul:
@@ -218,7 +223,7 @@ def phase_kernels(torch, dev, kernel, ref, build):
                     for b, cl in enumerate(clens):
                         assert torch.all(got[b, int(cl):] == 0), (name, C, b)
                     log(f"  {name:11s} {pools:6s} pools, q {dtype:8s} "
-                        f"C={C:3d} ({want_route:9s}): max |kernel - plain| "
+                        f"C={C:3d} ({want_route:10s}): max |kernel - plain| "
                         f"= {err:.3g} with the window (tol {tol[dtype]:g})")
     return worst
 
@@ -266,9 +271,14 @@ def phase_decode_kernels(torch, dev, kernel, ref):
     }
     variants = {"plain": {}, "window": {"window": 64},
                 "softcap": {"softcap": 50.0}}
+    from repro_torch.kernels import build
+
     tol = {"float32": 2e-5, "bfloat16": 2e-2}
     worst = {"plain": 0.0, "chunk_c1": 0.0}
     for name, g in geoms.items():
+        splits = kernel.decode_splits(g["B"], g["KH"], g["H"] // g["KH"],
+                                      g["maxp"], kernel.sm_count(dev.index))
+        route = f"{kernel.NAME_DECODE}:{kernel.decode_route(splits)}"
         for pools in ("native", "int8"):
             for dtype in ("float32", "bfloat16"):
                 errs = {"plain": 0.0, "chunk_c1": 0.0}
@@ -278,7 +288,9 @@ def phase_decode_kernels(torch, dev, kernel, ref):
                         int8=pools == "int8", **g)
                     kw = dict(vkw, scale=g["D"] ** -0.5, **scales)
                     q, kp, vp, bt, lengths = args
+                    build.reset_launches()
                     got = kernel.paged_attention(*args, **kw)
+                    assert build.ROUTE_LAUNCHES.get(route) == 1, route
                     want = ref.paged_attention_ref(*args, **kw)
                     live = (lengths > 0).to(torch.int32)
                     chk = kernel.paged_chunk_attention(
@@ -296,7 +308,8 @@ def phase_decode_kernels(torch, dev, kernel, ref):
                 for k in worst:
                     worst[k] = max(worst[k], errs[k])
                 log(f"  decode {name:11s} {pools:6s} pools, q {dtype:8s} "
-                    f"plain/window/softcap: max |kernel - plain| = "
+                    f"NS {splits:2d} plain/window/softcap: max |kernel - "
+                    f"plain| = "
                     f"{errs['plain']:.3g}, |kernel - chunk kernel at C=1| = "
                     f"{errs['chunk_c1']:.3g} (tol {tol[dtype]:g})")
     return worst
@@ -643,6 +656,9 @@ def phase_serve(torch, dev, build, kernel):
     launches = {n: build.LAUNCHES[n] for n in (kernel.NAME,
                                                kernel.NAME_DECODE)}
     chunk_tc = build.ROUTE_LAUNCHES.get(f"{kernel.NAME}:wgmma", 0)
+    decode_route, splits = engine_decode_route(kernel, eng, dev)
+    decode_on_route = build.ROUTE_LAUNCHES.get(
+        f"{kernel.NAME_DECODE}:{decode_route}", 0)
     r = summarize(eng, wall)
 
     assert r["requests"] == len(pending), r
@@ -656,7 +672,11 @@ def phase_serve(torch, dev, build, kernel):
         cfg.num_layers * s.decode_ticks > 0, (launches, s.decode_ticks)
     assert launches[kernel.NAME] > 0, launches
     assert chunk_tc == launches[kernel.NAME], (chunk_tc, launches)
+    assert decode_on_route == launches[kernel.NAME_DECODE], \
+        (decode_route, decode_on_route, launches)
     r["chunk_wgmma_launches"] = chunk_tc
+    r["decode_route"], r["decode_splits"] = decode_route, splits
+    r["decode_route_launches"] = decode_on_route
     for k, v in eng.cache:
         assert torch.isfinite(k).all() and torch.isfinite(v).all()
     # the lm head on a fresh prompt is finite too (NaN would hide in argmax)
@@ -682,6 +702,9 @@ def phase_serve(torch, dev, build, kernel):
         f"{kernel.NAME} launches: {launches[kernel.NAME]} = "
         f"{cfg.num_layers} layers x {s.steps - s.decode_ticks} ticks with "
         f"prompt chunks, all {chunk_tc} on the tensor-core kernel")
+    log(f"  {kernel.NAME_DECODE}: all {decode_on_route} launches on the "
+        f"'{decode_route}' route, {splits} blocks a (slot, kv head) over "
+        f"{eng.max_pages_per_seq}-page block tables")
     return launches, r, eng
 
 
@@ -727,8 +750,18 @@ def phase_int8_serve(torch, dev, build, kernel):
         wall = drive(eng, pending)
         launches = {n: build.LAUNCHES[n] for n in (kernel.NAME,
                                                    kernel.NAME_DECODE)}
+        chunk_route = "wgmma_int8" if kv == "int8" else "wgmma"
+        decode_route, splits = engine_decode_route(kernel, eng, dev)
+        by_route = {"chunk_" + chunk_route: build.ROUTE_LAUNCHES.get(
+            f"{kernel.NAME}:{chunk_route}", 0),
+            "decode_" + decode_route: build.ROUTE_LAUNCHES.get(
+            f"{kernel.NAME_DECODE}:{decode_route}", 0)}
         r = summarize(eng, wall)
         s = eng.stats
+        assert by_route["chunk_" + chunk_route] == launches[kernel.NAME] \
+            > 0, (kv, by_route, launches)
+        assert by_route["decode_" + decode_route] == \
+            launches[kernel.NAME_DECODE], (kv, by_route, launches)
         assert r["requests"] == len(pending), r
         for req in eng.sched.finished:
             assert len(req.out_tokens) == gen, (kv, req.id)
@@ -743,7 +776,8 @@ def phase_int8_serve(torch, dev, build, kernel):
                        for req in eng.sched.finished}
         r.update(kv_dtype=kv, num_pages=pages, pool_bytes_per_layer=pages *
                  page_bytes[kv], tick_ms=wall / max(s.steps, 1) * 1e3,
-                 launches=launches)
+                 launches=launches, launches_by_route=by_route,
+                 decode_splits=splits)
         out[kv] = r
         mib = pages * page_bytes[kv] / 2**20
         log(f"  {kv:8s} pools, {pages} pages x 16 tokens ({mib:.2f} MiB a "
@@ -755,8 +789,9 @@ def phase_int8_serve(torch, dev, build, kernel):
             f"{r['latency_p99_s'] * 1e3:.1f} ms  tick {r['tick_ms']:.2f} ms")
         log(f"    {kernel.NAME_DECODE} launches "
             f"{launches[kernel.NAME_DECODE]} = {cfg.num_layers} x "
-            f"{s.decode_ticks} decode-only ticks; {kernel.NAME} launches "
-            f"{launches[kernel.NAME]}")
+            f"{s.decode_ticks} decode-only ticks, all on '{decode_route}' "
+            f"(NS {splits}); {kernel.NAME} launches "
+            f"{launches[kernel.NAME]}, all on '{chunk_route}'")
         del eng
         gc.collect()
     assert out["int8"]["preemptions"] < out["bfloat16"]["preemptions"], out
@@ -770,6 +805,17 @@ def phase_int8_serve(torch, dev, build, kernel):
         f"({same / total:.1%}, random weights)")
     del params
     return out
+
+
+def engine_decode_route(kernel, eng, dev):
+    """The route of every decode launch of ``eng`` (its slots, heads and
+    block-table width by the split rule) and its split count."""
+    cfg = eng.cfg
+    splits = kernel.decode_splits(
+        eng.ecfg.num_slots, cfg.num_kv_heads,
+        cfg.num_heads // cfg.num_kv_heads, eng.max_pages_per_seq,
+        kernel.sm_count(dev.index))
+    return kernel.decode_route(splits), splits
 
 
 def device_events(torch, fn):
@@ -1103,9 +1149,11 @@ def phase_timing(torch, dev, kernel, ref):
     version, SDPA with ``enable_gqa`` on K/V gathered (and dequantized to
     bf16) in advance, the gather not timed, and the bound.  ``ms``,
     ``plain_ms`` and ``library_ms`` are device time per call
-    (``device_ms``); the CUDA-event times of back-to-back calls, which
-    include the host's enqueue where it is the slower side, are kept as
-    ``*_event_ms``.  Returns {kernel name: {shape: numbers}}."""
+    (``device_ms``); the decode kernel's ``ms`` is the median of three
+    such windows, all three kept as ``ms_windows``.  The CUDA-event times
+    of back-to-back calls, which include the host's enqueue where it is
+    the slower side, are kept as ``*_event_ms``.  Returns {kernel name:
+    {shape: numbers}}."""
     import torch.nn.functional as F
 
     out = {kernel.NAME: {}, kernel.NAME_DECODE: {}}
@@ -1169,7 +1217,11 @@ def phase_timing(torch, dev, kernel, ref):
             ev = {"ms": cuda_ms(torch, lambda i: call(fns[0], i), 200),
                   "plain_ms": cuda_ms(torch, lambda i: call(fns[1], i), 20),
                   "library_ms": cuda_ms(torch, run_library, 200)}
-            dv = {"ms": device_ms(torch, lambda i: call(fns[0], i)),
+            windows = [device_ms(torch, lambda i: call(fns[0], i))
+                       for _ in range(3 if name == kernel.NAME_DECODE
+                                      else 1)]
+            dv = {"ms": None if None in windows else
+                  sorted(windows)[len(windows) // 2],
                   "plain_ms": device_ms(torch, lambda i: call(fns[1], i), 10),
                   "library_ms": device_ms(torch, run_library)}
             ms, plain_ms, library_ms = (dv[k] if dv[k] is not None else ev[k]
@@ -1178,11 +1230,20 @@ def phase_timing(torch, dev, kernel, ref):
             nbytes, flops = work(q, KH, starts, clens, psize, int8)
             b_ms, b_by = bound(nbytes, flops)
             key = shape + ("_int8" if int8 else "")
-            route = ("cuda_core" if name == kernel.NAME_DECODE else
-                     kernel.chunk_route(q.dtype, int8, D, psize, H // KH))
-            rows = (kernel.TC_ROWS if route == "wgmma" else 16)
+            G = H // KH
+            if name == kernel.NAME_DECODE:
+                splits = kernel.decode_splits(B, KH, G, bt.shape[1],
+                                              kernel.sm_count(dev.index))
+                route = kernel.decode_route(splits)
+                blocks = splits * (H // kernel.decode_rows(G)) * B
+            else:
+                splits = None
+                route = kernel.chunk_route(q.dtype, int8, D, psize, G)
+                rows = 16 if route == "cuda_core" else kernel.TC_ROWS
+                blocks = -(-C * G // rows) * KH * B
             out[name][key] = {
-                "kernel_route": route,
+                "kernel_route": route, "splits": splits,
+                "ms_windows": windows,
                 "B": B, "C": C, "H": H, "KH": KH, "D": D, "psize": psize,
                 "dtype": "bfloat16", "pools": "int8" if int8 else "bfloat16",
                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1190,12 +1251,14 @@ def phase_timing(torch, dev, kernel, ref):
                 "event_ms": ev["ms"], "plain_event_ms": ev["plain_ms"],
                 "library_event_ms": ev["library_ms"],
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                "flops": flops, "max_abs_err": err,
-                "grid_blocks": (-(-(H // KH) // 8) * KH * B
-                                if name == kernel.NAME_DECODE else
-                                -(-C * (H // KH) // rows) * KH * B),
+                "flops": flops, "max_abs_err": err, "grid_blocks": blocks,
             }
-            log(f"  {name:21s} {key:18s} ({route:9s}) device: kernel "
+            if len(windows) > 1 and None not in windows:
+                log(f"  {name:21s} {key:18s} device time in three windows "
+                    f"of 50 calls: "
+                    f"{', '.join(f'{w * 1e3:.2f}' for w in windows)} us")
+            log(f"  {name:21s} {key:18s} ({route:10s}"
+                f"{'' if splits is None else f' NS {splits}'}) device: kernel "
                 f"{ms * 1e3:7.2f} us "
                 f" plain {plain_ms * 1e3:8.2f} us  SDPA "
                 f"{library_ms * 1e3:7.2f} us  bound {b_ms * 1e3:5.2f} us "
@@ -1209,8 +1272,8 @@ def phase_decode_sweep(torch, dev, kernel):
     """Device time of the decode kernel against the chunk kernel at C == 1
     on the same decode ticks (qwen3-1.7b heads, bf16 q, bf16 and int8
     pools, every slot at one context): 8 slots at context 16 to 4096, and
-    64 slots at context 288, where 512 blocks no longer fit the card at
-    once.  Where the split over pages (flash-decoding) would pay."""
+    64 slots at context 288, where the split rule gives one block a unit.
+    Each row keeps the decode kernel's split count."""
     H, KH, D, psize = 16, 8, 128, 16
     out = []
     points = [(8, ctx) for ctx in (16, 128, 288, 1024, 4096)] + [(64, 288)]
@@ -1242,8 +1305,11 @@ def phase_decode_sweep(torch, dev, kernel):
 
             torch.testing.assert_close(dec(0).float(), chk(0)[:, 0].float(),
                                        atol=2e-2, rtol=2e-2)
+            splits = kernel.decode_splits(B, KH, H // KH, maxp,
+                                          kernel.sm_count(dev.index))
             row = {"pools": "int8" if int8 else "bfloat16", "B": B,
-                   "ctx": ctx, "decode_ms": device_ms(torch, dec),
+                   "ctx": ctx, "splits": splits,
+                   "decode_ms": device_ms(torch, dec),
                    "chunk_ms": device_ms(torch, chk)}
             out.append(row)
             if row["decode_ms"] is None or row["chunk_ms"] is None:
@@ -1251,7 +1317,8 @@ def phase_decode_sweep(torch, dev, kernel):
                     f"device time not measured (no device events)")
                 continue
             log(f"  sweep {row['pools']:8s} B {B:2d} ctx {ctx:4d}: "
-                f"{kernel.NAME_DECODE} {row['decode_ms'] * 1e3:7.2f} us, "
+                f"{kernel.NAME_DECODE} (NS {splits:2d}) "
+                f"{row['decode_ms'] * 1e3:7.2f} us, "
                 f"{kernel.NAME} at C=1 {row['chunk_ms'] * 1e3:7.2f} us "
                 f"(device)")
             del q, kp, vp, sc
@@ -1759,7 +1826,11 @@ def main() -> int:
             "shapes": shapes[name],
         })
     kernels[0]["launches_by_kernel"] = {
-        "wgmma": served["chunk_wgmma_launches"]}
+        "wgmma": served["chunk_wgmma_launches"],
+        "wgmma_int8 (phase 5b)":
+            served["int8"]["int8"]["launches_by_route"]["chunk_wgmma_int8"]}
+    kernels[-1]["launches_by_kernel"] = {
+        served["decode_route"]: served["decode_route_launches"]}
     kernels[-1]["context_sweep"] = decode_sweep
     for part, name in (("fwd", fkernel.FWD), ("bwd", fkernel.BWD)):
         f = flash[part]

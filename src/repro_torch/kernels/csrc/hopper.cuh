@@ -38,6 +38,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
           smem_u32(bar)), "r"(bytes) : "memory");
 }
+// raise the barrier's expected bytes without arriving: the arrival comes
+// later, after writes the waiters must also see
+__device__ __forceinline__ void mbar_expect_tx_only(uint64_t* bar,
+                                                    uint32_t bytes) {
+  asm volatile(
+      "mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(
+          smem_u32(bar)), "r"(bytes) : "memory");
+}
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
                    smem_u32(bar)) : "memory");
@@ -375,7 +383,8 @@ inline EncodeTiled encode_tiled() {
 // A ``rank``-d map of ``ptr``: dims innermost first, strides in bytes of
 // dims 1.. (each a multiple of 16), boxes of ``box`` elements; reads
 // outside the dims give zeros.  ``sw`` is the swizzle span in bytes (64 or
-// 128) and the box's inner extent in bytes must equal it.
+// 128, and the box's inner extent in bytes must equal it), or 0 for an
+// unswizzled box (inner extent a multiple of 16 bytes).
 inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                      const void* ptr, const cuuint64_t* dims,
                      const cuuint64_t* strides, const cuuint32_t* box,
@@ -385,8 +394,9 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box,
                 unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                          : CU_TENSOR_MAP_SWIZZLE_64B,
+                sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

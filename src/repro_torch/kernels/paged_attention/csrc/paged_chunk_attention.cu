@@ -29,18 +29,18 @@
 // (row, visible key).  Two kernels, chosen by the wrapper
 // (kernel.py::chunk_route):
 //
-// tensor cores (bf16 q and pools; D 32/64/96/128; psize 8/16/32/64; G
-//   dividing 64): paged_chunk_tc_kernel, after the flash forward
-//   (flash_attention.cu).  One block per (slot, kv head, 64-row q tile),
-//   one consumer warpgroup and one producer warp.  The producer copies the
-//   q tile once by TMA (a 5-d map (d, g, kv head, token, slot) lands the
-//   tile's 64 / G tokens x G heads as its 64 rows) and then, for each
-//   64-key tile, reads the block-table entries of its 64 / psize pages (one
-//   lane each, live pages only) and copies each page's psize rows of K and
-//   V by TMA through a 3-d map of the pool (d, kv head, page row) into a
-//   four-stage mbarrier ring.  TMA rather than cp.async: one lane per page
-//   issues whole-page boxes that land already swizzled for wgmma, the
-//   consumers spend no instructions on copies, and a page past the
+// tensor cores (bf16 q; bf16 or int8 pools; D 32/64/96/128; psize
+//   8/16/32/64; G dividing 64): paged_chunk_tc_kernel, after the flash
+//   forward (flash_attention.cu).  One block per (slot, kv head, 64-row q
+//   tile), one consumer warpgroup and one producer warp.  The producer
+//   copies the q tile once by TMA (a 5-d map (d, g, kv head, token, slot)
+//   lands the tile's 64 / G tokens x G heads as its 64 rows) and then, for
+//   each 64-key tile, reads the block-table entries of its 64 / psize pages
+//   (one lane each, live pages only) and copies each page's psize rows of
+//   K and V by TMA through a 3-d map of the pool (d, kv head, page row)
+//   into a four-stage mbarrier ring.  TMA rather than cp.async: one lane
+//   per page issues whole-page boxes that land already swizzled for wgmma,
+//   the consumers spend no instructions on copies, and a page past the
 //   tile's live keys is a box outside the pool, which TMA fills with zeros
 //   without reading memory (so masked keys multiply finite zeros and no
 //   dead entry is read).  A page of psize rows is psize * SW bytes, a
@@ -54,8 +54,21 @@
 //   a q tile of an idle slot or of padding rows only writes zeros.  Decode
 //   slots of a mixed tick have G live rows of the 64: their cost is their
 //   K/V bytes, read once per (slot, kv head).
+//   int8 pools (the same kernel, QUANT): the page boxes are int8 and
+//   unswizzled (a page is psize rows of D bytes), and the producer lane of
+//   a page also writes the page's K and V scale into the stage's scale
+//   slots before it arrives on the stage's barrier.  A converter
+//   warpgroup turns each int8 tile into bf16 (exact: integers up to |127|)
+//   in the swizzled layout the wgmma descriptors read, in a second,
+//   two-stage ring, copies the scales along, and fences its writes to the
+//   async proxy before it releases the tile to the consumers.  The scales
+//   stay out of the tiles, in f32 registers: S's column j is multiplied by
+//   k_scale[page(j)] before the softcap and the mask, and only the copy of
+//   P that meets V by v_scale[page(j)]; the row sum l adds the unscaled P.
+//   The int8 bytes are half the bf16 ones; the conversion runs beside the
+//   copies and the products.
 //
-// CUDA cores (f32, int8 pools, and the shapes above it does not take):
+// CUDA cores (f32 q, and the shapes above it does not take):
 //   paged_chunk_attention_kernel.  One block owns one (slot, kv head, group
 //   of 16 query rows); it walks the slot's live keys in tiles of 32, copies
 //   each tile of K and V into shared memory once (16-byte cp.async copies,
@@ -397,27 +410,87 @@ cudaError_t dispatch_d(const Args& a, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the tensor-core kernel (wgmma fed by TMA)
+// bf16 q: the tensor-core kernel (wgmma fed by TMA), on bf16 or int8 pools
 // ---------------------------------------------------------------------------
 constexpr int TQ = 64;          // query rows of a tile: one warpgroup
 constexpr int TK = 64;          // keys of a K/V tile
-constexpr int TC_STAGES = 4;
-constexpr int TC_THREADS = 160; // the consumer warpgroup + a producer warp
+constexpr int TC_STAGES = 4;    // the TMA ring (bf16 tiles, or int8 tiles)
+constexpr int TC_BSTAGES = 2;   // int8: the converted bf16 tiles
+constexpr int MAX_PPT = TK / 8; // pages a key tile (psize >= 8)
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+template <int D, bool QUANT>
 struct TcLayout {
   static constexpr int Q_BYTES = TQ * D * 2;
-  static constexpr int TILE = TK * D * 2;     // a K or a V tile
-  static constexpr size_t SMEM =
-      1024 + (size_t)Q_BYTES + 2 * (size_t)TC_STAGES * TILE;
+  static constexpr int TILE = TK * D * 2;     // a bf16 K or V tile
+  static constexpr int TILE8 = TK * D;        // an int8 K or V tile
+  // the wgmma tiles: the TMA ring, or (int8) the converter's output ring
+  static constexpr int BSTAGES = QUANT ? TC_BSTAGES : TC_STAGES;
+  // the consumer warpgroup, (int8) the converter warpgroup, the producer
+  static constexpr int THREADS = QUANT ? 288 : 160;
+  static constexpr int PRODUCER = QUANT ? 8 : 4;   // the producer warp
+  static constexpr size_t SMEM = 1024 + (size_t)Q_BYTES +
+                                 2 * (size_t)BSTAGES * TILE +
+                                 (QUANT ? 2 * (size_t)TC_STAGES * TILE8 : 0);
 };
 
+// The swizzled position of the 16-byte unit u (8 bf16 columns) of row r in
+// a chunk of SW-byte rows, as TMA's CU_TENSOR_MAP_SWIZZLE_{SW}B lays it out
+// (Swizzle<3,4,3> at 128 bytes, Swizzle<2,4,3> at 64) on a 1024-byte-
+// aligned chunk.
+template <int SW>
+__device__ __forceinline__ int swizzled_unit(int r, int u) {
+  return SW == 128 ? u ^ (r & 7) : u ^ ((r >> 1) & 3);
+}
+
+// Two int8 (bytes k and k + 1 of a word) to a bf16x2, exactly, in four
+// instructions: the low 7 bits of x become the mantissa of 128.0 (bf16
+// 0x4300, whose mantissa step is 1), and 128.0 or 256.0 (0x4380), as x's
+// sign bit says, is subtracted: 128 + x - 128 for x >= 0, 128 + (x + 128)
+// - 256 for x < 0.
+__device__ __forceinline__ uint32_t int8x2_to_bf16x2(uint32_t w, int k) {
+  const uint32_t p = __byte_perm(w, 0u, k == 0 ? 0x4140 : 0x4342);
+  const uint32_t v = (p & 0x007F007Fu) | 0x43004300u;
+  const uint32_t s = (p & 0x00800080u) | 0x43004300u;
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                             *reinterpret_cast<const __nv_bfloat162*>(&s));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// int8 -> bf16 of a [TK][D] int8 tile (row-major, as the unswizzled page
+// boxes land) into the swizzled bf16 tile the wgmma descriptors read;
+// 128 threads, ct their index, 16 elements (two 16-byte bf16 units of one
+// chunk row) a thread at a time.  Integers up to |127| are exact in bf16.
 template <int D>
-__global__ void __launch_bounds__(TC_THREADS, 1)
+__device__ __forceinline__ void convert_tile(const uint8_t* src, uint8_t* dst,
+                                             int ct) {
+  using TL = hopper::Tiles<D>;
+  constexpr int GPR = D / 16;                  // 16-element groups a row
+#pragma unroll 2
+  for (int i = ct; i < TK * GPR; i += 128) {
+    const int r = i / GPR, d0 = (i % GPR) * 16;
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * D + d0);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    uint4 o[2];
+    uint32_t* ow = reinterpret_cast<uint32_t*>(o);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      ow[k] = int8x2_to_bf16x2(w[k / 2], 2 * (k % 2));
+    const int c = d0 / TL::CW, u = (d0 % TL::CW) / 8;
+    uint8_t* row = dst + c * TK * TL::SW + r * TL::SW;
+    *reinterpret_cast<uint4*>(row + swizzled_unit<TL::SW>(r, u) * 16) = o[0];
+    *reinterpret_cast<uint4*>(row + swizzled_unit<TL::SW>(r, u + 1) * 16) =
+        o[1];
+  }
+}
+
+template <int D, bool QUANT>
+__global__ void __launch_bounds__(TcLayout<D, QUANT>::THREADS, 1)
 paged_chunk_tc_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
+                      const float* __restrict__ k_scale,
+                      const float* __restrict__ v_scale,
                       const int* __restrict__ block_tables,
                       const int* __restrict__ starts,
                       const int* __restrict__ chunk_lens,
@@ -427,12 +500,20 @@ paged_chunk_tc_kernel(const __grid_constant__ CUtensorMap tq,
                       int KH, int psize, int maxp, int P, int S_w,
                       float scale, int window, float softcap) {
   using TL = hopper::Tiles<D>;
-  using L = TcLayout<D>;
+  using L = TcLayout<D, QUANT>;
+  constexpr int BST = L::BSTAGES;
   extern __shared__ unsigned char smem_raw[];
+  // full/empty: the TMA ring; int8: bfull/bempty, the converted tiles
   __shared__ uint64_t full[TC_STAGES], empty[TC_STAGES], qbar;
+  __shared__ uint64_t bfull[TC_BSTAGES], bempty[TC_BSTAGES];
+  // int8: each TMA stage's page scales, and each converted tile's
+  __shared__ float sk8[TC_STAGES][MAX_PPT], sv8[TC_STAGES][MAX_PPT];
+  __shared__ float skb[TC_BSTAGES][MAX_PPT], svb[TC_BSTAGES][MAX_PPT];
   uint8_t* Qs = hopper::align1024(smem_raw);
   uint8_t* Ks = Qs + L::Q_BYTES;               // stage s at Ks + s * TILE
-  uint8_t* Vs = Ks + TC_STAGES * L::TILE;
+  uint8_t* Vs = Ks + BST * L::TILE;
+  uint8_t* K8 = Vs + BST * L::TILE;            // int8: stage s at + s * TILE8
+  uint8_t* V8 = K8 + TC_STAGES * L::TILE8;
 
   const int b = blockIdx.z, kh = blockIdx.y, row0 = blockIdx.x * TQ;
   const int G = H / KH, CG = C * G;
@@ -453,15 +534,20 @@ paged_chunk_tc_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x == 0) {
     for (int s = 0; s < TC_STAGES; ++s) {
       hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], 128);        // every consumer thread
+      hopper::mbar_init(&empty[s], 128);  // the consumers, or converters
+    }
+    for (int s = 0; s < TC_BSTAGES; ++s) {
+      hopper::mbar_init(&bfull[s], 128);  // the converters
+      hopper::mbar_init(&bempty[s], 128); // the consumers
     }
     hopper::mbar_init(&qbar, 1);
     hopper::mbar_fence_init();
   }
   __syncthreads();
 
-  if (warp == 4) {
-    // producer: the q tile, then each key tile page by page, one lane a page
+  if (warp == L::PRODUCER) {
+    // producer: the q tile, then each key tile page by page, one lane a
+    // page (int8: the lane also fetches the page's two scales)
     if (n == 0) return;
     if (lane == 0) {
       hopper::mbar_expect_tx(&qbar, L::Q_BYTES);
@@ -470,30 +556,102 @@ paged_chunk_tc_kernel(const __grid_constant__ CUtensorMap tq,
         hopper::tma_load_5d(Qs + c * TQ * TL::SW, &tq, &qbar, c * TL::CW, 0,
                             kh, t_first, b);
     }
-    const int ppt = TK / psize;                 // pages a key tile
+    // The block-table entries come a round ahead: lane l fetches page
+    // l % ppt of tile l / ppt of a round of 32 / ppt tiles, and the lanes
+    // that issue a tile's copies take them by shuffles, so no block-table
+    // load (or int8 scale load) sits between one tile's copies and the
+    // next's.
+    const int ppt = TK / psize, tpr = 32 / ppt;  // pages a tile, tiles a round
+    auto fetch_round = [&](int r) {
+      const int t = r * tpr + lane / ppt;
+      const int pg = (kb0 + t * TK) / psize + lane % ppt;
+      return t < n && pg * psize <= k_hi
+                 ? block_tables[(size_t)b * maxp + pg] : -1;
+    };
+    int cur = fetch_round(0), nxt = fetch_round(1);
+    float cur_ks = 0.f, cur_vs = 0.f;
+    auto round_scales = [&]() {
+      if constexpr (QUANT) {
+        cur_ks = cur >= 0 ? k_scale[(long long)cur * KH + kh] : 0.f;
+        cur_vs = cur >= 0 ? v_scale[(long long)cur * KH + kh] : 0.f;
+      }
+    };
+    round_scales();
     for (int it = 0; it < n; ++it) {
-      const int s = it % TC_STAGES, k0 = kb0 + it * TK;
-      const int pg = k0 / psize + lane;
-      int row = P * psize;                      // outside the pool: zeros
-      if (lane < ppt && pg * psize <= k_hi)     // a live page
-        row = block_tables[(size_t)b * maxp + pg] * psize;
+      const int s = it % TC_STAGES;
+      if (it > 0 && it % tpr == 0) {
+        cur = nxt;
+        nxt = fetch_round(it / tpr + 1);
+        round_scales();
+      }
+      const int src = (it % tpr) * ppt + lane % ppt;
+      const int page = __shfl_sync(0xffffffffu, cur, src);
+      float ks = 0.f, vs = 0.f;
+      if constexpr (QUANT) {
+        ks = __shfl_sync(0xffffffffu, cur_ks, src);
+        vs = __shfl_sync(0xffffffffu, cur_vs, src);
+      }
+      const bool live = lane < ppt && page >= 0;
+      const int row = live ? page * psize : P * psize;  // outside: zeros
       if (it >= TC_STAGES)
         hopper::mbar_wait(&empty[s], (it / TC_STAGES - 1) & 1);
-      if (lane == 0) hopper::mbar_expect_tx(&full[s], 2 * L::TILE);
-      __syncwarp();
-      if (lane < ppt) {
-        uint8_t* kt = Ks + s * L::TILE + lane * psize * TL::SW;
-        uint8_t* vt = Vs + s * L::TILE + lane * psize * TL::SW;
+      if constexpr (QUANT) {
+        // the bytes first, the copies, then the scales; the arrival comes
+        // after the scales are written, so a waiter sees both
+        if (lane == 0) hopper::mbar_expect_tx_only(&full[s], 2 * L::TILE8);
+        __syncwarp();
+        if (lane < ppt) {
+          hopper::tma_load_3d(K8 + s * L::TILE8 + lane * psize * D, &tk,
+                              &full[s], 0, kh, row);
+          hopper::tma_load_3d(V8 + s * L::TILE8 + lane * psize * D, &tv,
+                              &full[s], 0, kh, row);
+          sk8[s][lane] = ks;
+          sv8[s][lane] = vs;
+        }
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&full[s]);
+      } else {
+        if (lane == 0) hopper::mbar_expect_tx(&full[s], 2 * L::TILE);
+        __syncwarp();
+        if (lane < ppt) {
+          uint8_t* kt = Ks + s * L::TILE + lane * psize * TL::SW;
+          uint8_t* vt = Vs + s * L::TILE + lane * psize * TL::SW;
 #pragma unroll
-        for (int c = 0; c < TL::NCH; ++c) {
-          hopper::tma_load_3d(kt + c * TK * TL::SW, &tk, &full[s],
-                              c * TL::CW, kh, row);
-          hopper::tma_load_3d(vt + c * TK * TL::SW, &tv, &full[s],
-                              c * TL::CW, kh, row);
+          for (int c = 0; c < TL::NCH; ++c) {
+            hopper::tma_load_3d(kt + c * TK * TL::SW, &tk, &full[s],
+                                c * TL::CW, kh, row);
+            hopper::tma_load_3d(vt + c * TK * TL::SW, &tv, &full[s],
+                                c * TL::CW, kh, row);
+          }
         }
       }
     }
     return;
+  }
+
+  if constexpr (QUANT) {
+    if (warp >= 4) {
+      // converter warpgroup: each int8 tile into the bf16 ring, with its
+      // scales; the generic writes are fenced to the async proxy before
+      // the consumers' wgmma may read them
+      const int ct = threadIdx.x - 128;
+      for (int it = 0; it < n; ++it) {
+        const int s = it % TC_STAGES, t = it % TC_BSTAGES;
+        hopper::mbar_wait(&full[s], (it / TC_STAGES) & 1);
+        if (it >= TC_BSTAGES)
+          hopper::mbar_wait(&bempty[t], (it / TC_BSTAGES - 1) & 1);
+        convert_tile<D>(K8 + s * L::TILE8, Ks + t * L::TILE, ct);
+        convert_tile<D>(V8 + s * L::TILE8, Vs + t * L::TILE, ct);
+        if (ct < MAX_PPT) {
+          skb[t][ct] = sk8[s][ct];
+          svb[t][ct] = sv8[s][ct];
+        }
+        hopper::fence_proxy_async();
+        hopper::mbar_arrive(&empty[s]);
+        hopper::mbar_arrive(&bfull[t]);
+      }
+      return;
+    }
   }
 
   // consumer warpgroup: this thread's two rows, h = 0 and h = 1 (8 below)
@@ -513,8 +671,10 @@ paged_chunk_tc_kernel(const __grid_constant__ CUtensorMap tq,
   if (n > 0) hopper::mbar_wait(&qbar, 0);
 
   for (int it = 0; it < n; ++it) {
-    const int s = it % TC_STAGES, k0 = kb0 + it * TK;
-    hopper::mbar_wait(&full[s], (it / TC_STAGES) & 1);
+    const int s = it % BST, k0 = kb0 + it * TK;
+    uint64_t* ready = QUANT ? &bfull[s] : &full[s];
+    hopper::mbar_wait(ready, (it / BST) & 1);
+    if constexpr (QUANT) hopper::fence_proxy_async();
     const uint8_t* Kt = Ks + s * L::TILE;
     const uint8_t* Vt = Vs + s * L::TILE;
 
@@ -532,13 +692,27 @@ paged_chunk_tc_kernel(const __grid_constant__ CUtensorMap tq,
     hopper::wg_wait<0>();
     hopper::pin(sc);
 
-    // mask and online softmax in f32, in the log2 domain
+    // int8: the K and V scale of each 8-column group's page (psize >= 8,
+    // so a group lies in one page)
+    float kcol[TK / 8], vcol[TK / 8];
+#pragma unroll
+    for (int g = 0; g < TK / 8; ++g) {
+      kcol[g] = 1.f;
+      vcol[g] = 1.f;
+      if constexpr (QUANT) {
+        kcol[g] = skb[s][8 * g / psize];
+        vcol[g] = svb[s][8 * g / psize];
+      }
+    }
+
+    // mask and online softmax in f32, in the log2 domain (int8: S's
+    // columns times their K scale first)
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int e = 0; e < TK / 2; ++e) {
       const int h = (e >> 1) & 1;
       const int kj = k0 + 8 * (e >> 2) + 2 * (lane % 4) + (e & 1);
-      float x = sc[e] * scale;
+      float x = sc[e] * (kcol[e >> 2] * scale);
       if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
       x *= LOG2E;
       if (!(valid[h] && kj <= qpos[h] &&
@@ -557,10 +731,12 @@ paged_chunk_tc_kernel(const __grid_constant__ CUtensorMap tq,
       m[h] = m_new;
       l[h] *= corr[h];
     }
+    // l sums P; the copy of P that meets V carries V's column scales
 #pragma unroll
     for (int e = 0; e < TK / 2; ++e) {
       sc[e] = exp2f(sc[e] - base[(e >> 1) & 1]);
       l[(e >> 1) & 1] += sc[e];                 // this thread's columns
+      if constexpr (QUANT) sc[e] *= vcol[e >> 2];
     }
 #pragma unroll
     for (int e = 0; e < D / 2; ++e) acc[e] *= corr[(e >> 1) & 1];
@@ -577,7 +753,7 @@ paged_chunk_tc_kernel(const __grid_constant__ CUtensorMap tq,
     hopper::wg_commit();
     hopper::wg_wait<0>();
     hopper::pin(acc);
-    hopper::mbar_arrive(&empty[s]);
+    hopper::mbar_arrive(QUANT ? &bempty[s] : &empty[s]);
   }
 
   // epilogue: normalise; padding rows and idle slots write zeros; each
@@ -612,8 +788,10 @@ paged_chunk_tc_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // Tensor maps: q as (d, g, kv head, token, slot), the pools as (d, kv head,
-// page row); boxes of CW columns, swizzled as the kernel's tiles are.
-template <int D>
+// page row).  bf16 pools: boxes of CW columns, swizzled as the kernel's
+// tiles are; int8 pools: unswizzled boxes of a whole page row (the
+// converter writes the swizzled bf16 tiles).
+template <int D, bool QUANT>
 cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
   using TL = hopper::Tiles<D>;
   const int G = a.H / a.KH;
@@ -625,28 +803,41 @@ cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
                             (cuuint64_t)a.C * a.H * D * 2};
   const cuuint32_t qb[5] = {(cuuint32_t)TL::CW, (cuuint32_t)G, 1,
                             (cuuint32_t)(TQ / G), 1};
+  constexpr int EB = QUANT ? 1 : 2;            // bytes a pool element
   const cuuint64_t pd[3] = {(cuuint64_t)D, (cuuint64_t)a.KH,
                             (cuuint64_t)a.P * a.psize};
-  const cuuint64_t ps[2] = {(cuuint64_t)D * 2, (cuuint64_t)a.KH * D * 2};
-  const cuuint32_t pb[3] = {(cuuint32_t)TL::CW, 1, (cuuint32_t)a.psize};
+  const cuuint64_t ps[2] = {(cuuint64_t)D * EB, (cuuint64_t)a.KH * D * EB};
+  const cuuint32_t pb[3] = {(cuuint32_t)(QUANT ? D : TL::CW), 1,
+                            (cuuint32_t)a.psize};
+  const CUtensorMapDataType pt = QUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const int psw = QUANT ? 0 : TL::SW;
   if (!hopper::make_map(&tq, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, a.q, qd,
                         qs, qb, TL::SW) ||
-      !hopper::make_map(&tk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a.k, pd,
-                        ps, pb, TL::SW) ||
-      !hopper::make_map(&tv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a.v, pd,
-                        ps, pb, TL::SW))
+      !hopper::make_map(&tk, pt, 3, a.k, pd, ps, pb, psw) ||
+      !hopper::make_map(&tv, pt, 3, a.v, pd, ps, pb, psw))
     return cudaErrorInvalidValue;
-  auto kernel = paged_chunk_tc_kernel<D>;
-  constexpr size_t smem = TcLayout<D>::SMEM;
+  auto kernel = paged_chunk_tc_kernel<D, QUANT>;
+  constexpr size_t smem = TcLayout<D, QUANT>::SMEM;
   cudaError_t err = hopper::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.C * G + TQ - 1) / TQ, a.KH, a.B);
-  kernel<<<grid, TC_THREADS, smem, stream>>>(
-      tq, tk, tv, a.bt, a.starts, a.clens, a.widx,
+  kernel<<<grid, TcLayout<D, QUANT>::THREADS, smem, stream>>>(
+      tq, tk, tv, a.ks, a.vs, a.bt, a.starts, a.clens, a.widx,
       static_cast<__nv_bfloat16*>(a.out),
       static_cast<__nv_bfloat16*>(a.out_win), a.C, a.H, a.KH, a.psize,
       a.maxp, a.P, a.S_w, a.scale, a.window, a.softcap);
   return cudaGetLastError();
+}
+
+template <bool QUANT>
+cudaError_t dispatch_tc(const Args& a, cudaStream_t s) {
+  switch (a.D) {
+    case 32: return launch_tc<32, QUANT>(a, s);
+    case 64: return launch_tc<64, QUANT>(a, s);
+    case 96: return launch_tc<96, QUANT>(a, s);
+    default: return launch_tc<128, QUANT>(a, s);
+  }
 }
 
 // the shapes the tensor-core kernel takes (kernel.py::chunk_route)
@@ -661,8 +852,9 @@ bool tc_takes(const Args& a) {
 
 // dtype (q and out): 0 = float32, 1 = bfloat16.  kv_int8: 0 = pools of
 // q's dtype (scales unused, may be null), 1 = int8 pools with [P, KH] f32
-// scales.  route: 0 = the CUDA-core kernel, 1 = the tensor-core kernel
-// (bf16 pools; the shapes tc_takes accepts).  window <= 0: none; softcap
+// scales.  route (kernel.py::CHUNK_ROUTES): 0 = the CUDA-core kernel, 1 =
+// the tensor-core kernel on bf16 pools, 2 = the tensor-core kernel on int8
+// pools (both bf16 q, the shapes tc_takes accepts).  window <= 0: none; softcap
 // <= 0: none; S_w == 0: no window output (logit_index, out_win may be
 // null).  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int paged_chunk_attention_launch(
@@ -683,15 +875,10 @@ extern "C" int paged_chunk_attention_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || C == 0) return 0;
   cudaError_t err;
-  if (route == 1) {
-    if (dtype != 1 || kv_int8 || !tc_takes(a))
+  if (route == 1 || route == 2) {
+    if (dtype != 1 || kv_int8 != (route == 2) || !tc_takes(a))
       return static_cast<int>(cudaErrorInvalidValue);
-    switch (D) {
-      case 32: err = launch_tc<32>(a, s); break;
-      case 64: err = launch_tc<64>(a, s); break;
-      case 96: err = launch_tc<96>(a, s); break;
-      default: err = launch_tc<128>(a, s); break;
-    }
+    err = route == 2 ? dispatch_tc<true>(a, s) : dispatch_tc<false>(a, s);
   } else if (route != 0) {
     err = cudaErrorInvalidValue;
   } else if (dtype == 0 && !kv_int8) {

@@ -7,14 +7,19 @@ Two kernels, one source each:
   case, replaces ``kernel.py:349``.
 Both take f32 or bf16 pools of q's dtype, or int8 pools with their
 ``[P, KH]`` f32 scales.  The chunk source holds two kernels, chosen by
-``chunk_route``: bf16 pools on the tensor cores, the rest on the CUDA
-cores.  The wrappers take CUDA tensors only: they check them, allocate the
-output, launch the kernel on the current stream and raise when the launch
-is refused.  CPU tensors go to the plain versions through ``ops.py``.
+``chunk_route``: bf16 q on the tensor cores (over bf16 or int8 pools), the
+rest on the CUDA cores.  The decode kernel splits each slot's pages over
+``decode_splits`` blocks (one thread-block cluster) and merges them by
+log-sum-exp in the same launch.  Both rules are pure functions of the
+shapes: the wrappers never read a length on the host.  The wrappers take
+CUDA tensors only: they check them, allocate the output, launch the kernel
+on the current stream and raise when the launch is refused.  CPU tensors go
+to the plain versions through ``ops.py``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -29,10 +34,15 @@ SOURCE = CSRC / f"{NAME}.cu"
 SOURCE_DECODE = CSRC / f"{NAME_DECODE}.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the chunk source's kernels, by the number its C entry point takes
-CHUNK_ROUTES = ("cuda_core", "wgmma")
+CHUNK_ROUTES = ("cuda_core", "wgmma", "wgmma_int8")
 TC_HEAD_DIMS = (32, 64, 96, 128)
 TC_PAGE_SIZES = (8, 16, 32, 64)
 TC_ROWS = 64                    # query rows of the tensor-core kernel's tile
+# the decode kernel's split: blocks for about DECODE_WAVES waves of the
+# card's SMs, at most DECODE_MAX_SPLITS blocks (one cluster, of the
+# portable size) a unit of work
+DECODE_WAVES = 2
+DECODE_MAX_SPLITS = 8
 
 build.LAUNCHES.setdefault(NAME, 0)
 build.LAUNCHES.setdefault(NAME_DECODE, 0)
@@ -125,17 +135,48 @@ def _launch(name, fn, ptrs, ints, q, scale, window, softcap, quant):
 
 def chunk_route(dtype: torch.dtype, quant: bool, D: int, psize: int,
                 G: int) -> str:
-    """Which kernel of the chunk source takes a launch: ``"wgmma"`` (the
-    tensor-core kernel) for bf16 q and pools with a head dim of 32, 64, 96
-    or 128, pages of 8, 16, 32 or 64 tokens (a page is then a whole number
-    of swizzle atoms and a 64-key tile a whole number of pages) and G = H /
-    KH dividing the 64 rows of its q tile; ``"cuda_core"`` for every other
-    launch (f32, int8 pools, other shapes).  A pure function of the
-    shapes: nothing is tried and retried."""
-    if dtype == torch.bfloat16 and not quant and D in TC_HEAD_DIMS \
+    """Which kernel of the chunk source takes a launch: the tensor-core
+    kernel for bf16 q with a head dim of 32, 64, 96 or 128, pages of 8,
+    16, 32 or 64 tokens (a page is then a whole number of swizzle atoms and
+    a 64-key tile a whole number of pages) and G = H / KH dividing the 64
+    rows of its q tile, as ``"wgmma"`` on bf16 pools and ``"wgmma_int8"``
+    on int8 pools; ``"cuda_core"`` for every other launch (f32 q, other
+    shapes).  A pure function of the shapes: nothing is tried and
+    retried."""
+    if dtype == torch.bfloat16 and D in TC_HEAD_DIMS \
             and psize in TC_PAGE_SIZES and G >= 1 and TC_ROWS % G == 0:
-        return "wgmma"
+        return "wgmma_int8" if quant else "wgmma"
     return "cuda_core"
+
+
+def decode_rows(G: int) -> int:
+    """Query heads of one decode block: the largest of 8, 4, 2, 1 that
+    divides G (a compile-time count of the kernel)."""
+    return next(r for r in (8, 4, 2, 1) if G % r == 0)
+
+
+def decode_splits(B: int, KH: int, G: int, maxp: int, sm_count: int) -> int:
+    """Blocks that share one (slot, kv head, row group) unit of the decode
+    kernel, each taking an equal range of the slot's live pages: enough
+    for about ``DECODE_WAVES`` blocks an SM over the B * KH * G /
+    decode_rows(G) units, at most ``DECODE_MAX_SPLITS`` (one cluster) and
+    at most the block table's width ``maxp``, at least 1.  A pure function
+    of shapes the host knows, so the launch needs no host sync."""
+    units = B * KH * (G // decode_rows(G))
+    want = -(-DECODE_WAVES * sm_count // max(units, 1))
+    return max(1, min(DECODE_MAX_SPLITS, maxp, want))
+
+
+def decode_route(splits: int) -> str:
+    """The launch count's route of a decode launch: ``"split"`` when a
+    unit's pages are split over several blocks, else ``"single"``."""
+    return "split" if splits > 1 else "single"
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _ptr(t):
@@ -192,18 +233,22 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                     softcap: Optional[float] = None, k_scale=None,
                     v_scale=None):
     """Launch the decode kernel; same contract as
-    ``ref.paged_attention_ref``.  Only block-table entries below
-    ceil(length / psize) are read."""
+    ``ref.paged_attention_ref``.  Only block-table entries of live pages
+    (from the window's first visible key to ceil(length / psize)) are read.
+    Each (slot, kv head, row group) is split over ``decode_splits`` blocks
+    of one cluster, whose partial states the kernel merges itself."""
     quant = _check(NAME_DECODE, q, k_pages, v_pages, block_tables,
                    {"lengths": lengths}, k_scale, v_scale, 3)
     B, H, D = q.shape
     psize, KH = k_pages.shape[1], k_pages.shape[2]
+    maxp = block_tables.shape[1]
+    splits = decode_splits(B, KH, H // KH, maxp, sm_count(q.device.index))
     out = torch.empty_like(q)
-    _launch(NAME_DECODE, _entry(NAME_DECODE, SOURCE_DECODE, 8, 6),
+    _launch(NAME_DECODE, _entry(NAME_DECODE, SOURCE_DECODE, 8, 7),
             [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
              lengths.data_ptr(), out.data_ptr()],
-            [B, H, KH, D, psize, block_tables.shape[1]],
+            [B, H, KH, D, psize, maxp, splits],
             q, scale, window, softcap, quant)
-    build.LAUNCHES[NAME_DECODE] += 1
+    build.count_launch(NAME_DECODE, decode_route(splits))
     return out

@@ -455,10 +455,10 @@ def cuda():
     (3, 32, 16, 128, 10, 7, {"window": 20, "softcap": 50.0}),
 ])
 def test_int8_chunk_kernel_matches_plain(cuda, dtype, geom):
-    """The chunk kernel on int8 pools (q in ``dtype``) against its plain
-    version on the same card and inputs.  Both dequantize the same int8
-    values in f32: f32 q atol/rtol 2e-5 (summation order), bf16 q and
-    output 2e-2 (one bf16 ulp at |x| ~ 1 is 7.8e-3)."""
+    """The chunk kernel on int8 pools (q in ``dtype``: f32 on the CUDA-core
+    kernel, bf16 on the tensor-core one) against its plain version on the
+    same card and inputs: f32 q atol/rtol 2e-5 (summation order), bf16 q
+    and output 2e-2 (one bf16 ulp at |x| ~ 1 is 7.8e-3)."""
     B, H, KH, D, maxp, C, kw = geom
     q, kq, vq, bt, st, cl, ks, vs = int8_chunk_case(B, H, KH, D, maxp, C,
                                                     (B, C, D))

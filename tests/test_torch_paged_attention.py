@@ -249,7 +249,10 @@ def test_logit_index_outside_the_chunk_raises():
     (torch.bfloat16, False, 32, 32, 64, "wgmma"),
     (torch.bfloat16, False, 96, 64, 1, "wgmma"),
     (torch.float32, False, 128, 16, 2, "cuda_core"),
-    (torch.bfloat16, True, 128, 16, 2, "cuda_core"),
+    (torch.bfloat16, True, 128, 16, 2, "wgmma_int8"),
+    (torch.bfloat16, True, 32, 8, 64, "wgmma_int8"),
+    (torch.float32, True, 128, 16, 2, "cuda_core"),
+    (torch.bfloat16, True, 256, 16, 2, "cuda_core"),
     (torch.bfloat16, False, 256, 16, 2, "cuda_core"),
     (torch.bfloat16, False, 160, 16, 2, "cuda_core"),
     (torch.bfloat16, False, 128, 4, 2, "cuda_core"),
@@ -258,9 +261,10 @@ def test_logit_index_outside_the_chunk_raises():
     (torch.bfloat16, False, 128, 16, 128, "cuda_core"),
 ])
 def test_chunk_route_rule(dtype, quant, D, psize, G, want):
-    """bf16 q on bf16 pools goes to the tensor cores for head dims 32-128,
-    pages of 8-64 tokens and G dividing the 64-row q tile; f32, int8 pools
-    and every other shape keep the CUDA-core kernel."""
+    """bf16 q goes to the tensor cores for head dims 32-128, pages of 8-64
+    tokens and G dividing the 64-row q tile: ``wgmma`` on bf16 pools,
+    ``wgmma_int8`` on int8 pools; f32 q and every other shape keep the
+    CUDA-core kernel."""
     assert kernel.chunk_route(dtype, quant, D, psize, G) == want
     assert want in kernel.CHUNK_ROUTES
 
@@ -323,12 +327,53 @@ def test_tc_kernel_matches_plain(cuda, C, G, psize, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("psize", [8, 16, 32])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("C", [1, 16, 64, 256])
+def test_tc_int8_kernel_matches_plain(cuda, C, G, psize, D):
+    """The tensor-core kernel on int8 pools (bf16 q) over
+    ``test_tc_kernel_matches_plain``'s grid, against the plain version
+    (which dequantizes the pages in f32) and against the plain version of
+    its own arithmetic (scales on the columns of S and P), compared in f32
+    at atol/rtol 2e-2 (one bf16 ulp at |x| ~ 1 is 7.8e-3; the kernel
+    rounds q and the scaled P to bf16).  Windows and softcaps cycle over
+    the cases; padding rows and the idle slot are exact zeros; every launch
+    takes the wgmma_int8 route."""
+    kw = dict(TC_VARIANTS[(C + G + psize + D) % len(TC_VARIANTS)],
+              scale=D ** -0.5)
+    q, kp, vp, bt, st, cl = tc_case(4, G, 2, D, C, psize,
+                                    seed=(C, G, psize, D, 8))
+    from repro_torch.optim.compression import quantize_int8
+    (kq, ks), (vq, vs) = (quantize_int8(torch.tensor(x, device=cuda),
+                                        axis=(1, 3)) for x in (kp, vp))
+    kw.update(k_scale=ks[:, 0, :, 0].contiguous(),
+              v_scale=vs[:, 0, :, 0].contiguous())
+    t = [torch.tensor(q, device=cuda).to(torch.bfloat16), kq, vq]
+    t += [torch.tensor(a, device=cuda) for a in (bt, st, cl)]
+    assert kernel.chunk_route(torch.bfloat16, True, D, psize, G) == \
+        "wgmma_int8"
+    build.reset_launches()
+    got = kernel.paged_chunk_attention(*t, **kw)
+    torch.cuda.synchronize()
+    assert build.ROUTE_LAUNCHES[f"{kernel.NAME}:wgmma_int8"] == 1
+    for plain in (ref.paged_chunk_attention_ref,
+                  ref.paged_chunk_attention_int8_ref):
+        want = plain(*t, **kw)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+    for b in range(4):
+        assert torch.all(got[b, int(cl[b]):] == 0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("pools", ["bf16", "f32", "int8"])
 @pytest.mark.parametrize("C", [1, 23, 64])
 def test_logit_index_kernel_matches_plain(cuda, C, pools):
-    """Both kernels' window epilogue: out_win against the plain version's
-    (which gathers its own out), and out_win[b, s] equal to the kernel's
-    own out[b, logit_index[b, s]] bit for bit."""
+    """Both kernels' window epilogue (the tensor-core one on bf16 and on
+    int8 pools): out_win against the plain version's (which gathers its
+    own out), and out_win[b, s] equal to the kernel's own out[b,
+    logit_index[b, s]] bit for bit."""
     G, KH, D, psize = 2, 2, 64, 16
     q, kp, vp, bt, st, cl = tc_case(3, G, KH, D, C, psize, seed=(C, 9))
     rng = np.random.default_rng(C)
@@ -345,8 +390,13 @@ def test_logit_index_kernel_matches_plain(cuda, C, pools):
         kw.update(k_scale=ks[:, 0, :, 0].contiguous(),
                   v_scale=vs[:, 0, :, 0].contiguous())
     ints = [torch.tensor(a, device=cuda) for a in (bt, st, cl)]
+    build.reset_launches()
     got, got_win = kernel.paged_chunk_attention(*t, *ints, **kw,
                                                 logit_index=widx)
+    route = kernel.chunk_route(dt, pools == "int8", D, psize, G)
+    assert route == {"bf16": "wgmma", "f32": "cuda_core",
+                     "int8": "wgmma_int8"}[pools]
+    assert build.ROUTE_LAUNCHES[f"{kernel.NAME}:{route}"] == 1
     want, want_win = ref.paged_chunk_attention_ref(*t, *ints, **kw,
                                                    logit_index=widx)
     torch.cuda.synchronize()
