@@ -79,20 +79,28 @@ Phases, each of which fails the script (non-zero exit, no result line):
               time per call with and without tensor maps; dropout matmul:
               the Horn MLP's at keep 1, 0.5 and 0.25, beside cuBLAS on
               the kept columns only; SSD chunk scan: mamba2-2.7b's
-              prefill, where no single PyTorch call computes the same
-              function), beside the least time the card could take.
+              prefill on the wgmma kernel, beside the CUDA-core kernel on
+              the same inputs, where no single PyTorch call computes the
+              same function), beside the least time the card could take
+              (for the SSD: bf16 rate for the wgmma kernel, f32 for the
+              CUDA-core one).
   9. ssm      mamba2-2.7b through ``make_prefill_step``/``make_decode_step``.
               First 2 layers at full width in f32: the kernel path against
               the plain path (logits, final SSM states), and prefill(S) + 4
               decode steps against prefill(S + k).  Then all 64 layers in
               bf16 (random weights from seed 0): a prefill of 4 x 2048
               seeded tokens and 32 greedy decode steps from its cache; the
-              SSD kernel launched 64 times by the prefill and never by
-              decode, every logit finite; prefill wall and tok/s, decode
-              tok/s, peak memory and a profiled prefill's device busy share.
+              SSD kernel launched 64 times by the prefill, all 64 on its
+              wgmma kernel, and never by decode, every logit finite; prefill
+              wall and tok/s, decode tok/s, peak memory and a profiled
+              prefill's device busy share, with the SSD's device time summed
+              over every ``ssd_chunk_scan*`` kernel (one per launch, asserted).
 Phase 3 also holds the SSD chunk scan against its plain version (y and the
-final state): the JAX sweep's shapes, S 257 (chunks of 1 token) and the
-full-width shape B 2, S 2048, H 80, P 64, N 128, chunk 256, f32 and bf16.
+final state): the JAX sweep's shapes, S 257 (chunks of 1 token), two more
+shapes of the wgmma route and the full-width shape B 2, S 2048, H 80, P
+64, N 128, chunk 256, f32 and bf16, each on the route ``kernel.route``
+gives it (bf16 at Q % 64 == 0 on the wgmma kernel, the rest on the
+CUDA-core one), printed and asserted by its launch count.
 Prints one JSON line of kernel numbers, then, as the last line,
 ``{"ok": true, "device": {...}}``.
 """
@@ -440,11 +448,18 @@ def phase_dropout_kernels(torch, dev, dkernel, dref, build):
 
 
 # (B, S, H, P, N, chunk): the JAX sweep (tests/test_kernels.py), S 257 at
-# the published chunk (257 is prime: chunks of 1 token), and mamba2-2.7b's
-# SSD at full width
+# the published chunk (257 is prime: chunks of 1 token), shapes of the
+# wgmma route's other P and N (N <= 64 on its 64-column tiles), and
+# mamba2-2.7b's SSD at full width.  bf16 takes the wgmma kernel where
+# ``kernel.route`` says so (Q % 64 == 0, P and N multiples of 16), f32 and
+# the rest the CUDA-core one.
 SSD_SWEEP = [(1, 64, 2, 16, 16, 16), (2, 128, 3, 16, 32, 32),
-             (1, 256, 1, 32, 64, 64), (1, 257, 4, 64, 128, 256)]
+             (1, 256, 1, 32, 64, 64), (1, 257, 4, 64, 128, 256),
+             (2, 256, 3, 16, 16, 64), (1, 512, 4, 48, 96, 128)]
 SSD_FULL = (2, 2048, 80, 64, 128, 256)
+# the CUDA-core kernel at the prefill shape before the wgmma kernel took
+# it (PERF.md section 6), printed beside this run's times
+SSD_CUDA_CORE_RECORDED_MS = 5.165
 
 
 def ssd_inputs(torch, dev, dtype, B, S, H, P, N, seed):
@@ -464,18 +479,27 @@ def ssd_inputs(torch, dev, dtype, B, S, H, P, N, seed):
     return x, dt, A, Bm, Cm
 
 
-def phase_ssd_kernels(torch, dev, skernel, sref):
-    """y and the final state against the plain version on the same inputs.
-    Both compute in f32 from the same (bf16-rounded) values and differ in
-    summation order only: atol 2e-4 / rtol 1e-3, the JAX tests'
-    tolerance, at every shape and in both dtypes."""
+def phase_ssd_kernels(torch, dev, skernel, sref, build):
+    """y and the final state against the plain version on the same inputs,
+    on the route ``kernel.route`` gives each shape (asserted by the launch
+    count of that route).  The CUDA-core kernel computes in f32 from the
+    same (bf16-rounded) values and differs in summation order only; the
+    wgmma kernel feeds each f32 operand as two bf16 terms (~2^-16
+    relative).  atol 2e-4 / rtol 1e-3, the JAX tests' tolerance, at every
+    shape and in both dtypes."""
+    from repro_torch.kernels.ssd.ref import chunk_len
     worst = 0.0
     for dtype in ("float32", "bfloat16"):
-        errs = []
+        errs, routes = [], []
         for i, (B, S, H, P, N, chunk) in enumerate(SSD_SWEEP + [SSD_FULL]):
             args = ssd_inputs(torch, dev, getattr(torch, dtype), B, S, H, P,
                               N, seed=i)
+            how = skernel.route(args[0].dtype, P, N, chunk_len(chunk, S))
+            key = f"{skernel.NAME}:{how}"
+            before = build.ROUTE_LAUNCHES.get(key, 0)
             y, st = skernel.ssd_chunk_scan(*args, chunk=chunk)
+            assert build.ROUTE_LAUNCHES.get(key, 0) == before + 1, key
+            routes.append(how)
             y_want, st_want = sref.ssd_chunk_scan_ref(*args, chunk=chunk)
             torch.cuda.synchronize()
             for what, got, want in (("y", y, y_want), ("state", st, st_want)):
@@ -483,12 +507,16 @@ def phase_ssd_kernels(torch, dev, skernel, sref):
                 errs.append((got - want).abs().max().item())
                 torch.testing.assert_close(
                     got, want, atol=2e-4, rtol=1e-3,
-                    msg=lambda m: f"{(B, S, H, P, N, chunk)} {what}: {m}")
+                    msg=lambda m: f"{(B, S, H, P, N, chunk)} {how} {what}: "
+                                  f"{m}")
+            log(f"    {dtype:8s} {(B, S, H, P, N, chunk)}: route {how}, max "
+                f"|kernel - plain| y {errs[-2]:.3g}, state {errs[-1]:.3g}")
             del args, y, st, y_want, st_want
         worst = max([worst] + errs)
         log(f"  ssd_chunk_scan {dtype:8s} {len(SSD_SWEEP)} sweep shapes + "
             f"full width {SSD_FULL}: max |kernel - plain| = {max(errs):.3g}"
-            f" (tol 2e-4 + 1e-3 |y|)")
+            f" (tol 2e-4 + 1e-3 |y|); routes "
+            + ", ".join(f"{r} x{routes.count(r)}" for r in sorted(set(routes))))
     return worst
 
 
@@ -1511,36 +1539,58 @@ def ssd_work(B, S, H, P, N, Q, itemsize):
 
 def phase_ssd_timing(torch, dev, skernel, sref):
     """The chunk scan at the ssm phase's prefill shape (B 4, S 2048, H 80,
-    P 64, N 128, chunk 256, bf16 x/B/C, with the final state): the kernel
-    and its plain version, beside the bound at the f32 CUDA-core rate (the
-    kernel's arithmetic is f32).  No single PyTorch call computes an SSD
-    scan, so there is no library time."""
+    P 64, N 128, chunk 256, bf16 x/B/C, with the final state): the wgmma
+    kernel (the route the wrapper takes there), the CUDA-core kernel on the
+    same inputs (``kernel.launch`` with its route named, to compare the two
+    in one call) and the plain version.  Bounds: the bf16 tensor-core rate
+    for the wgmma kernel (bytes set it at this shape), the f32 CUDA-core
+    rate for the CUDA-core one (operations set it).  No single PyTorch call
+    computes an SSD scan, so there is no library time."""
     B, S, H, P, N, chunk = SSM_BATCH, SSM_SEQ, 80, 64, 128, 256
     args = ssd_inputs(torch, dev, torch.bfloat16, B, S, H, P, N, seed=21)
-    y, st = skernel.ssd_chunk_scan(*args, chunk=chunk)
+    how = skernel.route(torch.bfloat16, P, N, chunk)
+    assert how == "wgmma", how
     y_want, st_want = sref.ssd_chunk_scan_ref(*args, chunk=chunk)
-    torch.cuda.synchronize()
-    err = max((y - y_want).abs().max().item(),
-              (st - st_want).abs().max().item())
-    torch.testing.assert_close(y, y_want, atol=2e-4, rtol=1e-3)
-    torch.testing.assert_close(st, st_want, atol=2e-4, rtol=1e-3)
-    del y, st, y_want, st_want
+    errs = {}
+    for name, run in (
+            ("wgmma", lambda: skernel.ssd_chunk_scan(*args, chunk=chunk)),
+            ("cuda_core", lambda: skernel.launch(*args, chunk, "cuda_core"))):
+        y, st = run()
+        torch.cuda.synchronize()
+        errs[name] = max((y - y_want).abs().max().item(),
+                         (st - st_want).abs().max().item())
+        torch.testing.assert_close(y, y_want, atol=2e-4, rtol=1e-3)
+        torch.testing.assert_close(st, st_want, atol=2e-4, rtol=1e-3)
+        del y, st
+    del y_want, st_want
     ms = cuda_ms(torch, lambda i: skernel.ssd_chunk_scan(
         *args, chunk=chunk), 20)
+    cc_ms = cuda_ms(torch, lambda i: skernel.launch(
+        *args, chunk, "cuda_core"), 5, warmup=1)
     plain_ms = cuda_ms(torch, lambda i: sref.ssd_chunk_scan_ref(
         *args, chunk=chunk), 5, warmup=1)
     nbytes, flops = ssd_work(B, S, H, P, N, chunk, 2)
-    b_ms, b_by = bound(nbytes, flops, "float32")
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    cc_b_ms, cc_b_by = bound(nbytes, flops, "float32")
     out = {"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": chunk,
-           "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
-           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-           "bytes": nbytes, "flops": flops, "max_abs_err": err,
+           "dtype": "bfloat16", "route": how, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+           "bound_by": b_by, "cuda_core_ms": cc_ms,
+           "cuda_core_bound_ms": cc_b_ms, "cuda_core_bound_by": cc_b_by,
+           "cuda_core_recorded_ms": SSD_CUDA_CORE_RECORDED_MS,
+           "bytes": nbytes, "flops": flops,
+           "max_abs_err": errs["wgmma"],
+           "cuda_core_max_abs_err": errs["cuda_core"],
            "tflops": flops / (ms * 1e-3) / 1e12}
     log(f"  ssd_chunk_scan prefill (B {B}, S {S}, H {H}, P {P}, N {N}, Q "
-        f"{chunk}, bf16): kernel {ms:7.3f} ms  plain {plain_ms:7.3f} ms  "
-        f"library: none (no single PyTorch call)  bound {b_ms:.3f} ms "
-        f"({b_by}, {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)  "
-        f"{out['tflops']:.1f} TFLOP/s counted  max err {err:.3g}")
+        f"{chunk}, bf16): wgmma kernel {ms:7.3f} ms [the CUDA-core kernel: "
+        f"{SSD_CUDA_CORE_RECORDED_MS} ms recorded, {cc_ms:.3f} ms in this "
+        f"run]  plain "
+        f"{plain_ms:7.3f} ms  library: none (no single PyTorch call)  "
+        f"bound {b_ms:.3f} ms ({b_by} at the bf16 rate; {cc_b_ms:.3f} ms "
+        f"at the f32 rate), {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB;"
+        f" {out['tflops']:.1f} TFLOP/s counted; max err wgmma "
+        f"{errs['wgmma']:.3g}, cuda_core {errs['cuda_core']:.3g}")
     return out
 
 
@@ -1644,6 +1694,9 @@ def phase_ssm(torch, dev, build, skernel):
     prefill_s = time.perf_counter() - t0
     launches = build.LAUNCHES[skernel.NAME]
     assert launches == cfg.num_layers, launches
+    by_route = {how: build.ROUTE_LAUNCHES.get(f"{skernel.NAME}:{how}", 0)
+                for how in skernel.ROUTES}
+    assert by_route["wgmma"] == launches, by_route
     assert logits.shape == (B, cfg.vocab_size)
     assert torch.isfinite(logits).all()
     prefill_cache = cache
@@ -1660,14 +1713,17 @@ def phase_ssm(torch, dev, build, skernel):
     peak = torch.cuda.max_memory_allocated()
     out = {"layers": cfg.num_layers, "batch": B, "seq": S,
            "decode_steps": G, "launches_per_prefill": launches,
+           "launches_by_route": by_route,
            "prefill_s": prefill_s, "prefill_tok_s": B * S / prefill_s,
            "decode_step_ms": decode_s / G * 1e3,
            "decode_tok_s": B * G / decode_s, "peak_bytes": peak,
            "device_busy_ms": None, "busy_share": None, "ssd_ms": None,
+           "ssd_kernels": None,
            "top_kernels": []}
     log(f"  prefill {B} x {S}: {prefill_s * 1e3:.1f} ms wall, "
         f"{out['prefill_tok_s']:,.0f} tok/s; {skernel.NAME} launches: "
-        f"{launches} = {cfg.num_layers} layers x 1 prefill")
+        f"{launches} = {cfg.num_layers} layers x 1 prefill, by route "
+        f"{by_route}")
     log(f"  {G} greedy decode steps at batch {B}: "
         f"{out['decode_step_ms']:.2f} ms a step, {out['decode_tok_s']:.1f} "
         f"tok/s; {skernel.NAME} launches in decode: 0; peak memory "
@@ -1701,12 +1757,20 @@ def phase_ssm(torch, dev, build, skernel):
     if busy <= 0:
         log("  device time of a prefill: not measured (no device events)")
     else:
+        # every kernel of the scan is named ssd_chunk_scan_*: the sum
+        # covers each launch of the profiled prefill, all on the wgmma one
+        ssd = [e for e in events if "ssd_chunk_scan" in e.key]
+        assert sum(e.count for e in ssd) == launches, \
+            [(e.key, e.count) for e in ssd]
+        assert all("ssd_chunk_scan_wgmma_kernel" in e.key for e in ssd), \
+            [e.key for e in ssd]
         out.update(device_busy_ms=busy, busy_share=busy / (prefill_s * 1e3),
-                   ssd_ms=sum(e.self_device_time_total for e in events
-                              if "ssd_chunk_scan" in e.key) / 1e3)
+                   ssd_ms=sum(e.self_device_time_total for e in ssd) / 1e3,
+                   ssd_kernels=[[e.key[:90], e.count] for e in ssd])
         log(f"  profiled prefill: device busy {busy:.1f} ms = "
             f"{out['busy_share']:.1%} of the unprofiled prefill wall; "
-            f"{skernel.NAME} {out['ssd_ms']:.1f} ms")
+            f"{skernel.NAME} {out['ssd_ms']:.1f} ms over "
+            + ", ".join(f"{e.key[:60]} x{e.count}" for e in ssd))
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
             out["top_kernels"].append(
                 [e.key[:90], e.self_device_time_total / 1e3, e.count])
@@ -1759,7 +1823,7 @@ def main() -> int:
     decode_sweep_err = phase_decode_kernels(torch, dev, kernel, ref)
     flash_sweep_err = phase_flash_kernels(torch, dev, fkernel, fref)
     dm_sweep_err = phase_dropout_kernels(torch, dev, dkernel, dref, build)
-    ssd_sweep_err = phase_ssd_kernels(torch, dev, skernel, sref)
+    ssd_sweep_err = phase_ssd_kernels(torch, dev, skernel, sref, build)
 
     log("phase 4: paged engine against a dense recompute")
     parity = phase_parity(torch, dev)
@@ -1866,6 +1930,7 @@ def main() -> int:
         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
         "library_ms": None,
         "library": "none: no single PyTorch call computes an SSD chunk scan",
+        "launches_by_kernel": ssm["launches_by_route"],
         "shapes": {"prefill": ssd},
     })
     line = {"kernels": kernels, "card": card, "serve": served,

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, dropout_matmul.cu, paged_chunk_attention.cu):
+// (flash_attention.cu, dropout_matmul.cu, paged_chunk_attention.cu,
+// ssd_chunk_scan.cu):
 // mbarriers, TMA copies (loads into shared memory, stores out of it), wgmma
 // shared-memory descriptors and products, and the host-side tensor maps.
 // The swizzled tile layout, the K-major and the transposed (MN-major) B
@@ -112,9 +113,11 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
-// wait until no committed store still reads shared memory
+// wait until at most N committed stores (the newest) still read shared
+// memory
+template <int N = 0>
 __device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 // wait until every committed store has completed
 __device__ __forceinline__ void bulk_wait() {
@@ -179,10 +182,11 @@ __device__ __forceinline__ uint64_t mnmajor(const uint8_t* tile, int rows,
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// D[64 x N] (+)= A[64 x 16] B[16 x N], A K-major in shared memory; B
-// K-major (TB = 0) or MN-major (TB = 1) in shared memory.  N = 2 * the
-// accumulator's length: 64 or 128.
-template <int TB = 0>
+// D[64 x N] (+)= A[64 x 16] B[16 x N], both in shared memory: A K-major
+// (TA = 0) or MN-major (TA = 1, the tile's rows run along the depth); B
+// K-major (TB = 0) or MN-major (TB = 1).  N = 2 * the accumulator's
+// length: 64 or 128.
+template <int TB = 0, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int accumulate) {
   asm volatile(
@@ -191,11 +195,11 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%32, %33, p, 1, 1, %36, %35;\n}\n"
       : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24)
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB), "n"(TA));
 }
-template <int TB = 0>
+template <int TB = 0, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
                                          uint64_t db, int accumulate) {
   asm volatile(
@@ -207,14 +211,15 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
       "%60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      "%64, %65, p, 1, 1, %68, %67;\n}\n"
       : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24),
         HOPPER_ACC8(32), HOPPER_ACC8(40), HOPPER_ACC8(48), HOPPER_ACC8(56)
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB), "n"(TA));
 }
 
 // D[64 x N] (+)= A[64 x 16] B[16 x N] with A in registers and B MN-major
-// (transposed) in shared memory; N = 32, 64, 96 or 128.
+// (transposed) in shared memory; N = 32, 64, 96 or 128.  At N = 64, B may
+// also be K-major (TB = 0).
 __device__ __forceinline__ void wgmma_rs(float (&d)[16],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int accumulate) {
@@ -228,6 +233,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
 }
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int accumulate) {
@@ -237,10 +243,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
+        "r"(accumulate), "n"(TB));
 }
 __device__ __forceinline__ void wgmma_rs(float (&d)[48],
                                          const uint32_t (&a)[4], uint64_t db,

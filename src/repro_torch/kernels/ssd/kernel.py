@@ -1,11 +1,11 @@
 """The CUDA SSD chunk scan: ctypes binding and wrapper.
 
-The kernel is ``csrc/ssd_chunk_scan.cu`` (it replaces the TPU kernel
+The kernels are ``csrc/ssd_chunk_scan.cu`` (they replace the TPU kernel
 ``src/repro/kernels/ssd/kernel.py:65``).  ``ssd_chunk_scan`` takes CUDA
-tensors only: it checks them, allocates the f32 outputs, launches on the
-current stream and raises when a launch is refused.  Like the TPU kernel
-it is forward-only.  CPU tensors go to the plain version through
-``ops.py``.
+tensors only: it checks them, picks a kernel by ``route``, allocates the
+f32 outputs, launches on the current stream and raises when a launch is
+refused.  Like the TPU kernel it is forward-only.  CPU tensors go to the
+plain version through ``ops.py``.
 """
 from __future__ import annotations
 
@@ -21,6 +21,9 @@ NAME = "ssd_chunk_scan"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_chunk_scan.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 P_MAX, N_MAX, Q_MAX = 64, 128, 8192     # the kernel's PMAX, NMAX, QMAX
+BLOCK = 64                              # tokens of the wgmma kernel's block
+# the kernels of the source, by the number the C entry point takes
+ROUTES = ("cuda_core", "wgmma")
 
 build.LAUNCHES.setdefault(NAME, 0)
 
@@ -32,7 +35,7 @@ def _entry():
     global _fn
     if _fn is None:
         fn = build.load(SOURCE).ssd_chunk_scan
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -71,22 +74,53 @@ def _check(x, dt, A, Bm, Cm, Q):
                          f"P {P}, N {N}, Q {Q}")
 
 
+def route(dtype: torch.dtype, P: int, N: int, Q: int) -> str:
+    """Which kernel takes a scan of head dim ``P``, state ``N`` and chunk
+    ``Q`` in ``dtype``: bf16 with Q a multiple of the 64-token block, P a
+    multiple of 16 up to 64 and N a multiple of 16 up to 128 goes to the
+    wgmma kernel; everything else (f32, Q = 1, ragged P or N) to the
+    CUDA-core kernel.  A pure function of the shape: nothing is tried and
+    retried."""
+    if dtype not in DTYPES:
+        raise TypeError(f"{NAME}: no kernel for {dtype}")
+    if (dtype == torch.bfloat16 and Q % BLOCK == 0 and P % 16 == 0
+            and P <= P_MAX and N % 16 == 0 and N <= N_MAX):
+        return "wgmma"
+    return "cuda_core"
+
+
+def launch(x, dt, A, Bm, Cm, Q: int, how: str):
+    """Launch the kernel of route ``how`` on checked inputs and count the
+    launch.  ``ssd_chunk_scan`` passes ``route(...)``; a timing harness may
+    name the CUDA-core kernel to time it beside the wgmma one at the same
+    shape."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if how == "wgmma":
+        for tname, t in dict(x=x, Bm=Bm, Cm=Cm).items():
+            if t.data_ptr() % 16:
+                raise ValueError(f"{NAME}: {tname} must start on a 16-byte "
+                                 f"boundary (the wgmma kernel copies its "
+                                 f"tiles by TMA)")
+    y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
+    state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    err = _entry()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                   Cm.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, H,
+                   P, N, Q, DTYPES[x.dtype], ROUTES.index(how),
+                   torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{NAME}: kernel launch ({how}) failed with CUDA "
+                           f"error {err}")
+    build.count_launch(NAME, how)
+    return y, state
+
+
 def ssd_chunk_scan(x, dt, A, Bm, Cm, *, chunk: int):
     """Launch the kernel: x [B, S, H, P], Bm/Cm [B, S, N] (f32 or bf16, one
     type), dt [B, S, H] and A [H] f32 -> (y [B, S, H, P] f32, the
     [B, H, P, N] f32 state after the last chunk).  Same contract as
-    ``ref.ssd_chunk_scan_ref``."""
-    B, S, H, P = x.shape
+    ``ref.ssd_chunk_scan_ref``; the kernel is ``route``'s."""
+    S, P = x.shape[1], x.shape[-1]
     Q = chunk_len(chunk, S)
     _check(x, dt, A, Bm, Cm, Q)
-    N = Bm.shape[-1]
-    y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
-    state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
-    err = _entry()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                   Cm.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, H, P, N, Q, DTYPES[x.dtype],
-                   torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{NAME}: kernel launch failed with CUDA error "
-                           f"{err}")
-    build.LAUNCHES[NAME] += 1
-    return y, state
+    return launch(x, dt, A, Bm, Cm, Q, route(x.dtype, P, Bm.shape[-1], Q))
