@@ -29,7 +29,8 @@
 //   - One CTA walks one (b, h) through the sequence in order, the [P, N]
 //     state in f32 registers (the TPU kernel's idea; mamba_ssm's
 //     chunk-parallel split would write and read ~84 MB of f32 chunk
-//     states a pass).  320 CTAs at the prefill shape, one an SM.
+//     states a pass).  320 CTAs at the prefill shape, one an SM (its
+//     shared memory): three waves on 132 SMs, the last 42 % full.
 //   - The walk goes in blocks of L = 64 tokens, whatever Q is.  The
 //     function does not depend on the chunk length (it is the recurrence
 //     of ref.py::ssd_ref; Q only orders the f32 sums), and 64-token blocks
@@ -39,7 +40,7 @@
 //     is this arithmetic written plainly; test_torch_ssd_split.py).
 //   - Warp specialization: a producer warp copies each block's C, B and x
 //     tiles by TMA into a three-stage ring (zeros past N and P) and
-//     turns its dt into per-token (cum log2 e, log2 dt); an "intra"
+//     turns its dt into per-token (cum log2 e, dt); an "intra"
 //     warpgroup computes what does not depend on the state, S = C B^T
 //     (wgmma, both K-major), T and w x, into shared memory; a "state"
 //     warpgroup runs the serial chain, all on wgmma:
@@ -53,8 +54,10 @@
 //     and stores y by TMA from a staging tile.  Computing y transposed
 //     lets the state serve as a register operand, so it never goes
 //     through shared memory.
-//   - T's mask and decay are one exponent, 2^(c2_i - c2_j + lg_j) with
-//     c2 = cum log2 e and lg = log2 dt, -inf above the diagonal.  C's rows
+//   - T's mask and decay are one exponent, 2^(c2_i - c2_j) dt_j with
+//     c2 = cum log2 e, -inf above the diagonal; dt multiplies after the
+//     exponent, so any finite dt (0 or negative too) gives what the plain
+//     version gives.  C's rows
 //     come in 8-row TMA boxes in an order that gives every warp one early
 //     and one late slice of the block, so each computes 9 of T's 16
 //     column-group halves and skips the rest (zeros written once).
@@ -66,8 +69,8 @@
 //     bf16 term misses the tolerance ~100x at the prefill shape, by
 //     ssd_split_ref on the CPU.)
 //   - What limits it now: each role's chain of dependent instructions
-//     (one warp of each role on a scheduler), not the tensor cores or
-//     the bytes; see PERF.md.
+//     (one warp of each role on a scheduler) and the partly empty third
+//     wave, not the tensor cores or the bytes; see PERF.md.
 //
 // cuda_core (everything else: f32 inputs, Q % 64 != 0, ragged P or N):
 //   ssd_chunk_scan_kernel, all arithmetic in f32 on the CUDA cores (no
@@ -486,8 +489,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   using M = Smem<NP>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t full[NS], empty[NS], tready[NQ], tfree[NQ];
-  // per token of a stage: (cum log2 e, log2 dt), cum the in-block cumsum
-  // of dt A; exp(cum_i - cum_j) dt_j = 2^(c2_i - c2_j + lg_j)
+  // per token of a stage: (cum log2 e, dt), cum the in-block cumsum of
+  // dt A; exp(cum_i - cum_j) dt_j = 2^(c2_i - c2_j) dt_j
   __shared__ __align__(16) float2 colv[NS][L];
   uint8_t* ring = align1024(smem_raw);      // stage s at ring + s * STAGE
   uint8_t* tbuf = ring + NS * M::STAGE;     // T[q]: hi, lo at + 2 q T
@@ -547,8 +550,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       float before = __shfl_up_sync(0xffffffffu, incl, 1);
       if (lane == 0) before = 0.f;
       const float c0 = before + a0;
-      colv[s][2 * lane] = make_float2(c0 * LOG2E, log2f(d0));
-      colv[s][2 * lane + 1] = make_float2((c0 + a1) * LOG2E, log2f(d1));
+      colv[s][2 * lane] = make_float2(c0 * LOG2E, d0);
+      colv[s][2 * lane + 1] = make_float2((c0 + a1) * LOG2E, d1);
       __syncwarp();
       if (lane == 0) mbar_arrive(&full[s]);   // after the warp's writes
       if (c + 1 < nblk) {
@@ -608,7 +611,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       for (int k = 0; k < L * PW / 8 / WG; ++k) {
         const int u = wt + k * WG;           // 16-byte unit of the tile
         const float2 cj = cv[u / (PW / 8)];
-        const float w = ex2(last - cj.x + cj.y);
+        const float w = ex2(last - cj.x) * cj.y;
         const uint4 raw = lds128(xs + 16 * u);
         const uint32_t* xv = &raw.x;
         uint4 hi, lo;
@@ -641,7 +644,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
           const float d0 = j <= i ? ci[hf] - cj.x : -INFINITY;
           const float d1 = j + 1 <= i ? ci[hf] - cj.z : -INFINITY;
           uint32_t hi, lo;
-          split2(sc[e] * ex2(d0 + cj.y), sc[e + 1] * ex2(d1 + cj.w), hi, lo);
+          split2(sc[e] * (ex2(d0) * cj.y), sc[e + 1] * (ex2(d1) * cj.w), hi,
+                 lo);
           const int off = swz128(rq + 8 * hf, j);
           sts32(t_hi + off, hi);
           sts32(t_lo + off, lo);

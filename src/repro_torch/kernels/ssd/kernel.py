@@ -89,11 +89,10 @@ def route(dtype: torch.dtype, P: int, N: int, Q: int) -> str:
     return "cuda_core"
 
 
-def launch(x, dt, A, Bm, Cm, Q: int, how: str):
+def _launch(x, dt, A, Bm, Cm, Q: int, how: str):
     """Launch the kernel of route ``how`` on checked inputs and count the
-    launch.  ``ssd_chunk_scan`` passes ``route(...)``; a timing harness may
-    name the CUDA-core kernel to time it beside the wgmma one at the same
-    shape."""
+    launch.  ``ssd_chunk_scan`` passes ``route(...)``; callers go through
+    it, and only a timing harness names a route itself."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     if how == "wgmma":
@@ -123,4 +122,4 @@ def ssd_chunk_scan(x, dt, A, Bm, Cm, *, chunk: int):
     S, P = x.shape[1], x.shape[-1]
     Q = chunk_len(chunk, S)
     _check(x, dt, A, Bm, Cm, Q)
-    return launch(x, dt, A, Bm, Cm, Q, route(x.dtype, P, Bm.shape[-1], Q))
+    return _launch(x, dt, A, Bm, Cm, Q, route(x.dtype, P, Bm.shape[-1], Q))

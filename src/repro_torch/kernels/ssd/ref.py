@@ -149,7 +149,7 @@ def ssd_split_ref(x, dt, A, Bm, Cm, *, block: int = 64):
         CB = torch.einsum("bin,bjn->bij", Cq, Bq)                # [B,L,L]
         seg = cum[:, :, None] - cum[:, None, :]                  # [B,L,L,H]
         decay = torch.exp(torch.where(causal, seg, float("-inf")))
-        t_hi, t_lo = bf16_split(CB[..., None] * decay * dtq[:, None])
+        t_hi, t_lo = bf16_split(CB[..., None] * (decay * dtq[:, None]))
         s_hi, s_lo = bf16_split(state)
         y = (torch.einsum("bin,bhpn->bihp", Cq, s_hi)
              + torch.einsum("bin,bhpn->bihp", Cq, s_lo))

@@ -45,6 +45,17 @@ EXPECTED_ROUTE = {
 }
 
 
+def edge_dt(dt):
+    """dt with some tokens at 0, some tiny (1e-30) and some negative
+    (-0.05): the contract takes any finite dt, and the wgmma kernel
+    multiplies by dt after the exponent, never taking a log of it."""
+    dt = dt.clone()
+    dt[:, 0::5] = 0.0
+    dt[:, 3::7] = 1e-30
+    dt[:, 1::11] = -0.05
+    return dt
+
+
 def bf16_case(geom, seed):
     """The sweep's inputs with x, Bm and Cm rounded to bf16: (torch
     tensors, the same values in f32 numpy for JAX)."""
@@ -149,6 +160,29 @@ def test_split_matches_plain_chunk_scan(geom):
     torch.testing.assert_close(state, s_want, atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("geom", SPLIT_GEOMS[:3], ids=gid)
+def test_split_matches_plain_and_jax_at_zero_tiny_and_negative_dt(geom):
+    """dt at 0, 1e-30 and -0.05 on some tokens: the emulated wgmma
+    arithmetic stays finite and matches ``ssd_chunk_scan_ref`` and JAX's
+    ``ssd_ref`` on the same values, atol 2e-4 / rtol 1e-3."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.ssd.ref import ssd_ref
+
+    (x, dt, A, Bm, Cm), exact = bf16_case(geom, seed=11)
+    dt = edge_dt(dt)
+    exact[1] = dt.numpy()
+    y, state = ref.ssd_split_ref(x, dt, A, Bm, Cm)
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    y_want, s_want = ref.ssd_chunk_scan_ref(x, dt, A, Bm, Cm, chunk=geom[5])
+    torch.testing.assert_close(y, y_want, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(state, s_want, atol=ATOL, rtol=RTOL)
+    y_jax, s_jax = (np.asarray(a) for a in
+                    ssd_ref(*(jnp.asarray(a) for a in exact)))
+    np.testing.assert_allclose(y.numpy(), y_jax, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(state.numpy(), s_jax, atol=ATOL, rtol=RTOL)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -187,6 +221,30 @@ def test_kernel_route_matches_both_plain_versions(cuda, geom, dtype):
     if how == "wgmma":
         wants.append(ref.ssd_split_ref(x, dt, A, Bm, Cm))
     for y_want, s_want in wants:
+        torch.testing.assert_close(y, y_want, atol=ATOL, rtol=RTOL)
+        torch.testing.assert_close(state, s_want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", [SPLIT_GEOMS[0], SPLIT_GEOMS[-1], FULL],
+                         ids=gid)
+def test_wgmma_kernel_takes_zero_tiny_and_negative_dt(cuda, geom):
+    """dt at 0, 1e-30 and -0.05 on some tokens, on the wgmma route: y and
+    the final state are finite and match both plain versions, atol 2e-4 /
+    rtol 1e-3."""
+    B, S, H, P, N, chunk = geom
+    x, dt, A, Bm, Cm = (torch.tensor(a, device=cuda) for a in
+                        case(B, S, H, P, N, seed=13))
+    x, Bm, Cm = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    dt = edge_dt(dt)
+    build.reset_launches()
+    y, state = kernel.ssd_chunk_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert route_launches("wgmma") == 1
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    for y_want, s_want in (ref.ssd_chunk_scan_ref(x, dt, A, Bm, Cm,
+                                                  chunk=chunk),
+                           ref.ssd_split_ref(x, dt, A, Bm, Cm)):
         torch.testing.assert_close(y, y_want, atol=ATOL, rtol=RTOL)
         torch.testing.assert_close(state, s_want, atol=ATOL, rtol=RTOL)
 
