@@ -98,6 +98,25 @@ Phases, each of which fails the script (non-zero exit, no result line):
               wall and tok/s, decode tok/s, peak memory and a profiled
               prefill's device busy share, with the SSD's device time summed
               over every ``ssd_chunk_scan*`` kernel (one per launch, asserted).
+ 10. mnist    the paper's experiment, which launches no port kernel
+              (``build.LAUNCHES`` unchanged across it, asserted): the
+              collective trainer's step at paper width (784-512-512-10, 20
+              groups x 5, Horn on) on the card against the CPU for 20
+              steps, same parameters, batches and CPU-drawn masks, for
+              allreduce, local SGD (H 4) and int8 error feedback (each int8
+              step from the CPU's state: residuals 0 or 1 quantization
+              steps apart); the paper's comparison through
+              ``benchmarks/mnist_repro.run()`` at its defaults (2000 steps,
+              both arms above 0.90, parallel above non-parallel, printed
+              beside the paper's +0.0178 and the JAX package's +0.0225 on a
+              CPU), each arm's ms a step, busy share and device ops over 50
+              profiled steps, peak memory; ``launch.train --arch
+              horn-mnist --steps 200`` in a process of its own (its JSON
+              row, accuracy above chance).  Then resumable training:
+              qwen3-1.7b at full width, 2 layers, Horn on, momentum SGD,
+              through the train CLI with ``--checkpoint-dir``: 4 steps
+              straight, and 2 steps + a second invocation resuming to 4,
+              bit-equal losses and grad norms.
 Phase 3 also holds the SSD chunk scan against its plain version (y and the
 final state): the JAX sweep's shapes, S 257 (chunks of 1 token), two more
 shapes of the wgmma route and the full-width shape B 2, S 2048, H 80, P
@@ -875,21 +894,35 @@ def engine_decode_route(kernel, eng, dev):
     return kernel.decode_route(splits), splits
 
 
+PROFILE_TRIES = 3
+
+
 def device_events(torch, fn):
     """CUDA kernel events of ``fn()`` under torch.profiler, or [] when the
-    profiler sees none."""
+    profiler sees none.  The profiler sometimes sees no device activity in
+    a window that had some, so a window without device time is profiled
+    again (``fn`` runs again), up to ``PROFILE_TRIES`` times; a window that
+    needed more than one try, or never saw device time, is logged."""
     from torch.profiler import ProfilerActivity, profile
 
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-    except RuntimeError as e:                      # profiler unavailable
-        log(f"  torch.profiler failed ({e}); device time not measured")
-        return []
+    for attempt in range(1, PROFILE_TRIES + 1):
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        except RuntimeError as e:                  # profiler unavailable
+            log(f"  torch.profiler failed ({e}); device time not measured")
+            return []
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.self_device_time_total for e in events) > 0:
+            if attempt > 1:
+                log(f"  profiler: device events on try {attempt} of "
+                    f"{PROFILE_TRIES}")
+            return events
+    log(f"  profiler: no device events in {PROFILE_TRIES} tries")
+    return []
 
 
 def phase_tick_profile(torch, eng, kernel):
@@ -1890,6 +1923,310 @@ def phase_ssm(torch, dev, build, skernel):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the paper's MNIST experiment, and resumable training
+# ---------------------------------------------------------------------------
+MNIST_PARITY_STEPS = 20
+PAPER_DELTA, JAX_CPU_DELTA = 0.0178, 0.0225   # paper; JAX on a CPU, seed 0
+
+
+def cpu_drawn_horn(torch):
+    """``collective_trainer.horn_state`` drawing its uniforms on the CPU
+    whatever the device, so the card and the CPU apply the same masks."""
+    from repro_torch.core.parallel_dropout import HornState
+
+    @dataclasses.dataclass(frozen=True)
+    class CpuDrawn(HornState):
+        def uniform(self, layer_idx, salt, shape):
+            cpu = dataclasses.replace(self, device=torch.device("cpu"))
+            return HornState.uniform(cpu, layer_idx, salt, shape).to(
+                self.device)
+
+    def horn_state(cfg, step, num_groups, device):
+        if not cfg.enabled:
+            return None
+        return CpuDrawn(0, int(step), cfg, num_groups, torch.device(device))
+    return horn_state
+
+
+def normwise(got, want) -> float:
+    """max |got - want| over max |want|, over every leaf."""
+    return max(float((got[k].cpu() - want[k]).abs().max())
+               / max(float(want[k].abs().max()), 1e-30) for k in want)
+
+
+def phase_mnist_parity(torch, dev):
+    """``make_step_fn`` at paper width (784-512-512-10, G 20 x b 5, Horn
+    on, lr 0.005, mu 0.98) on the card against the CPU, from the same
+    parameters, batches and CPU-drawn uniforms, for 20 steps: allreduce
+    and local SGD (H 4) chained on each device, parameters within 1e-4
+    and momentum within 1e-3 of their leaf's largest value (f32 sums in
+    other orders, about 1e-6 of a value a step, over 20 momentum steps; a
+    ReLU whose pre-activation lies within rounding of 0 passes a sample's
+    gradient on one device only).  int8: each card step starts from the
+    CPU's state; a residual differs by 0 or 1 quantization steps (a
+    rounding tie of q), momentum by the groups' mean of that and
+    parameters by -lr times it, within 1e-3 and 1e-4 of the leaf's
+    largest value; fewer than 0.1 % of the values flip."""
+    from repro_torch.configs.base import HornConfig, TopologyConfig
+    from repro_torch.core import collective_trainer as CT
+    from repro_torch.core.neuron_centric import paper_mnist_network
+    from repro_torch.data.mnist import synthetic_mnist
+    from repro_torch.data.pipeline import MnistBatcher
+    from repro_torch.optim import compression as C
+
+    G, b, lr, mu = 20, 5, 0.005, 0.98
+    net = paper_mnist_network()
+    hcfg = HornConfig(enabled=True, num_groups=G, block_size=1)
+    cpu = torch.device("cpu")
+    d = synthetic_mnist(n_train=2000, n_test=10)
+    batcher = MnistBatcher(d["x_train"], d["y_train"], G * b, seed=0)
+    scales = {}
+    compress = C.ef_compress_tree
+
+    def recording(*a, **kw):      # the card steps second: its scales stay
+        q, s, r = compress(*a, **kw)
+        scales.update({k: v.cpu() for k, v in s.items()})
+        return q, s, r
+
+    out = {}
+    with mock.patch.object(CT, "horn_state", cpu_drawn_horn(torch)), \
+            mock.patch.object(C, "ef_compress_tree", recording):
+        for name, topo in (("allreduce", {}),
+                           ("local_sgd", dict(kind="local_sgd",
+                                              local_sgd_period=4)),
+                           ("int8", dict(grad_compression="int8"))):
+            tcfg = TopologyConfig(**topo)
+            steps = {x: CT.make_step_fn(net, hcfg, tcfg, lr, mu, G, x)
+                     for x in (cpu, dev)}
+            host = CT.init_groups(net, G, 0, cpu)
+            card = [{k: v.to(dev) for k, v in t.items()} for t in host]
+            worst = {"params": 0.0, "momentum": 0.0, "loss": 0.0}
+            flips = 0
+            for step in range(MNIST_PARITY_STEPS):
+                bt = batcher.group_batch_at(step, G)
+                if name == "int8":      # the card steps from the CPU's state
+                    card = [{k: v.to(dev) for k, v in t.items()}
+                            for t in host]
+                *host, hl = steps[cpu](*host, bt, step)
+                *card, cl = steps[dev](*card, bt, step)
+                assert math.isfinite(float(cl)), (name, step)
+                worst["loss"] = max(worst["loss"], abs(float(cl) - float(hl))
+                                    / abs(float(hl)))
+                if name == "int8":
+                    dr = {k: card[2][k].cpu() - host[2][k] for k in host[2]}
+                    for k, v in dr.items():
+                        q_steps = v.abs() / scales[k]
+                        off = (q_steps - q_steps.round()).abs().max()
+                        assert off < 1e-3 and q_steps.round().max() <= 1, \
+                            (name, step, k, float(off))
+                        flips += int(q_steps.round().sum())
+                    dg = {k: -v.mean(0, keepdim=True).expand_as(v)
+                          for k, v in dr.items()}
+                    want_m = {k: host[1][k] + dg[k] for k in dg}
+                    want_p = {k: host[0][k] - lr * dg[k] for k in dg}
+                    worst["momentum"] = max(worst["momentum"],
+                                            normwise(card[1], want_m))
+                    worst["params"] = max(worst["params"],
+                                          normwise(card[0], want_p))
+                else:
+                    worst["momentum"] = max(worst["momentum"],
+                                            normwise(card[1], host[1]))
+                    worst["params"] = max(worst["params"],
+                                          normwise(card[0], host[0]))
+            n = sum(v.numel() for v in host[0].values())
+            log(f"  {name}: {MNIST_PARITY_STEPS} steps, card against CPU: "
+                f"params {worst['params']:.3g}, momentum "
+                f"{worst['momentum']:.3g} of the leaf's largest value, loss "
+                f"{worst['loss']:.3g} relative"
+                + (f"; {flips} of {n * MNIST_PARITY_STEPS} int8 values one "
+                   f"quantization step apart" if name == "int8" else ""))
+            assert worst["params"] < 1e-4 and worst["momentum"] < 1e-3, \
+                (name, worst)
+            if name == "int8":
+                assert flips < 1e-3 * n * MNIST_PARITY_STEPS, flips
+            out[name] = dict(worst, int8_flips=flips)
+    return out
+
+
+def mnist_arm_profile(torch, dev, num_groups, batch_per_group, data,
+                      n=50):
+    """One arm of the comparison for ``n`` steps after 20 of warm-up:
+    the host wall a step (after a sync) and, under torch.profiler, the
+    device busy time and device ops a step."""
+    from repro_torch.configs.base import HornConfig, TopologyConfig
+    from repro_torch.core import collective_trainer as CT
+    from repro_torch.core.neuron_centric import paper_mnist_network
+    from repro_torch.data.pipeline import MnistBatcher
+
+    net = paper_mnist_network()
+    step_fn = CT.make_step_fn(
+        net, HornConfig(enabled=True, num_groups=num_groups, block_size=1),
+        TopologyConfig(), 0.005, 0.98, num_groups, dev)
+    batcher = MnistBatcher(data["x_train"], data["y_train"],
+                           num_groups * batch_per_group, seed=0)
+    state = list(CT.init_groups(net, num_groups, 0, dev))
+    at = [0]
+
+    def steps(k):
+        for _ in range(k):
+            *state[:], loss = step_fn(
+                *state, batcher.group_batch_at(at[0], num_groups), at[0])
+            at[0] += 1
+        assert math.isfinite(float(loss))
+
+    steps(20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps(n)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    events = device_events(torch, lambda: steps(n))
+    busy = sum(e.self_device_time_total for e in events) / n / 1e3
+    out = {"step_ms": wall, "device_busy_ms": busy or None,
+           "busy_share": busy / wall if busy else None,
+           "ops_per_step": sum(e.count for e in events) / n if busy else None}
+    return out
+
+
+def phase_mnist(torch, dev):
+    """The paper's comparison through ``benchmarks/mnist_repro.run()`` at
+    its defaults (2000 steps, eval every 500, lr 0.005, mu 0.98, 10000
+    training samples), both arms on the card: every recorded loss
+    finite, both final accuracies above 0.90, parallel above
+    non-parallel; then each arm's host wall, device busy share and ops a
+    step over 50 profiled steps, and the peak memory."""
+    from repro_torch.benchmarks import mnist_repro
+    from repro_torch.data.mnist import load_mnist
+
+    results = {}
+    real = mnist_repro.paper_comparison
+
+    def keep(**kw):
+        results.update(real(**kw))
+        return results
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(mnist_repro, "paper_comparison", keep):
+        rows, detail = mnist_repro.run()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    out = {"wall_s": wall, "peak_bytes": peak, "rows": rows, "arms": {}}
+    for key, res in results.items():
+        assert all(math.isfinite(x) for x in res.loss), (key, res.loss)
+        ms = res.wall_s / res.steps[-1] * 1e3
+        out["arms"][key] = dict(detail[key], loss=res.loss, step_ms=ms)
+        log(f"  {res.name}: accuracy "
+            + ", ".join(f"{a:.4f}@{s}" for s, a in zip(res.steps,
+                                                         res.accuracy))
+            + f"; final {res.final_accuracy:.4f}; {ms:.3f} ms a step "
+            f"(host wall over {res.steps[-1]} steps, evaluations included,"
+            f" after a sync); data {res.data_source}")
+    npar, par = (results[k].final_accuracy
+                 for k in ("non_parallel", "parallel"))
+    delta = par - npar
+    out.update(delta=delta, data_source=results["parallel"].data_source)
+    log(f"  parallel - non-parallel: {delta:+.4f} (paper, real MNIST: "
+        f"{PAPER_DELTA:+.4f}; the JAX package on a CPU, seed 0, "
+        f"synthetic-7seg: {JAX_CPU_DELTA:+.4f}); {wall:.1f} s for both "
+        f"arms; peak memory {peak / 2**20:.1f} MiB allocated")
+    for r in rows:
+        log("    " + ",".join(str(x) for x in r))
+    assert npar > 0.90 and par > 0.90, (npar, par)
+    assert par > npar, (npar, par)
+    data = load_mnist(n_train=10000)
+    for key, (G, b) in (("non_parallel", (1, 100)), ("parallel", (20, 5))):
+        prof = mnist_arm_profile(torch, dev, G, b, data)
+        out["arms"][key]["profile"] = prof
+        if prof["device_busy_ms"] is None:
+            log(f"  {key} ({G} x {b}): {prof['step_ms']:.3f} ms a step; "
+                f"device time not measured (no device events)")
+        else:
+            log(f"  {key} ({G} x {b}), 50 profiled steps: "
+                f"{prof['step_ms']:.3f} ms a step of host wall, device busy "
+                f"{prof['device_busy_ms'] * 1e3:.1f} us a step "
+                f"({prof['busy_share']:.1%}), "
+                f"{prof['ops_per_step']:.0f} device ops a step")
+    return out
+
+
+def phase_mnist_cli(torch):
+    """``python -m repro_torch.launch.train --arch horn-mnist --steps
+    200 --device cuda`` in a process of its own: its JSON row, a final
+    accuracy above chance (0.1)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "horn-mnist", "--steps", "200", "--device", "cuda"]
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    row = json.loads(r.stdout)
+    log(f"  {' '.join(argv[1:])}: {time.perf_counter() - t0:.1f} s; row "
+        f"{json.dumps(row)}")
+    assert row["steps"] == [50, 100, 150, 200], row
+    assert row["final_accuracy"] > 0.1, row
+    return row
+
+
+def phase_resume(torch):
+    """qwen3-1.7b at full width, 2 layers, Horn on (4 groups), momentum SGD,
+    through the train CLI with ``--checkpoint-dir``: 4 steps straight
+    through, then 2 steps and a second invocation that resumes to 4;
+    steps 3-4 must give bit-equal losses and grad norms."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+
+    real = train.get_model_config
+
+    def two_layers(arch):
+        return dataclasses.replace(real(arch), num_layers=2)
+
+    argv = ["--arch", "qwen3-1.7b", "--full-config", "--batch", "4",
+            "--seq", "512", "--horn-groups", "4", "--optimizer", "sgdm",
+            "--lr", "3e-4", "--seed", "0", "--device", "cuda",
+            "--log-every", "1"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    times = {}
+    try:
+        with mock.patch.object(train, "get_model_config", two_layers):
+            def cli(name, steps):
+                t0 = time.perf_counter()
+                recs = train.main(argv + ["--steps", str(steps),
+                                          "--checkpoint-dir",
+                                          str(Path(root) / name)])["steps"]
+                torch.cuda.synchronize()
+                times[f"{name}{steps}"] = time.perf_counter() - t0
+                gc.collect()
+                torch.cuda.empty_cache()
+                return recs
+
+            straight = cli("straight", 4)
+            size = sum(f.stat().st_size for f in
+                       (Path(root) / "straight").rglob("*") if f.is_file())
+            shutil.rmtree(Path(root) / "straight")
+            first = cli("split", 2)
+            resumed = cli("split", 4)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    a = [(r["loss"], r["grad_norm"]) for r in straight]
+    b = [(r["loss"], r["grad_norm"]) for r in first + resumed]
+    log(f"  straight  {a}")
+    log(f"  resumed   {b}")
+    log(f"  checkpoint {size / 2**30:.2f} GiB on disk; CLI walls "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
+    assert [r["step"] for r in first + resumed] == [1, 2, 3, 4]
+    assert all(math.isfinite(x) for pair in a for x in pair)
+    assert a == b, (a, b)
+    return {"straight": a, "resumed": b, "checkpoint_bytes": size,
+            "walls_s": times}
+
+
 def main() -> int:
     import torch
 
@@ -1982,6 +2319,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssm = phase_ssm(torch, dev, build, skernel)
     ssm["parity"] = ssm_parity
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 10: horn-mnist, the paper's experiment (784-512-512-10), and "
+        "resumable training")
+    before = dict(build.LAUNCHES)
+    mnist = {"parity": phase_mnist_parity(torch, dev)}
+    mnist.update(phase_mnist(torch, dev))
+    mnist["cli"] = phase_mnist_cli(torch)
+    assert dict(build.LAUNCHES) == before, (before, dict(build.LAUNCHES))
+    log("  port kernel launches across the MNIST path: 0 (build.LAUNCHES "
+        "unchanged)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mnist["resume"] = phase_resume(torch)
 
     # headline shapes: the prompt-chunk tick for the chunk kernel (decode
     # ticks go to the decode kernel), the decode tick for the decode kernel
@@ -2048,7 +2400,8 @@ def main() -> int:
         "shapes": {"prefill": ssd},
     })
     line = {"kernels": kernels, "card": card, "serve": served,
-            "train": trained, "horn_mlp": horn_mlp, "ssm": ssm}
+            "train": trained, "horn_mlp": horn_mlp, "ssm": ssm,
+            "mnist": mnist}
     log("chip_smoke: all phases passed")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

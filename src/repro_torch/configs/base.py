@@ -5,7 +5,9 @@ A copy of the JAX package's ``ModelConfig`` and of the run configs
 the same field names and defaults, so a test builds the same config on
 both sides, its layer kinds,
 ``register``/``get_model_config`` and ``reduced``.  The registry covers the
-archs the port runs so far: qwen3-1.7b, gemma2-27b and mamba2-2.7b.
+archs the port runs so far: qwen3-1.7b, gemma2-27b, mamba2-2.7b and the
+paper's MNIST classifier horn-mnist (family "mlp": trained by
+``launch.train``'s own branch, refused by the serve CLI).
 """
 from __future__ import annotations
 
@@ -185,7 +187,7 @@ def list_archs() -> list:
 def _ensure_loaded() -> None:
     # import the config modules once (registration side effect)
     import importlib
-    for mod in ("qwen3_1p7b", "gemma2_27b", "mamba2_2p7b"):
+    for mod in ("qwen3_1p7b", "gemma2_27b", "mamba2_2p7b", "horn_mnist"):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -21,7 +22,8 @@ from repro_torch.core.parallel_dropout import make_horn_state
 from repro_torch.models import api
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import dtype_of
-from repro_torch.models.params import cast_params, copy_into, init_params
+from repro_torch.models.params import (cast_params, copy_into, init_params,
+                                       load_jax_flat, to_jax_flat)
 from repro_torch.optim.sgd import clip_by_global_norm, make_optimizer
 
 f32 = torch.float32
@@ -39,6 +41,51 @@ def init_state(run: RunConfig, device="cuda") -> Dict:
     opt_init, _ = make_optimizer(run.optimizer)
     return {"params": params, "opt": opt_init(list(params.parameters())),
             "step": 0, "rng": run.seed}
+
+
+def state_to_jax_flat(state: Dict, run: RunConfig) -> Dict[str, np.ndarray]:
+    """The train state in the JAX package's checkpoint layout, {keystr:
+    numpy array}: ``['params']...`` as ``to_jax_flat`` lays out the LM, each
+    optimizer moment under its parameter's path (``['opt']['mom']...``, or
+    ``['opt']['m'|'v']...`` and ``['opt']['t']`` int32), ``['step']``
+    int32 and ``['rng']`` the uint32 key data of ``jax.random.key(seed)``,
+    ``[0, seed]``."""
+    cfg, params = run.model, state["params"]
+    names = [n for n, _ in params.named_parameters()]
+    flat = {"['params']" + k: v for k, v in to_jax_flat(params, cfg).items()}
+    for moment in ("mom", "m", "v"):
+        if moment in state["opt"]:
+            flat.update({f"['opt']['{moment}']" + k: v for k, v in to_jax_flat(
+                dict(zip(names, state["opt"][moment])), cfg).items()})
+    if "t" in state["opt"]:
+        flat["['opt']['t']"] = np.asarray(state["opt"]["t"], np.int32)
+    seed = int(state["rng"])
+    flat["['step']"] = np.asarray(state["step"], np.int32)
+    flat["['rng']"] = np.asarray([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+    return flat
+
+
+def state_from_jax_flat(flat, run: RunConfig, device="cuda") -> Dict:
+    """The train state ``state_to_jax_flat`` (or the JAX package's
+    checkpoint of ``init_state`` for the same config and optimizer) lays
+    out, on ``device``: f32 masters, moments, step and seed."""
+    dev = resolve_device(device)
+    params = load_jax_flat(flat, run.model, device=dev,
+                           dtype=dtype_of(run.param_dtype),
+                           prefix="['params']")
+    opt_init, _ = make_optimizer(run.optimizer)
+    opt = opt_init(list(params.parameters()))
+    names = [n for n, _ in params.named_parameters()]
+    for moment in ("mom", "m", "v"):
+        if moment in opt:
+            load_jax_flat(flat, run.model, device=dev,
+                          prefix=f"['opt']['{moment}']",
+                          into=dict(zip(names, opt[moment])))
+    if "t" in opt:
+        opt["t"] = int(flat["['opt']['t']"])
+    hi, lo = (int(x) for x in np.asarray(flat["['rng']"]))
+    return {"params": params, "opt": opt, "step": int(flat["['step']"]),
+            "rng": (hi << 32) | lo}
 
 
 def make_train_step(run: RunConfig, device="cuda"):

@@ -1,9 +1,10 @@
-"""Deterministic synthetic token pipeline (numpy only).
+"""Deterministic synthetic token pipeline and MNIST batcher (numpy only).
 
-A copy of the JAX package's ``TokenPipelineConfig`` and
-``SyntheticTokenPipeline``: a batch is a pure function of (seed, step), so
-a resumed run replays exactly the batches it would have consumed, and the
-two packages hand their trainers byte-identical batches.  The port trains
+A copy of the JAX package's ``TokenPipelineConfig``,
+``SyntheticTokenPipeline`` and ``MnistBatcher``: a batch is a pure
+function of (seed, step), so a resumed run replays exactly the batches it
+would have consumed, and the two packages hand their trainers
+byte-identical batches.  The port trains
 on one host, so the JAX package's per-host slicing is left for scale-out.
 """
 from __future__ import annotations
@@ -47,3 +48,25 @@ class SyntheticTokenPipeline:
             nxt = self._table[toks[:, t], noise[:, t]]
             toks[:, t + 1] = np.where(explore[:, t], rand_tok[:, t], nxt)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+class MnistBatcher:
+    """Step-indexed MNIST batcher (same determinism contract): a copy of
+    the JAX package's, byte-identical batches for the same seed."""
+
+    def __init__(self, x: np.ndarray, y: np.ndarray, batch: int,
+                 seed: int = 0):
+        self.x, self.y, self.batch, self.seed = x, y, batch, seed
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.seed, step))
+        idx = rng.integers(0, len(self.x), self.batch)
+        return {"x": self.x[idx], "y": self.y[idx]}
+
+    def group_batch_at(self, step: int, num_groups: int
+                       ) -> Dict[str, np.ndarray]:
+        """[G, B/G, ...] batches: each Horn group gets its own data shard."""
+        b = self.batch_at(step)
+        per = self.batch // num_groups
+        return {k: v[: per * num_groups].reshape(
+            (num_groups, per) + v.shape[1:]) for k, v in b.items()}

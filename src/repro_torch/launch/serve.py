@@ -145,6 +145,8 @@ def main(argv=None) -> None:
     cfg = get_model_config(args.arch)
     if not args.full_config:
         cfg = reduced(cfg)
+    if cfg.family == "mlp":
+        raise SystemExit("horn-mnist is a classifier; use launch.train")
     device = resolve_device(args.device)
     ecfg = EngineConfig(
         num_slots=args.slots, num_pages=args.pages, page_size=args.page_size,

@@ -28,7 +28,7 @@ from __future__ import annotations
 import copy
 import os
 import re
-from typing import Dict, List, Mapping, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -86,19 +86,27 @@ def _torch_names(key: str, cfg: ModelConfig):
 
 def load_jax_flat(flat: Union[Mapping[str, np.ndarray], str, os.PathLike],
                   cfg: ModelConfig, *, device="cuda", dtype=torch.float32,
-                  prefix: str = "") -> LM:
+                  prefix: str = "",
+                  into: Optional[Mapping[str, torch.Tensor]] = None):
     """The LM holding the JAX parameters in ``flat``: a ``{keystr: array}``
     mapping or the path of a ``shard_0.npz``.  Only keys starting with
     ``prefix`` are read (``"['params']"`` for a train-state checkpoint),
-    with the prefix stripped.  Missing, extra or mis-shaped leaves raise."""
+    with the prefix stripped.  Missing, extra or mis-shaped leaves raise.
+
+    ``into``: a mapping of the LM's parameter names to tensors (an
+    optimizer moment a parameter, ``"['opt']['mom']"`` as the prefix) is
+    filled in place and returned instead of a new LM."""
     dev = resolve_device(device)
     if isinstance(flat, (str, os.PathLike)):
         with np.load(flat) as npz:
             flat = {k: npz[k] for k in npz.files}
-    model = LM(cfg, _maker(
-        lambda shape, init, scale, device, dtype: torch.empty(
-            shape, device=device, dtype=dtype), dev, dtype))
-    want: Dict[str, nn.Parameter] = dict(model.named_parameters())
+    if into is None:
+        model = LM(cfg, _maker(
+            lambda shape, init, scale, device, dtype: torch.empty(
+                shape, device=device, dtype=dtype), dev, dtype))
+        want: Mapping[str, torch.Tensor] = dict(model.named_parameters())
+    else:
+        model = want = into
     seen = set()
     for key, arr in flat.items():
         if not key.startswith(prefix):
@@ -125,15 +133,20 @@ def load_jax_flat(flat: Union[Mapping[str, np.ndarray], str, os.PathLike],
     return model
 
 
-def to_jax_flat(model: LM, cfg: ModelConfig) -> Dict[str, np.ndarray]:
+def to_jax_flat(model: Union[LM, Mapping[str, torch.Tensor]],
+                cfg: ModelConfig) -> Dict[str, np.ndarray]:
     """The JAX package's flat ``{keystr: array}`` layout of ``model``: the
     per-layer blocks restacked into ``[R, ...]`` superblock leaves
     (``['blocks']['l{i}']``) and remainder layers (``['rem']['r{i}']``);
-    bf16 leaves come out as f32 arrays."""
+    bf16 leaves come out as f32 arrays.  ``model`` may also be a mapping
+    of the LM's parameter names to tensors (an optimizer moment a
+    parameter), laid out by the same paths."""
     P, R = len(cfg.layer_pattern), cfg.pattern_repeats
     stacks: Dict[str, list] = {}
     flat: Dict[str, np.ndarray] = {}
-    for name, p in model.named_parameters():
+    named = (model.named_parameters() if isinstance(model, nn.Module)
+             else model.items())
+    for name, p in named:
         t = p.detach().cpu()
         arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
         parts = name.split(".")

@@ -1,13 +1,18 @@
-"""Symmetric int8 quantization: the port of ``repro/optim/compression.py``'s
-``quantize_int8``/``dequantize_int8``.
+"""Symmetric int8 quantization and gradient compression with error
+feedback: the port of ``repro/optim/compression.py``'s ``quantize_int8``,
+``dequantize_int8``, ``compress_tree``, ``ef_compress`` and
+``ef_compress_tree``.
 
 The paged KV pools use the per-axis variant: int8 pages [P, psize, KH, D]
-with one f32 scale per (page, kv head).  The gradient-compression helpers
-of the JAX module (``compress_tree``, error feedback) are not ported.
+with one f32 scale per (page, kv head).  The collective trainer's int8
+merge compresses each group's gradients with one scale per group and leaf
+(``ef_compress_tree(..., groups=True)``, the port of JAX's
+``jax.vmap(ef_compress_tree)``).  ``psum_mean_compressed`` waits for the
+group topologies (ROADMAP slice 2, item 10).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,3 +43,37 @@ def quantize_int8(x, axis: Optional[Sequence[int]] = None
 def dequantize_int8(q, scale):
     """Inverse of ``quantize_int8``: ``scale`` broadcasts against ``q``."""
     return q.to(f32) * scale
+
+
+def compress_tree(tree: Dict[str, torch.Tensor]
+                  ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """``quantize_int8`` of every leaf of a dict: {name: (q, scale)}."""
+    return {k: quantize_int8(v) for k, v in tree.items()}
+
+
+def ef_compress(grad, residual, axis=None):
+    """Error-feedback compress one tensor.
+
+    Returns (q, scale, new_residual): the residual accumulates what int8
+    could not represent and is re-added next step (None counts as zeros).
+    ``axis`` as in ``quantize_int8``."""
+    corrected = grad.to(f32) + (residual if residual is not None else 0.0)
+    q, scale = quantize_int8(corrected, axis)
+    return q, scale, corrected - dequantize_int8(q, scale)
+
+
+def ef_compress_tree(grads: Dict[str, torch.Tensor],
+                     residuals: Optional[Dict[str, torch.Tensor]], *,
+                     groups: bool = False):
+    """``ef_compress`` of every leaf: (q, scales, residuals), three dicts
+    with the keys of ``grads``.  ``residuals`` None starts from zeros.
+    ``groups``: every leaf has a leading group dim [G, ...] and gets one
+    scale per group, [G, 1, ...] (JAX's ``jax.vmap(ef_compress_tree)``);
+    else one scale per leaf."""
+    if residuals is None:
+        residuals = {k: torch.zeros(g.shape, dtype=f32, device=g.device)
+                     for k, g in grads.items()}
+    out = {k: ef_compress(g, residuals[k],
+                          tuple(range(1, g.ndim)) if groups else None)
+           for k, g in grads.items()}
+    return tuple({k: t[i] for k, t in out.items()} for i in range(3))

@@ -46,7 +46,11 @@ def test_port_imports_with_jax_blocked():
               "kernels.dropout_matmul.kernel", "kernels.dropout_matmul.ops",
               "kernels.ssd.kernel", "kernels.ssd.ops", "models.ssm",
               "core.parallel_dropout", "core.submodel", "core.steps",
-              "optim.sgd", "data.pipeline"):
+              "core.neuron_centric", "core.group_sync",
+              "core.collective_trainer", "configs.horn_mnist",
+              "checkpoint.checkpointer", "runtime.fault_tolerance",
+              "benchmarks.mnist_repro", "optim.sgd", "optim.compression",
+              "data.pipeline", "data.mnist"):
         assert f"repro_torch.{m}" in mods, m
 
 
@@ -119,9 +123,10 @@ def test_engine_refuses_unported_features(what):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "horn-mnist"], "slice 2, item 9"),
+    (["--topology", "zero1"], "slice 2, item 10"),
     (["--topology", "local_sgd"], "slice 2, item 10"),
-    (["--checkpoint-dir", "ckpt"], "slice 2, item 9"),
+    (["--checkpoint-dir", "ckpt", "--topology", "local_sgd"],
+     "slice 2, item 10"),
     (["--mesh-data", "2"], "slice 5"),
     (["--arch", "mamba2-2.7b"], "slice 4"),
 ])
