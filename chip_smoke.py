@@ -897,17 +897,14 @@ def engine_decode_route(kernel, eng, dev):
 PROFILE_TRIES = 3
 
 
-def device_events(torch, fn, calls: int = 0):
+def device_events(torch, fn):
     """CUDA kernel events of ``fn()`` under torch.profiler, or [] when the
     profiler sees none.  The profiler sometimes sees no device activity in
-    a window that had some, or only part of it, so such a window is
-    profiled again (``fn`` runs again), up to ``PROFILE_TRIES`` times; a
-    window that needed more than one try, or never saw device time, is
-    logged.  ``calls``: ``fn`` makes that many identical calls, so a
-    complete window holds every kernel a multiple of ``calls`` times."""
+    a window that had some, so a window without device time is profiled
+    again (``fn`` runs again), up to ``PROFILE_TRIES`` times; a window that
+    needed more than one try, or never saw device time, is logged."""
     from torch.profiler import ProfilerActivity, profile
 
-    partial = []
     for attempt in range(1, PROFILE_TRIES + 1):
         try:
             with profile(activities=[ProfilerActivity.CPU,
@@ -919,20 +916,13 @@ def device_events(torch, fn, calls: int = 0):
             return []
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if sum(e.self_device_time_total for e in events) <= 0:
-            continue
-        partial = events
-        if not calls or all(e.count % calls == 0 for e in events):
+        if sum(e.self_device_time_total for e in events) > 0:
             if attempt > 1:
                 log(f"  profiler: device events on try {attempt} of "
                     f"{PROFILE_TRIES}")
             return events
-    if partial:
-        log(f"  profiler: kernel counts not a multiple of {calls} calls in "
-            f"{PROFILE_TRIES} tries; the last window is used")
-    else:
-        log(f"  profiler: no device events in {PROFILE_TRIES} tries")
-    return partial
+    log(f"  profiler: no device events in {PROFILE_TRIES} tries")
+    return []
 
 
 def phase_tick_profile(torch, eng, kernel):
@@ -1184,8 +1174,7 @@ def device_ms(torch, fn, iters: int = 50):
     when the profiler sees no device activity.  For a kernel shorter than
     its wrapper's host time (~30 us for the paged kernels) CUDA events
     over back-to-back calls time the host's enqueue, not the device."""
-    events = device_events(torch, lambda: [fn(i) for i in range(iters)],
-                           calls=iters)
+    events = device_events(torch, lambda: [fn(i) for i in range(iters)])
     busy = sum(e.self_device_time_total for e in events)
     return busy / iters / 1e3 if busy > 0 else None
 
