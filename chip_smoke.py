@@ -74,7 +74,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
               prompt-chunk tick, by device time, the int8 decode tick in
               three calls; then both at C == 1 over contexts 16-4096 and
               at 64 slots, with the decode kernel's split count; flash: the
-              train step's, with |SDPA - plain| beside |kernel - plain|,
+              train steps' (qwen3-1.7b's; gemma3-4b's at head dim 256,
+              causal and with its window of 1024, SDPA given a boolean
+              mask), with |SDPA - plain| beside |kernel - plain|,
               TFLOP/s and the share of the bound, and the wrapper's host
               time per call with and without tensor maps; dropout matmul:
               the Horn MLP's at keep 1, 0.5 and 0.25, beside cuBLAS on
@@ -117,6 +119,18 @@ Phases, each of which fails the script (non-zero exit, no result line):
               through the train CLI with ``--checkpoint-dir``: 4 steps
               straight, and 2 steps + a second invocation resuming to 4,
               bit-equal losses and grad norms.
+ 11. new archs gemma3-4b (head dim 256) and qwen1.5-4b at full width.
+              One 6-layer gemma3-4b superblock, bf16, B 2 x 2048: loss
+              and gradients through the flash kernels against the plain
+              path (and an f32 truth: FlashAttention's test rule, the
+              kernel path's error at most twice the plain bf16 path's).
+              Then ``launch.train`` for 4 steps of gemma3-4b and 2 of
+              qwen1.5-4b at batch 2 x 2048, AdamW, Horn 4 groups: launch
+              counts (2 x layers x steps forward, layers x steps
+              backward, every one on ``wgmma_d256`` / ``wgmma_d128``),
+              finite losses, the first near its random-init value, step
+              wall, tok/s, peak memory, a profiled step with flash's
+              device time.  Then each serves phase 5's load in bf16.
 Phase 3 also holds the SSD chunk scan against its plain version (y and the
 final state): the JAX sweep's shapes, S 257 (chunks of 1 token), two more
 shapes of the wgmma route and the full-width shape B 2, S 2048, H 80, P
@@ -211,6 +225,10 @@ def phase_kernels(torch, dev, kernel, ref, build):
         "qwen3-1.7b": dict(B=8, H=16, KH=8, D=128, psize=16, maxp=40, kw={}),
         "gemma2-27b": dict(B=8, H=32, KH=16, D=128, psize=16, maxp=38,
                            kw={"window": 64, "softcap": 50.0}),
+        "qwen1.5-4b": dict(B=8, H=20, KH=20, D=128, psize=16, maxp=40,
+                           kw={}),
+        "gemma3-4b": dict(B=8, H=8, KH=4, D=256, psize=16, maxp=40,
+                          kw={"window": 64}),
     }
     tol = {"float32": 2e-5, "bfloat16": 2e-2}
     worst = 0.0
@@ -299,6 +317,8 @@ def phase_decode_kernels(torch, dev, kernel, ref):
         "MQA": dict(B=2, H=16, KH=1, D=128, psize=16, maxp=10),
         "qwen3-1.7b": dict(B=8, H=16, KH=8, D=128, psize=16, maxp=40),
         "gemma2-27b": dict(B=8, H=32, KH=16, D=128, psize=16, maxp=38),
+        "qwen1.5-4b": dict(B=8, H=20, KH=20, D=128, psize=16, maxp=40),
+        "gemma3-4b": dict(B=8, H=8, KH=4, D=256, psize=16, maxp=40),
     }
     variants = {"plain": {}, "window": {"window": 64},
                 "softcap": {"softcap": 50.0}}
@@ -355,9 +375,10 @@ def flash_case(torch, dev, dtype, B, H, KH, S, D, seed):
 def phase_flash_kernels(torch, dev, fkernel, fref):
     """Forward (o) and backward (dq, dk, dv) kernels against the plain
     version and torch autograd through it, same dO.  f32: atol/rtol 1e-4
-    (summation order over up to 1024 keys); bf16 inputs and outputs,
+    (summation order over up to 2048 keys); bf16 inputs and outputs,
     compared in f32: atol/rtol 2e-2 (both sides compute in f32 and round
-    once; one bf16 ulp at |x| ~ 1 is 7.8e-3)."""
+    once; one bf16 ulp at |x| ~ 1 is 7.8e-3).  gemma3-4b's head dim 256
+    runs at S up to 2048, so its window of 1024 masks."""
     geoms = {
         "qwen3-1.7b": dict(H=16, KH=8, D=128, scale=128 ** -0.5, variants={
             "causal": {}, "window": {"window": 64},
@@ -367,14 +388,20 @@ def phase_flash_kernels(torch, dev, fkernel, fref):
             "causal": {}, "window": {"window": 64},
             "softcap": {"softcap": 50.0}, "non-causal": {"causal": False},
             "local": {"window": 64, "softcap": 50.0}}),
+        "gemma3-4b": dict(H=8, KH=4, D=256, scale=256 ** -0.5,
+                          lengths=(1, 7, 256, 2048), variants={
+            "causal": {}, "window": {"window": 64},
+            "local": {"window": 1024}, "softcap": {"softcap": 50.0},
+            "non-causal": {"causal": False}}),
     }
     tol = {"float32": 1e-4, "bfloat16": 2e-2}
     worst = 0.0
     for name, g in geoms.items():
+        lengths = g.get("lengths", (1, 7, 256, 1024))
         for dtype in ("float32", "bfloat16"):
             errs = {}
             for vname, vkw in g["variants"].items():
-                for S in (1, 7, 256, 1024):
+                for S in lengths:
                     q, k, v, do = flash_case(torch, dev, getattr(torch, dtype),
                                              2, g["H"], g["KH"], S, g["D"],
                                              seed=S)
@@ -397,8 +424,9 @@ def phase_flash_kernels(torch, dev, fkernel, fref):
                             msg=lambda m: f"{name} {vname} S={S} {what}: {m}")
                     del leaves, want, wgrads, grads
             worst = max([worst] + list(errs.values()))
-            log(f"  flash {name:11s} {dtype:8s} {len(g['variants'])} "
-                f"variants x S 1/7/256/1024: max |kernel - plain| "
+            log(f"  flash {name:11s} D {g['D']} {dtype:8s} "
+                f"{len(g['variants'])} variants x S "
+                f"{'/'.join(map(str, lengths))}: max |kernel - plain| "
                 + " ".join(f"{k} {e:.3g}" for k, e in errs.items())
                 + f" (tol {tol[dtype]:g})")
     return worst
@@ -702,7 +730,12 @@ def phase_parity_int8(torch, dev, cfg, params, ecfg, prompts, max_new):
 # ---------------------------------------------------------------------------
 # phase 5: the serving path
 # ---------------------------------------------------------------------------
-def phase_serve(torch, dev, build, kernel):
+def phase_serve(torch, dev, build, kernel, arch="qwen3-1.7b"):
+    """``arch`` at full width, bf16 weights from seed 0, serving phase 5's
+    load through ``Engine``: every request finishes, every tick launches
+    one paged kernel a layer, every chunk launch on the route
+    ``kernel.chunk_route`` gives the arch's bf16 q over bf16 pools and
+    every decode launch on the split rule's route."""
     from repro_torch.configs.base import get_model_config
     from repro_torch.launch.serve import drive, make_requests, summarize
     from repro_torch.models import api
@@ -710,7 +743,7 @@ def phase_serve(torch, dev, build, kernel):
     from repro_torch.models import transformer as T
     from repro_torch.serving import Engine, EngineConfig
 
-    cfg = get_model_config("qwen3-1.7b")
+    cfg = get_model_config(arch)
     params = init_params(cfg, 0, device=dev, dtype=torch.bfloat16)
     gen = 32
     ecfg = EngineConfig(num_slots=8, num_pages=512, page_size=16,
@@ -731,7 +764,10 @@ def phase_serve(torch, dev, build, kernel):
     wall = drive(eng, pending)
     launches = {n: build.LAUNCHES[n] for n in (kernel.NAME,
                                                kernel.NAME_DECODE)}
-    chunk_tc = build.ROUTE_LAUNCHES.get(f"{kernel.NAME}:wgmma", 0)
+    chunk_route = kernel.chunk_route(
+        torch.bfloat16, False, cfg.head_dim, ecfg.page_size,
+        cfg.num_heads // cfg.num_kv_heads)
+    chunk_tc = build.ROUTE_LAUNCHES.get(f"{kernel.NAME}:{chunk_route}", 0)
     decode_route, splits = engine_decode_route(kernel, eng, dev)
     decode_on_route = build.ROUTE_LAUNCHES.get(
         f"{kernel.NAME_DECODE}:{decode_route}", 0)
@@ -750,7 +786,7 @@ def phase_serve(torch, dev, build, kernel):
     assert chunk_tc == launches[kernel.NAME], (chunk_tc, launches)
     assert decode_on_route == launches[kernel.NAME_DECODE], \
         (decode_route, decode_on_route, launches)
-    r["chunk_wgmma_launches"] = chunk_tc
+    r["chunk_route"], r["chunk_route_launches"] = chunk_route, chunk_tc
     r["decode_route"], r["decode_splits"] = decode_route, splits
     r["decode_route_launches"] = decode_on_route
     for k, v in eng.cache:
@@ -766,7 +802,8 @@ def phase_serve(torch, dev, build, kernel):
             torch.arange(1, 4, dtype=torch.int32, device=dev)[None], cfg)
     assert torch.isfinite(logits).all()
     plens = [len(p) for _, p, _ in pending]
-    log(f"  {r['requests']} requests, prompts {min(plens)}-{max(plens)} "
+    log(f"  {cfg.name}, {cfg.num_layers} layers: {r['requests']} "
+        f"requests, prompts {min(plens)}-{max(plens)} "
         f"tokens, {gen} new tokens each, 8 slots, 512x16-token pages: "
         f"{r['ticks']} ticks, {r['prefill_tokens']} prefill tokens")
     log(f"  throughput {r['tok_s']:.1f} tok/s  TTFT p50 "
@@ -777,7 +814,7 @@ def phase_serve(torch, dev, build, kernel):
         f" = {cfg.num_layers} layers x {s.decode_ticks} decode-only ticks; "
         f"{kernel.NAME} launches: {launches[kernel.NAME]} = "
         f"{cfg.num_layers} layers x {s.steps - s.decode_ticks} ticks with "
-        f"prompt chunks, all {chunk_tc} on the tensor-core kernel")
+        f"prompt chunks, all {chunk_tc} on the '{chunk_route}' route")
     log(f"  {kernel.NAME_DECODE}: all {decode_on_route} launches on the "
         f"'{decode_route}' route, {splits} blocks a (slot, kv head) over "
         f"{eng.max_pages_per_seq}-page block tables")
@@ -968,42 +1005,61 @@ def phase_tick_profile(torch, eng, kernel):
 # ---------------------------------------------------------------------------
 # phase 6: the training path
 # ---------------------------------------------------------------------------
-def phase_train(torch, build, fkernel):
+def phase_train(torch, build, fkernel, arch="qwen3-1.7b", batch=8,
+                seq=1024, steps=TRAIN_STEPS, optimizer="adamw"):
+    """``launch.train`` on ``arch`` at full width (f32 masters, bf16
+    compute, Horn on with 4 groups, lr 3e-4), ``steps`` steps of batch x
+    seq: launch counts (remat: the forward twice a layer a step, the
+    backward once, every launch at the arch's head dim on the bf16
+    kernels), finite losses, the first near its random-init value; then
+    one profiled
+    step."""
     from repro_torch.launch import train
 
-    argv = ["--arch", "qwen3-1.7b", "--full-config", "--steps",
-            str(TRAIN_STEPS), "--batch", "8", "--seq", "1024",
-            "--horn-groups", "4", "--optimizer", "adamw", "--lr", "3e-4",
-            "--log-every", "1", "--seed", "0", "--device", "cuda"]
+    argv = ["--arch", arch, "--full-config", "--steps", str(steps),
+            "--batch", str(batch), "--seq", str(seq), "--horn-groups", "4",
+            "--optimizer", optimizer, "--lr", "3e-4", "--log-every", "1",
+            "--seed", "0", "--device", "cuda"]
     t0 = time.perf_counter()
     sess = train.setup(argv)
     cfg, a = sess.run.model, sess.args
     torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in sess.state["params"].parameters())
     log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}; f32 masters + AdamW moments "
-        f"built in {time.perf_counter() - t0:.1f} s")
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B "
+        f"parameters; f32 masters + {optimizer} moments built in "
+        f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
-    recs = train.run_steps(sess, TRAIN_STEPS, log=lambda m: log("  " + m))
+    recs = train.run_steps(sess, steps, log=lambda m: log("  " + m))
     fwd, bwd = build.LAUNCHES[fkernel.FWD], build.LAUNCHES[fkernel.BWD]
+    route = fkernel.route(torch.bfloat16, cfg.head_dim)
+    on_route = [build.ROUTE_LAUNCHES.get(f"{n}:{route}", 0)
+                for n in (fkernel.FWD, fkernel.BWD)]
     peak = torch.cuda.max_memory_allocated()
     L = cfg.num_layers
-    assert fwd == 2 * L * TRAIN_STEPS and bwd == L * TRAIN_STEPS, \
-        (fwd, bwd, L)
+    assert fwd == 2 * L * steps and bwd == L * steps, (fwd, bwd, L)
+    assert on_route == [fwd, bwd], (route, on_route, fwd, bwd)
     for r in recs:
         assert math.isfinite(r["loss"]) and r["grad_norm"] > 0, r
-    # random init predicts a near-uniform distribution: xent ~ ln(vocab)
-    assert abs(recs[0]["loss"] - math.log(cfg.vocab_size)) < 0.5, recs[0]
+    # at random init the final norm's unit-RMS rows meet an unembedding of
+    # std 1 / sqrt(fan-in): logits of variance d_model / vocab (tied: the
+    # embedding's fan-in is the vocab) or 1 (untied), so xent ~ ln(vocab)
+    # + variance / 2, the log-mean-exp of Gaussian logits
+    var = cfg.d_model / cfg.vocab_size if cfg.tie_embeddings else 1.0
+    first = math.log(cfg.vocab_size) + var / 2
+    assert abs(recs[0]["loss"] - first) < 0.5, (recs[0], first)
     steady = recs[1:]
     step_s = sum(r["step_s"] for r in steady) / len(steady)
     tok_s = a.batch * a.seq / step_s
     log(f"  {fkernel.FWD} launches: {fwd} = 2 x {L} layers x "
-        f"{TRAIN_STEPS} steps (remat); {fkernel.BWD} launches: {bwd} = "
-        f"{L} x {TRAIN_STEPS}")
-    log(f"  step wall {step_s * 1e3:.1f} ms (mean of steps 2-{TRAIN_STEPS})"
+        f"{steps} steps (remat); {fkernel.BWD} launches: {bwd} = "
+        f"{L} x {steps}; all on '{route}'")
+    log(f"  step wall {step_s * 1e3:.1f} ms (mean of steps 2-{steps})"
         f", {tok_s:,.0f} tok/s, peak memory "
-        f"{peak / 2**30:.2f} GiB allocated")
+        f"{peak / 2**30:.2f} GiB allocated of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}")
 
     def one_step():
         sess.state, m = sess.step_fn(sess.state,
@@ -1012,9 +1068,12 @@ def phase_train(torch, build, fkernel):
 
     events = device_events(torch, one_step)
     busy = sum(e.self_device_time_total for e in events) / 1e3
-    out = {"steps": recs, "step_ms": step_s * 1e3, "tok_s": tok_s,
+    out = {"arch": cfg.name, "batch": a.batch, "seq": a.seq,
+           "optimizer": optimizer, "params": n_params, "steps": recs,
+           "step_ms": step_s * 1e3, "tok_s": tok_s,
            "peak_bytes": peak, "launches": {fkernel.FWD: fwd,
                                             fkernel.BWD: bwd},
+           "route": route,
            "device_busy_ms": busy or None, "busy_share": None,
            "top_kernels": []}
     if busy <= 0:
@@ -1415,13 +1474,15 @@ def phase_decode_sweep(torch, dev, kernel):
     return out
 
 
-def flash_work(B, H, KH, S, D, itemsize):
+def flash_work(B, H, KH, S, D, itemsize, window=None):
     """(forward bytes, forward flops, backward bytes, backward flops) of
-    causal attention at these shapes.  Each input read once and each output
-    written once; forward 2 products (QK^T, PV), backward 5 (S recomputed
-    from the inputs, dP, dV, dQ, dK), 2 * D flops each per visible
-    (row, key) pair."""
-    pairs = B * H * S * (S + 1) // 2
+    causal attention at these shapes, with a sliding ``window`` if given.
+    Each input read once and each output written once; forward 2 products
+    (QK^T, PV), backward 5 (S recomputed from the inputs, dP, dV, dQ, dK),
+    2 * D flops each per visible (row, key) pair: min(i + 1, window) keys
+    for row i."""
+    w = window or S
+    pairs = B * H * (w * (w + 1) // 2 + max(0, S - w) * w)
     q = B * H * S * D * itemsize
     kv = B * KH * S * D * itemsize
     lse = B * H * S * 4
@@ -1445,18 +1506,48 @@ def host_us(torch, fn, iters: int = 200) -> float:
 
 
 def phase_flash_timing(torch, dev, fkernel, fref):
-    """Forward and backward at the train step's shape (B 8, S 1024, H 16,
-    KH 8, D 128, bf16, causal): kernel, plain version (autograd for the
-    backward) and SDPA with ``enable_gqa`` as the library yardstick.  Also
-    |SDPA - plain| at the same inputs (SDPA rounds P to bf16 as the
-    kernels do), and the forward wrapper's host time per call in bf16
-    (three tensor maps encoded) and f32 (none) at a small shape."""
+    """Forward and backward at the train steps' shapes, bf16: qwen3-1.7b's
+    (B 8, S 1024, H 16, KH 8, D 128, causal) and gemma3-4b's at head dim
+    256 (B 2, S 2048, H 8, KH 4; causal, and its local layers' window of
+    1024), each by ``flash_timing``; then the forward wrapper's host time
+    per call in bf16 (three tensor maps encoded) and f32 (none) at a small
+    shape."""
+    out = {"train": flash_timing(torch, dev, fkernel, fref, 8, 16, 8, 1024,
+                                 128)}
+    for name, window in (("gemma3_train", None),
+                         ("gemma3_train_window", 1024)):
+        out[name] = flash_timing(torch, dev, fkernel, fref, 2, 8, 4, 2048,
+                                 256, window)
+    kw = dict(scale=128 ** -0.5, causal=True)
+    small = {dt: flash_case(torch, dev, dt, 1, 2, 1, 64, 128, 12)[:3]
+             for dt in (torch.bfloat16, torch.float32)}
+    host = {str(dt).split(".")[1]: host_us(
+        torch, lambda a=a: fkernel.flash_attention_fwd(*a, **kw))
+        for dt, a in small.items()}
+    log(f"  flash forward wrapper host time per call (B 1, H 2, S 64): "
+        f"bf16 {host['bfloat16']:.1f} us (3 tensor maps), f32 "
+        f"{host['float32']:.1f} us (none)")
+    out["host_us"] = host
+    return out
+
+
+def flash_timing(torch, dev, fkernel, fref, B, H, KH, S, D, window=None):
+    """Forward and backward at one shape (bf16, causal, ``window`` if
+    given): kernel, plain version (autograd for the backward) and SDPA
+    with ``enable_gqa`` as the library yardstick (with a window, through a
+    boolean mask of the visible keys).  Also |SDPA - plain| at the same
+    inputs (SDPA rounds P to bf16 as the kernels do)."""
     import torch.nn.functional as F
 
-    B, H, KH, S, D = 8, 16, 8, 1024, 128
     scale = D ** -0.5
     q, k, v, do = flash_case(torch, dev, torch.bfloat16, B, H, KH, S, D, 11)
-    kw = dict(scale=scale, causal=True)
+    kw = dict(scale=scale, causal=True, window=window)
+    if window is None:
+        lib_kw = dict(is_causal=True)
+    else:
+        i = torch.arange(S, device=dev)
+        lib_kw = dict(attn_mask=(i[None, :] <= i[:, None])
+                      & (i[None, :] > i[:, None] - window))
     o, lse = fkernel.flash_attention_fwd(q, k, v, **kw)
     grads = fkernel.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -1464,7 +1555,7 @@ def phase_flash_timing(torch, dev, fkernel, fref):
     want = torch.autograd.grad(plain_out, leaves, do, retain_graph=True)
     lib_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     lib_out = F.scaled_dot_product_attention(
-        *lib_leaves, is_causal=True, scale=scale, enable_gqa=True)
+        *lib_leaves, scale=scale, enable_gqa=True, **lib_kw)
     lib_grads = torch.autograd.grad(lib_out, lib_leaves, do,
                                     retain_graph=True)
     torch.cuda.synchronize()
@@ -1487,7 +1578,7 @@ def phase_flash_timing(torch, dev, fkernel, fref):
         "fwd_plain": cuda_ms(torch, lambda i: fref.attention_ref(
             q, k, v, **kw), 5),
         "fwd_library": cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=scale, enable_gqa=True), 20),
+            q, k, v, scale=scale, enable_gqa=True, **lib_kw), 20),
         "bwd": cuda_ms(torch, lambda i: fkernel.flash_attention_bwd(
             q, k, v, o, lse, do, **kw), 20),
         "bwd_plain": cuda_ms(torch, lambda i: torch.autograd.grad(
@@ -1495,28 +1586,21 @@ def phase_flash_timing(torch, dev, fkernel, fref):
         "bwd_library": cuda_ms(torch, lambda i: torch.autograd.grad(
             lib_out, lib_leaves, do, retain_graph=True), 20),
     }
-    small = {dt: flash_case(torch, dev, dt, 1, 2, 1, 64, D, 12)[:3]
-             for dt in (torch.bfloat16, torch.float32)}
-    host = {str(dt).split(".")[1]: host_us(
-        torch, lambda a=a: fkernel.flash_attention_fwd(*a, **kw))
-        for dt, a in small.items()}
-    log(f"  flash forward wrapper host time per call (B 1, H 2, S 64): "
-        f"bf16 {host['bfloat16']:.1f} us (3 tensor maps), f32 "
-        f"{host['float32']:.1f} us (none)")
-    fb, ff, bb, bf = flash_work(B, H, KH, S, D, 2)
-    out = {"host_us": host}
+    fb, ff, bb, bf = flash_work(B, H, KH, S, D, 2, window)
+    out = {}
     for name, nbytes, flops in (("fwd", fb, ff), ("bwd", bb, bf)):
         b_ms, b_by = bound(nbytes, flops)
         out[name] = {
             "B": B, "S": S, "H": H, "KH": KH, "D": D, "dtype": "bfloat16",
-            "causal": True, "ms": times[name],
+            "causal": True, "window": window, "ms": times[name],
             "plain_ms": times[f"{name}_plain"],
             "library_ms": times[f"{name}_library"], "bound_ms": b_ms,
             "bound_by": b_by, "bytes": nbytes, "flops": flops,
             "max_abs_err": errs[name], "library_max_abs_err": lib_errs[name],
             "tflops": flops / (times[name] * 1e-3) / 1e12,
             "bound_share": b_ms / times[name]}
-        log(f"  flash {name}  kernel {times[name]:8.3f} ms  plain "
+        log(f"  flash {name} B {B} S {S} H {H}/{KH} D {D} window {window}: "
+            f"kernel {times[name]:8.3f} ms  plain "
             f"{times[name + '_plain']:8.3f} ms  SDPA "
             f"{times[name + '_library']:7.3f} ms  bound {b_ms:.3f} ms "
             f"({b_by}, {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)  "
@@ -2227,10 +2311,128 @@ def phase_resume(torch):
             "walls_s": times}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: gemma3-4b (head dim 256) and qwen1.5-4b at full width
+# ---------------------------------------------------------------------------
+SUPERBLOCK_TOL = 2e-2
+
+
+def phase_superblock(torch, dev, build, fkernel, fref):
+    """One 6-layer superblock of gemma3-4b (5 local layers, window 1024,
+    and a global one) at full width, bf16 weights and compute from seed
+    0: loss and every parameter's gradient of one forward and backward on
+    B 2 x S 2048 seeded tokens through the flash kernels, against the same
+    with ``models.attention.flash_attention`` routed to the plain version
+    (and its autograd).  The loss within the bf16 tolerance 2e-2 of the
+    plain path's.  The gradients by FlashAttention's own test rule: each
+    leaf's largest error against an f32 truth (the same weights in f32,
+    f32 compute, the plain path) at most twice the plain bf16 path's (the
+    two bf16 sides differ in roundings of attention only: the kernels
+    round P and dS to bf16, the plain version its f32 output once; a
+    norm's scale vector sums 32,768 (token, head) rows, so there the two
+    differ by a few bf16 ulps of the leaf's scale)."""
+    from repro_torch.configs.base import get_model_config
+    from repro_torch.models import api, attention
+    from repro_torch.models.params import cast_params, init_params
+
+    cfg = dataclasses.replace(get_model_config("gemma3-4b"), num_layers=6)
+    params = init_params(cfg, 0, device=dev, dtype=torch.bfloat16)
+    for p in params.parameters():
+        p.requires_grad_(True)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 2049)).astype(np.int32)).to(dev)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+    def loss_and_grads(model, c):
+        loss, _ = api.model_loss(model, batch, c, remat=False)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        return float(loss.detach()), [g.float() for g in grads]
+
+    def plain(q, k, v, *, scale, causal=True, window=None, softcap=None):
+        return fref.attention_ref(q, k, v, scale=scale, causal=causal,
+                                  window=window, softcap=softcap)
+
+    build.reset_launches()
+    loss, grads = loss_and_grads(params, cfg)
+    route = fkernel.route(torch.bfloat16, cfg.head_dim)
+    launched = [build.ROUTE_LAUNCHES.get(f"{n}:{route}", 0)
+                for n in (fkernel.FWD, fkernel.BWD)]
+    assert launched == [6, 6], (route, launched)
+    with mock.patch.object(attention, "flash_attention", plain):
+        build.reset_launches()
+        want_loss, want = loss_and_grads(params, cfg)
+        truth_loss, truth = loss_and_grads(
+            cast_params(params, torch.float32),
+            dataclasses.replace(cfg, dtype="float32"))
+        assert build.LAUNCHES[fkernel.FWD] == 0
+    loss_err = abs(loss - want_loss) / abs(want_loss)
+    names = [n for n, _ in params.named_parameters()]
+    ratio, vs_plain = {}, {}
+    for n, g, w, t in zip(names, grads, want, truth):
+        assert torch.isfinite(g).all(), n
+        scale = t.abs().max().clamp_min(1e-30)
+        e_kernel = float((g - t).abs().max() / scale)
+        e_plain = float((w - t).abs().max() / scale)
+        ratio[n] = e_kernel / max(e_plain, 1e-6)
+        vs_plain[n] = float((g - w).abs().max() / scale)
+    worst = max(ratio, key=ratio.get)
+    far = max(vs_plain, key=vs_plain.get)
+    log(f"  gemma3-4b superblock (6 layers, full width, bf16, B 2 x S "
+        f"2048): loss {loss:.5f} kernels, {want_loss:.5f} plain, "
+        f"{truth_loss:.5f} f32 (rel to plain {loss_err:.2e}, tol "
+        f"{SUPERBLOCK_TOL:g}); launches {launched[0]} fwd + {launched[1]} "
+        f"bwd on '{route}'")
+    log(f"  {len(ratio)} gradients, error against f32 of the kernel path "
+        f"over the plain bf16 path's: largest {ratio[worst]:.2f} "
+        f"({worst}), {sum(r > 1 for r in ratio.values())} above 1 "
+        f"(limit 2); largest |kernel - plain| {vs_plain[far]:.2e} of the "
+        f"leaf's scale ({far})")
+    assert loss_err <= SUPERBLOCK_TOL, (loss, want_loss)
+    assert ratio[worst] <= 2.0, (worst, ratio[worst])
+    return {"loss": loss, "plain_loss": want_loss, "f32_loss": truth_loss,
+            "loss_rel_err": loss_err, "grad_err_ratio_max": ratio[worst],
+            "grad_err_ratio_argmax": worst,
+            "grad_vs_plain_max": vs_plain[far],
+            "grad_vs_plain_argmax": far, "launches": launched}
+
+
+def phase_new_archs(torch, dev, build, kernel, fkernel, fref):
+    """gemma3-4b and qwen1.5-4b at full width: the superblock check, then
+    training through ``launch.train`` (gemma3-4b 4 steps, qwen1.5-4b 2, at
+    B 2 x S 2048 with AdamW; S > 1024, so gemma3-4b's 28 local layers
+    mask by their window), then each serving phase 5's load in bf16."""
+    out = {"superblock": phase_superblock(torch, dev, build, fkernel, fref)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, steps in (("gemma3-4b", TRAIN_STEPS), ("qwen1.5-4b", 2)):
+        log(f"  train {arch}: {steps} steps, B 2 x S 2048, AdamW")
+        out[f"train_{arch}"] = phase_train(
+            torch, build, fkernel, arch=arch, batch=2, seq=2048,
+            steps=steps)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in ("gemma3-4b", "qwen1.5-4b"):
+        log(f"  serve {arch}: phase 5's load, bf16")
+        launches, served, eng = phase_serve(torch, dev, build, kernel, arch)
+        served["launches"] = launches
+        out[f"serve_{arch}"] = served
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
-    log("phase 1: device")
+    t_start = time.perf_counter()
+
+    def phase(msg: str) -> None:
+        log(f"{msg} (at {time.perf_counter() - t_start:.0f} s)")
+
+    phase("phase 1: device")
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
         return 1
@@ -2254,7 +2456,7 @@ def main() -> int:
     from repro_torch.kernels.ssd import kernel as skernel
     from repro_torch.kernels.ssd import ref as sref
 
-    log("phase 2: build")
+    phase("phase 2: build")
     t0 = time.perf_counter()
     sources = [kernel.SOURCE, kernel.SOURCE_DECODE, fkernel.SOURCE,
                dkernel.SOURCE, skernel.SOURCE]
@@ -2265,17 +2467,17 @@ def main() -> int:
         log(f"    nvcc {src.name}: "
             f"{build.BUILD_SECONDS.get(src.name, 0.0):.1f} s")
 
-    log("phase 3: kernels against their plain versions")
+    phase("phase 3: kernels against their plain versions")
     chunk_sweep_err = phase_kernels(torch, dev, kernel, ref, build)
     decode_sweep_err = phase_decode_kernels(torch, dev, kernel, ref)
     flash_sweep_err = phase_flash_kernels(torch, dev, fkernel, fref)
     dm_sweep_err = phase_dropout_kernels(torch, dev, dkernel, dref, build)
     ssd_sweep_err = phase_ssd_kernels(torch, dev, skernel, sref, build)
 
-    log("phase 4: paged engine against a dense recompute")
+    phase("phase 4: paged engine against a dense recompute")
     parity = phase_parity(torch, dev)
 
-    log("phase 5: serve qwen3-1.7b (28 layers, bf16)")
+    phase("phase 5: serve qwen3-1.7b (28 layers, bf16)")
     launches, served, eng = phase_serve(torch, dev, build, kernel)
     served["tick_profile"] = phase_tick_profile(torch, eng, kernel)
     served["parity_int8"] = parity
@@ -2283,24 +2485,24 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("phase 5b: serve qwen3-1.7b (28 layers, bf16) on bf16 and on int8 "
+    phase("phase 5b: serve qwen3-1.7b (28 layers, bf16) on bf16 and on int8 "
         "pools of equal bytes")
     served["int8"] = phase_int8_serve(torch, dev, build, kernel)
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("phase 6: train qwen3-1.7b (28 layers, f32 masters, bf16 compute, "
+    phase("phase 6: train qwen3-1.7b (28 layers, f32 masters, bf16 compute, "
         "Horn, AdamW)")
     trained = phase_train(torch, build, fkernel)
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("phase 7: Horn block-sparse MLP, qwen3-1.7b (28 layers, bf16)")
+    phase("phase 7: Horn block-sparse MLP, qwen3-1.7b (28 layers, bf16)")
     horn_mlp = phase_horn_mlp(torch, dev, build, dkernel)
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("phase 8: timing")
+    phase("phase 8: timing")
     shapes = phase_timing(torch, dev, kernel, ref)
     decode_sweep = phase_decode_sweep(torch, dev, kernel)
     flash = phase_flash_timing(torch, dev, fkernel, fref)
@@ -2309,7 +2511,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("phase 9: ssm, mamba2-2.7b prefill and greedy decode")
+    phase("phase 9: ssm, mamba2-2.7b prefill and greedy decode")
     ssm_parity = phase_ssm_parity(torch, dev, build, skernel, sref)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2322,7 +2524,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("phase 10: horn-mnist, the paper's experiment (784-512-512-10), and "
+    phase("phase 10: horn-mnist, the paper's experiment (784-512-512-10), and "
         "resumable training")
     before = dict(build.LAUNCHES)
     mnist = {"parity": phase_mnist_parity(torch, dev)}
@@ -2334,6 +2536,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mnist["resume"] = phase_resume(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("phase 11: gemma3-4b (head dim 256) and qwen1.5-4b at full width: "
+        "a superblock against the plain path, training, serving")
+    new_archs = phase_new_archs(torch, dev, build, kernel, fkernel, fref)
 
     # headline shapes: the prompt-chunk tick for the chunk kernel (decode
     # ticks go to the decode kernel), the decode tick for the decode kernel
@@ -2356,24 +2564,33 @@ def main() -> int:
             "shapes": shapes[name],
         })
     kernels[0]["launches_by_kernel"] = {
-        "wgmma": served["chunk_wgmma_launches"],
+        served["chunk_route"]: served["chunk_route_launches"],
         "wgmma_int8 (phase 5b)":
             served["int8"]["int8"]["launches_by_route"]["chunk_wgmma_int8"]}
     kernels[-1]["launches_by_kernel"] = {
         served["decode_route"]: served["decode_route_launches"]}
     kernels[-1]["context_sweep"] = decode_sweep
+    # flash at head dim 128 (qwen3-1.7b's train step, phase 6) and at 256
+    # (gemma3-4b's, phase 11), each with its own launches
+    g3 = new_archs["train_gemma3-4b"]
     for part, name in (("fwd", fkernel.FWD), ("bwd", fkernel.BWD)):
-        f = flash[part]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": str(fkernel.SOURCE.relative_to(ROOT)),
-            "replaces": FLASH_TPU_KERNEL,
-            "launches": trained["launches"][name],
-            "max_abs_err": max(f["max_abs_err"], flash_sweep_err),
-            "ms": f["ms"], "kernel_ms": f["ms"], "plain_ms": f["plain_ms"],
-            "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
-            "library_ms": f["library_ms"], "shapes": {"train": f},
-        })
+        for run, shapes in ((trained, ("train",)),
+                            (g3, ("gemma3_train", "gemma3_train_window"))):
+            f = flash[shapes[0]][part]
+            kernels.append({
+                "name": name if run is trained
+                else f"{name}:{run['route']}", "route": "cuda",
+                "source": str(fkernel.SOURCE.relative_to(ROOT)),
+                "replaces": FLASH_TPU_KERNEL,
+                "launches": run["launches"][name],
+                "max_abs_err": max([flash_sweep_err] + [
+                    flash[k][part]["max_abs_err"] for k in shapes]),
+                "ms": f["ms"], "kernel_ms": f["ms"],
+                "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+                "bound_by": f["bound_by"], "library_ms": f["library_ms"],
+                "head_dim": f["D"],
+                "shapes": {k: flash[k][part] for k in shapes},
+            })
     d = dm["0.5"]                       # the Horn MLP's keep rate
     kernels.append({
         "name": dkernel.NAME, "route": "cuda",
@@ -2401,8 +2618,10 @@ def main() -> int:
     })
     line = {"kernels": kernels, "card": card, "serve": served,
             "train": trained, "horn_mlp": horn_mlp, "ssm": ssm,
-            "mnist": mnist}
-    log("chip_smoke: all phases passed")
+            "mnist": mnist, "new_archs": new_archs,
+            "flash_host_us": flash["host_us"]}
+    log(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,9 @@ A copy of the JAX package's ``ModelConfig`` and of the run configs
 the same field names and defaults, so a test builds the same config on
 both sides, its layer kinds,
 ``register``/``get_model_config`` and ``reduced``.  The registry covers the
-archs the port runs so far: qwen3-1.7b, gemma2-27b, mamba2-2.7b and the
-paper's MNIST classifier horn-mnist (family "mlp": trained by
-``launch.train``'s own branch, refused by the serve CLI).
+archs the port runs so far: qwen3-1.7b, qwen1.5-4b, gemma2-27b, gemma3-4b,
+mamba2-2.7b and the paper's MNIST classifier horn-mnist (family "mlp":
+trained by ``launch.train``'s own branch, refused by the serve CLI).
 """
 from __future__ import annotations
 
@@ -187,7 +187,8 @@ def list_archs() -> list:
 def _ensure_loaded() -> None:
     # import the config modules once (registration side effect)
     import importlib
-    for mod in ("qwen3_1p7b", "gemma2_27b", "mamba2_2p7b", "horn_mnist"):
+    for mod in ("qwen3_1p7b", "qwen1p5_4b", "gemma2_27b", "gemma3_4b",
+                "mamba2_2p7b", "horn_mnist"):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

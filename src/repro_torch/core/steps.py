@@ -89,7 +89,7 @@ def state_from_jax_flat(flat, run: RunConfig, device="cuda") -> Dict:
 
 
 def make_train_step(run: RunConfig, device="cuda"):
-    """step(state, batch) -> (state, metrics).
+    """step(state, batch) -> (new state, metrics).
 
     ``batch`` holds "tokens" and "labels" [B, S] (numpy or tensors).  The
     loss is differentiated against a compute-dtype copy of the masters
@@ -98,8 +98,17 @@ def make_train_step(run: RunConfig, device="cuda"):
     place.  With ``run.microbatches`` M > 1 the batch splits into M equal
     parts whose gradients are summed in f32 and averaged; every
     microbatch sees the step's Horn masks (the same step and seed).
-    ``state["step"]`` advances by one; ``state["rng"]`` stays.  Metrics
-    are 0-dim device tensors: "loss", "xent", "grad_norm"."""
+
+    The update is applied only where the loss and the grad norm are
+    finite, decided on the device (no host sync): a non-finite step leaves
+    the masters and the moments as they were, bit for bit.  The step
+    returns a new state dict, with ``"step"`` one on and a new ``"opt"``
+    dict (AdamW's ``"t"`` one on) over the same tensors, and leaves the
+    old dict as it was, so a caller that drops the step (the fault-
+    tolerant loop's "skip") keeps the old dict and nothing of the step
+    remains.  A finite step gives the bits it gave before this rule.
+    ``state["rng"]`` stays.  Metrics are 0-dim device tensors: "loss",
+    "xent", "grad_norm"."""
     cfg = run.model
     dev = resolve_device(device)
     _, opt_update = make_optimizer(run.optimizer)
@@ -144,18 +153,19 @@ def make_train_step(run: RunConfig, device="cuda"):
             metrics = {k: torch.stack([m[k] for m in parts]).mean()
                        for k in parts[0]}
         grads, gnorm = clip_by_global_norm(grads, 1.0)
-        masters = list(params.parameters())
-        if run.optimizer == "sgdm":
-            opt_update(grads, state["opt"], masters, lr=run.learning_rate,
-                       momentum=run.momentum,
-                       weight_decay=run.weight_decay)
-        else:
-            opt_update(grads, state["opt"], masters, lr=run.learning_rate,
-                       weight_decay=run.weight_decay)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = gnorm
-        state["step"] += 1
-        return state, metrics
+        finite = torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm)
+        masters = list(params.parameters())
+        opt = dict(state["opt"])
+        if run.optimizer == "sgdm":
+            opt_update(grads, opt, masters, lr=run.learning_rate,
+                       momentum=run.momentum,
+                       weight_decay=run.weight_decay, apply=finite)
+        else:
+            opt_update(grads, opt, masters, lr=run.learning_rate,
+                       weight_decay=run.weight_decay, apply=finite)
+        return dict(state, opt=opt, step=state["step"] + 1), metrics
 
     return train_step
 

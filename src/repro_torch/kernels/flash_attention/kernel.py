@@ -3,7 +3,7 @@
 The kernels are ``csrc/flash_attention.cu`` (they replace the TPU kernel
 ``src/repro/kernels/flash_attention/kernel.py:85`` and add the backward it
 lacks): bf16 on the tensor cores (wgmma fed by TMA), f32 on the CUDA
-cores.  ``flash_attention_fwd`` and ``flash_attention_bwd`` take CUDA
+cores, at head dims ``HEAD_DIMS``.  ``flash_attention_fwd`` and ``flash_attention_bwd`` take CUDA
 tensors only: they check them, allocate outputs and scratch, launch on the
 current stream and raise when a launch is refused.  ``FlashAttention`` is
 the ``torch.autograd.Function`` whose forward and backward are the two.
@@ -22,7 +22,7 @@ from repro_torch.kernels import build
 FWD, BWD = "flash_attention_fwd", "flash_attention_bwd"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 96, 128)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 
 build.LAUNCHES.setdefault(FWD, 0)
 build.LAUNCHES.setdefault(BWD, 0)
@@ -73,12 +73,20 @@ def _check(name, q, k, v, window, **more):
                          f"{tuple(k.shape)} (batch, head dim, H % KH)")
     if D not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D} must be one of {HEAD_DIMS} "
-                         f"(multiples of 32 the kernel is built for)")
+                         f"(the head dims the kernels are built for)")
     if Sq < 1 or Skv < 1:
         raise ValueError(f"{name}: empty sequence (Sq {Sq}, Skv {Skv})")
     if window is not None and Sq >= Skv + window:
         raise ValueError(f"{name}: with window {window}, query rows past "
                          f"{Skv + window - 1} see no key (Skv {Skv})")
+
+
+def route(dtype: torch.dtype, D: int) -> str:
+    """The kernels a launch runs, for ``build.ROUTE_LAUNCHES``: bf16 on
+    the tensor cores (``wgmma``; at D 256 the backward splits D over two
+    warpgroups), f32 on the CUDA cores, and the head dim:
+    ``"wgmma_d256"``, ``"cuda_core_d128"``..."""
+    return f"{'wgmma' if dtype == torch.bfloat16 else 'cuda_core'}_d{D}"
 
 
 def _common(q, k, scale, causal, window, softcap):
@@ -102,7 +110,7 @@ def flash_attention_fwd(q, k, v, *, scale: float, causal: bool = True,
     if err:
         raise RuntimeError(f"{FWD}: kernel launch failed with CUDA error "
                            f"{err}")
-    build.LAUNCHES[FWD] += 1
+    build.count_launch(FWD, route(q.dtype, q.shape[-1]))
     return o, lse
 
 
@@ -127,7 +135,7 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, scale: float,
     if err:
         raise RuntimeError(f"{BWD}: kernel launch failed with CUDA error "
                            f"{err}")
-    build.LAUNCHES[BWD] += 1
+    build.count_launch(BWD, route(q.dtype, q.shape[-1]))
     return dq, dk, dv
 
 

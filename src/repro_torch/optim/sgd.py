@@ -4,8 +4,15 @@ Ports of ``repro/optim/sgd.py``, over lists of tensors instead of pytrees.
 Unlike the JAX functions, the updates work in place: the parameters (f32
 masters) and the moments are overwritten, and the returned ones are the same
 tensors.  At full width that saves a second copy of the masters and moments
-(about 20 GB for qwen3-1.7b under AdamW).  The arithmetic is the JAX
-package's, in f32 whatever the gradients' dtype.
+(about 20 GB for qwen3-1.7b under AdamW, 47 GB for gemma3-4b).  The
+arithmetic is the JAX package's, in f32 whatever the gradients' dtype.
+
+``apply``, a 0-dim bool tensor, makes an update conditional on the device:
+where it is False every parameter and moment keeps its bits (a select, not
+a multiply by 0, which would turn a non-finite update into NaN), with no
+host sync.  The train step passes "loss and grad norm are finite", so a
+step that the fault-tolerant loop skips leaves the tensors as they were;
+where it is True the bits are those of an unconditional update.
 """
 from __future__ import annotations
 
@@ -24,15 +31,23 @@ def sgdm_init(params: Sequence[torch.Tensor]) -> Dict:
     return {"mom": [torch.zeros_like(p, dtype=f32) for p in params]}
 
 
+def _commit(dst: torch.Tensor, new: torch.Tensor, apply) -> None:
+    """dst = where(apply, new, dst), in place."""
+    torch.where(apply, new.to(dst.dtype), dst, out=dst)
+
+
 @torch.no_grad()
-def sgdm_update(grads, state, params, *, lr, momentum=0.98,
+def sgdm_update(grads, state, params, *, lr, apply, momentum=0.98,
                 weight_decay=0.0):
     for g, m, p in zip(grads, state["mom"], params):
         g = g.to(f32)
         if weight_decay:
             g = g + weight_decay * p.to(f32)
-        m.mul_(momentum).add_(g)
-        p.copy_(p.to(f32) - lr * m)
+        m_new = m.mul(momentum).add_(g)
+        p_new = p.to(f32) - lr * m_new
+        _commit(m, m_new, apply)
+        del m_new
+        _commit(p, p_new, apply)
     return params, state
 
 
@@ -46,8 +61,8 @@ def adamw_init(params: Sequence[torch.Tensor]) -> Dict:
 
 
 @torch.no_grad()
-def adamw_update(grads, state, params, *, lr, b1=0.9, b2=0.95, eps=1e-8,
-                 weight_decay=0.0):
+def adamw_update(grads, state, params, *, lr, apply, b1=0.9, b2=0.95,
+                 eps=1e-8, weight_decay=0.0):
     t = state["t"] + 1
     # the bias corrections in f32, as the JAX package computes them
     one, tf = np.float32(1.0), np.float32(t)
@@ -55,12 +70,16 @@ def adamw_update(grads, state, params, *, lr, b1=0.9, b2=0.95, eps=1e-8,
     bc2 = float(one - np.float32(b2) ** tf)
     for g, m, v, p in zip(grads, state["m"], state["v"], params):
         g = g.to(f32)
-        m.mul_(b1).add_(g, alpha=1 - b1)
-        v.mul_(b2).addcmul_(g, g, value=1 - b2)
-        step = (m / bc1) / ((v / bc2).sqrt_().add_(eps))
+        m_new = m.mul(b1).add_(g, alpha=1 - b1)
+        v_new = v.mul(b2).addcmul_(g, g, value=1 - b2)
+        del g
+        step = (m_new / bc1) / ((v_new / bc2).sqrt_().add_(eps))
+        _commit(m, m_new, apply)
+        _commit(v, v_new, apply)
+        del m_new, v_new
         if weight_decay:
             step.add_(p.to(f32), alpha=weight_decay)
-        p.copy_(p.to(f32) - lr * step)
+        _commit(p, p.to(f32) - lr * step, apply)
     state["t"] = t
     return params, state
 

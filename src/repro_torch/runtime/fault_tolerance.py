@@ -11,10 +11,7 @@ The port of ``repro/runtime/fault_tolerance.py``:
     in a row, rolls back to the last checkpoint.
 
 ``state["step"]`` is an int.  The step function returns the new state; a
-skipped step keeps the old one, which undoes the step only where the
-step function built new tensors.  The LM train step updates its
-parameters in place (``core/steps.py``), so its non-finite update stays
-until the rollback restores the last checkpoint.
+skipped step keeps the old one.
 """
 from __future__ import annotations
 

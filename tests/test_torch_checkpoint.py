@@ -131,6 +131,91 @@ def test_preemption_checkpoint(tmp_path):
     assert at == step == restored["step"] == 4
 
 
+class NoCheckpoints:
+    """A checkpointer that keeps nothing (the loop below never rolls
+    back)."""
+
+    def save(self, step, state, blocking=True):
+        pass
+
+    def wait(self):
+        pass
+
+    def restore_latest_good(self, like, device=None):
+        raise AssertionError("the loop rolled back: the steps after the "
+                             "skipped one were non-finite too")
+
+
+@pytest.mark.parametrize("optimizer", ["sgdm", "adamw"])
+def test_skipped_non_finite_lm_step_leaves_no_update(optimizer,
+                                                     monkeypatch):
+    """The loop's "skip" of a non-finite LM step keeps nothing of it
+    (ROADMAP section 3, fault (B)).  Reduced qwen3-1.7b, f32, Horn on:
+    the loss and so every gradient of batch 1 are made NaN, the guard
+    skips it, and the run ends bit-equal to the same loop over the
+    batches with batch 1 dropped: masters, moments, AdamW's ``t`` and
+    ``step``."""
+    from repro_torch.configs import base as tbase
+    from repro_torch.core import steps as S
+    from repro_torch.data import pipeline as tpipe
+    from repro_torch.models import api
+
+    run = tbase.RunConfig(
+        model=tbase.reduced(tbase.get_model_config("qwen3-1.7b")),
+        shape=tbase.ShapeConfig("t", "train", 16, 2),
+        horn=tbase.HornConfig(num_groups=2, block_size=32),
+        optimizer=optimizer, learning_rate=0.01, compute_dtype="float32",
+        seed=3)
+    pipe = tpipe.SyntheticTokenPipeline(tpipe.TokenPipelineConfig(
+        vocab_size=run.model.vocab_size, seq_len=16, global_batch=2,
+        seed=3))
+    bad, steps = 1, 4
+    poisoned = {"now": False}
+    model_loss = api.model_loss
+
+    def nan_loss(*args, **kw):
+        loss, metrics = model_loss(*args, **kw)
+        if poisoned["now"]:
+            loss = loss * float("nan")
+            metrics = dict(metrics, loss=loss)
+        return loss, metrics
+
+    monkeypatch.setattr(api, "model_loss", nan_loss)
+
+    def train(batch_at, num_steps):
+        step = S.make_train_step(run, "cpu")
+
+        def step_fn(state, batch):
+            poisoned["now"] = batch["poisoned"]
+            return step(state, batch)
+
+        guard = NanGuard()
+        state, at, reason = fault_tolerant_loop(
+            state=S.init_state(run, "cpu"), step_fn=step_fn,
+            batch_at=batch_at, checkpointer=NoCheckpoints(),
+            num_steps=num_steps, checkpoint_every=100,
+            preemption=PreemptionHandler(signals=()), nan_guard=guard)
+        assert reason == "completed" and at == num_steps
+        return state, guard.total_skipped
+
+    def batch(i):
+        return dict(pipe.batch_at(i), poisoned=i == bad)
+
+    skipped, n_skipped = train(batch, steps)
+    dropped, n_dropped = train(
+        lambda i: batch(i if i < bad else i + 1), steps - 1)
+    assert (n_skipped, n_dropped) == (1, 0)
+    assert skipped["step"] == dropped["step"] == steps - 1
+    assert skipped["opt"].get("t") == dropped["opt"].get("t")
+    for name in ("mom", "m", "v"):
+        for a, b in zip(skipped["opt"].get(name, []),
+                        dropped["opt"].get(name, [])):
+            assert torch.equal(a, b), name
+    for (name, a), b in zip(skipped["params"].named_parameters(),
+                            dropped["params"].parameters()):
+        assert torch.isfinite(a).all() and torch.equal(a, b), name
+
+
 def test_flatten_gives_jax_keystr_paths():
     jax = pytest.importorskip("jax")
     tree = {"b": [np.zeros(2), {"x": np.ones(1)}], "a": {"z": np.ones(3),

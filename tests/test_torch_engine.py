@@ -24,6 +24,8 @@ from repro_torch.models.params import load_jax_flat  # noqa: E402
 from repro_torch.serving import (Engine, EngineConfig, FCFSScheduler,  # noqa
                                  PagePool, PagePoolOOM, Request)
 
+ARCHS = ["qwen3-1.7b", "gemma2-27b", "qwen1.5-4b", "gemma3-4b"]
+
 
 def counting_clock():
     t = [0.0]
@@ -38,7 +40,7 @@ def counting_clock():
 def models():
     """arch -> (JAX cfg, JAX params, port cfg, port model), reduced."""
     out = {}
-    for arch in ("qwen3-1.7b", "gemma2-27b"):
+    for arch in ARCHS:
         jcfg = jax_reduced(jax_config(arch))
         params = jax_api.model_init(jax.random.key(0), jcfg)
         flat = {jax.tree_util.keystr(p): np.asarray(leaf) for p, leaf
@@ -57,7 +59,7 @@ def _serve(engine, prompts, max_new):
 
 
 @pytest.mark.parametrize("budget", [256, 3, 5])
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_streams_match_jax_engine(models, arch, budget):
     """2 slots, 3 requests (the third joins mid-flight), f32 pools and
     compute with the config's bf16 residual stream, as in the JAX test;

@@ -20,9 +20,10 @@ VARIANTS = {"causal": dict(causal=True),
             "window": dict(causal=True, window=64),
             "softcap": dict(causal=True, softcap=50.0),
             "full": dict(causal=False)}
-# the sweep of tests/test_kernels.py, plus a ragged S = 7
+# the sweep of tests/test_kernels.py, plus a ragged S = 7 and gemma3-4b's
+# head dim 256 (its 8/4 heads at a ragged S 130, and MQA)
 GEOMS = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 128, 128),
-         (2, 4, 2, 7, 32)]
+         (2, 4, 2, 7, 32), (1, 8, 4, 130, 256), (1, 2, 1, 64, 256)]
 
 
 def case(B, H, KH, S, D, seed):
@@ -91,6 +92,14 @@ def test_cpu_tensors_never_reach_the_kernels():
                                    torch.zeros(1, 2, 9), do, scale=0.2)
 
 
+def test_route_names_the_kernels_and_head_dim():
+    """The launch counter's route: bf16 on the tensor cores, f32 on the
+    CUDA cores, and the head dim (gemma3-4b's 256 among them)."""
+    assert kernel.route(torch.bfloat16, 256) == "wgmma_d256"
+    assert kernel.route(torch.float32, 128) == "cuda_core_d128"
+    assert 256 in kernel.HEAD_DIMS
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -106,6 +115,9 @@ CUDA_GEOMS = [
     (1, 32, 16, 200, 128, dict(causal=True, window=64, softcap=50.0)),
     (1, 8, 2, 100, 96, dict(causal=False, softcap=30.0)),
     (1, 2, 1, 1, 128, dict(causal=True)),
+    (1, 8, 4, 130, 256, dict(causal=True, window=64, softcap=50.0)),
+    (1, 2, 1, 64, 256, dict(causal=False)),
+    (2, 8, 4, 300, 256, dict(causal=True)),
 ]
 
 
@@ -152,6 +164,8 @@ def test_autograd_function_launches_each_kernel_once(cuda):
     out.backward(torch.tensor(arrays[3], device=cuda))
     assert build.LAUNCHES[kernel.FWD] == 1
     assert build.LAUNCHES[kernel.BWD] == 1
+    for name in (kernel.FWD, kernel.BWD):
+        assert build.ROUTE_LAUNCHES[f"{name}:cuda_core_d64"] == 1
     ops.flash_attention(*cpu, **kw).backward(torch.tensor(arrays[3]))
     for a, b in zip(dev, cpu):
         torch.testing.assert_close(a.grad.cpu(), b.grad, atol=1e-4,
@@ -201,7 +215,7 @@ def tc_check(cuda, B, KH, G, Sq, Skv, D, kw, seed):
 @pytest.mark.parametrize("variant", list(TC_VARIANTS))
 @pytest.mark.parametrize("G", [1, 2, 4])
 @pytest.mark.parametrize("S", [1, 7, 65, 1000, 1024])
-@pytest.mark.parametrize("D", [32, 64, 96, 128])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
 def test_bf16_tensor_core_kernels_match_plain(cuda, D, S, G, variant):
     """Sq == Skv == S, two kv heads of G query heads each."""
     tc_check(cuda, 1, 2, G, S, S, D, TC_VARIANTS[variant],
@@ -212,7 +226,7 @@ def test_bf16_tensor_core_kernels_match_plain(cuda, D, S, G, variant):
 @pytest.mark.parametrize("variant", list(TC_VARIANTS))
 @pytest.mark.parametrize("Sq,Skv", [(7, 1000), (1000, 65), (130, 257),
                                     (1, 64), (257, 130)])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_bf16_tensor_core_kernels_sq_ne_skv(cuda, D, Sq, Skv, variant):
     """Sq != Skv: positions count from 0 in both sequences, so with Sq <
     Skv under the causal mask the keys past Sq - 1 get zero dk and dv, and
@@ -227,14 +241,16 @@ def test_bf16_tensor_core_kernels_sq_ne_skv(cuda, D, Sq, Skv, variant):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 256])
 @pytest.mark.parametrize("kw", [dict(causal=True),
                                 dict(causal=True, window=100, softcap=30.0)],
                          ids=["causal", "window-softcap"])
-def test_bf16_backward_is_bitwise_repeatable(cuda, kw):
+def test_bf16_backward_is_bitwise_repeatable(cuda, kw, D):
     """No atomics: two backward runs on the same inputs give the same bits
-    (GQA, S 1000, D 128)."""
+    (GQA, S 1000; at D 256 the two warpgroups' exchange through shared
+    memory too)."""
     gen = torch.Generator(cuda).manual_seed(7)
-    B, H, KH, S, D = 2, 8, 2, 1000, 128
+    B, H, KH, S = 2, 8, 2, 1000
     q, do = (torch.randn(B, H, S, D, generator=gen, device=cuda)
              .to(torch.bfloat16) for _ in range(2))
     k, v = (torch.randn(B, KH, S, D, generator=gen, device=cuda)

@@ -24,7 +24,7 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.params import load_jax_flat  # noqa: E402
 
-ARCHS = ["qwen3-1.7b", "gemma2-27b"]
+ARCHS = ["qwen3-1.7b", "gemma2-27b", "qwen1.5-4b", "gemma3-4b"]
 
 
 def flatten(params):

@@ -48,6 +48,7 @@ def test_port_imports_with_jax_blocked():
               "core.parallel_dropout", "core.submodel", "core.steps",
               "core.neuron_centric", "core.group_sync",
               "core.collective_trainer", "configs.horn_mnist",
+              "configs.qwen1p5_4b", "configs.gemma3_4b",
               "checkpoint.checkpointer", "runtime.fault_tolerance",
               "benchmarks.mnist_repro", "optim.sgd", "optim.compression",
               "data.pipeline", "data.mnist"):
@@ -148,7 +149,8 @@ def test_configs_match_the_jax_package():
     pytest.importorskip("jax")
     from repro.configs import base as jbase
 
-    for arch in ("qwen3-1.7b", "gemma2-27b", "mamba2-2.7b"):
+    for arch in ("qwen3-1.7b", "qwen1.5-4b", "gemma2-27b", "gemma3-4b",
+                 "mamba2-2.7b"):
         ours, theirs = get_model_config(arch), jbase.get_model_config(arch)
         assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
         assert dataclasses.asdict(reduced(ours)) == \

@@ -1,7 +1,8 @@
 """The port's training path against the JAX package's, on the same weights.
 
-Reduced qwen3-1.7b and gemma2-27b configs in f32 (residual stream and
-compute), weights from ``repro.models.api.model_init`` carried over with
+Reduced qwen3-1.7b, gemma2-27b, qwen1.5-4b (QKV bias, untied unembedding)
+and gemma3-4b (5:1 local:global, qk-norm, gelu) configs in f32 (residual
+stream and compute), weights from ``repro.models.api.model_init`` carried over with
 ``load_jax_flat``, batches from both packages' synthetic pipelines.  The
 JAX side runs its ``ref`` kernels on the CPU, the port its plain versions.
 With Horn on, the port draws JAX's own uniforms (``jax_uniform_horn``), so
@@ -30,7 +31,7 @@ from repro_torch.models.params import load_jax_flat, to_jax_flat  # noqa
 from repro_torch.optim.sgd import make_optimizer  # noqa: E402
 from test_torch_parallel_dropout import jax_uniform_horn  # noqa: E402
 
-ARCHS = ["qwen3-1.7b", "gemma2-27b"]
+ARCHS = ["qwen3-1.7b", "gemma2-27b", "qwen1.5-4b", "gemma3-4b"]
 B, S = 4, 32
 HORN = dict(num_groups=2, block_size=32, mask_attention_heads=True)
 
