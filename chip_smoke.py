@@ -131,6 +131,25 @@ Phases, each of which fails the script (non-zero exit, no result line):
               finite losses, the first near its random-init value, step
               wall, tok/s, peak memory, a profiled step with flash's
               device time.  Then each serves phase 5's load in bf16.
+ 12. bank     Horn's multi-submodel serving and sampling at T > 0.  (a)
+              qwen3-1.7b at full width, 2 layers, f32: a ModelBank of 3
+              circuits (keep 0.5, 16-unit blocks); routed streams (three
+              circuits co-batched) against dedicated ``bank.subset([g])``
+              engines, greedy and at temperature 0.8, the logits behind
+              them within 1e-4 (where a stream parts, the position and
+              the top-2 gap are printed); two T 0.8 runs with an ensemble
+              bit-equal; mean-logit and majority-vote ensembles against a
+              plain dense-cache recompute of each circuit combined on the
+              host; the card's threefry keys, bits and uniforms equal to
+              the CPU's.  (b) qwen3-1.7b at full width (28 layers, bf16),
+              4 circuits, ``least_loaded`` routing, a quarter of the
+              requests mean-logit ensembles, phase 5's load at T 0 and at
+              T 0.8: every sequence finishes, an ensemble's members share
+              one stream, both paged kernels launch once a layer a tick on
+              the routes phase 5 asserts (counted from 0 around each run);
+              tok/s, TTFT, tick wall, co-batch ratio, tokens per circuit,
+              the bank's device bytes and a profiled decode tick with an
+              ensemble printed.
 Phase 3 also holds the SSD chunk scan against its plain version (y and the
 final state): the JAX sweep's shapes, S 257 (chunks of 1 token), two more
 shapes of the wgmma route and the full-width shape B 2, S 2048, H 80, P
@@ -962,13 +981,20 @@ def device_events(torch, fn):
     return []
 
 
-def phase_tick_profile(torch, eng, kernel):
+def phase_tick_profile(torch, eng, kernel, ensembles: int = 0):
     """Where a decode tick's time goes: host wall per tick against the
     device time of the kernels it launches (torch.profiler), 8 slots at
-    context ~100.  Reports "not measured" when the profiler sees no device
-    activity; never changes what the engine computes."""
+    context ~100: ``ensembles`` mean-logit groups over a bank engine's
+    circuits first, solo requests in the other slots.  Reports "not
+    measured" when the profiler sees no device activity; never changes
+    what the engine computes."""
     rng = np.random.default_rng(5)
-    for _ in range(eng.ecfg.num_slots):
+    used = 0
+    for _ in range(ensembles):
+        eng.submit(rng.integers(1, eng.cfg.vocab_size, (96,)), 32,
+                   ensemble="mean_logit")
+        used += eng.bank.num_submodels
+    for _ in range(eng.ecfg.num_slots - used):
         eng.submit(rng.integers(1, eng.cfg.vocab_size, (96,)), 32)
     while eng.sched.waiting or any(r.in_prefill
                                    for r in eng.sched.running.values()):
@@ -984,7 +1010,9 @@ def phase_tick_profile(torch, eng, kernel):
     events = device_events(torch, lambda: [eng.step() for _ in range(n)])
     eng.run()
     busy = sum(e.self_device_time_total for e in events) / n / 1e3
-    log(f"  decode tick (8 slots, context ~100): {wall_ms:.2f} ms wall")
+    log(f"  decode tick (8 slots, context ~100"
+        f"{f', {ensembles} ensemble' if ensembles else ''}): "
+        f"{wall_ms:.2f} ms wall")
     if busy <= 0:
         log("  device time per tick: not measured (no device events)")
         return out
@@ -2424,6 +2452,349 @@ def phase_new_archs(torch, dev, build, kernel, fkernel, fref):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: Horn multi-submodel serving (ModelBank circuits, Router,
+# on-device ensembles) and sampling at temperature > 0
+# ---------------------------------------------------------------------------
+BANK_HORN = dict(enabled=True, keep_hidden=0.5, keep_input=1.0,
+                 block_size=16)
+LOGIT_TOL = 1e-4                 # f32 logits of one position, two batches
+
+
+class LogitTap:
+    """Records the last-position logits the unified step computes for each
+    running request, keyed by (request id, stream position they predict):
+    wraps ``models.api.paged_step`` while ``eng`` runs.  Only the parity
+    checks use it (one host copy a tick)."""
+
+    def __init__(self, eng):
+        from repro_torch.models import api
+
+        self.store, self._api, self._orig = {}, api, api.paged_step
+        tap = self
+
+        def paged_step(*args, **kw):
+            logits, cache = tap._orig(*args, **kw)
+            ends = (args[3] + args[4]).tolist()
+            lens = args[4].tolist()
+            rows = logits[:, 0].float().cpu()
+            for slot, req in eng.sched.running.items():
+                if lens[slot]:
+                    tap.store[(req.id, ends[slot])] = rows[slot]
+            return logits, cache
+
+        self._wrapped = paged_step
+
+    def __enter__(self):
+        self._api.paged_step = self._wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self._api.paged_step = self._orig
+
+
+def first_parting(a, b):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def top2_gap(torch, logits) -> float:
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def compare_streams(torch, what, key, got, want, tap_got, tap_want):
+    """Two streams of one prompt (``key``: the first engine's request id,
+    the prompt length, the second's request id) and the logits behind
+    them: max |d| of the logits at every position both computed on the
+    same prefix, held to ``LOGIT_TOL``; where the streams part, the
+    position and the top-2 gap there are printed.  Returns (equal,
+    max |d|)."""
+    rid, plen, rid2 = key
+    j = first_parting(got, want)
+    upto = min(len(got), len(want)) if j is None else j + 1
+    d = 0.0
+    for i in range(upto):
+        a, b = tap_got.get((rid, plen + i)), tap_want.get((rid2, plen + i))
+        if a is not None and b is not None:
+            d = max(d, float((a - b).abs().max()))
+    if j is not None:
+        gap = top2_gap(torch, tap_got[(rid, plen + j)])
+        log(f"    {what}: streams part at token {j} ({got[j]} vs "
+            f"{want[j]}), top-2 logit gap there {gap:.3e}")
+    assert d <= LOGIT_TOL, (what, d)
+    return j is None, d
+
+
+def phase_bank_parity(torch, dev):
+    """Phase 12(a): qwen3-1.7b at full width, 2 layers, f32 (TF32 off),
+    a bank of 3 circuits at keep 0.5 in 16-unit blocks.  Routed streams
+    (three circuits co-batched) against dedicated ``bank.subset([g])``
+    engines, greedy and at temperature 0.8; two sampled runs bit-equal;
+    mean-logit and majority-vote ensembles against a plain recompute of
+    each circuit (dense-cache decode through ``lm_forward(serve_masks=)``,
+    no paged kernel), combined on the host; the card's threefry bits
+    against the CPU's."""
+    from repro_torch.configs.base import HornConfig, get_model_config
+    from repro_torch.core import prng
+    from repro_torch.models import api
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import Engine, EngineConfig, ModelBank, Router
+
+    out = {}
+    # the card's threefry against the CPU's: integer math, so exact
+    keys = {d: prng.fold_in(prng.fold_in(prng.key(2 ** 31 - 1, d),
+                                         torch.arange(8, device=d) * 7),
+                            torch.arange(8, device=d) + 3)
+            for d in ("cpu", dev)}
+    assert torch.equal(keys[dev].cpu(), keys["cpu"])
+    for what, fn in (("bits", prng.random_bits), ("uniforms", prng.uniform)):
+        got = {d: fn(keys[d], (151936,)) for d in keys}
+        assert torch.equal(got[dev].cpu(), got["cpu"]), what
+    logits = torch.randn(8, 151936,
+                         generator=torch.Generator().manual_seed(0))
+    draws = {d: prng.categorical(keys[d], logits.to(d) / 0.8).cpu()
+             for d in keys}
+    cat_equal = int((draws[dev] == draws["cpu"]).sum())
+    log(f"  threefry: keys, 8 x 151936 bits and uniforms on the card == the "
+        f"CPU's; categorical draws equal {cat_equal}/8")
+    out["threefry_card_eq_cpu"] = True
+    out["categorical_equal"] = cat_equal
+
+    cfg = dataclasses.replace(get_model_config("qwen3-1.7b"), num_layers=2,
+                              dtype="float32")
+    params = init_params(cfg, 1234, device=dev, dtype=torch.float32)
+    bank = ModelBank(cfg, HornConfig(**BANK_HORN), 3, seed=0)
+    max_new = 8
+    base = EngineConfig(num_slots=4, num_pages=64, page_size=16,
+                        max_prompt_len=64, max_new_tokens=max_new,
+                        token_budget=32, policy="on_demand",
+                        kv_dtype="float32", compute_dtype="float32")
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 23, 40)]
+
+    def routed(temperature, ensemble=None):
+        eng = Engine(cfg, params, dataclasses.replace(
+            base, temperature=temperature), bank=bank,
+            router=Router(3, policy="explicit"), device=dev)
+        with LogitTap(eng) as tap:
+            reqs = [eng.submit(p, max_new, submodel_id=g)
+                    for g, p in enumerate(prompts)]
+            group = eng.submit(prompts[1], max_new, ensemble=ensemble) \
+                if ensemble else None
+            eng.run()
+        eng.pool.check_invariants()
+        assert eng.stats.ticks_cobatched >= 1
+        return eng, reqs, group, tap.store
+
+    for temperature in (0.0, 0.8):
+        eng, reqs, group, tap = routed(
+            temperature, "mean_logit" if temperature else None)
+        equal, worst = 0, 0.0
+        for g, (req, p) in enumerate(zip(reqs, prompts)):
+            ded = Engine(cfg, params, dataclasses.replace(
+                base, temperature=temperature), bank=bank.subset([g]),
+                router=Router(1, policy="explicit"), device=dev)
+            ded._next_id = req.id             # same (request, step) keys
+            with LogitTap(ded) as dtap:
+                r = ded.submit(p, max_new, submodel_id=0)
+                ded.run()
+            same, d = compare_streams(
+                torch, f"T {temperature} circuit {g}", (req.id, len(p), r.id),
+                list(req.out_tokens), list(r.out_tokens), tap, dtap.store)
+            equal += same
+            worst = max(worst, d)
+        line = (f"  routed (3 circuits co-batched, co-batch ratio "
+                f"{eng.stats.cobatch_ratio:.0%}) vs dedicated engines at T "
+                f"{temperature}: {equal}/3 streams identical, logits max "
+                f"|d| {worst:.2e} (tol {LOGIT_TOL:g})")
+        res = {"streams_equal": equal, "logit_max_abs_diff": worst,
+               "cobatch_ratio": eng.stats.cobatch_ratio}
+        if temperature:
+            again = routed(temperature, "mean_logit")
+            first = [list(r.out_tokens) for r in reqs] + [group.out_tokens]
+            second = [list(r.out_tokens) for r in again[1]] + \
+                [again[2].out_tokens]
+            assert first == second, (first, second)
+            line += "; two runs (with a mean-logit ensemble) bit-equal"
+            res["two_runs_equal"] = True
+            del again
+        log(line)
+        out[f"routed_t{temperature}"] = res
+        del eng
+        gc.collect()
+
+    # ensembles against the plain recompute, combined on the host
+    prompt = prompts[1]
+    L, G = len(prompt), bank.num_submodels
+    masks = [{k: torch.from_numpy(v[[g]]).to(dev)
+              for k, v in bank.masks.items()} for g in range(G)]
+    for combine in ("mean_logit", "majority_vote"):
+        eng = Engine(cfg, params, base, bank=bank, device=dev)
+        with LogitTap(eng) as tap:
+            group = eng.submit(prompt, max_new, ensemble=combine)
+            eng.run()
+        got = group.out_tokens
+        assert all(list(m.out_tokens) == got for m in group.members)
+        want, worst = [], 0.0
+        with torch.inference_mode():
+            ctx = T.init_cache(cfg, 1, L + max_new, dtype=torch.float32,
+                               device=dev)
+            for i, t in enumerate(prompt[:-1]):  # the dense-parent context
+                _, ctx = api.decode_step(
+                    params, ctx, torch.tensor([[int(t)]], device=dev), i,
+                    cfg)
+            caches = [[tuple(t.clone() for t in e) for e in ctx]
+                      for _ in range(G)]
+            feed = int(prompt[-1])
+            for i in range(max_new):
+                rows = []
+                for g in range(G):
+                    lg, caches[g] = api.decode_step(
+                        params, caches[g], torch.tensor([[feed]], device=dev),
+                        L - 1 + i, cfg, serve_masks=masks[g])
+                    rows.append(lg[0].float().cpu())
+                    mine = tap.store.get((group.members[g].id, L + i))
+                    if mine is not None:
+                        worst = max(worst, float((mine - rows[-1]).abs().max()))
+                if combine == "mean_logit":
+                    want.append(int(torch.argmax(torch.stack(rows).mean(0))))
+                else:
+                    votes = torch.bincount(
+                        torch.stack([torch.argmax(r) for r in rows]),
+                        minlength=cfg.vocab_size)
+                    want.append(int(torch.argmax(votes)))
+                if want[-1] != got[i]:
+                    log(f"    {combine}: parts from the recompute at token "
+                        f"{i} ({got[i]} vs {want[-1]}), top-2 gap of the "
+                        f"mean logits "
+                        f"{top2_gap(torch, torch.stack(rows).mean(0)):.3e}")
+                    break
+                feed = want[-1]
+        assert worst <= LOGIT_TOL, (combine, worst)
+        equal = got == want
+        log(f"  {combine} ensemble of 3 circuits (prompt {L}, context "
+            f"prefilled once by the dense parent, "
+            f"{eng.stats.prefill_tokens} prefill tokens): stream "
+            f"{'==' if equal else '!='} the plain recompute combined on the "
+            f"host; member logits max |d| {worst:.2e}")
+        out[f"ensemble_{combine}"] = {"stream_equal": equal,
+                                      "logit_max_abs_diff": worst}
+        del eng
+        gc.collect()
+    del params
+    return out
+
+
+def phase_bank_serve(torch, dev, build, kernel, params, temperature):
+    """Phase 12(b): qwen3-1.7b at full width (28 layers, bf16) as a bank
+    of 4 circuits at keep 0.5 (16-unit blocks), ``least_loaded`` routing,
+    a quarter of the requests mean-logit ensembles over all 4, serving
+    phase 5's load (2 warm-up requests, then 16 at t=0, 32 new tokens
+    each) at ``temperature``.  Every sequence finishes in-vocabulary, an
+    ensemble's members carry one stream, each tick launches one paged
+    kernel a layer on the routes phase 5 asserts; tok/s, TTFT, tick wall,
+    co-batch ratio, tokens per circuit and a profiled tick printed."""
+    from repro_torch.configs.base import HornConfig, get_model_config
+    from repro_torch.launch.serve import (drive, make_requests, summarize,
+                                          with_ensembles)
+    from repro_torch.serving import Engine, EngineConfig, ModelBank, Router
+
+    cfg = get_model_config("qwen3-1.7b")
+    G, gen = 4, 32
+    bank = ModelBank(cfg, HornConfig(**BANK_HORN), G, seed=0)
+    ecfg = EngineConfig(num_slots=8, num_pages=512, page_size=16,
+                        max_prompt_len=256, max_new_tokens=gen,
+                        token_budget=256, policy="on_demand",
+                        kv_dtype="bfloat16", compute_dtype="bfloat16",
+                        temperature=temperature, seed=0)
+    eng = Engine(cfg, params, ecfg, bank=bank,
+                 router=Router(G, policy="least_loaded"), device=dev)
+    rng = np.random.default_rng(0)            # phase 5's draws
+    warm = [(0.0, p, 4) for _, p, _ in make_requests(
+        2, cfg.vocab_size, rng, stream="batch", max_prompt=256, gen=4)]
+    pending = with_ensembles([(0.0, p, gen) for _, p, _ in make_requests(
+        16, cfg.vocab_size, rng, stream="batch", max_prompt=256, gen=gen)],
+        rng, 0.25, "mean_logit")
+    drive(eng, [warm[0] + (None,), warm[1] + ("mean_logit",)])
+    eng.reset_stats()
+    build.reset_launches()
+    wall = drive(eng, pending)
+    launches = {n: build.LAUNCHES[n] for n in (kernel.NAME,
+                                               kernel.NAME_DECODE)}
+    chunk_route = kernel.chunk_route(
+        torch.bfloat16, False, cfg.head_dim, ecfg.page_size,
+        cfg.num_heads // cfg.num_kv_heads)
+    chunk_on = build.ROUTE_LAUNCHES.get(f"{kernel.NAME}:{chunk_route}", 0)
+    decode_route, splits = engine_decode_route(kernel, eng, dev)
+    decode_on = build.ROUTE_LAUNCHES.get(
+        f"{kernel.NAME_DECODE}:{decode_route}", 0)
+    r = summarize(eng, wall)
+    s = eng.stats
+    n_ens = sum(1 for p in pending if p[3])
+    assert r["requests"] == len(pending), r
+    assert r["sequences"] == len(pending) + (G - 1) * n_ens, r
+    for req in eng.sched.finished:
+        assert len(req.out_tokens) == gen, (req.id, len(req.out_tokens))
+        assert all(0 <= t < cfg.vocab_size for t in req.out_tokens)
+        if req.group is not None:
+            assert list(req.out_tokens) == req.group.out_tokens
+    assert sum(launches.values()) == cfg.num_layers * s.steps > 0, launches
+    assert launches[kernel.NAME_DECODE] == s.decode_launches == \
+        cfg.num_layers * s.decode_ticks > 0, (launches, s.decode_ticks)
+    assert chunk_on == launches[kernel.NAME] > 0, (chunk_on, launches)
+    assert decode_on == launches[kernel.NAME_DECODE], (decode_on, launches)
+    assert s.cobatch_ratio > 0 and set(s.tokens_by_submodel) == set(range(G))
+    assert eng.router.loads == [0] * G
+    r.update(temperature=temperature, ensembles=n_ens, launches=launches,
+             chunk_route=chunk_route, decode_route=decode_route,
+             decode_splits=splits, tick_ms=wall / max(s.steps, 1) * 1e3,
+             tokens_by_submodel=dict(s.tokens_by_submodel),
+             bank_device_bytes=bank.device_bytes())
+    log(f"  T {temperature}: {r['requests']} requests ({n_ens} mean-logit "
+        f"ensembles of {G}, {r['sequences']} sequences), {r['ticks']} "
+        f"ticks: {r['tok_s']:.1f} tok/s ({r['device_tok_s']:.1f} device "
+        f"tok/s)  TTFT p50 {r['ttft_p50_s'] * 1e3:.1f} ms  p99 "
+        f"{r['ttft_p99_s'] * 1e3:.1f} ms  tick {r['tick_ms']:.2f} ms  "
+        f"wall {wall:.3f} s")
+    log(f"    co-batch ratio {s.cobatch_ratio:.0%}; tokens by circuit "
+        f"{dict(sorted(s.tokens_by_submodel.items()))}; bank on the card "
+        f"{bank.device_bytes():,} B ((G+1) x 28 x 6144 x 4)")
+    log(f"    {kernel.NAME_DECODE} launches {launches[kernel.NAME_DECODE]}"
+        f" = {cfg.num_layers} x {s.decode_ticks} decode-only ticks, all on "
+        f"'{decode_route}' (NS {splits}); {kernel.NAME} launches "
+        f"{launches[kernel.NAME]} = {cfg.num_layers} x "
+        f"{s.steps - s.decode_ticks} ticks with prompt chunks, all on "
+        f"'{chunk_route}'")
+    r["tick_profile"] = phase_tick_profile(torch, eng, kernel, ensembles=1)
+    del eng
+    gc.collect()
+    return r
+
+
+def phase_bank(torch, dev, build, kernel):
+    """Phase 12: 12(a) parity, then 12(b) at temperature 0 and 0.8."""
+    from repro_torch.configs.base import get_model_config
+    from repro_torch.models.params import init_params
+
+    t0 = time.perf_counter()
+    out = {"parity": phase_bank_parity(torch, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(get_model_config("qwen3-1.7b"), 0, device=dev,
+                         dtype=torch.bfloat16)
+    for temperature in (0.0, 0.8):
+        out[f"serve_t{temperature}"] = phase_bank_serve(
+            torch, dev, build, kernel, params, temperature)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 12: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2543,6 +2914,10 @@ def main() -> int:
         "a superblock against the plain path, training, serving")
     new_archs = phase_new_archs(torch, dev, build, kernel, fkernel, fref)
 
+    phase("phase 12: Horn multi-submodel serving, qwen3-1.7b: a bank of "
+          "circuits, routing, on-device ensembles, sampling at T > 0")
+    bank = phase_bank(torch, dev, build, kernel)
+
     # headline shapes: the prompt-chunk tick for the chunk kernel (decode
     # ticks go to the decode kernel), the decode tick for the decode kernel
     kernels = []
@@ -2563,6 +2938,10 @@ def main() -> int:
             "library_ms": d["library_ms"], "headline_shape": shape,
             "shapes": shapes[name],
         })
+    for k in kernels:                   # phase 12's own runs of the path
+        k["launches_phase12"] = {
+            f"T {t}": bank[f"serve_t{t}"]["launches"][k["name"]]
+            for t in (0.0, 0.8)}
     kernels[0]["launches_by_kernel"] = {
         served["chunk_route"]: served["chunk_route_launches"],
         "wgmma_int8 (phase 5b)":
@@ -2618,7 +2997,7 @@ def main() -> int:
     })
     line = {"kernels": kernels, "card": card, "serve": served,
             "train": trained, "horn_mlp": horn_mlp, "ssm": ssm,
-            "mnist": mnist, "new_archs": new_archs,
+            "mnist": mnist, "new_archs": new_archs, "bank": bank,
             "flash_host_us": flash["host_us"]}
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -12,7 +12,7 @@ reductions over dim 0:
               groups average parameters and momentum (Downpour's stand-in).
 
 ``psum_mean`` and ``merge_grads``, the merges across processes, wait for
-the group topologies on ``torch.distributed`` (ROADMAP slice 2, item 10).
+the group topologies on ``torch.distributed`` (ROADMAP slice 5, item 10).
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Step factories: the train step, prefill and dense-cache decode, the
-unified paged serving step (greedy) and the device-side KV page copy.
+unified paged serving step (greedy or sampled, over one model or a bank
+of circuits) and the device-side KV page copy.
 
 PyTorch runs eagerly, so a "step" is a plain function; nothing is traced
 or compiled per shape.  Serving casts the parameters to the compute dtype
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import prng
 from repro_torch.core.parallel_dropout import make_horn_state
 from repro_torch.models import api
 from repro_torch.models import transformer as T
@@ -227,26 +229,95 @@ def make_decode_step(run: RunConfig, device="cuda"):
     return decode_step
 
 
-def make_unified_paged_step(cfg: ModelConfig):
-    """THE serving step, greedy: one call per engine tick, whatever the tick
-    holds (decode tokens and prompt chunks packed into [B, C]).  Appends
-    every token's K/V to the pools in place, runs paged attention over
-    them and returns the argmax token of each slot's last valid chunk
-    position (the verify window of width S_v == 1; ties go to the first
-    index).  Idle slots and mid-prompt chunks produce tokens the engine
-    discards.
+def _segment_sum(x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """Rows of ``x`` [B, ...] summed into B segments (``seg`` [B] holds each
+    row's segment) in row order, one row at a time, so the float sums
+    round the same way on every device and every run (one ``index_add_``
+    of all rows would race on a card)."""
+    out = torch.zeros_like(x)
+    for b in range(x.shape[0]):
+        out.index_add_(0, seg[b:b + 1], x[b:b + 1])
+    return out
+
+
+def make_unified_paged_step(cfg: ModelConfig, *, temperature: float = 0.0,
+                            bank_masks=None):
+    """THE serving step: one call per engine tick, whatever the tick holds
+    (decode tokens and prompt chunks packed into [B, C]).  Appends every
+    token's K/V to the pools in place, runs paged attention over them and
+    samples the next token of each slot at its last valid chunk position
+    on the device.  Idle slots and mid-prompt chunks produce tokens the
+    engine discards.
 
     step(params, cache, tokens [B, C], starts [B], chunk_lens [B],
-         block_tables [B, maxp]) -> sampled [B] int32
+         block_tables [B, maxp], req_ids [B], sample_steps [B],
+         submodel_ids [B], seg_ids [B], vote_flags [B], root_key [2],
+         *, ensembles=False) -> sampled [B] int32
+
+    Greedy (argmax, ties to the first index) when ``temperature <= 0``;
+    otherwise a categorical draw of ``logits / temperature`` with the key
+    ``fold_in(fold_in(root_key, req_id), sample_step)`` of each slot
+    (``core/prng.py``, the JAX package's threefry keys), so no key is
+    reused across requests or steps.
+
+    Multi-submodel serving (``bank_masks``: ``ModelBank.device_masks``,
+    leading axis G + 1 with the dense sentinel last): each slot's circuit
+    masks are gathered by ``submodel_ids`` once a tick on the device, so
+    tokens of different circuits co-batch in one call.  ``seg_ids`` groups
+    slots into ensembles (each slot carries its group leader's slot, a
+    solo slot its own).  On a tick the engine flags with ``ensembles``,
+    the slots' logits are combined on the device before sampling:
+    mean-logit (segment sums over the counts; members carry the leader's
+    ``req_id``, so one key decides the group) or, where ``vote_flags`` is
+    set, a majority vote over the members' own samples (ties to the
+    lowest token id).  A solo slot is a segment of one and samples the
+    same token either way.  Ticks without an ensemble skip the combine.
+    The speculative verify window (ROADMAP slice 3, item 14) is not
+    ported: every slot samples at S_v == 1.
     """
+    def pick(noise, logits, temp):
+        if noise is None:
+            return torch.argmax(logits, dim=-1)
+        return prng.categorical_with(noise, logits.to(f32) / temp)
 
     @torch.inference_mode()
-    def step(params, cache, tokens, starts, chunk_lens, block_tables):
+    def step(params, cache, tokens, starts, chunk_lens, block_tables,
+             req_ids, sample_steps, submodel_ids, seg_ids, vote_flags,
+             root_key, *, ensembles: bool = False):
         C = tokens.shape[1]
+        serve_masks = None
+        if bank_masks is not None:
+            serve_masks = {k: m.index_select(0, submodel_ids)
+                           for k, m in bank_masks.items()}
         widx = torch.clamp(chunk_lens.long() - 1, 0, C - 1)[:, None]
         logits, _ = api.paged_step(params, cache, tokens, starts, chunk_lens,
-                                   block_tables, cfg, logit_index=widx)
-        return torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+                                   block_tables, cfg, logit_index=widx,
+                                   serve_masks=serve_masks)
+        logits = logits[:, 0]
+        B, V = logits.shape
+        noise = temp = None
+        if temperature > 0:
+            keys = prng.fold_in(prng.fold_in(root_key, req_ids),
+                                sample_steps)
+            noise = prng.gumbel(keys, (V,))
+            # a device tensor: a card divides a float by a host scalar
+            # through its reciprocal, which rounds differently
+            temp = torch.full((), temperature, dtype=f32,
+                              device=logits.device)
+        if not (ensembles and bank_masks is not None):
+            return pick(noise, logits, temp).to(torch.int32)
+        seg = seg_ids.long()
+        lf = logits.to(f32)
+        counts = torch.zeros(B, dtype=f32, device=lf.device).index_add_(
+            0, seg, torch.ones(B, dtype=f32, device=lf.device))
+        mean = _segment_sum(lf, seg) / torch.clamp(counts, min=1.0)[:, None]
+        mean_tok = pick(noise, mean[seg], temp)
+        own_tok = pick(noise, lf, temp)
+        votes = torch.zeros_like(lf).index_add_(
+            0, seg, torch.nn.functional.one_hot(own_tok, V).to(f32))
+        vote_tok = torch.argmax(votes, dim=-1)[seg]
+        return torch.where(vote_flags.bool(), vote_tok,
+                           mean_tok).to(torch.int32)
 
     return step
 

@@ -13,6 +13,18 @@ Poisson arrivals with mixed prompt lengths, or everything at t=0 with
 tok/s, time-to-first-token, p50/p99 end-to-end latency, preemptions and
 both kernels' launches.  Exits with status 2 on a request the pool can
 never serve.
+
+``--temperature T`` samples instead of taking the argmax (threefry keys
+per request and step, from ``--seed``).  ``--submodels G`` serves G Horn
+parallel circuits (a ModelBank of fixed sub-model masks over one parent,
+``--keep`` and ``--mask-block`` shape them) behind the same engine:
+requests are routed per ``--router`` and co-batch across circuits in
+every tick, and ``--ensemble-frac`` of them instead fan across ALL
+circuits and combine logits on the device (``--combine``).  The report
+then tags each request with its circuit (``sub N``, or ``ens id/combine
+sub N`` for ensemble members) and ends with the co-batch ratio and tok/s
+per circuit.  ``--speculate K`` (speculative decoding) is not ported yet
+and exits with status 1.
 """
 from __future__ import annotations
 
@@ -24,10 +36,12 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import get_model_config, list_archs, reduced
+from repro_torch.configs.base import (HornConfig, get_model_config,
+                                      list_archs, reduced)
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.params import init_params
-from repro_torch.serving import Engine, EngineConfig, EngineOOM
+from repro_torch.serving import (Engine, EngineConfig, EngineOOM, ModelBank,
+                                 Router)
 
 
 def make_requests(n: int, vocab_size: int, rng: np.random.Generator, *,
@@ -59,18 +73,30 @@ def percentile(xs, p: float) -> float:
     return float(np.percentile(xs, p)) if xs.size else float("nan")
 
 
+def with_ensembles(pending: list, rng: np.random.Generator, frac: float,
+                   combine: str) -> list:
+    """(arrival, prompt, max_new, ensemble) quadruples: each request fans
+    across the bank's circuits with probability ``frac`` (one
+    ``rng.uniform()`` a request, in arrival order, as the JAX launcher
+    draws them when it submits)."""
+    return [(at, p, g, combine if rng.uniform() < frac else None)
+            for at, p, g in pending]
+
+
 def drive(engine: Engine, pending: list,
           on_done: Optional[Callable] = None) -> float:
-    """Serve ``pending`` (arrival, prompt, max_new) triples on the wall
-    clock, submitting each at its arrival offset; returns the wall seconds
-    until the last request finished."""
+    """Serve ``pending`` (arrival, prompt, max_new) triples, or quadruples
+    with an ensemble combine, on the wall clock, submitting each at its
+    arrival offset; returns the wall seconds until the last request
+    finished."""
     pending = list(pending)
     t0 = time.monotonic()
     while pending or engine.sched.has_work():
         now = time.monotonic() - t0
         while pending and pending[0][0] <= now:
-            at, prompt, gen = pending.pop(0)
-            engine.submit(prompt, gen, arrival_time=at)
+            at, prompt, gen, *ens = pending.pop(0)
+            engine.submit(prompt, gen, arrival_time=at,
+                          ensemble=ens[0] if ens else None)
         if not engine.sched.has_work():
             time.sleep(min(0.005, max(0.0, pending[0][0] - now)))
             continue
@@ -82,14 +108,23 @@ def drive(engine: Engine, pending: list,
 
 
 def summarize(engine: Engine, wall: float) -> dict:
-    """The end-to-end numbers of one ``drive`` over ``engine``."""
-    done: List = engine.sched.finished
+    """The end-to-end numbers of one ``drive`` over ``engine``.  An
+    ensemble group delivers one stream, so user-facing counts take its
+    leader once; ``device_tok_s`` counts every member's tokens."""
+    done: List = engine.finished_streams()
     s = engine.stats
+    wall_ = max(wall, 1e-9)
     return {
         "requests": len(done),
+        "sequences": len(engine.sched.finished),
         "wall_s": wall,
         "generated_tokens": sum(len(r.out_tokens) for r in done),
-        "tok_s": sum(len(r.out_tokens) for r in done) / max(wall, 1e-9),
+        "tok_s": sum(len(r.out_tokens) for r in done) / wall_,
+        "device_tok_s": sum(len(r.out_tokens)
+                            for r in engine.sched.finished) / wall_,
+        "cobatch_ratio": s.cobatch_ratio,
+        "tok_s_by_submodel": {g: n / wall_ for g, n in
+                              sorted(s.tokens_by_submodel.items())},
         "ticks": s.steps,
         "prefill_tokens": s.prefill_tokens,
         "ttft_p50_s": percentile(
@@ -138,6 +173,26 @@ def main(argv=None) -> None:
                          "pages of bfloat16 in the same bytes")
     ap.add_argument("--compute-dtype", choices=["bfloat16", "float32"],
                     default="bfloat16")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0: greedy; else sample logits / T")
+    ap.add_argument("--submodels", type=int, default=0,
+                    help="serve G Horn circuits from one ModelBank "
+                         "(0: the dense parent alone)")
+    ap.add_argument("--router", choices=["least_loaded", "hash"],
+                    default="least_loaded")
+    ap.add_argument("--ensemble-frac", type=float, default=0.0,
+                    help="fraction of requests fanned across ALL circuits "
+                         "with their logits combined on the device")
+    ap.add_argument("--combine", choices=["mean_logit", "majority_vote"],
+                    default="mean_logit")
+    ap.add_argument("--keep", type=float, default=0.5,
+                    help="per-circuit FFN hidden keep rate (paper: 0.5)")
+    ap.add_argument("--mask-block", type=int, default=16,
+                    help="mask block in hidden units (reduced configs need "
+                         "<= d_ff/4 for distinct circuits)")
+    ap.add_argument("--speculate", type=int, default=0, metavar="K",
+                    help="speculative decoding with a draft circuit (not "
+                         "ported yet: ROADMAP slice 3, item 14)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -152,31 +207,52 @@ def main(argv=None) -> None:
         num_slots=args.slots, num_pages=args.pages, page_size=args.page_size,
         max_prompt_len=-(-args.max_prompt // args.page_size) * args.page_size,
         max_new_tokens=args.gen, token_budget=max(args.budget, args.slots),
-        policy=args.policy, prefix_cache=args.prefix_cache,
+        temperature=args.temperature, seed=args.seed, policy=args.policy,
+        prefix_cache=args.prefix_cache, speculate_k=args.speculate,
         kv_dtype=args.kv_dtype, compute_dtype=args.compute_dtype)
     params = init_params(cfg, args.seed, device=device,
                          dtype=dtype_of(args.compute_dtype))
+    bank = router = None
     try:
-        engine = Engine(cfg, params, ecfg, device=device)
-    except ValueError as e:
+        if args.submodels > 0:
+            if args.submodels > args.slots and args.ensemble_frac > 0:
+                raise SystemExit(
+                    "ensemble mode needs --slots >= --submodels")
+            horn = HornConfig(enabled=True, keep_hidden=args.keep,
+                              keep_input=1.0, block_size=args.mask_block)
+            bank = ModelBank(cfg, horn, args.submodels, seed=args.seed)
+            router = Router(args.submodels, policy=args.router)
+        engine = Engine(cfg, params, ecfg, bank=bank, router=router,
+                        device=device)
+    except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"{args.arch}: {e}")
-    pending = make_requests(args.requests, cfg.vocab_size,
-                            np.random.default_rng(args.seed),
+    rng = np.random.default_rng(args.seed)
+    pending = make_requests(args.requests, cfg.vocab_size, rng,
                             stream=args.stream, rate=args.rate,
                             max_prompt=args.max_prompt, gen=args.gen,
                             long_frac=args.long_frac)
+    if bank is not None:
+        pending = with_ensembles(pending, rng, args.ensemble_frac,
+                                 args.combine)
+    sub = f", {args.submodels} submodels ({args.router} routing, " \
+          f"{args.ensemble_frac:.0%} ensemble)" if bank else ""
     print(f"serving {args.requests} requests ({args.stream} stream, "
           f"{cfg.name} on {device}, {args.slots} slots, "
           f"{args.pages}x{args.page_size}-token pages, budget "
-          f"{ecfg.token_budget} tok/tick, policy={args.policy})")
+          f"{ecfg.token_budget} tok/tick, policy={args.policy}, "
+          f"temperature {args.temperature:g}{sub})")
 
     def done_line(req) -> None:
         pre = f"  ({req.num_preemptions}x preempted)" \
             if req.num_preemptions else ""
+        tag = f"  sub {req.submodel_id}" if bank else ""
+        if req.group is not None:
+            tag = f"  ens {req.group.id}/{req.group.combine}" \
+                  f" sub {req.submodel_id}"
         print(f"  req {req.id:3d} done: prompt {req.prompt_len:3d} "
               f"+{len(req.out_tokens):3d} tok  "
               f"ttft {req.t_first_token - req.arrival_time:6.3f}s  "
-              f"latency {req.t_done - req.arrival_time:6.3f}s{pre}")
+              f"latency {req.t_done - req.arrival_time:6.3f}s{tag}{pre}")
 
     try:
         wall = drive(engine, pending, on_done=done_line)
@@ -185,9 +261,12 @@ def main(argv=None) -> None:
         sys.exit(2)
     r = summarize(engine, wall)
     s = engine.stats
-    print(f"\n{r['requests']} requests in {wall:.2f}s")
-    print(f"throughput: {r['tok_s']:.1f} tok/s ({r['ticks']} ticks, "
-          f"{r['generated_tokens'] / max(r['ticks'], 1):.1f} tok/tick, "
+    print(f"\n{r['requests']} requests ({r['sequences']} sequences) in "
+          f"{wall:.2f}s")
+    dev = f" ({r['device_tok_s']:.1f} device tok/s incl. ensemble " \
+          f"members)" if r["sequences"] != r["requests"] else ""
+    print(f"throughput: {r['tok_s']:.1f} tok/s{dev} ({r['ticks']} ticks, "
+          f"{s.generated_tokens / max(r['ticks'], 1):.1f} tok/tick, "
           f"{r['prefill_tokens']} prefill tok)")
     print(f"TTFT    p50 {r['ttft_p50_s']:.3f}s  p99 {r['ttft_p99_s']:.3f}s")
     print(f"latency p50 {r['latency_p50_s']:.3f}s  "
@@ -199,8 +278,15 @@ def main(argv=None) -> None:
         hr = s.prefix_hit_rate
         print(f"prefix cache: hit rate "
               f"{'n/a' if hr is None else format(hr, '.0%')}  "
+              f"prefill tok saved {s.prefill_tok_saved}  "
               f"evictions {engine.cache_evictions}  "
               f"COW copies {s.cow_page_copies}")
+    if bank is not None:
+        per = "  ".join(
+            f"sub{g}: {r['tok_s_by_submodel'].get(g, 0.0):6.1f} tok/s"
+            f" (peak util {s.peak_util_by_submodel.get(g, 0.0):.0%})"
+            for g in range(args.submodels))
+        print(f"co-batch ratio: {r['cobatch_ratio']:.0%}  {per}")
     print(f"paged_chunk_attention launches: "
           f"{r['attn_launches'] - r['decode_launches']} ({cfg.num_layers} "
           f"layers x {r['ticks'] - r['decode_ticks']} ticks with prompt "

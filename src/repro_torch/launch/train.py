@@ -53,7 +53,7 @@ from repro_torch.kernels.flash_attention import kernel as flash
 from repro_torch.runtime.fault_tolerance import fault_tolerant_loop
 
 NOT_PORTED = {
-    "topology": "ROADMAP slice 2, item 10: group topologies",
+    "topology": "ROADMAP slice 5, item 10: group topologies",
     "mesh": "ROADMAP slice 5: scale-out",
     "mamba": "ROADMAP slice 4, item 18: training through SSM layers needs "
              "an SSD backward kernel; the ported ssd_chunk_scan is "

@@ -9,7 +9,7 @@ from repro_torch.models import transformer as T
 
 
 def paged_step(params, cache, tokens, starts, chunk_lens, block_tables,
-               cfg: ModelConfig, *, logit_index=None):
+               cfg: ModelConfig, *, logit_index=None, serve_masks=None):
     """One unified serving tick over paged KV pools: every slot advances by
     a chunk of up to C tokens (decode slots exactly 1, admitting prompts a
     prompt chunk, idle slots 0).  The chunk K/V is appended to ``cache`` in
@@ -20,22 +20,25 @@ def paged_step(params, cache, tokens, starts, chunk_lens, block_tables,
     Returns (logits [B, vocab] at each slot's last valid chunk position,
     cache); idle slots return logits the caller must ignore.  With
     ``logit_index`` ([B, n]) the logits are [B, n, vocab] at those chunk
-    positions instead.  The lm head only ever runs on the selected rows."""
+    positions instead.  The lm head only ever runs on the selected rows.
+    ``serve_masks`` selects each slot's circuit (``lm_forward``)."""
     if logit_index is not None:
         hidden, _ = T.lm_forward(params, tokens, cfg, mode="decode",
                                  cache=cache, cache_index=starts,
                                  block_tables=block_tables,
                                  chunk_lens=chunk_lens,
-                                 logit_index=logit_index)
+                                 logit_index=logit_index,
+                                 serve_masks=serve_masks)
         return T.lm_logits(params, hidden, cfg), cache
     last = torch.clamp(chunk_lens.long() - 1, min=0)[:, None]
     hidden, _ = T.lm_forward(params, tokens, cfg, mode="decode", cache=cache,
                              cache_index=starts, block_tables=block_tables,
-                             chunk_lens=chunk_lens, logit_index=last)
+                             chunk_lens=chunk_lens, logit_index=last,
+                             serve_masks=serve_masks)
     return T.lm_logits(params, hidden, cfg)[:, 0], cache
 
 
-def prefill(params, batch, cfg: ModelConfig):
+def prefill(params, batch, cfg: ModelConfig, *, serve_masks=None):
     """Full-sequence forward for serving: (logits [B, vocab] at the last
     position, the per-layer cache: attention (k, v) [B, S, KH, D], mamba
     (raw conv tail, final SSM state)).  The last position is gathered
@@ -43,23 +46,27 @@ def prefill(params, batch, cfg: ModelConfig):
     norm and the lm head run on one row per sequence.  The JAX function
     also returns an encoder output and takes right-padded prompts'
     ``last_index``; the port's LMs are decoder-only and its callers pass
-    whole prompts."""
+    whole prompts.  ``serve_masks`` selects a fixed circuit per sequence
+    (``lm_forward``)."""
     tokens = torch.as_tensor(batch["tokens"])
     B, S = tokens.shape
     idx = torch.full((B, 1), S - 1, device=tokens.device)
     hidden, cache = T.lm_forward(params, tokens, cfg, mode="prefill",
-                                 remat=False, logit_index=idx)
+                                 remat=False, logit_index=idx,
+                                 serve_masks=serve_masks)
     return T.lm_logits(params, hidden, cfg)[:, 0], cache
 
 
-def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig):
+def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig, *,
+                serve_masks=None):
     """One-token decode over a dense cache.  tokens: [B, 1]; cache_index:
     the position of that token (an int or 0-dim tensor), the same for
     every sequence.  Returns (logits [B, vocab], the new cache); attention
-    buffers are written in place."""
+    buffers are written in place.  ``serve_masks`` as in ``prefill``."""
     hidden, new_cache = T.lm_forward(params, tokens, cfg, mode="decode",
                                      remat=False, cache=cache,
-                                     cache_index=cache_index)
+                                     cache_index=cache_index,
+                                     serve_masks=serve_masks)
     return T.lm_logits(params, hidden, cfg)[:, 0], new_cache
 
 

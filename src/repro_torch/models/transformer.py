@@ -140,20 +140,42 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, *,
     return [layer() for _ in range(cfg.num_layers)]
 
 
+def _mix_mask(a, b):
+    """Compose two optional multiplicative masks (either may be None)."""
+    if a is None:
+        return b
+    return a if b is None else a * b
+
+
+def _serve_slice(serve_masks, key: str, layer_idx: int):
+    """Layer ``layer_idx``'s per-slot sub-model mask [B, units] from a
+    serve-mask dict, or None."""
+    if serve_masks is None or key not in serve_masks:
+        return None
+    return serve_masks[key][:, layer_idx]
+
+
 def _block_apply(bp, x, cfg: ModelConfig, *, kind: str, layer_idx: int,
                  horn=None, positions, cache=None, cache_index=None,
-                 block_tables=None, chunk_lens=None, decode_lengths=None):
+                 block_tables=None, chunk_lens=None, decode_lengths=None,
+                 serve_masks=None):
     """One decoder layer; returns (x, the mixer's new cache).  ``horn``
     (train only) draws this layer's head, channel and FFN masks with the
-    JAX package's layer index and salts (13, 3 and 5)."""
+    JAX package's layer index and salts (13, 3 and 5); ``serve_masks``
+    (serving) multiplies this layer's rows of the slots' circuit masks into
+    the head and FFN hidden masks."""
     B = x.shape[0]
     h = L.norm_apply(bp.pre_norm, x, cfg)
     if kind in (ATTN, LOCAL):
+        hm = pdrop.head_mask(horn, layer_idx, B, cfg.num_heads)
+        sh = _serve_slice(serve_masks, "heads", layer_idx)
+        if sh is not None:
+            hm = _mix_mask(hm, sh[:, None, :, None])       # [B, 1, H, 1]
         out, new_cache = attn_apply(
             bp.attn, h, cfg, kind=kind, positions=positions, cache=cache,
             cache_index=cache_index, block_tables=block_tables,
             chunk_lens=chunk_lens, decode_lengths=decode_lengths,
-            head_mask=pdrop.head_mask(horn, layer_idx, B, cfg.num_heads))
+            head_mask=hm)
     else:
         cm = pdrop.unit_mask(horn, layer_idx, B, ssm_dims(cfg)[0], salt=3)
         out, new_cache = mamba_apply(bp.mamba, h, cfg, cache=cache,
@@ -164,6 +186,9 @@ def _block_apply(bp, x, cfg: ModelConfig, *, kind: str, layer_idx: int,
     if cfg.d_ff > 0:
         h = L.norm_apply(bp.ffn_norm, x, cfg)
         fm = pdrop.unit_mask(horn, layer_idx, B, cfg.d_ff, salt=5)
+        sf = _serve_slice(serve_masks, "ffn", layer_idx)
+        if sf is not None:
+            fm = _mix_mask(fm, sf[:, None, :])               # [B, 1, ff]
         out = L.mlp_apply(bp.mlp, h, cfg, hidden_mask=fm)
         if cfg.post_sublayer_norm:
             out = L.norm_apply(bp.post_ffn_norm, out, cfg)
@@ -173,7 +198,8 @@ def _block_apply(bp, x, cfg: ModelConfig, *, kind: str, layer_idx: int,
 
 def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
                horn=None, remat: bool = True, cache=None, cache_index=None,
-               block_tables=None, chunk_lens=None, logit_index=None):
+               block_tables=None, chunk_lens=None, logit_index=None,
+               serve_masks=None):
     """Returns (hidden [B, S, d] final-normed, or [B, n, d] with
     ``logit_index``; the new per-layer cache, None in train mode).
 
@@ -199,9 +225,21 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
     to in place.  ``logit_index`` ([B, n]) gathers n chunk rows from the
     residual stream before the final norm, so the norm runs on those rows
     only (bitwise the same as gathering after it: the norm is row-wise);
-    None keeps all C rows."""
+    None keeps all C rows.
+
+    ``serve_masks`` (multi-submodel serving, any mode) is a dict of fixed
+    per-slot circuit masks, already gathered by submodel id: "input"
+    [B, d_model] multiplies the embeddings, "heads" [B, L, H] the
+    attention heads and "ffn" [B, L, d_ff] the MLP's hidden units, all
+    binary {0, 1}, so each slot runs its own Horn circuit of the shared
+    weights.  MoE masks ("moe") wait for MoE layers (ROADMAP slice 4,
+    item 18)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"lm_forward: mode {mode!r} is not ported")
+    if serve_masks is not None and "moe" in serve_masks:
+        raise NotImplementedError(
+            "serve masks over MoE experts wait for MoE layers (ROADMAP "
+            "slice 4, item 18)")
     x = L.embed_apply(params.embed, tokens, cfg)
     B, S = x.shape[:2]
     steps = torch.arange(S, device=x.device)[None, :]
@@ -209,6 +247,8 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
         im = pdrop.input_mask(horn, B, cfg.d_model)
         if im is not None:
             x = x * im.to(x.dtype)
+    if serve_masks is not None and "input" in serve_masks:
+        x = x * serve_masks["input"][:, None, :].to(x.dtype)
     decode_lengths = None
     if mode != "decode":
         positions = steps
@@ -225,7 +265,8 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
                      horn=horn, positions=positions,
                      cache=cache[li] if mode == "decode" else None,
                      cache_index=cache_index, block_tables=block_tables,
-                     chunk_lens=chunk_lens, decode_lengths=decode_lengths)
+                     chunk_lens=chunk_lens, decode_lengths=decode_lengths,
+                     serve_masks=serve_masks)
         if mode == "train":
             if remat:
                 x = checkpoint(lambda x, fn=fn: fn(x)[0], x,

@@ -8,7 +8,7 @@ with one f32 scale per (page, kv head).  The collective trainer's int8
 merge compresses each group's gradients with one scale per group and leaf
 (``ef_compress_tree(..., groups=True)``, the port of JAX's
 ``jax.vmap(ef_compress_tree)``).  ``psum_mean_compressed`` waits for the
-group topologies (ROADMAP slice 2, item 10).
+group topologies (ROADMAP slice 5, item 10).
 """
 from __future__ import annotations
 

@@ -24,10 +24,18 @@ def pow2_bucket(n: int) -> int:
 
 
 def marshal_i32(device, *arrays) -> tuple:
-    """Copy host arrays to ``device`` as int32 tensors: the one place where
-    the step's integer operands cross to the device."""
-    return tuple(torch.from_numpy(np.asarray(a, np.int32)).to(device)
-                 for a in arrays)
+    """Copy host arrays to ``device`` as int32 tensors, all in ONE host to
+    device copy (a flat buffer, returned as views of it shaped like the
+    arrays): the one place where the step's integer operands cross to the
+    device."""
+    host = [np.asarray(a, np.int32) for a in arrays]
+    flat = torch.from_numpy(np.concatenate([a.ravel() for a in host]))
+    dev = flat.to(device)
+    out, at = [], 0
+    for a in host:
+        out.append(dev[at:at + a.size].view(a.shape))
+        at += a.size
+    return tuple(out)
 
 
 class BlockTableMirror:

@@ -4,7 +4,9 @@ One engine tick = one call of the unified paged step, whatever the tick
 holds.  The scheduler fills a fixed *token budget* with a mix of decode
 tokens (one per running slot) and prompt chunks from admitting requests;
 the step appends every token's K/V to the page pools in place, runs paged
-attention and returns the greedy next token of every slot.  A tick whose
+attention and samples every slot's next token on the device (greedy, or
+at ``temperature > 0`` a categorical draw keyed by the JAX package's
+threefry ``fold_in(fold_in(key(seed), request), step)``).  A tick whose
 chunk bucket is 1 holds decode tokens only and runs the decode kernel
 ``paged_attention``; wider ticks run ``paged_chunk_attention`` (both CUDA
 kernels on a card).  Positions are per slot: slot b's chunk starts at the
@@ -13,30 +15,42 @@ int8; int8 pools quantize on append, with one f32 scale per (page, kv
 head) riding beside them, and hold about twice the pages of bf16 in the
 same bytes.
 
-Under the ``on_demand`` policy, pool pressure preempts the youngest running
-sequence back to the head of the waiting queue (its KV is recomputed on
-re-admission through the same chunked-prefill path); ``EngineOOM`` is kept
-for a sequence that can never fit the pool even alone.  With
-``prefix_cache`` on, full prompt pages are content-addressed and adopted by
-later requests with the same prefix; writes into shared pages copy them
-first (copy-on-write, ``core/steps.py::make_page_copy_step``).
+Multi-submodel serving (Horn §2 at inference): pass a ``ModelBank`` and
+the engine serves its G parallel circuits behind the same scheduler and
+page pool.  A ``Router`` tags each request with a ``submodel_id``, the
+step gathers that slot's circuit masks on the device, and tokens of
+different circuits co-batch in one tick.  ``submit(..., ensemble=...)``
+fans one prompt across all G circuits in lockstep and combines their
+logits on the device (mean-logit or majority vote) before sampling: the
+paper's collective ensemble served as one request.  The group's shared
+prompt context [0, len - 1) is encoded by the dense parent (the bank's
+sentinel row), so the leader prefills it once and the members fork its
+pages.
 
-Chunk widths are bucketed to powers of two, as in the JAX engine.  This
-port serves one decoder-only attention model, greedy; the
-ModelBank/Router/draft paths, speculation and sampling at temperature > 0
-are not ported yet and raise.
+Under the ``on_demand`` policy, pool pressure preempts the youngest running
+sequence (or ensemble group) back to the head of the waiting queue (its KV
+is recomputed on re-admission through the same chunked-prefill path);
+``EngineOOM`` is kept for a sequence that can never fit the pool even
+alone.  With ``prefix_cache`` on, full prompt pages are content-addressed
+and adopted by later requests with the same prefix; writes into shared
+pages copy them first (copy-on-write, ``core/steps.py::make_page_copy_step``).
+
+Chunk widths are bucketed to powers of two, as in the JAX engine.
+Speculative decoding (a ``DraftModel``, ``speculate_k > 0``) is not ported
+yet and raises.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from dataclasses import dataclass
-from typing import Dict, List, Optional
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, LOCAL, ModelConfig
+from repro_torch.core import prng
 from repro_torch.core import steps as S
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention.kernel import NAME, NAME_DECODE
@@ -46,9 +60,12 @@ from repro_torch.models.params import cast_params
 from repro_torch.serving.block_table import (BlockTableMirror, marshal_i32,
                                              pow2_bucket)
 from repro_torch.serving.kv_cache import PagePool, PagePoolOOM
-from repro_torch.serving.scheduler import FCFSScheduler, Request
+from repro_torch.serving.model_bank import ModelBank
+from repro_torch.serving.router import Router
+from repro_torch.serving.scheduler import EnsembleGroup, FCFSScheduler, Request
 
-NOT_PORTED = "is not ported yet (ROADMAP slice 3)"
+NOT_PORTED = "is not ported yet (speculative decoding: ROADMAP slice 3, item 14)"
+COMBINES = ("mean_logit", "majority_vote")
 
 
 class EngineOOM(RuntimeError):
@@ -64,13 +81,14 @@ class EngineConfig:
     max_prompt_len: int = 256
     max_new_tokens: int = 64         # default + hard cap per request
     token_budget: int = 256          # tokens per unified tick (decode+chunks)
-    temperature: float = 0.0         # greedy only in the port
+    temperature: float = 0.0         # <= 0: greedy; else sampled
+    seed: int = 0                    # root of the sampling keys
     policy: str = "reserve"          # "reserve" | "on_demand" (see scheduler)
     eos_id: Optional[int] = None
     kv_dtype: str = "bfloat16"       # page pools: float32 | bfloat16 | int8
     compute_dtype: str = "bfloat16"  # parameter dtype during serving
     prefix_cache: bool = True        # content-addressed page reuse + COW
-    speculate_k: int = 0             # must stay 0 in the port
+    speculate_k: int = 0             # must stay 0 (item 14)
 
     @property
     def max_model_len(self) -> int:
@@ -92,10 +110,22 @@ class EngineStats:
     attn_launches: int = 0           # launches of both paged kernels
     decode_launches: int = 0         # of them, the decode kernel's
     decode_ticks: int = 0            # ticks of chunk bucket 1 (decode only)
+    ticks_nonempty: int = 0          # ticks that issued a device call
+    ticks_cobatched: int = 0         # ...carrying >= 2 distinct submodels
+    tokens_by_submodel: Dict[int, int] = field(default_factory=dict)
+    peak_util_by_submodel: Dict[int, float] = field(default_factory=dict)
+    prefill_tok_saved: int = 0       # hit tokens + ensemble fork savings
 
     def reset(self) -> None:
         for f in dataclasses.fields(self):
-            setattr(self, f.name, f.default)
+            setattr(self, f.name, f.default_factory()
+                    if f.default_factory is not dataclasses.MISSING
+                    else f.default)
+
+    @property
+    def cobatch_ratio(self) -> float:
+        """Share of device ticks that co-batched >= 2 circuits."""
+        return self.ticks_cobatched / max(1, self.ticks_nonempty)
 
     @property
     def prefix_hit_rate(self) -> Optional[float]:
@@ -111,24 +141,40 @@ class _Entry:
     start: int                       # KV tokens already in pages
     tokens: np.ndarray               # [chunk_len] int32
     chunk_len: int
+    sample_step: int                 # fold_in step of the sampling key
     record: bool                     # keep the sampled token?
+    mask_id: int                     # circuit-mask row the step gathers
+                                     # (the dense sentinel for an
+                                     # ensemble's shared prompt context)
 
 
 class Engine:
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig, *,
-                 bank=None, router=None, draft=None, device="cuda"):
+                 bank: Optional[ModelBank] = None,
+                 router: Optional[Router] = None, draft=None,
+                 device="cuda"):
         bad = [k for k in cfg.layer_pattern if k not in (ATTN, LOCAL)]
         if bad or cfg.is_encoder_decoder or cfg.num_patches or cfg.learned_pos:
             raise ValueError(
                 f"paged serving supports decoder-only attention LMs; "
                 f"{cfg.name} has {bad or 'an unsupported input frontend'}")
-        for what, given in (("a ModelBank", bank is not None),
-                            ("a Router", router is not None),
-                            ("a DraftModel", draft is not None),
-                            ("speculate_k > 0", ecfg.speculate_k > 0),
-                            ("temperature > 0", ecfg.temperature > 0)):
+        for what, given in (("a DraftModel", draft is not None),
+                            ("speculate_k > 0", ecfg.speculate_k > 0)):
             if given:
                 raise NotImplementedError(f"serving with {what} {NOT_PORTED}")
+        if bank is not None:
+            if bank.cfg != cfg:
+                raise ValueError(
+                    f"bank was built for {bank.cfg.name}, engine serves "
+                    f"{cfg.name}")
+            router = router if router is not None \
+                else Router(bank.num_submodels)
+            if router.num_submodels != bank.num_submodels:
+                raise ValueError(
+                    f"router spans {router.num_submodels} submodels, "
+                    f"bank holds {bank.num_submodels}")
+        elif router is not None:
+            raise ValueError("a Router needs a ModelBank to route over")
         if ecfg.kv_dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(f"kv_dtype {ecfg.kv_dtype!r}: expected "
                              f"float32, bfloat16 or int8")
@@ -145,6 +191,7 @@ class Engine:
             raise ValueError(f"params live on {sorted(wrong)}, the engine "
                              f"on {self.device}")
         self.cfg, self.ecfg = cfg, ecfg
+        self.bank, self.router = bank, router
         # cast once here: the step never casts parameters per tick
         self.params = cast_params(params, dtype_of(ecfg.compute_dtype))
         self.pool = PagePool(ecfg.num_pages, ecfg.page_size,
@@ -152,7 +199,13 @@ class Engine:
         self.sched = FCFSScheduler(ecfg.num_slots, self.pool,
                                    policy=ecfg.policy)
         self.max_pages_per_seq = self.pool.pages_for(ecfg.max_model_len)
-        self._step = S.make_unified_paged_step(cfg)
+        # the mask row of dense-parent chunks (an ensemble's shared prompt
+        # context): device_masks appends an all-ones row at index G
+        self._dense_mask_id = bank.num_submodels if bank is not None else 0
+        self._step = S.make_unified_paged_step(
+            cfg, temperature=ecfg.temperature,
+            bank_masks=bank.device_masks(self.device)
+            if bank is not None else None)
         self._page_copy = S.make_page_copy_step()
         self.cache = T.init_paged_cache(cfg, ecfg.num_pages, ecfg.page_size,
                                         dtype=dtype_of(ecfg.kv_dtype),
@@ -162,7 +215,9 @@ class Engine:
         self.max_chunk = min(ecfg.token_budget, ecfg.max_prompt_len)
         self._bt = BlockTableMirror(ecfg.num_slots, self.max_pages_per_seq,
                                     self.device)
+        self._root_key = prng.key(ecfg.seed, self.device)
         self._next_id = 0
+        self._next_group_id = 0
         self.stats = EngineStats()
         self._evictions_base = 0         # pool evictions at last reset
 
@@ -188,8 +243,14 @@ class Engine:
 
     # -- request intake ------------------------------------------------------
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
-               arrival_time: float = 0.0) -> Request:
-        """Queue one request."""
+               arrival_time: float = 0.0, *,
+               submodel_id: Optional[int] = None, session=None,
+               ensemble: Optional[str] = None
+               ) -> Union[Request, EnsembleGroup]:
+        """Queue one request.  With a ModelBank attached, the Router picks
+        (or validates) the circuit; ``ensemble`` ("mean_logit" or
+        "majority_vote") instead fans the prompt across ALL G circuits as
+        one lockstep group and returns the ``EnsembleGroup``."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if not 0 < len(prompt) <= self.ecfg.max_prompt_len:
             raise ValueError(
@@ -198,18 +259,78 @@ class Engine:
                 f"token to decode from")
         mnt = min(max_new_tokens or self.ecfg.max_new_tokens,
                   self.ecfg.max_new_tokens)
+
+        if ensemble is not None:
+            if self.bank is None:
+                raise ValueError("ensemble mode requires a ModelBank")
+            if submodel_id is not None or session is not None:
+                raise ValueError(
+                    "ensemble fans across ALL circuits — submodel_id/"
+                    "session routing hints conflict with it")
+            if ensemble not in COMBINES:
+                raise ValueError(
+                    f"unknown combine {ensemble!r}; known: {COMBINES}")
+            G = self.bank.num_submodels
+            if G > self.ecfg.num_slots:
+                raise ValueError(
+                    f"ensemble needs {G} slots (one per circuit) but the "
+                    f"engine has {self.ecfg.num_slots}")
+            group = EnsembleGroup(id=self._next_group_id, combine=ensemble,
+                                  share=self.ecfg.prefix_cache)
+            self._next_group_id += 1
+            # the shared context [0, len - 1) is dense-parent encoded
+            # (namespace b"dense"); each member's circuit engages at the
+            # last prompt token, so the leader can prefill it for all
+            group.members = [
+                Request(id=self._next_id + g, prompt=prompt,
+                        max_new_tokens=mnt, arrival_time=arrival_time,
+                        eos_id=self.ecfg.eos_id, submodel_id=g, group=group,
+                        kv_namespace=b"dense", mask_from=len(prompt) - 1)
+                for g in range(G)]
+            self._check_feasible(group.members[0])
+            self._next_id += G
+            for g in range(G):
+                self.router.acquire(g)
+            for req in group.members:
+                self.sched.submit(req)
+            return group
+
         req = Request(id=self._next_id, prompt=prompt, max_new_tokens=mnt,
                       arrival_time=arrival_time, eos_id=self.ecfg.eos_id)
-        need = self.sched.unit_admission_pages([req])
+        self._check_feasible(req)
+        if self.bank is not None:
+            req.submodel_id = self.router.route(
+                submodel_id=submodel_id, session=session, prompt=prompt)
+            req.kv_namespace = b"sub:%d" % req.submodel_id
+        elif submodel_id not in (None, 0):
+            raise ValueError("submodel routing requires a ModelBank")
+        self._next_id += 1
+        self.sched.submit(req)
+        return req
+
+    def _check_feasible(self, req: Request) -> None:
+        """Reject a request that could never be admitted, even into an
+        empty pool (it would pin the FCFS head forever)."""
+        need = self._admission_need(req)
         if need > self.pool.capacity:
             raise ValueError(
                 f"request needs {need} page(s) at admission "
                 f"(policy={self.ecfg.policy}) but the pool has only "
                 f"{self.pool.capacity}; raise num_pages or shrink "
                 f"prompt/max_new_tokens")
-        self._next_id += 1
-        self.sched.submit(req)
-        return req
+
+    def _admission_need(self, req: Request) -> int:
+        """Worst-case pages the whole scheduling unit (solo, or every
+        ensemble member) needs available to admit."""
+        unit = req.group.members if req.group is not None else [req]
+        return self.sched.unit_admission_pages(unit)
+
+    def finished_streams(self) -> List[Request]:
+        """Finished requests, one per delivered token stream: solo requests
+        and the leader of each ensemble group (every member carries the
+        group's stream)."""
+        return [r for r in self.sched.finished
+                if r.group is None or r is r.group.leader]
 
     # -- internals -----------------------------------------------------------
     def _sync_block_tables(self) -> None:
@@ -220,6 +341,20 @@ class Engine:
     def _sample_peak(self) -> None:
         self.stats.peak_utilization = max(self.stats.peak_utilization,
                                           self.pool.utilization())
+        if self.bank is not None:
+            peak = self.stats.peak_util_by_submodel
+            for owner, util in self.pool.utilization_by_owner().items():
+                if util > peak.get(owner, 0.0):
+                    peak[owner] = util
+
+    def _evict_finished(self, now: float) -> List[Request]:
+        """Free the finished requests' slots and pages, and hand their
+        circuits back to the router."""
+        done = self.sched.evict_finished(now)
+        if self.router is not None:
+            for req in done:
+                self.router.release(req.submodel_id)
+        return done
 
     def _flush_copies(self, pairs) -> None:
         """Issue the device page copies a COW swap requires."""
@@ -239,9 +374,9 @@ class Engine:
 
     # -- tick planning -------------------------------------------------------
     def _plan_tick(self) -> Dict[int, _Entry]:
-        """Fill the token budget; preempt the youngest running sequence
-        (and replan) on pool pressure; raise EngineOOM only when no
-        preemption can help."""
+        """Fill the token budget; preempt the youngest running unit (a
+        sequence or a whole ensemble group, and replan) on pool pressure;
+        raise EngineOOM only when no preemption can help."""
         while True:
             try:
                 return self._try_plan()
@@ -266,28 +401,65 @@ class Engine:
             entries[slot] = _Entry(
                 req=req, start=req.context_len - 1,
                 tokens=np.asarray(req.out_tokens[-1:], np.int32),
-                chunk_len=1, record=True)
+                chunk_len=1, sample_step=len(req.out_tokens), record=True,
+                mask_id=req.submodel_id)
             budget -= 1
         # prompt chunks soak up whatever budget the decode tokens left,
-        # oldest admission first (it holds pages; finish it soonest)
+        # oldest admission first (it holds pages; finish it soonest).
+        # Ensemble groups advance in LOCKSTEP (every member the same chunk
+        # width, so all finish prefill in the same tick and their combined
+        # logits give the group's first token together), and chunks break
+        # at ``mask_from``: an ensemble stream is dense-parent encoded
+        # before it and member-masked from it on.  With sharing, only the
+        # leader computes the dense region, then the group forks.
         prefill.sort(key=lambda sr: sr[1].admit_seq)
+        planned_groups = set()
         for slot, req in prefill:
-            kv = req.kv_tokens
-            cl = min(len(kv) - req.prefill_pos, max(budget, 0),
-                     self.max_chunk)
+            group = req.group
+            if group is not None:
+                if group.id in planned_groups:
+                    continue
+                planned_groups.add(group.id)
+                if group.share and not group.forked:
+                    leader = group.leader
+                    if leader.prefill_pos < leader.mask_from:
+                        unit = [(leader.slot, leader)]   # dense solo advance
+                    else:
+                        self.stats.prefill_tok_saved += \
+                            self.sched.fork_group(group)
+                        unit = [(m.slot, m) for m in group.members]
+                else:
+                    unit = [(m.slot, m) for m in group.members]
+            else:
+                unit = [(slot, req)]
+            n = len(unit)
+            r0 = unit[0][1]
+            want = len(r0.kv_tokens) - r0.prefill_pos
+            dense = r0.prefill_pos < r0.mask_from
+            if dense:                       # stop at the mask boundary
+                want = min(want, r0.mask_from - r0.prefill_pos)
+            cl = min(want, max(budget, 0) // n, self.max_chunk)
             if cl <= 0:
                 continue                          # budget exhausted
-            finishes = req.prefill_pos + cl == len(kv)
-            self._prepare_entry_write(req, req.prefill_pos,
-                                      req.prefill_pos + cl)
-            entries[slot] = _Entry(
-                req=req, start=req.prefill_pos,
-                tokens=kv[req.prefill_pos:req.prefill_pos + cl],
-                chunk_len=cl,
-                # the chunk that completes a *fresh* prompt yields the first
-                # token; a preempted request's next token is already known
-                record=finishes and not req.out_tokens)
-            budget -= cl
+            # write-prep members BEFORE the leader: each member's COW of the
+            # shared boundary page redeems its own deferred-reserve credit,
+            # and the leader, whose admission reserve covers the original
+            # page, is the last holder left and writes it in place
+            for s, r in unit[1:] + unit[:1]:
+                kv = r.kv_tokens
+                finishes = r.prefill_pos + cl == len(kv)
+                self._prepare_entry_write(r, r.prefill_pos,
+                                          r.prefill_pos + cl)
+                entries[s] = _Entry(
+                    req=r, start=r.prefill_pos,
+                    tokens=kv[r.prefill_pos:r.prefill_pos + cl],
+                    chunk_len=cl, sample_step=0,
+                    # the chunk that completes a *fresh* prompt yields the
+                    # first token; a preempted request's next token is
+                    # already known
+                    record=finishes and not r.out_tokens,
+                    mask_id=self._dense_mask_id if dense else r.submodel_id)
+            budget -= cl * n
         return entries
 
     # -- one engine tick -----------------------------------------------------
@@ -302,12 +474,13 @@ class Engine:
         for req in self.sched.admit(now):
             self.stats.cache_hit_tokens += req.num_cached_tokens
             self.stats.cache_eligible_tokens += req.cache_eligible_tokens
+            self.stats.prefill_tok_saved += req.num_cached_tokens
         self._sample_peak()                       # admissions allocate pages
-        done = self.sched.evict_finished(tick_now())  # e.g. max_new == 1
+        done = self._evict_finished(tick_now())   # e.g. max_new == 1
         if not self.sched.running:
             if self.sched.waiting:
                 head = self.sched.waiting[0]
-                need = self.sched.unit_admission_pages([head])
+                need = self._admission_need(head)
                 if need > self.pool.capacity:
                     raise EngineOOM(
                         f"request {head.id} needs {need} page(s) to "
@@ -326,16 +499,42 @@ class Engine:
         tokens = np.zeros((B, C), np.int32)
         starts = np.zeros((B,), np.int32)
         chunk_lens = np.zeros((B,), np.int32)
+        req_ids = np.zeros((B,), np.int32)
+        sample_steps = np.zeros((B,), np.int32)
+        submodel_ids = np.zeros((B,), np.int32)
+        seg_ids = np.arange(B, dtype=np.int32)    # solo: own segment
+        vote_flags = np.zeros((B,), np.int32)
         for slot, e in entries.items():
             tokens[slot, :e.chunk_len] = e.tokens
             starts[slot] = e.start
             chunk_lens[slot] = e.chunk_len
+            req_ids[slot] = e.req.id
+            sample_steps[slot] = e.sample_step
+            submodel_ids[slot] = e.mask_id
+            group = e.req.group
+            if group is not None:
+                seg_ids[slot] = group.leader.slot
+                if group.combine == "majority_vote":
+                    vote_flags[slot] = 1          # members sample, then vote
+                else:
+                    # mean-logit: one sampling key per group, one draw
+                    req_ids[slot] = group.leader.id
+        self.stats.ticks_nonempty += 1
+        if len({e.req.submodel_id for e in entries.values()}) > 1:
+            self.stats.ticks_cobatched += 1
         self._sync_block_tables()
-        d_tokens, d_starts, d_chunk_lens = marshal_i32(
-            self.device, tokens, starts, chunk_lens)
+        # ticks without an ensemble group skip the on-device combine
+        ensembles = any(e.req.group is not None for e in entries.values())
+        (d_tokens, d_starts, d_chunk_lens, d_req_ids, d_sample_steps,
+         d_submodel_ids, d_seg_ids, d_vote_flags) = marshal_i32(
+            self.device, tokens, starts, chunk_lens, req_ids, sample_steps,
+            submodel_ids, seg_ids, vote_flags)
         chunk0, decode0 = build.LAUNCHES[NAME], build.LAUNCHES[NAME_DECODE]
         sampled = self._step(self.params, self.cache, d_tokens, d_starts,
-                             d_chunk_lens, self._bt.dev)
+                             d_chunk_lens, self._bt.dev, d_req_ids,
+                             d_sample_steps, d_submodel_ids, d_seg_ids,
+                             d_vote_flags, self._root_key,
+                             ensembles=ensembles)
         # the one deliberate host pull of a tick
         sampled = np.asarray(sampled.cpu())  # hornlint: sync-ok
         decode = build.LAUNCHES[NAME_DECODE] - decode0
@@ -354,7 +553,8 @@ class Engine:
             # prefill_pos past every write of this tick
             req.prefill_pos = max(req.prefill_pos, e.start + e.chunk_len)
             if was_prefill and req.page_hashes:
-                # content-index every freshly materialized full page
+                # content-index every freshly materialized full page of the
+                # publishable (namespace-uniform) region
                 full = min(req.prefill_pos, req.publishable_end) \
                     // self.ecfg.page_size
                 if full:
@@ -362,7 +562,9 @@ class Engine:
             if e.record:
                 self.sched.record_token(slot, int(sampled[slot]), post)
                 self.stats.generated_tokens += 1
-        return done + self.sched.evict_finished(post)
+                by = self.stats.tokens_by_submodel
+                by[req.submodel_id] = by.get(req.submodel_id, 0) + 1
+        return done + self._evict_finished(post)
 
     def run(self, *, clock=None) -> List[Request]:
         """Drive until every submitted request has finished."""

@@ -81,34 +81,38 @@ def test_streams_match_jax_engine(models, arch, budget):
                for r in eng.sched.finished)
 
 
-def _tight_or_roomy(cfg, model, num_pages):
+def _tight_or_roomy(cfg, model, num_pages, temperature=0.0):
     eng = Engine(cfg, model,
                  EngineConfig(num_slots=2, num_pages=num_pages, page_size=4,
                               max_prompt_len=8, max_new_tokens=8,
                               token_budget=16, policy="on_demand",
-                              kv_dtype="float32", compute_dtype="float32"),
+                              kv_dtype="float32", compute_dtype="float32",
+                              temperature=temperature),
                  device="cpu")
     prompts = [np.arange(1, 9, dtype=np.int32),
                np.arange(1, 6, dtype=np.int32)]
     return eng, _serve(eng, prompts, 8)
 
 
-def test_preempted_request_output_is_byte_identical(models):
-    """Greedy: 6 allocatable pages squeeze the pool, the younger sequence
-    is preempted and re-prefilled, and its stream does not change.  The
-    roomy run also equals the JAX engine's."""
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_preempted_request_output_is_byte_identical(models, temperature):
+    """6 allocatable pages squeeze the pool, the younger sequence is
+    preempted and re-prefilled, and its stream does not change, greedy or
+    sampled (every draw is keyed by its request and step, not by the
+    tick).  The roomy run also equals the JAX engine's."""
     jcfg, params, cfg, model = models["qwen3-1.7b"]
-    tight, got = _tight_or_roomy(cfg, model, 7)
+    tight, got = _tight_or_roomy(cfg, model, 7, temperature)
     assert tight.preemptions >= 1, "pool was never squeezed"
     tight.pool.check_invariants()
     assert tight.pool.used_pages == 0
-    roomy, want = _tight_or_roomy(cfg, model, 64)
+    roomy, want = _tight_or_roomy(cfg, model, 64, temperature)
     assert roomy.preemptions == 0
     assert got == want, f"preemption changed output: {got} != {want}"
     jeng = JaxEngine(jcfg, params, JaxEngineConfig(
         num_slots=2, num_pages=64, page_size=4, max_prompt_len=8,
         max_new_tokens=8, token_budget=16, policy="on_demand",
-        kv_dtype="float32", compute_dtype="float32"))
+        kv_dtype="float32", compute_dtype="float32",
+        temperature=temperature))
     assert _serve(jeng, [np.arange(1, 9, dtype=np.int32),
                          np.arange(1, 6, dtype=np.int32)], 8) == want
 

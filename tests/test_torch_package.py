@@ -11,6 +11,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,7 +19,7 @@ import repro_torch
 from repro_torch.configs import base
 from repro_torch.configs.base import get_model_config, reduced
 from repro_torch.models.params import init_params
-from repro_torch.serving import Engine, EngineConfig
+from repro_torch.serving import Engine, EngineConfig, ModelBank, Router
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -105,29 +106,47 @@ def test_entry_points_refuse_missing_cuda(no_cuda):
 @pytest.mark.parametrize("what", ["bank", "router", "draft", "speculate_k",
                                   "temperature", "kv_dtype"])
 def test_engine_refuses_unported_features(what):
-    """Slice-2 features raise instead of being silently ignored, and so
-    does a KV pool dtype the engine has no kernel for (int8 pools are
-    served since the decode kernel's slice)."""
+    """Speculation (a DraftModel, ``speculate_k > 0``) raises, naming its
+    ROADMAP item, instead of being silently ignored, and so does a KV pool
+    dtype the engine has no kernel for.  The multi-submodel parts are
+    served since their slice: a bank built for another model and a Router
+    without a bank are refused for what they are, and temperature > 0
+    samples."""
     cfg = reduced(get_model_config("qwen3-1.7b"))
     params = init_params(cfg, 0, device="cpu")
-    kw, ecfg = {}, EngineConfig()
-    if what in ("bank", "router", "draft"):
-        kw[what] = object()
+    kw, ecfg = {}, EngineConfig(max_new_tokens=4)
+    err, match = NotImplementedError, "slice 3, item 14"
+    if what == "bank":
+        horn = base.HornConfig(enabled=True, keep_hidden=0.5, block_size=16)
+        kw["bank"] = ModelBank(reduced(get_model_config("gemma2-27b")),
+                               horn, 2)
+        err, match = ValueError, "bank was built for"
+    elif what == "router":
+        kw["router"] = Router(2)
+        err, match = ValueError, "needs a ModelBank"
+    elif what == "draft":
+        kw["draft"] = object()
+    elif what == "temperature":
+        eng = Engine(cfg, params, dataclasses.replace(ecfg, temperature=0.8),
+                     device="cpu")
+        req = eng.submit(np.arange(1, 6), 4)
+        eng.run()
+        assert len(req.out_tokens) == 4
+        return
     else:
-        value = {"speculate_k": 2, "temperature": 0.8,
-                 "kv_dtype": "float16"}
+        value = {"speculate_k": 2, "kv_dtype": "float16"}
         ecfg = dataclasses.replace(ecfg, **{what: value[what]})
-    err, match = (ValueError, "float32, bfloat16 or int8") \
-        if what == "kv_dtype" else (NotImplementedError, "slice 3")
+        if what == "kv_dtype":
+            err, match = ValueError, "float32, bfloat16 or int8"
     with pytest.raises(err, match=match):
         Engine(cfg, params, ecfg, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--topology", "zero1"], "slice 2, item 10"),
-    (["--topology", "local_sgd"], "slice 2, item 10"),
+    (["--topology", "zero1"], "slice 5, item 10"),
+    (["--topology", "local_sgd"], "slice 5, item 10"),
     (["--checkpoint-dir", "ckpt", "--topology", "local_sgd"],
-     "slice 2, item 10"),
+     "slice 5, item 10"),
     (["--mesh-data", "2"], "slice 5"),
     (["--arch", "mamba2-2.7b"], "slice 4"),
 ])
