@@ -150,6 +150,23 @@ Phases, each of which fails the script (non-zero exit, no result line):
               tok/s, TTFT, tick wall, co-batch ratio, tokens per circuit,
               the bank's device bytes and a profiled decode tick with an
               ensemble printed.
+ 13. spec     speculative decoding, K 4, the draft circuit 0 of a
+              draft-only bank at keep 0.875.  (a) qwen3-1.7b at full
+              width, 2 layers, f32, 6 requests on 8 slots: greedy
+              speculative streams equal to the non-speculative engine's
+              with more than one token a speculating slot-tick and fewer
+              ticks; two T 0.8 runs bit-equal; the card's speculative
+              streams against the CPU plain path's (first parting token
+              and top-2 gap printed); both pools' invariants, the draft
+              pool empty at the end; the verify tick's chunk launch (with
+              its S_v = 5 window) and a draft step's decode launch (idle
+              rows exactly 0) against their plain versions.  (b) 28
+              layers, bf16, phase 5's load at T 0 and T 0.8: every
+              request finishes, launches asserted by route and by parent
+              against draft, the same two launches held in bf16 (T 0);
+              tok/s, TTFT, latency, ticks, accept rate, accepted tokens a
+              slot-tick, draft calls and a profiled speculating tick
+              printed.
 Phase 3 also holds the SSD chunk scan against its plain version (y and the
 final state): the JAX sweep's shapes, S 257 (chunks of 1 token), two more
 shapes of the wgmma route and the full-width shape B 2, S 2048, H 80, P
@@ -157,11 +174,16 @@ shapes of the wgmma route and the full-width shape B 2, S 2048, H 80, P
 gives it (bf16 at Q % 64 == 0 on the wgmma kernel, the rest on the
 CUDA-core one), printed and asserted by its launch count; then the wgmma
 kernel again with dt at 0, 1e-30 and -0.05 on some tokens.
+Phase 8 reads the paged kernels by device time over windows of 50 calls
+profiled after a warm-up run (``device_ms``): a window must hold 50
+launches of the timed kernel and read at least its bound, else it is
+profiled again and, after three tries, read by CUDA events.
 Prints one JSON line of kernel numbers, then, as the last line,
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -951,27 +973,47 @@ def engine_decode_route(kernel, eng, dev):
 
 
 PROFILE_TRIES = 3
+# device symbols of the paged kernels, by wrapper name: the chunk source's
+# ``paged_chunk_attention_kernel`` (CUDA cores) and ``paged_chunk_tc_kernel``
+# (tensor cores), the decode source's ``paged_attention_kernel``
+KERNEL_KEYS = {"paged_chunk_attention": "paged_chunk_",
+               "paged_attention": "paged_attention_kernel"}
 
 
-def device_events(torch, fn):
+def device_events(torch, fn, warmup: bool = False, cpu: bool = True):
     """CUDA kernel events of ``fn()`` under torch.profiler, or [] when the
     profiler sees none.  The profiler sometimes sees no device activity in
     a window that had some, so a window without device time is profiled
     again (``fn`` runs again), up to ``PROFILE_TRIES`` times; a window that
-    needed more than one try, or never saw device time, is logged."""
-    from torch.profiler import ProfilerActivity, profile
+    needed more than one try, or never saw device time, is logged.
+
+    A window that starts with the profiler misses its first launches (the
+    timing windows of 50 calls saw 39 of them, every try): with
+    ``warmup`` the profiler runs ``fn()`` once as a warm-up step of its
+    schedule, whose events it drops, and reports the second run's (the
+    step's own annotation, which spans the step's host time, is not a
+    device event here).  ``cpu=False`` traces the device alone, which
+    costs less on a window of many thousand ops."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for attempt in range(1, PROFILE_TRIES + 1):
         try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA] + (
+                    [ProfilerActivity.CPU] if cpu else []),
+                         schedule=schedule(wait=0, warmup=1, active=1)
+                         if warmup else None) as prof:
+                if warmup:
+                    fn()
+                    torch.cuda.synchronize()
+                    prof.step()                    # into the active step
                 fn()
                 torch.cuda.synchronize()
         except RuntimeError as e:                  # profiler unavailable
             log(f"  torch.profiler failed ({e}); device time not measured")
             return []
         events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")]
         if sum(e.self_device_time_total for e in events) > 0:
             if attempt > 1:
                 log(f"  profiler: device events on try {attempt} of "
@@ -1017,8 +1059,7 @@ def phase_tick_profile(torch, eng, kernel, ensembles: int = 0):
         log("  device time per tick: not measured (no device events)")
         return out
     attn = sum(e.self_device_time_total for e in events
-               if kernel.NAME in e.key or kernel.NAME_DECODE in e.key
-               ) / n / 1e3
+               if any(k in e.key for k in KERNEL_KEYS.values())) / n / 1e3
     out.update(device_busy_ms=busy, attn_ms=attn, kernels_per_tick=sum(
         e.count for e in events) / n)
     log(f"  device busy {busy:.2f} ms a tick ({busy / wall_ms:.1%} of the "
@@ -1255,15 +1296,43 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
-def device_ms(torch, fn, iters: int = 50):
+def device_ms(torch, fn, iters: int = 50, key=None, bound_ms=None):
     """Device time per call of ``fn(i)``: the device time of every kernel
     it launches, summed under torch.profiler over ``iters`` calls; None
     when the profiler sees no device activity.  For a kernel shorter than
     its wrapper's host time (~30 us for the paged kernels) CUDA events
-    over back-to-back calls time the host's enqueue, not the device."""
-    events = device_events(torch, lambda: [fn(i) for i in range(iters)])
-    busy = sum(e.self_device_time_total for e in events)
-    return busy / iters / 1e3 if busy > 0 else None
+    over back-to-back calls time the host's enqueue, not the device.
+
+    ``key`` names the timed kernel (a substring of its device symbol, as
+    ``KERNEL_KEYS`` gives it): the window is then profiled after a warm-up
+    run of it (``device_events(warmup=True)``), must hold exactly
+    ``iters`` launches of that kernel (the other kernels of a call need
+    not run once a call) and, with ``bound_ms``, read no less than the
+    bound; a window that misses either is profiled again, up to
+    ``PROFILE_TRIES`` times, and then reads as not measured (None)."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        events = device_events(torch, lambda: [fn(i) for i in range(iters)],
+                               warmup=key is not None)
+        busy = sum(e.self_device_time_total for e in events)
+        if busy <= 0:
+            return None
+        ms = busy / iters / 1e3
+        if key is None:
+            return ms
+        own = [e for e in events if key in e.key]
+        seen = sum(e.count for e in own)
+        if seen == iters and (bound_ms is None or ms >= bound_ms):
+            if attempt > 1:
+                log(f"  profiler: {key} window complete on try {attempt}")
+            return ms
+        avg = sum(e.self_device_time_total for e in own) / max(seen, 1) / 1e3
+        floor = "" if bound_ms is None else \
+            f" (bound {bound_ms * 1e3:.2f} us)"
+        log(f"  profiler: {key} window of {iters} calls saw {seen} "
+            f"launches, {ms * 1e3:.2f} us a call{floor}, {avg * 1e3:.2f} "
+            f"us a seen launch; try {attempt} of {PROFILE_TRIES}")
+    log(f"  profiler: {key} not measured")
+    return None
 
 
 def tick_inputs(torch, dev, shape: str, copies: int, int8: bool):
@@ -1391,10 +1460,13 @@ def phase_timing(torch, dev, kernel, ref):
                 return F.scaled_dot_product_attention(
                     qt, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
 
+            nbytes, flops = work(q, KH, starts, clens, psize, int8)
+            b_ms, b_by = bound(nbytes, flops)
             ev = {"ms": cuda_ms(torch, lambda i: call(fns[0], i), 200),
                   "plain_ms": cuda_ms(torch, lambda i: call(fns[1], i), 20),
                   "library_ms": cuda_ms(torch, run_library, 200)}
-            windows = [device_ms(torch, lambda i: call(fns[0], i))
+            windows = [device_ms(torch, lambda i: call(fns[0], i),
+                                 key=KERNEL_KEYS[name], bound_ms=b_ms)
                        for _ in range(3 if name == kernel.NAME_DECODE
                                       else 1)]
             dv = {"ms": None if None in windows else
@@ -1404,8 +1476,6 @@ def phase_timing(torch, dev, kernel, ref):
             ms, plain_ms, library_ms = (dv[k] if dv[k] is not None else ev[k]
                                         for k in ("ms", "plain_ms",
                                                   "library_ms"))
-            nbytes, flops = work(q, KH, starts, clens, psize, int8)
-            b_ms, b_by = bound(nbytes, flops)
             key = shape + ("_int8" if int8 else "")
             G = H // KH
             if name == kernel.NAME_DECODE:
@@ -1484,14 +1554,20 @@ def phase_decode_sweep(torch, dev, kernel):
                                        atol=2e-2, rtol=2e-2)
             splits = kernel.decode_splits(B, KH, H // KH, maxp,
                                           kernel.sm_count(dev.index))
+            b_ms, _ = bound(*work(qc, KH, lengths - 1,
+                                  torch.ones_like(lengths), psize, int8))
             row = {"pools": "int8" if int8 else "bfloat16", "B": B,
-                   "ctx": ctx, "splits": splits,
-                   "decode_ms": device_ms(torch, dec),
-                   "chunk_ms": device_ms(torch, chk)}
+                   "ctx": ctx, "splits": splits, "bound_ms": b_ms,
+                   "decode_ms": device_ms(
+                       torch, dec, key=KERNEL_KEYS[kernel.NAME_DECODE],
+                       bound_ms=b_ms),
+                   "chunk_ms": device_ms(
+                       torch, chk, key=KERNEL_KEYS[kernel.NAME],
+                       bound_ms=b_ms)}
             out.append(row)
             if row["decode_ms"] is None or row["chunk_ms"] is None:
                 log(f"  sweep {row['pools']:8s} B {B:2d} ctx {ctx:4d}: "
-                    f"device time not measured (no device events)")
+                    f"device time not measured")
                 continue
             log(f"  sweep {row['pools']:8s} B {B:2d} ctx {ctx:4d}: "
                 f"{kernel.NAME_DECODE} (NS {splits:2d}) "
@@ -2462,9 +2538,13 @@ LOGIT_TOL = 1e-4                 # f32 logits of one position, two batches
 
 
 class LogitTap:
-    """Records the last-position logits the unified step computes for each
-    running request, keyed by (request id, stream position they predict):
-    wraps ``models.api.paged_step`` while ``eng`` runs.  Only the parity
+    """Records the logits the unified step computes for each running
+    request, keyed by (request id, stream position they predict): every
+    row of the step's ``logit_index`` window (the last valid position, or
+    a speculative verify window), a row at chunk position j predicting
+    position start + j + 1.  Wraps ``models.api.paged_step`` while ``eng``
+    runs; the draft's steps (no window) are not recorded, and a position
+    a later tick predicts again keeps the later row.  Only the parity
     checks use it (one host copy a tick)."""
 
     def __init__(self, eng):
@@ -2475,12 +2555,16 @@ class LogitTap:
 
         def paged_step(*args, **kw):
             logits, cache = tap._orig(*args, **kw)
-            ends = (args[3] + args[4]).tolist()
+            idx = kw.get("logit_index")
+            if idx is None:
+                return logits, cache
+            pos = (args[3][:, None] + idx + 1).tolist()
             lens = args[4].tolist()
-            rows = logits[:, 0].float().cpu()
+            rows = logits.float().cpu()
             for slot, req in eng.sched.running.items():
                 if lens[slot]:
-                    tap.store[(req.id, ends[slot])] = rows[slot]
+                    for j, at in enumerate(pos[slot]):
+                        tap.store[(req.id, at)] = rows[slot, j]
             return logits, cache
 
         self._wrapped = paged_step
@@ -2502,13 +2586,14 @@ def top2_gap(torch, logits) -> float:
     return float(top[0] - top[1])
 
 
-def compare_streams(torch, what, key, got, want, tap_got, tap_want):
+def compare_streams(torch, what, key, got, want, tap_got, tap_want,
+                    tol=LOGIT_TOL):
     """Two streams of one prompt (``key``: the first engine's request id,
     the prompt length, the second's request id) and the logits behind
     them: max |d| of the logits at every position both computed on the
-    same prefix, held to ``LOGIT_TOL``; where the streams part, the
-    position and the top-2 gap there are printed.  Returns (equal,
-    max |d|)."""
+    same prefix, held to ``tol`` (None: printed, not held); where the
+    streams part, the position and the top-2 gap there are printed.
+    Returns (equal, max |d|)."""
     rid, plen, rid2 = key
     j = first_parting(got, want)
     upto = min(len(got), len(want)) if j is None else j + 1
@@ -2521,7 +2606,7 @@ def compare_streams(torch, what, key, got, want, tap_got, tap_want):
         gap = top2_gap(torch, tap_got[(rid, plen + j)])
         log(f"    {what}: streams part at token {j} ({got[j]} vs "
             f"{want[j]}), top-2 logit gap there {gap:.3e}")
-    assert d <= LOGIT_TOL, (what, d)
+    assert tol is None or d <= tol, (what, d)
     return j is None, d
 
 
@@ -2795,6 +2880,430 @@ def phase_bank(torch, dev, build, kernel):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: speculative decoding (a Horn circuit drafts, the parent verifies
+# a K + 1 window through the paged kernels)
+# ---------------------------------------------------------------------------
+SPEC_K = 4
+DRAFT_HORN = dict(enabled=True, keep_hidden=0.875, keep_input=1.0,
+                  block_size=16)
+
+
+class KernelCapture:
+    """Copies the inputs of two paged-kernel launches while ``eng`` runs,
+    and lets them run unchanged: the first launch of the chunk kernel in a
+    verify tick (the parent's first launch after a draft call, where a
+    slot's chunk holds ``S_v`` tokens), and the first launch of the decode
+    kernel in a draft step
+    (inside ``eng.spec.propose``), one with an idle row when there is one.
+    ``hold`` then runs each kernel and its plain version on the copies,
+    the chunk kernel also with the S_v-row verify window as its
+    ``logit_index``."""
+
+    def __init__(self, torch, kernel, eng, S_v):
+        self.torch, self.kernel, self.eng, self.S_v = torch, kernel, eng, S_v
+        self.got, self._in_draft, self._idle_seen = {}, False, False
+        self._drafted = False
+
+    @staticmethod
+    def _copy(args, kw):
+        def own(t):
+            return t.clone() if hasattr(t, "clone") else t
+        return [own(a) for a in args], {k: own(v) for k, v in kw.items()}
+
+    def __enter__(self):
+        k, cap = self.kernel, self
+        self._orig = (k.paged_chunk_attention, k.paged_attention,
+                      self.eng.spec.propose)
+
+        def chunk(*args, **kw):
+            if cap._drafted and not cap._in_draft and "verify" not in \
+                    cap.got and bool((args[5] == cap.S_v).any()):
+                cap.got["verify"] = cap._copy(args, kw)
+            return cap._orig[0](*args, **kw)
+
+        def decode(*args, **kw):
+            # the first draft decode launch, replaced once by the first
+            # with an idle row
+            if cap._in_draft and not cap._idle_seen:
+                idle = bool((args[4] == 0).any())
+                if idle or "draft_decode" not in cap.got:
+                    cap.got["draft_decode"] = cap._copy(args, kw)
+                    cap._idle_seen = idle
+            return cap._orig[1](*args, **kw)
+
+        def propose(*args, **kw):
+            cap._in_draft = True
+            try:
+                return cap._orig[2](*args, **kw)
+            finally:
+                cap._in_draft, cap._drafted = False, True
+
+        k.paged_chunk_attention, k.paged_attention = chunk, decode
+        self.eng.spec.propose = propose
+        return self
+
+    def __exit__(self, *exc):
+        self.kernel.paged_chunk_attention, self.kernel.paged_attention = \
+            self._orig[:2]
+        del self.eng.spec.propose
+
+    def hold(self, ref, tol):
+        """Each captured launch again through the kernel and its plain
+        version: max |d| of the outputs (and of the verify window's rows),
+        held to ``tol``; the decode launch's idle rows (length 0, on the
+        null page) must be exactly 0.  Returns {shape: max |d|}."""
+        torch, kernel = self.torch, self.kernel
+        assert set(self.got) == {"verify", "draft_decode"}, set(self.got)
+        out = {}
+        for what, (fk, fr) in (
+                ("verify", (kernel.paged_chunk_attention,
+                            ref.paged_chunk_attention_ref)),
+                ("draft_decode", (kernel.paged_attention,
+                                  ref.paged_attention_ref))):
+            args, kw = self.got[what]
+            if what == "verify":
+                # the verify window of each slot, left-aligned on its chunk
+                # (the unified step's rows for a speculating slot)
+                j = torch.arange(self.S_v, device=args[5].device)[None, :]
+                kw = dict(kw, logit_index=torch.minimum(
+                    j, torch.clamp(args[5][:, None] - 1, min=0)).to(
+                        torch.int32).contiguous())
+            got, want = fk(*args, **kw), fr(*args, **kw)
+            torch.cuda.synchronize()
+            pairs = list(zip(got, want)) if isinstance(got, tuple) \
+                else [(got, want)]
+            out[what] = max((x.float() - y.float()).abs().max().item()
+                            for x, y in pairs)
+            for x, y in pairs:
+                torch.testing.assert_close(x.float(), y.float(), atol=tol,
+                                           rtol=tol)
+            if what == "draft_decode":
+                idle = args[4] == 0
+                assert torch.all(got[idle] == 0), "idle draft row not 0"
+        return out
+
+
+def spec_launch_checks(torch, kernel, build, eng, dev):
+    """The paged-kernel launches of a speculating run, read from 0 before
+    it: the parent's (one a layer a tick: the decode kernel on decode-only
+    ticks, the chunk kernel on the others, verify ticks included) and the
+    draft's (one a layer a draft paged step: the decode kernel at C == 1),
+    which together are ``build.LAUNCHES``; by route, every chunk launch on
+    ``chunk_route``'s kernel and every decode launch on the split rule's
+    route for its block table (the parent's and the draft's own width).
+    Returns the counts."""
+    cfg, s, spec = eng.cfg, eng.stats, eng.spec
+    L = cfg.num_layers
+    assert s.attn_launches == L * s.steps > 0, (s.attn_launches, s.steps)
+    assert s.decode_launches == L * s.decode_ticks, s.decode_launches
+    assert s.draft_attn_launches == L * spec.paged_steps > 0, \
+        (s.draft_attn_launches, spec.paged_steps)
+    assert s.draft_decode_launches == L * spec.decode_steps > 0, \
+        (s.draft_decode_launches, spec.decode_steps)
+    parent_chunk = s.attn_launches - s.decode_launches
+    draft_chunk = s.draft_attn_launches - s.draft_decode_launches
+    assert parent_chunk > 0
+    assert build.LAUNCHES[kernel.NAME] == parent_chunk + draft_chunk
+    assert build.LAUNCHES[kernel.NAME_DECODE] == \
+        s.decode_launches + s.draft_decode_launches
+    chunk_route = kernel.chunk_route(
+        getattr(torch, eng.ecfg.compute_dtype), eng.ecfg.kv_dtype == "int8",
+        cfg.head_dim, eng.ecfg.page_size, cfg.num_heads // cfg.num_kv_heads)
+    assert build.ROUTE_LAUNCHES.get(f"{kernel.NAME}:{chunk_route}", 0) == \
+        parent_chunk + draft_chunk, (chunk_route, dict(build.ROUTE_LAUNCHES))
+    routes = {}
+    for who, maxp, n in (("parent", eng.max_pages_per_seq,
+                          s.decode_launches),
+                         ("draft", spec.max_pages_per_seq,
+                          s.draft_decode_launches)):
+        splits = kernel.decode_splits(
+            eng.ecfg.num_slots, cfg.num_kv_heads,
+            cfg.num_heads // cfg.num_kv_heads, maxp,
+            kernel.sm_count(dev.index))
+        route = kernel.decode_route(splits)
+        routes[who] = (route, splits)
+        routes.setdefault(route, 0)
+        routes[route] += n
+    for route in {routes["parent"][0], routes["draft"][0]}:
+        assert build.ROUTE_LAUNCHES.get(
+            f"{kernel.NAME_DECODE}:{route}", 0) == routes[route], routes
+    return {"parent_chunk": parent_chunk,
+            "parent_decode": s.decode_launches,
+            "draft_chunk": draft_chunk,
+            "draft_decode": s.draft_decode_launches,
+            "chunk_route": chunk_route,
+            "decode_route_parent": routes["parent"],
+            "decode_route_draft": routes["draft"]}
+
+
+def phase_spec_parity(torch, dev, kernel, ref):
+    """Phase 13(a): qwen3-1.7b at full width, 2 layers, f32 (TF32 off), 8
+    slots, 6 requests (two slots stay idle), K 4; the draft a draft-only
+    bank's circuit at keep 0.875.  Greedy speculative streams equal the
+    non-speculative engine's, with more than one token a speculating
+    slot-tick and fewer ticks; two T 0.8 speculative runs bit-equal; the
+    card's speculative streams against the CPU plain path's (the first
+    parting token and the top-2 gap there printed); both pools' invariants
+    hold and the draft pool ends empty; the verify tick's chunk launch (an
+    S_v = 5 window) and a draft step's decode launch held against their
+    plain versions on the same inputs."""
+    from repro_torch.configs.base import HornConfig, get_model_config
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import Engine, EngineConfig, ModelBank
+
+    cfg = dataclasses.replace(get_model_config("qwen3-1.7b"), num_layers=2,
+                              dtype="float32")
+    params = {"card": init_params(cfg, 1234, device=dev,
+                                  dtype=torch.float32)}
+    params["cpu"] = copy.deepcopy(params["card"]).to("cpu")
+    horn = HornConfig(**DRAFT_HORN)
+    drafts = {w: ModelBank(cfg, horn, 1, seed=0).draft_model(0, p)
+              for w, p in params.items()}
+    max_new = 12
+    base = EngineConfig(num_slots=8, num_pages=128, page_size=16,
+                        max_prompt_len=64, max_new_tokens=max_new,
+                        token_budget=64, policy="on_demand",
+                        kv_dtype="float32", compute_dtype="float32")
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 17, 23, 31, 40, 61)]
+
+    def serve(where, spec, temperature=0.0, capture=False):
+        ecfg = dataclasses.replace(base, temperature=temperature,
+                                   speculate_k=SPEC_K if spec else 0)
+        eng = Engine(cfg, params[where], ecfg,
+                     draft=drafts[where] if spec else None,
+                     device=dev if where == "card" else "cpu")
+        cap = KernelCapture(torch, kernel, eng, SPEC_K + 1) if capture \
+            else None
+        with LogitTap(eng) as tap, cap or contextlib.nullcontext():
+            for p in prompts:
+                eng.submit(p, max_new)
+            eng.run()
+        eng.pool.check_invariants()
+        if spec:
+            eng.spec.pool.check_invariants()
+            assert eng.spec.pool.num_seqs == 0
+        streams = {r.id: list(r.out_tokens) for r in eng.sched.finished}
+        assert all(len(t) == max_new for t in streams.values())
+        return eng, streams, tap.store, cap
+
+    out = {}
+    t0 = time.perf_counter()
+    plain, want, _, _ = serve("card", False)
+    eng, got, tap, cap = serve("card", True, capture=True)
+    s = eng.stats
+    assert got == want, (got, want)
+    assert s.accepted_tok_per_tick > 1 and s.steps < plain.stats.steps, \
+        (s.accepted_tok_per_tick, s.steps, plain.stats.steps)
+    out["greedy"] = {"streams_equal": True, "ticks": s.steps,
+                     "ticks_plain": plain.stats.steps,
+                     "accept_rate": s.accept_rate,
+                     "accepted_tok_per_tick": s.accepted_tok_per_tick,
+                     "draft_calls": eng.spec.draft_calls}
+    log(f"  greedy, K {SPEC_K}, {len(prompts)} requests x {max_new} tokens "
+        f"on 8 slots: speculative streams == non-speculative ({s.steps} "
+        f"ticks against {plain.stats.steps}); accept rate "
+        f"{s.accept_rate:.1%}, {s.accepted_tok_per_tick:.2f} tokens a "
+        f"speculating slot-tick, {eng.spec.draft_calls} draft calls; both "
+        f"pools' invariants hold, the draft pool ends empty "
+        f"({time.perf_counter() - t0:.1f} s)")
+    errs = cap.hold(ref, 2e-5)
+    out["kernel_vs_plain"] = errs
+    vq = cap.got["verify"][0][0]
+    log(f"  verify tick's {kernel.NAME} (C {vq.shape[1]}, S_v "
+        f"{SPEC_K + 1} window, f32 q on "
+        f"'{kernel.chunk_route(vq.dtype, False, cfg.head_dim, 16, 2)}'): "
+        f"max |kernel - plain| {errs['verify']:.3g}; a draft step's "
+        f"{kernel.NAME_DECODE} (idle rows 0): {errs['draft_decode']:.3g} "
+        f"(tol 2e-5)")
+    del plain, cap
+
+    t0 = time.perf_counter()
+    runs = [serve("card", True, temperature=0.8)[1] for _ in range(2)]
+    assert runs[0] == runs[1], runs
+    out["t0.8_two_runs_equal"] = True
+    log(f"  T 0.8: two speculative runs bit-equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    _, cpu, cpu_tap, _ = serve("cpu", True)
+    equal, worst = 0, 0.0
+    for rid, p in enumerate(prompts):
+        same, d = compare_streams(torch, f"request {rid} card vs CPU",
+                                  (rid, len(p), rid), got[rid], cpu[rid],
+                                  tap, cpu_tap, tol=None)
+        equal += same
+        worst = max(worst, d)
+    out["card_vs_cpu"] = {"streams_equal": equal, "logit_max_abs_diff":
+                          worst}
+    log(f"  greedy speculative streams, card vs the CPU plain path: "
+        f"{equal}/{len(prompts)} equal, logits max |d| {worst:.2e} on "
+        f"shared prefixes ({time.perf_counter() - t0:.1f} s)")
+    del eng, params, drafts
+    gc.collect()
+    return out
+
+
+def phase_spec_tick_profile(torch, eng, kernel, n=2):
+    """A speculating decode tick with its draft call: 8 slots at context
+    ~100, host wall per tick over ``n`` ticks, then ``n`` ticks profiled:
+    device busy, ops and the paged kernels' device time (the chunk kernel
+    is the parent's verify, the decode kernel the draft's C == 1 steps).
+    Reports "not measured" when the profiler sees no device activity."""
+    rng = np.random.default_rng(5)
+    for _ in range(eng.ecfg.num_slots):
+        eng.submit(rng.integers(1, eng.cfg.vocab_size, (96,)), 32)
+    while eng.sched.waiting or any(r.in_prefill
+                                   for r in eng.sched.running.values()):
+        eng.step()
+    torch.cuda.synchronize()
+    calls0 = eng.spec.draft_calls
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    assert eng.spec.draft_calls - calls0 == n, "a timed tick did not draft"
+    out = {"spec_tick_ms": wall_ms, "device_busy_ms": None,
+           "kernels_per_tick": None}
+    events = device_events(torch, lambda: [eng.step() for _ in range(n)],
+                           cpu=False)
+    eng.run()
+    busy = sum(e.self_device_time_total for e in events) / n / 1e3
+    log(f"  speculating tick (8 slots, context ~100, K {SPEC_K}, with its "
+        f"draft call): {wall_ms:.2f} ms wall")
+    if busy <= 0:
+        log("  device time per tick: not measured (no device events)")
+        return out
+    by = {name: sum(e.self_device_time_total for e in events
+                    if key in e.key) / n / 1e3
+          for name, key in KERNEL_KEYS.items()}
+    out.update(device_busy_ms=busy, kernels_per_tick=sum(
+        e.count for e in events) / n, paged_ms=by)
+    log(f"  device busy {busy:.2f} ms a tick ({busy / wall_ms:.1%} of the "
+        f"wall, profiled), {out['kernels_per_tick']:.0f} device ops a tick; "
+        f"{kernel.NAME} {by[kernel.NAME]:.3f} ms, {kernel.NAME_DECODE} "
+        f"{by[kernel.NAME_DECODE]:.3f} ms")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    {e.self_device_time_total / n / 1e3:7.3f} ms  "
+            f"x{e.count / n:5.0f}  {e.key[:90]}")
+    return out
+
+
+def phase_spec_serve(torch, dev, build, kernel, ref, params, draft,
+                     temperature):
+    """Phase 13(b): qwen3-1.7b at full width (28 layers, bf16), phase 5's
+    load (2 warm-up requests, then 16 at t=0, prompts 5-203, 32 new tokens,
+    8 slots, budget 256) with ``--speculate 4`` and a draft-only circuit
+    at keep 0.875, at ``temperature``: every request finishes with 32
+    in-vocabulary tokens, launch counts asserted by route and by parent
+    against draft (``spec_launch_checks``), the verify and draft-decode
+    launches held against their plain versions (T 0), tok/s, TTFT,
+    latency, ticks, accept rate, accepted tokens a tick and draft calls
+    printed, and a speculating tick profiled."""
+    from repro_torch.configs.base import get_model_config
+    from repro_torch.launch.serve import drive, make_requests, summarize
+    from repro_torch.serving import Engine, EngineConfig
+
+    cfg = get_model_config("qwen3-1.7b")
+    gen = 32
+    ecfg = EngineConfig(num_slots=8, num_pages=512, page_size=16,
+                        max_prompt_len=256, max_new_tokens=gen,
+                        token_budget=256, policy="on_demand",
+                        kv_dtype="bfloat16", compute_dtype="bfloat16",
+                        temperature=temperature, seed=0, speculate_k=SPEC_K)
+    eng = Engine(cfg, params, ecfg, draft=draft, device=dev)
+    rng = np.random.default_rng(0)            # phase 5's draws
+    warm = [(0.0, p, 4) for _, p, _ in make_requests(
+        2, cfg.vocab_size, rng, stream="batch", max_prompt=256, gen=4)]
+    pending = [(0.0, p, gen) for _, p, _ in make_requests(
+        16, cfg.vocab_size, rng, stream="batch", max_prompt=256, gen=gen)]
+    t0 = time.perf_counter()
+    drive(eng, warm)
+    log(f"  T {temperature}: warm-up {time.perf_counter() - t0:.1f} s")
+    eng.reset_stats()
+    cap = KernelCapture(torch, kernel, eng, SPEC_K + 1) \
+        if temperature == 0 else None
+    build.reset_launches()
+    with cap or contextlib.nullcontext():
+        wall = drive(eng, pending)
+    launches = spec_launch_checks(torch, kernel, build, eng, dev)
+    r = summarize(eng, wall)
+    s = eng.stats
+    assert r["requests"] == len(pending), r
+    for req in eng.sched.finished:
+        assert len(req.out_tokens) == gen, (req.id, len(req.out_tokens))
+        assert all(0 <= t < cfg.vocab_size for t in req.out_tokens)
+    eng.pool.check_invariants()
+    eng.spec.pool.check_invariants()
+    assert eng.spec.pool.num_seqs == 0
+    r.update(temperature=temperature, launches=launches,
+             tick_ms=wall / max(s.steps, 1) * 1e3,
+             draft_paged_steps=eng.spec.paged_steps,
+             draft_decode_steps=eng.spec.decode_steps)
+    log(f"  T {temperature}: {r['requests']} requests, {r['ticks']} ticks "
+        f"({s.decode_ticks} decode-only): {r['tok_s']:.1f} tok/s  TTFT p50 "
+        f"{r['ttft_p50_s'] * 1e3:.1f} ms  latency p99 "
+        f"{r['latency_p99_s'] * 1e3:.1f} ms  tick {r['tick_ms']:.2f} ms  "
+        f"wall {wall:.3f} s")
+    log(f"    accept rate {s.accept_rate:.1%}, {s.accepted_tok_per_tick:.2f}"
+        f" tokens a speculating slot-tick ({s.spec_slot_ticks} slot-ticks, "
+        f"{s.spec_drafted} drafted, {s.spec_accepted} accepted, "
+        f"{s.spec_committed} committed), {r['draft_calls']} draft calls, "
+        f"{eng.spec.paged_steps} draft paged steps")
+    log(f"    parent: {kernel.NAME} {launches['parent_chunk']} = "
+        f"{cfg.num_layers} x {s.steps - s.decode_ticks} ticks, "
+        f"{kernel.NAME_DECODE} {launches['parent_decode']}; draft: "
+        f"{kernel.NAME} {launches['draft_chunk']}, {kernel.NAME_DECODE} "
+        f"{launches['draft_decode']} = {cfg.num_layers} x "
+        f"{eng.spec.decode_steps} C == 1 steps; chunks all on "
+        f"'{launches['chunk_route']}', decode on "
+        f"'{launches['decode_route_parent'][0]}' (NS "
+        f"{launches['decode_route_parent'][1]} parent, "
+        f"{launches['decode_route_draft'][1]} draft)")
+    if cap is not None:
+        r["kernel_vs_plain"] = cap.hold(ref, 2e-2)
+        log(f"    verify tick's {kernel.NAME} (bf16, S_v {SPEC_K + 1}) max "
+            f"|kernel - plain| {r['kernel_vs_plain']['verify']:.3g}; draft "
+            f"step's {kernel.NAME_DECODE} "
+            f"{r['kernel_vs_plain']['draft_decode']:.3g} (tol 2e-2)")
+        del cap
+    t0 = time.perf_counter()
+    r["tick_profile"] = phase_spec_tick_profile(torch, eng, kernel)
+    log(f"    tick profile {time.perf_counter() - t0:.1f} s")
+    del eng
+    gc.collect()
+    return r
+
+
+def phase_spec(torch, dev, build, kernel, ref):
+    """Phase 13: 13(a) parity, then 13(b) at temperature 0 and 0.8."""
+    from repro_torch.configs.base import HornConfig, get_model_config
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import ModelBank
+
+    t0 = time.perf_counter()
+    out = {"parity": phase_spec_parity(torch, dev, kernel, ref)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_model_config("qwen3-1.7b")
+    params = init_params(cfg, 0, device=dev, dtype=torch.bfloat16)
+    draft = ModelBank(cfg, HornConfig(**DRAFT_HORN), 1, seed=0).draft_model(
+        0, params)
+    log(f"  draft: circuit 0 of a draft-only bank, keep 0.875, d_ff "
+        f"{draft.cfg.d_ff} of {cfg.d_ff} (kept {draft.kept_frac:.1%})")
+    for temperature in (0.0, 0.8):
+        out[f"serve_t{temperature}"] = phase_spec_serve(
+            torch, dev, build, kernel, ref, params, draft, temperature)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, draft
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 13: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2917,6 +3426,12 @@ def main() -> int:
     phase("phase 12: Horn multi-submodel serving, qwen3-1.7b: a bank of "
           "circuits, routing, on-device ensembles, sampling at T > 0")
     bank = phase_bank(torch, dev, build, kernel)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("phase 13: speculative decoding, qwen3-1.7b: a Horn circuit "
+          "drafts, the parent verifies a K + 1 window")
+    spec = phase_spec(torch, dev, build, kernel, ref)
 
     # headline shapes: the prompt-chunk tick for the chunk kernel (decode
     # ticks go to the decode kernel), the decode tick for the decode kernel
@@ -2942,6 +3457,16 @@ def main() -> int:
         k["launches_phase12"] = {
             f"T {t}": bank[f"serve_t{t}"]["launches"][k["name"]]
             for t in (0.0, 0.8)}
+    # phase 13's runs: the parent's and the draft's launches of each
+    for k, which in zip(kernels, ("chunk", "decode")):
+        k["launches_phase13"] = {
+            f"T {t}": {who: spec[f"serve_t{t}"]["launches"][f"{who}_{which}"]
+                       for who in ("parent", "draft")} for t in (0.0, 0.8)}
+        errs = [spec["parity"]["kernel_vs_plain"],
+                spec["serve_t0.0"]["kernel_vs_plain"]]
+        shape = "verify" if which == "chunk" else "draft_decode"
+        k["max_abs_err_phase13"] = max(e[shape] for e in errs)
+        k["max_abs_err"] = max(k["max_abs_err"], k["max_abs_err_phase13"])
     kernels[0]["launches_by_kernel"] = {
         served["chunk_route"]: served["chunk_route_launches"],
         "wgmma_int8 (phase 5b)":
@@ -2998,6 +3523,7 @@ def main() -> int:
     line = {"kernels": kernels, "card": card, "serve": served,
             "train": trained, "horn_mlp": horn_mlp, "ssm": ssm,
             "mnist": mnist, "new_archs": new_archs, "bank": bank,
+            "spec": spec,
             "flash_host_us": flash["host_us"]}
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -1,6 +1,7 @@
 """Step factories: the train step, prefill and dense-cache decode, the
 unified paged serving step (greedy or sampled, over one model or a bank
-of circuits) and the device-side KV page copy.
+of circuits, with the speculative verify window), the draft step of
+speculative decoding and the device-side KV page copy.
 
 PyTorch runs eagerly, so a "step" is a plain function; nothing is traced
 or compiled per shape.  Serving casts the parameters to the compute dtype
@@ -240,25 +241,59 @@ def _segment_sum(x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis, as it computes it: the
+    exponentials of ``x - max`` over their sum."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _temperature(temperature: float, like: torch.Tensor) -> torch.Tensor:
+    # a device tensor: a card divides a float by a host scalar through its
+    # reciprocal, which rounds differently
+    return torch.full((), temperature, dtype=f32, device=like.device)
+
+
 def make_unified_paged_step(cfg: ModelConfig, *, temperature: float = 0.0,
                             bank_masks=None):
     """THE serving step: one call per engine tick, whatever the tick holds
-    (decode tokens and prompt chunks packed into [B, C]).  Appends every
-    token's K/V to the pools in place, runs paged attention over them and
-    samples the next token of each slot at its last valid chunk position
-    on the device.  Idle slots and mid-prompt chunks produce tokens the
-    engine discards.
+    (decode tokens, prompt chunks and speculative verify chunks packed into
+    [B, C]).  Appends every token's K/V to the pools in place, runs paged
+    attention over them and samples (or verifies) the next token of each
+    slot on the device.  Idle slots and mid-prompt chunks produce tokens
+    the engine discards.
 
     step(params, cache, tokens [B, C], starts [B], chunk_lens [B],
          block_tables [B, maxp], req_ids [B], sample_steps [B],
-         submodel_ids [B], seg_ids [B], vote_flags [B], root_key [2],
-         *, ensembles=False) -> sampled [B] int32
+         submodel_ids [B], seg_ids [B], vote_flags [B], draft_lens [B],
+         draft_probs [B, S_v - 1, Vq], root_key [2], *, ensembles=False)
+      -> (sampled [B] int32, accepted [B] int32)
 
     Greedy (argmax, ties to the first index) when ``temperature <= 0``;
     otherwise a categorical draw of ``logits / temperature`` with the key
     ``fold_in(fold_in(root_key, req_id), sample_step)`` of each slot
     (``core/prng.py``, the JAX package's threefry keys), so no key is
     reused across requests or steps.
+
+    Speculative verify (``draft_lens``, ``draft_probs``): a speculating
+    slot's chunk is [pending token, d_1 .. d_dl], the drafts a draft
+    circuit proposed, and the step scores a window of S_v =
+    ``draft_probs.shape[1] + 1`` positions a slot in the same call: left-
+    aligned on the chunk for a speculating slot, right-aligned on the last
+    valid position for the others, so their position S_v - 1 is the
+    classic sampling position.  Greedy accepts the longest prefix of drafts
+    equal to the parent's argmax and emits the parent's token after it (the
+    correction, or the bonus token when every draft matched).  At
+    temperature > 0 it is rejection sampling against the draft's
+    distribution q: draft j is accepted when ``u * q_j(d_j) < p_j(d_j)``,
+    ``u`` the uniform of ``fold_in(fold_in(kb, step + j), 1)`` (``kb`` the
+    request's key); at the first rejection the token is drawn from
+    ``norm(max(p - q, 0))`` (p itself when that vanishes) under salt 2 of
+    the bonus key ``fold_in(kb, step + accepted)``.  ``accepted[b]`` drafts
+    are good and ``sampled[b]`` is the verified token after them; a slot
+    that does not speculate reports 0.  The non-speculative engine passes
+    S_v == 1 (``draft_probs`` [B, 0, 1]), which is the classic sampling
+    path bit for bit.
 
     Multi-submodel serving (``bank_masks``: ``ModelBank.device_masks``,
     leading axis G + 1 with the dense sentinel last): each slot's circuit
@@ -271,43 +306,94 @@ def make_unified_paged_step(cfg: ModelConfig, *, temperature: float = 0.0,
     ``req_id``, so one key decides the group) or, where ``vote_flags`` is
     set, a majority vote over the members' own samples (ties to the
     lowest token id).  A solo slot is a segment of one and samples the
-    same token either way.  Ticks without an ensemble skip the combine.
-    The speculative verify window (ROADMAP slice 3, item 14) is not
-    ported: every slot samples at S_v == 1.
+    same token either way.  Ticks without an ensemble skip the combine;
+    ensemble members never speculate, and a speculating slot's verdict
+    stands beside the combine.
     """
     def pick(noise, logits, temp):
         if noise is None:
             return torch.argmax(logits, dim=-1)
         return prng.categorical_with(noise, logits.to(f32) / temp)
 
-    @torch.inference_mode()
-    def step(params, cache, tokens, starts, chunk_lens, block_tables,
-             req_ids, sample_steps, submodel_ids, seg_ids, vote_flags,
-             root_key, *, ensembles: bool = False):
-        C = tokens.shape[1]
-        serve_masks = None
-        if bank_masks is not None:
-            serve_masks = {k: m.index_select(0, submodel_ids)
-                           for k, m in bank_masks.items()}
-        widx = torch.clamp(chunk_lens.long() - 1, 0, C - 1)[:, None]
-        logits, _ = api.paged_step(params, cache, tokens, starts, chunk_lens,
-                                   block_tables, cfg, logit_index=widx,
-                                   serve_masks=serve_masks)
-        logits = logits[:, 0]
-        B, V = logits.shape
-        noise = temp = None
-        if temperature > 0:
-            keys = prng.fold_in(prng.fold_in(root_key, req_ids),
-                                sample_steps)
-            noise = prng.gumbel(keys, (V,))
-            # a device tensor: a card divides a float by a host scalar
-            # through its reciprocal, which rounds differently
-            temp = torch.full((), temperature, dtype=f32,
-                              device=logits.device)
-        if not (ensembles and bank_masks is not None):
-            return pick(noise, logits, temp).to(torch.int32)
+    zeros = {}
+
+    def no_drafts(like):
+        """A [B] int32 zero tensor made once per batch width and device, so
+        a tick without drafts launches nothing for its ``accepted``."""
+        key = (like.shape[0], like.device)
+        if key not in zeros:
+            zeros[key] = torch.zeros(like.shape[0], dtype=torch.int32,
+                                     device=like.device)
+        return zeros[key]
+
+    def plain_noise(root_key, req_ids, sample_steps, V):
+        keys = prng.fold_in(prng.fold_in(root_key, req_ids), sample_steps)
+        return prng.gumbel(keys, (V,))
+
+    def verify(logits_w, tokens, draft_lens, draft_probs, req_ids,
+               sample_steps, root_key, noise, temp):
+        """(sampled [B], accepted [B]) of every slot against its window
+        ``logits_w`` [B, S_v, V]: position j holds the parent's
+        distribution of the token after chunk position j.  ``noise``: the
+        classic draw's Gumbel noise at T > 0, which S_v == 1 uses; ``temp``
+        the temperature as a device tensor."""
+        B, S_v, V = logits_w.shape
+        if S_v == 1:                     # no drafts anywhere: classic
+            return pick(noise, logits_w[:, 0], temp), no_drafts(draft_lens)
+        rows = torch.arange(B, device=logits_w.device)
+        dl = draft_lens.long()
+        drafts = tokens[:, 1:S_v].long()                   # [B, S_v - 1]
+        jj = torch.arange(S_v - 1, device=logits_w.device)
+        live = jj[None, :] < dl[:, None]
+        if temperature <= 0:
+            tgt = torch.argmax(logits_w, dim=-1)           # [B, S_v]
+            ok = (tgt[:, :S_v - 1] == drafts) & live
+            acc = torch.cumprod(ok.long(), dim=-1).sum(dim=-1)
+            # acc accepted drafts put the decision at window position acc:
+            # the correction when acc < dl, the bonus when acc == dl
+            at = torch.where(dl > 0, acc, S_v - 1)
+            return tgt[rows, at], acc
+        lw = logits_w.to(f32) / temp
+        kb = prng.fold_in(root_key, req_ids)               # [B, 2]
+        p_w = _softmax(lw)                                 # [B, S_v, V]
+        # the accept-uniform of draft j folds in the step the token would
+        # take (sample_step + j), then salt 1: never the key of the
+        # categorical draw at that step (no salt) or of the resample (2)
+        ukeys = prng.fold_in(prng.fold_in(
+            kb[:, None], sample_steps.long()[:, None] + jj[None, :]), 1)
+        u = prng.uniform(ukeys)                            # [B, S_v - 1]
+        pd = torch.gather(p_w[:, :S_v - 1], 2, drafts[..., None])[..., 0]
+        qd = torch.gather(draft_probs, 2, drafts[..., None])[..., 0]
+        ok = (u * torch.clamp(qd, min=1e-30) < pd) & live
+        acc = torch.cumprod(ok.long(), dim=-1).sum(dim=-1)
+        rejected = (dl > 0) & (acc < dl)
+        at = torch.where(dl > 0, acc, S_v - 1)
+        # the bonus (and plain) draw: the classic (req_id, step) key on the
+        # scaled logits at the decision's position
+        kp = prng.fold_in(kb, sample_steps.long() + torch.where(
+            dl > 0, at, 0))
+        bonus = prng.categorical(kp, lw[rows, at])
+        # the rejection resample from norm(max(p - q, 0)) at the first
+        # rejected position, p itself where that residual vanishes
+        ridx = torch.clamp(at, max=S_v - 2)
+        p_r = p_w[rows, ridx]
+        res = torch.clamp(p_r - draft_probs[rows, ridx], min=0.0)
+        res = torch.where(res.sum(-1, keepdim=True) > 0, res, p_r)
+        rtok = prng.categorical(prng.fold_in(kp, 2),
+                                torch.log(torch.clamp(res, min=1e-30)))
+        return torch.where(rejected, rtok, bonus), acc
+
+    def combine(logits_w, draft_lens, seg_ids, vote_flags, noise, temp):
+        """Each ensemble's token from its members' logits at their last
+        valid position (mean-logit or majority vote)."""
+        B, S_v, V = logits_w.shape
+        if S_v == 1:
+            lf = logits_w[:, 0].to(f32)
+        else:                            # a speculating slot's row 0
+            rows = torch.arange(B, device=logits_w.device)
+            lf = logits_w[rows, torch.where(draft_lens > 0, 0, S_v - 1)
+                          ].to(f32)
         seg = seg_ids.long()
-        lf = logits.to(f32)
         counts = torch.zeros(B, dtype=f32, device=lf.device).index_add_(
             0, seg, torch.ones(B, dtype=f32, device=lf.device))
         mean = _segment_sum(lf, seg) / torch.clamp(counts, min=1.0)[:, None]
@@ -316,8 +402,104 @@ def make_unified_paged_step(cfg: ModelConfig, *, temperature: float = 0.0,
         votes = torch.zeros_like(lf).index_add_(
             0, seg, torch.nn.functional.one_hot(own_tok, V).to(f32))
         vote_tok = torch.argmax(votes, dim=-1)[seg]
-        return torch.where(vote_flags.bool(), vote_tok,
-                           mean_tok).to(torch.int32)
+        return torch.where(vote_flags.bool(), vote_tok, mean_tok)
+
+    @torch.inference_mode()
+    def step(params, cache, tokens, starts, chunk_lens, block_tables,
+             req_ids, sample_steps, submodel_ids, seg_ids, vote_flags,
+             draft_lens, draft_probs, root_key, *, ensembles: bool = False):
+        C = tokens.shape[1]
+        S_v = draft_probs.shape[1] + 1
+        serve_masks = None
+        if bank_masks is not None:
+            serve_masks = {k: m.index_select(0, submodel_ids)
+                           for k, m in bank_masks.items()}
+        cl = chunk_lens.long()[:, None]
+        if S_v == 1:
+            widx = torch.clamp(cl - 1, 0, C - 1)
+        else:
+            j = torch.arange(S_v, device=tokens.device)[None, :]
+            widx = torch.where(draft_lens.long()[:, None] > 0,
+                               torch.minimum(j, torch.clamp(cl - 1, min=0)),
+                               torch.clamp(cl - S_v + j, 0, C - 1))
+        logits_w, _ = api.paged_step(params, cache, tokens, starts,
+                                     chunk_lens, block_tables, cfg,
+                                     logit_index=widx,
+                                     serve_masks=serve_masks)
+        combined = ensembles and bank_masks is not None
+        noise = temp = None
+        if temperature > 0:
+            temp = _temperature(temperature, logits_w)
+            if S_v == 1 or combined:
+                # the classic (req_id, step) draw's noise, drawn once for
+                # the plain sample and the ensemble combine
+                noise = plain_noise(root_key, req_ids, sample_steps,
+                                    logits_w.shape[-1])
+        sampled, accepted = verify(logits_w, tokens, draft_lens,
+                                   draft_probs, req_ids, sample_steps,
+                                   root_key, noise, temp)
+        if combined:
+            sampled = torch.where(draft_lens > 0, sampled, combine(
+                logits_w, draft_lens, seg_ids, vote_flags, noise, temp))
+            accepted = torch.where(draft_lens > 0, accepted, 0)
+        return sampled.to(torch.int32), accepted.to(torch.int32)
+
+    return step
+
+
+def make_draft_spec_step(cfg: ModelConfig, *, k: int,
+                         temperature: float = 0.0, draft_salt: int = 0x5bec):
+    """One *draft tick* of speculative decoding: catch the draft circuit
+    up on each slot's committed stream, then propose ``k`` tokens a slot.
+
+    step(params, cache, tokens [B, C], starts [B], chunk_lens [B],
+         block_tables [B, maxp], req_ids [B], sample_steps [B], root_key)
+      -> (drafts [B, k] int32, draft_probs [B, k, Vq] f32)
+
+    ``tokens`` is the catch-up chunk: the committed tokens whose K/V the
+    draft has not written yet, ending with the pending token, so the
+    chunk's last-position logits propose d_1.  The other k - 1 proposals
+    are C == 1 paged steps that feed each draft back in (the JAX step's
+    ``lax.scan``; here a loop of eager calls), appending the K/V of d_1 ..
+    d_{k-1} to the draft's own pools as they go (d_k's is written by the
+    next catch-up, like the engine's pending token).  Slots with
+    ``chunk_lens`` 0 do not draft: they take no key in the C == 1 steps
+    (their decode lengths are 0), so nothing of theirs is read or written.
+
+    Greedy drafts are the argmax and ``draft_probs`` is a [B, k, 1]
+    dummy; at temperature > 0 each proposal is a categorical draw under
+    the draft's own key chain (``fold_in(root_key, draft_salt)``, then
+    (req_id, sample_step + i)), independent of every draw of the verify,
+    and ``draft_probs`` holds the full softmax q_i the rejection sampler
+    needs."""
+    def sample(logits, req_ids, steps, droot):
+        lf = logits.to(f32)
+        if temperature > 0:
+            keys = prng.fold_in(prng.fold_in(droot, req_ids), steps)
+            lw = lf / _temperature(temperature, lf)
+            return prng.categorical(keys, lw), _softmax(lw)
+        return torch.argmax(lf, dim=-1), lf.new_zeros(lf.shape[:-1] + (1,))
+
+    @torch.inference_mode()
+    def step(params, cache, tokens, starts, chunk_lens, block_tables,
+             req_ids, sample_steps, root_key):
+        droot = prng.fold_in(root_key, draft_salt)
+        logits, _ = api.paged_step(params, cache, tokens, starts, chunk_lens,
+                                   block_tables, cfg)
+        tok, q = sample(logits, req_ids, sample_steps, droot)
+        drafts, probs = [tok], [q]
+        pos = starts + chunk_lens
+        live = (chunk_lens > 0).to(torch.int32)
+        for i in range(1, k):
+            logits, _ = api.paged_step(
+                params, cache, tok.to(torch.int32)[:, None], pos, live,
+                block_tables, cfg)
+            tok, q = sample(logits, req_ids, sample_steps + i, droot)
+            drafts.append(tok)
+            probs.append(q)
+            pos = pos + 1
+        return (torch.stack(drafts, 1).to(torch.int32),
+                torch.stack(probs, 1))
 
     return step
 

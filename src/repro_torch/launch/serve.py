@@ -23,8 +23,17 @@ every tick, and ``--ensemble-frac`` of them instead fan across ALL
 circuits and combine logits on the device (``--combine``).  The report
 then tags each request with its circuit (``sub N``, or ``ens id/combine
 sub N`` for ensemble members) and ends with the co-batch ratio and tok/s
-per circuit.  ``--speculate K`` (speculative decoding) is not ported yet
-and exits with status 1.
+per circuit.
+
+``--speculate K`` turns on speculative decoding: a materialized Horn
+circuit (``--draft-circuit`` of the serving bank, or of a draft-only bank
+at ``--draft-keep`` when serving the dense parent) proposes K tokens a
+decode tick in one draft call, and the parent verifies all K + 1
+positions inside its one budgeted call.  Greedy output is the
+non-speculative output token for token; a tick lands up to K + 1 tokens a
+slot.  The report then adds the accept rate, the accepted tokens a
+speculating slot-tick, the drafted tokens, the draft calls and the
+draft's own paged-kernel launches.
 """
 from __future__ import annotations
 
@@ -40,8 +49,26 @@ from repro_torch.configs.base import (HornConfig, get_model_config,
                                       list_archs, reduced)
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.params import init_params
-from repro_torch.serving import (Engine, EngineConfig, EngineOOM, ModelBank,
-                                 Router)
+from repro_torch.serving import (DraftModel, Engine, EngineConfig,
+                                 EngineOOM, ModelBank, Router)
+
+
+def build_draft(cfg, params, bank, *, speculate: int, draft_circuit: int,
+                draft_keep: float, mask_block: int,
+                seed: int) -> Optional[DraftModel]:
+    """The draft circuit of ``--speculate K``: cut from the serving bank
+    when there is one (drafts are verified per slot under each request's
+    own circuit masks, so any circuit of the bank may propose), else from
+    a draft-only bank over the same parent weights at ``draft_keep`` (the
+    dense parent verifies).  None without speculation."""
+    if speculate <= 0:
+        return None
+    if bank is not None:
+        return bank.draft_model(draft_circuit, params)
+    horn = HornConfig(enabled=True, keep_hidden=draft_keep, keep_input=1.0,
+                      block_size=mask_block)
+    dbank = ModelBank(cfg, horn, draft_circuit + 1, seed=seed)
+    return dbank.draft_model(draft_circuit, params)
 
 
 def make_requests(n: int, vocab_size: int, rng: np.random.Generator, *,
@@ -140,6 +167,16 @@ def summarize(engine: Engine, wall: float) -> dict:
         "attn_launches": s.attn_launches,
         "decode_launches": s.decode_launches,
         "decode_ticks": s.decode_ticks,
+        "accept_rate": s.accept_rate,
+        "accepted_tok_per_tick": s.accepted_tok_per_tick,
+        "spec_drafted": s.spec_drafted,
+        "spec_accepted": s.spec_accepted,
+        "spec_committed": s.spec_committed,
+        "spec_slot_ticks": s.spec_slot_ticks,
+        "draft_calls": engine.spec.draft_calls if engine.spec is not None
+        else 0,
+        "draft_attn_launches": s.draft_attn_launches,
+        "draft_decode_launches": s.draft_decode_launches,
     }
 
 
@@ -191,8 +228,16 @@ def main(argv=None) -> None:
                     help="mask block in hidden units (reduced configs need "
                          "<= d_ff/4 for distinct circuits)")
     ap.add_argument("--speculate", type=int, default=0, metavar="K",
-                    help="speculative decoding with a draft circuit (not "
-                         "ported yet: ROADMAP slice 3, item 14)")
+                    help="speculative decoding: a materialized draft "
+                         "circuit proposes K tokens a decode tick, the "
+                         "parent verifies all K+1 positions in its one "
+                         "budgeted call (0: off)")
+    ap.add_argument("--draft-circuit", type=int, default=0,
+                    help="bank circuit the draft is materialized from")
+    ap.add_argument("--draft-keep", type=float, default=0.875,
+                    help="FFN keep rate of the draft-only bank when "
+                         "--submodels 0 (with random weights acceptance "
+                         "tracks how much of the FFN the draft keeps)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -222,8 +267,12 @@ def main(argv=None) -> None:
                               keep_input=1.0, block_size=args.mask_block)
             bank = ModelBank(cfg, horn, args.submodels, seed=args.seed)
             router = Router(args.submodels, policy=args.router)
+        draft = build_draft(cfg, params, bank, speculate=args.speculate,
+                            draft_circuit=args.draft_circuit,
+                            draft_keep=args.draft_keep,
+                            mask_block=args.mask_block, seed=args.seed)
         engine = Engine(cfg, params, ecfg, bank=bank, router=router,
-                        device=device)
+                        draft=draft, device=device)
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"{args.arch}: {e}")
     rng = np.random.default_rng(args.seed)
@@ -287,10 +336,19 @@ def main(argv=None) -> None:
             f" (peak util {s.peak_util_by_submodel.get(g, 0.0):.0%})"
             for g in range(args.submodels))
         print(f"co-batch ratio: {r['cobatch_ratio']:.0%}  {per}")
+    if args.speculate:
+        print(f"speculative: accept rate {r['accept_rate']:.0%}  "
+              f"accepted tok/tick {r['accepted_tok_per_tick']:.2f}  "
+              f"drafted {r['spec_drafted']}  draft calls {r['draft_calls']}"
+              f"  (K={args.speculate}, circuit {engine.spec.draft.circuit}, "
+              f"kept {engine.spec.draft.kept_frac:.0%}); draft paged "
+              f"launches {r['draft_attn_launches']} "
+              f"({r['draft_decode_launches']} decode)")
     print(f"paged_chunk_attention launches: "
           f"{r['attn_launches'] - r['decode_launches']} ({cfg.num_layers} "
           f"layers x {r['ticks'] - r['decode_ticks']} ticks with prompt "
-          f"chunks on a card; 0 on the CPU, which runs the plain versions)")
+          f"or verify chunks on a card; 0 on the CPU, which runs the plain "
+          f"versions)")
     print(f"paged_attention launches: {r['decode_launches']} "
           f"({cfg.num_layers} layers x {r['decode_ticks']} decode-only ticks "
           f"on a card)")

@@ -36,8 +36,19 @@ and adopted by later requests with the same prefix; writes into shared
 pages copy them first (copy-on-write, ``core/steps.py::make_page_copy_step``).
 
 Chunk widths are bucketed to powers of two, as in the JAX engine.
-Speculative decoding (a ``DraftModel``, ``speculate_k > 0``) is not ported
-yet and raises.
+
+Speculative decoding (``EngineConfig.speculate_k`` and a
+``ModelBank.draft_model``): each speculating decode slot first runs the
+materialized draft circuit for up to K tokens (one draft call a tick,
+batched across slots, against the draft's private page pool:
+``serving/speculative.py``), then the parent verifies all K + 1 positions
+inside the tick's one call, chunk kernel and all.  Greedy commits the
+longest draft prefix equal to the parent's argmax, so the stream is the
+non-speculative stream token for token; at temperature > 0 it is
+rejection sampling against the draft's distribution, reproducible per
+(request, step) key.  The token budget meters the parent's work: a
+speculating slot costs 1 + K verified tokens, the drafted tokens nothing.
+The draft's paged-kernel launches are counted apart from the parent's.
 """
 from __future__ import annotations
 
@@ -47,6 +58,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, LOCAL, ModelConfig
@@ -60,11 +72,12 @@ from repro_torch.models.params import cast_params
 from repro_torch.serving.block_table import (BlockTableMirror, marshal_i32,
                                              pow2_bucket)
 from repro_torch.serving.kv_cache import PagePool, PagePoolOOM
-from repro_torch.serving.model_bank import ModelBank
+from repro_torch.serving.model_bank import DraftModel, ModelBank
 from repro_torch.serving.router import Router
-from repro_torch.serving.scheduler import EnsembleGroup, FCFSScheduler, Request
+from repro_torch.serving.scheduler import (EnsembleGroup, FCFSScheduler,
+                                           Request, speculative_draft_len)
+from repro_torch.serving.speculative import DraftRunner
 
-NOT_PORTED = "is not ported yet (speculative decoding: ROADMAP slice 3, item 14)"
 COMBINES = ("mean_logit", "majority_vote")
 
 
@@ -88,7 +101,9 @@ class EngineConfig:
     kv_dtype: str = "bfloat16"       # page pools: float32 | bfloat16 | int8
     compute_dtype: str = "bfloat16"  # parameter dtype during serving
     prefix_cache: bool = True        # content-addressed page reuse + COW
-    speculate_k: int = 0             # must stay 0 (item 14)
+    speculate_k: int = 0             # draft tokens verified a decode tick
+                                     # (0: no speculation; > 0 needs a
+                                     # DraftModel passed to the Engine)
 
     @property
     def max_model_len(self) -> int:
@@ -107,14 +122,21 @@ class EngineStats:
     cache_hit_tokens: int = 0        # prompt tokens served from cache
     cache_eligible_tokens: int = 0   # prompt tokens lookups could cover
     cow_page_copies: int = 0         # device page copies issued
-    attn_launches: int = 0           # launches of both paged kernels
+    attn_launches: int = 0           # the parent's launches of both
+                                     # paged kernels
     decode_launches: int = 0         # of them, the decode kernel's
+    draft_attn_launches: int = 0     # the draft's launches of both
+    draft_decode_launches: int = 0   # of them, the decode kernel's
     decode_ticks: int = 0            # ticks of chunk bucket 1 (decode only)
     ticks_nonempty: int = 0          # ticks that issued a device call
     ticks_cobatched: int = 0         # ...carrying >= 2 distinct submodels
     tokens_by_submodel: Dict[int, int] = field(default_factory=dict)
     peak_util_by_submodel: Dict[int, float] = field(default_factory=dict)
     prefill_tok_saved: int = 0       # hit tokens + ensemble fork savings
+    spec_slot_ticks: int = 0         # (speculating slot, tick) pairs
+    spec_drafted: int = 0            # draft tokens the parent verified
+    spec_accepted: int = 0           # drafts that survived verification
+    spec_committed: int = 0          # tokens committed by verify ticks
 
     def reset(self) -> None:
         for f in dataclasses.fields(self):
@@ -133,6 +155,18 @@ class EngineStats:
             return None
         return self.cache_hit_tokens / self.cache_eligible_tokens
 
+    @property
+    def accept_rate(self) -> float:
+        """Share of drafted tokens the parent accepted (0.0 when nothing
+        was drafted)."""
+        return self.spec_accepted / max(1, self.spec_drafted)
+
+    @property
+    def accepted_tok_per_tick(self) -> float:
+        """Tokens committed per (speculating slot, tick): 1.0 is plain
+        decode's ceiling, 0.0 when nothing speculated."""
+        return self.spec_committed / max(1, self.spec_slot_ticks)
+
 
 @dataclass
 class _Entry:
@@ -146,22 +180,31 @@ class _Entry:
     mask_id: int                     # circuit-mask row the step gathers
                                      # (the dense sentinel for an
                                      # ensemble's shared prompt context)
+    draft_len: int = 0               # drafted tokens this chunk verifies
+                                     # (tokens[1:1 + draft_len])
 
 
 class Engine:
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig, *,
                  bank: Optional[ModelBank] = None,
-                 router: Optional[Router] = None, draft=None,
-                 device="cuda"):
+                 router: Optional[Router] = None,
+                 draft: Optional[DraftModel] = None, device="cuda"):
         bad = [k for k in cfg.layer_pattern if k not in (ATTN, LOCAL)]
         if bad or cfg.is_encoder_decoder or cfg.num_patches or cfg.learned_pos:
             raise ValueError(
                 f"paged serving supports decoder-only attention LMs; "
                 f"{cfg.name} has {bad or 'an unsupported input frontend'}")
-        for what, given in (("a DraftModel", draft is not None),
-                            ("speculate_k > 0", ecfg.speculate_k > 0)):
-            if given:
-                raise NotImplementedError(f"serving with {what} {NOT_PORTED}")
+        if ecfg.speculate_k > 0:
+            if draft is None:
+                raise ValueError(
+                    "speculate_k > 0 needs a DraftModel "
+                    "(ModelBank.draft_model) to propose tokens")
+            if draft.cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft.cfg.vocab_size} != parent vocab "
+                    f"{cfg.vocab_size}: drafted ids would be meaningless")
+        elif draft is not None:
+            raise ValueError("a DraftModel needs speculate_k > 0 to be used")
         if bank is not None:
             if bank.cfg != cfg:
                 raise ValueError(
@@ -216,6 +259,11 @@ class Engine:
         self._bt = BlockTableMirror(ecfg.num_slots, self.max_pages_per_seq,
                                     self.device)
         self._root_key = prng.key(ecfg.seed, self.device)
+        self.spec: Optional[DraftRunner] = DraftRunner(
+            draft, ecfg, self.device) if draft is not None else None
+        # the S_v == 1 verify window of a tick with no speculating slot
+        self._noprobs = torch.zeros((ecfg.num_slots, 0, 1),
+                                    dtype=torch.float32, device=self.device)
         self._next_id = 0
         self._next_group_id = 0
         self.stats = EngineStats()
@@ -236,6 +284,8 @@ class Engine:
         """Zero the serving counters without touching the pool (warm up on
         the engine you measure, then discard the warmup's contribution)."""
         self.stats.reset()
+        if self.spec is not None:
+            self.spec.reset_stats()
         if self.pool.cache is not None:
             self._evictions_base = self.pool.cache.evictions
         self.sched.preemptions = 0
@@ -348,12 +398,14 @@ class Engine:
                     peak[owner] = util
 
     def _evict_finished(self, now: float) -> List[Request]:
-        """Free the finished requests' slots and pages, and hand their
-        circuits back to the router."""
+        """Free the finished requests' slots and pages, hand their circuits
+        back to the router and drop their draft state."""
         done = self.sched.evict_finished(now)
-        if self.router is not None:
-            for req in done:
+        for req in done:
+            if self.router is not None:
                 self.router.release(req.submodel_id)
+            if self.spec is not None:
+                self.spec.drop(req.id)
         return done
 
     def _flush_copies(self, pairs) -> None:
@@ -381,12 +433,19 @@ class Engine:
             try:
                 return self._try_plan()
             except PagePoolOOM as e:
-                if self.sched.preempt_youngest() is None:
+                victim = self.sched.preempt_youngest()
+                if victim is None:
                     raise EngineOOM(
                         f"tick {self.stats.steps}: {e}; no other sequence "
                         f"left to preempt — this request can never fit; "
                         f"raise --pages, lower --gen, or use --policy "
                         f"reserve") from e
+                if self.spec is not None:
+                    # a preempted request's draft K/V is rebuilt by one
+                    # catch-up chunk on re-admission
+                    for m in (victim.group.members if victim.group
+                              is not None else [victim]):
+                        self.spec.drop(m.id)
 
     def _try_plan(self) -> Dict[int, _Entry]:
         entries: Dict[int, _Entry] = {}
@@ -394,16 +453,41 @@ class Engine:
         decode, prefill = [], []
         for slot, req in sorted(self.sched.running.items()):
             (prefill if req.in_prefill else decode).append((slot, req))
+
+        # the tick's draft length: one for every speculating slot (one
+        # verify-window width a call), sized so the budget covers every
+        # decode slot's pending token plus 1 + k verified tokens for each
+        # speculating slot
+        spec_k = self.ecfg.speculate_k if self.spec is not None else 0
+
+        def allowance(r: Request) -> int:
+            # a tick commits at most 1 + dl tokens, so a draft past the
+            # request's remaining allowance minus one can never land; the
+            # same bound keeps the verify chunk's K/V writes inside
+            # max_model_len and the reserve policy's admission reserve
+            return r.prompt_len + r.max_new_tokens - r.context_len - 1
+
+        # only slots that can land a draft share the speculative budget
+        n_spec = sum(1 for _, r in decode
+                     if r.spec_eligible and allowance(r) > 0) \
+            if spec_k else 0
+        k_tick = min(speculative_draft_len(spec_k, budget, len(decode),
+                                           n_spec), self.max_chunk - 1)
         for slot, req in decode:
-            # the pending token's K/V lands at context_len - 1
+            dl = 0
+            if k_tick > 0 and req.spec_eligible:
+                dl = max(0, min(k_tick, allowance(req)))
+            # the pending token's K/V lands at context_len - 1, the
+            # drafts' after it
             self._prepare_entry_write(req, req.context_len - 1,
-                                      req.context_len)
+                                      req.context_len + dl)
+            toks = np.zeros((1 + dl,), np.int32)
+            toks[0] = req.out_tokens[-1]     # drafts land in toks[1:] later
             entries[slot] = _Entry(
-                req=req, start=req.context_len - 1,
-                tokens=np.asarray(req.out_tokens[-1:], np.int32),
-                chunk_len=1, sample_step=len(req.out_tokens), record=True,
-                mask_id=req.submodel_id)
-            budget -= 1
+                req=req, start=req.context_len - 1, tokens=toks,
+                chunk_len=1 + dl, sample_step=len(req.out_tokens),
+                record=True, mask_id=req.submodel_id, draft_len=dl)
+            budget -= 1 + dl
         # prompt chunks soak up whatever budget the decode tokens left,
         # oldest admission first (it holds pages; finish it soonest).
         # Ensemble groups advance in LOCKSTEP (every member the same chunk
@@ -494,6 +578,23 @@ class Engine:
         if not entries:
             return done
 
+        # draft proposals first: one draft call for every speculating
+        # slot, whose tokens then ride the verify chunks of the parent call
+        spec_units = [(slot, e) for slot, e in entries.items()
+                      if e.draft_len > 0]
+        draft_probs = self._noprobs
+        if spec_units:
+            chunk0, decode0 = build.LAUNCHES[NAME], build.LAUNCHES[NAME_DECODE]
+            drafts, draft_probs = self.spec.propose(
+                [(s, e.req) for s, e in spec_units],
+                max(e.draft_len for _, e in spec_units), self._root_key)
+            decode = build.LAUNCHES[NAME_DECODE] - decode0
+            self.stats.draft_decode_launches += decode
+            self.stats.draft_attn_launches += \
+                build.LAUNCHES[NAME] - chunk0 + decode
+            for slot, e in spec_units:
+                e.tokens[1:1 + e.draft_len] = drafts[slot, :e.draft_len]
+
         B = self.ecfg.num_slots
         C = pow2_bucket(max(e.chunk_len for e in entries.values()))
         tokens = np.zeros((B, C), np.int32)
@@ -504,6 +605,7 @@ class Engine:
         submodel_ids = np.zeros((B,), np.int32)
         seg_ids = np.arange(B, dtype=np.int32)    # solo: own segment
         vote_flags = np.zeros((B,), np.int32)
+        draft_lens = np.zeros((B,), np.int32)
         for slot, e in entries.items():
             tokens[slot, :e.chunk_len] = e.tokens
             starts[slot] = e.start
@@ -511,6 +613,7 @@ class Engine:
             req_ids[slot] = e.req.id
             sample_steps[slot] = e.sample_step
             submodel_ids[slot] = e.mask_id
+            draft_lens[slot] = e.draft_len
             group = e.req.group
             if group is not None:
                 seg_ids[slot] = group.leader.slot
@@ -526,17 +629,23 @@ class Engine:
         # ticks without an ensemble group skip the on-device combine
         ensembles = any(e.req.group is not None for e in entries.values())
         (d_tokens, d_starts, d_chunk_lens, d_req_ids, d_sample_steps,
-         d_submodel_ids, d_seg_ids, d_vote_flags) = marshal_i32(
-            self.device, tokens, starts, chunk_lens, req_ids, sample_steps,
-            submodel_ids, seg_ids, vote_flags)
+         d_submodel_ids, d_seg_ids, d_vote_flags, d_draft_lens) = \
+            marshal_i32(self.device, tokens, starts, chunk_lens, req_ids,
+                        sample_steps, submodel_ids, seg_ids, vote_flags,
+                        draft_lens)
         chunk0, decode0 = build.LAUNCHES[NAME], build.LAUNCHES[NAME_DECODE]
-        sampled = self._step(self.params, self.cache, d_tokens, d_starts,
-                             d_chunk_lens, self._bt.dev, d_req_ids,
-                             d_sample_steps, d_submodel_ids, d_seg_ids,
-                             d_vote_flags, self._root_key,
-                             ensembles=ensembles)
-        # the one deliberate host pull of a tick
-        sampled = np.asarray(sampled.cpu())  # hornlint: sync-ok
+        sampled, accepted = self._step(
+            self.params, self.cache, d_tokens, d_starts, d_chunk_lens,
+            self._bt.dev, d_req_ids, d_sample_steps, d_submodel_ids,
+            d_seg_ids, d_vote_flags, d_draft_lens, draft_probs,
+            self._root_key, ensembles=ensembles)
+        # the one deliberate host pull of a tick (a verify tick's two
+        # outputs in one transfer)
+        if spec_units:
+            sampled, accepted = torch.stack(
+                [sampled, accepted]).cpu().numpy()   # hornlint: sync-ok
+        else:
+            sampled = np.asarray(sampled.cpu())  # hornlint: sync-ok
         decode = build.LAUNCHES[NAME_DECODE] - decode0
         self.stats.decode_launches += decode
         self.stats.attn_launches += build.LAUNCHES[NAME] - chunk0 + decode
@@ -549,6 +658,10 @@ class Engine:
             was_prefill = req.in_prefill
             if was_prefill:
                 self.stats.prefill_tokens += e.chunk_len
+            if e.draft_len:
+                self._commit_spec(slot, e, int(sampled[slot]),
+                                  int(accepted[slot]), post)
+                continue
             # decode writes K/V too (position context_len - 1): advance
             # prefill_pos past every write of this tick
             req.prefill_pos = max(req.prefill_pos, e.start + e.chunk_len)
@@ -565,6 +678,44 @@ class Engine:
                 by = self.stats.tokens_by_submodel
                 by[req.submodel_id] = by.get(req.submodel_id, 0) + 1
         return done + self._evict_finished(post)
+
+    def _commit_spec(self, slot: int, e: _Entry, sampled: int, acc: int,
+                     now: float) -> None:
+        """Land a verify verdict: commit the accepted drafts and the one
+        verified token the parent sampled after them, stopping at EOS or
+        max_new exactly where sequential decode would; then roll the page
+        tail back to the committed K/V (a release of references through
+        ``truncate_seq``, never a copy) and tell the draft runner which of
+        its proposals survived."""
+        req = e.req
+        acc = min(acc, e.draft_len)
+        n0 = req.context_len                  # before any commit
+        c = 0
+        for tok in [int(t) for t in e.tokens[1:1 + acc]] + [sampled]:
+            self.sched.record_token(slot, tok, now)
+            c += 1
+            self.stats.generated_tokens += 1
+            by = self.stats.tokens_by_submodel
+            by[req.submodel_id] = by.get(req.submodel_id, 0) + 1
+            if req.finished:                  # EOS or max_new mid-window
+                break
+        self.stats.spec_slot_ticks += 1
+        self.stats.spec_drafted += e.draft_len
+        self.stats.spec_accepted += min(acc, c)
+        self.stats.spec_committed += c
+        if req.finished:
+            # the pages go with the slot and the draft state with it
+            # (``_evict_finished``)
+            req.prefill_pos = n0 + min(acc, c)
+            return
+        # valid K/V: the context plus exactly the accepted drafts (the
+        # verify chunk wrote every draft's; the rejected tail is stale and
+        # its pages go back, credited again under reserve so the
+        # admission reserve survives the rollback)
+        req.prefill_pos = n0 + acc
+        self.pool.truncate_seq(req.id, req.prefill_pos,
+                               recredit=self.ecfg.policy == "reserve")
+        self.spec.commit(req, acc)
 
     def run(self, *, clock=None) -> List[Request]:
         """Drive until every submitted request has finished."""

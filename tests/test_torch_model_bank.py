@@ -322,19 +322,19 @@ ENGINE_KW = dict(num_pages=64, page_size=8, max_prompt_len=16,
 
 
 def _engine(cfg, params, bank, *, slots=2, temperature=0.0, router=None,
-            **kw):
+            draft=None, **kw):
     return Engine(cfg, params,
                   EngineConfig(num_slots=slots, temperature=temperature,
                                **{**ENGINE_KW, **kw}),
-                  bank=bank, router=router, device="cpu")
+                  bank=bank, router=router, draft=draft, device="cpu")
 
 
 def _jax_engine(jcfg, jparams, jbank, *, slots=2, temperature=0.0,
-                router=None, **kw):
+                router=None, draft=None, **kw):
     return JaxEngine(jcfg, jparams,
                      JaxEngineConfig(num_slots=slots, temperature=temperature,
                                      **{**ENGINE_KW, **kw}),
-                     bank=jbank, router=router)
+                     bank=jbank, router=router, draft=draft)
 
 
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
@@ -412,13 +412,40 @@ def test_engine_checks_bank_and_router(model):
             np.arange(1, 4), 2, ensemble="mean_logit")
 
 
-@pytest.mark.parametrize("what", ["draft", "speculate"])
-def test_speculation_still_refused_naming_item_14(model, what):
-    _, _, cfg, params = model
-    kw = {"speculate_k": 2} if what == "speculate" else {}
-    draft = object() if what == "draft" else None
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Engine(cfg, params, EngineConfig(**kw), draft=draft, device="cpu")
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_bank_circuit_draft_serves_routed_requests(model, temperature):
+    """A circuit of the serving bank drafts for requests routed over all
+    its circuits (each verified under its own circuit's masks): the same
+    streams and acceptance as the JAX engine's, greedy and sampled, and
+    greedy the same streams as without speculation."""
+    jcfg, jparams, cfg, params = model
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (6, 11, 8)]
+    kw = dict(slots=3, temperature=temperature)
+    bank = ModelBank(cfg, HORN, 3, seed=1)
+    jbank = JaxBank(jcfg, JHORN, 3, seed=1)
+    engines = [
+        _engine(cfg, params, bank, router=Router(3, policy="explicit"),
+                speculate_k=3, draft=bank.draft_model(2, params), **kw),
+        _jax_engine(jcfg, jparams, jbank,
+                    router=JaxRouter(3, policy="explicit"), speculate_k=3,
+                    draft=jbank.draft_model(2, jparams), **kw),
+        _engine(cfg, params, ModelBank(cfg, HORN, 3, seed=1),
+                router=Router(3, policy="explicit"), **kw)]
+    out = []
+    for e in engines:
+        rs = [e.submit(p, 5, submodel_id=g) for g, p in enumerate(prompts)]
+        e.run(clock=_clock())
+        out.append([(r.submodel_id, list(r.out_tokens)) for r in rs])
+    assert out[0] == out[1]
+    if temperature == 0.0:
+        assert out[0] == out[2]
+    eng, jeng = engines[:2]
+    assert eng.stats.spec_drafted == jeng.spec_drafted > 0
+    assert eng.stats.spec_accepted == jeng.spec_accepted
+    assert eng.stats.spec_committed == jeng.spec_committed
+    assert eng.spec.draft.circuit == 2 and eng.router.loads == [0] * 3
 
 
 def test_int8_pools_serve_a_bank(model):
@@ -689,10 +716,17 @@ def test_serve_cli_multi_submodel_sampled(capsys):
 
 @pytest.mark.parametrize("argv", [["--speculate", "2"],
                                   ["--speculate", "2", "--submodels", "2"]])
-def test_serve_cli_refuses_speculation_naming_item_14(argv):
+def test_serve_cli_speculates(argv, capsys):
+    """``--speculate 2`` on the dense parent (a draft-only bank at
+    ``--draft-keep``) and over a bank of 2 circuits (circuit 0 drafts):
+    every request finishes and the report prints the accept rate."""
     from repro_torch.launch import serve
 
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--device", "cpu", "--requests", "2", "--gen", "4"]
-                   + argv)
-    assert e.value.code != 0 and "item 14" in str(e.value.code)
+    serve.main(["--device", "cpu", "--requests", "4", "--gen", "6",
+                "--stream", "batch", "--slots", "2", "--budget", "16"]
+               + argv)
+    out = capsys.readouterr().out
+    assert len([ln for ln in out.splitlines() if " done: " in ln]) == 4
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith("speculative: accept rate "))
+    assert "(K=2, circuit 0" in line and "draft calls 0" not in line

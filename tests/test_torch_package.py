@@ -104,28 +104,36 @@ def test_entry_points_refuse_missing_cuda(no_cuda):
 
 
 @pytest.mark.parametrize("what", ["bank", "router", "draft", "speculate_k",
-                                  "temperature", "kv_dtype"])
+                                  "draft_vocab", "temperature", "kv_dtype"])
 def test_engine_refuses_unported_features(what):
-    """Speculation (a DraftModel, ``speculate_k > 0``) raises, naming its
-    ROADMAP item, instead of being silently ignored, and so does a KV pool
-    dtype the engine has no kernel for.  The multi-submodel parts are
-    served since their slice: a bank built for another model and a Router
-    without a bank are refused for what they are, and temperature > 0
-    samples."""
+    """What the engine cannot serve raises instead of being silently
+    ignored: a KV pool dtype it has no kernel for, a bank built for
+    another model, a Router without a bank, and the JAX engine's
+    speculation checks (a DraftModel without ``speculate_k > 0``,
+    ``speculate_k > 0`` without a DraftModel, a draft whose vocabulary is
+    not the parent's).  Temperature > 0 samples."""
     cfg = reduced(get_model_config("qwen3-1.7b"))
     params = init_params(cfg, 0, device="cpu")
     kw, ecfg = {}, EngineConfig(max_new_tokens=4)
-    err, match = NotImplementedError, "slice 3, item 14"
+    err = ValueError
+    horn = base.HornConfig(enabled=True, keep_hidden=0.5, keep_input=1.0,
+                           block_size=16)
     if what == "bank":
-        horn = base.HornConfig(enabled=True, keep_hidden=0.5, block_size=16)
         kw["bank"] = ModelBank(reduced(get_model_config("gemma2-27b")),
                                horn, 2)
-        err, match = ValueError, "bank was built for"
+        match = "bank was built for"
     elif what == "router":
         kw["router"] = Router(2)
-        err, match = ValueError, "needs a ModelBank"
+        match = "needs a ModelBank"
     elif what == "draft":
-        kw["draft"] = object()
+        kw["draft"] = ModelBank(cfg, horn, 1).draft_model(0, params)
+        match = "needs speculate_k > 0"
+    elif what == "draft_vocab":
+        draft = ModelBank(cfg, horn, 1).draft_model(0, params)
+        kw["draft"] = dataclasses.replace(draft, cfg=dataclasses.replace(
+            draft.cfg, vocab_size=cfg.vocab_size + 1))
+        ecfg = dataclasses.replace(ecfg, speculate_k=2)
+        match = "draft vocab"
     elif what == "temperature":
         eng = Engine(cfg, params, dataclasses.replace(ecfg, temperature=0.8),
                      device="cpu")
@@ -136,8 +144,8 @@ def test_engine_refuses_unported_features(what):
     else:
         value = {"speculate_k": 2, "kv_dtype": "float16"}
         ecfg = dataclasses.replace(ecfg, **{what: value[what]})
-        if what == "kv_dtype":
-            err, match = ValueError, "float32, bfloat16 or int8"
+        match = {"speculate_k": "needs a DraftModel",
+                 "kv_dtype": "float32, bfloat16 or int8"}[what]
     with pytest.raises(err, match=match):
         Engine(cfg, params, ecfg, device="cpu", **kw)
 
