@@ -642,8 +642,9 @@ class Engine:
         # the one deliberate host pull of a tick (a verify tick's two
         # outputs in one transfer)
         if spec_units:
-            sampled, accepted = torch.stack(
-                [sampled, accepted]).cpu().numpy()   # hornlint: sync-ok
+            both = np.asarray(  # hornlint: sync-ok
+                torch.stack([sampled, accepted]).cpu())
+            sampled, accepted = both[0], both[1]
         else:
             sampled = np.asarray(sampled.cpu())  # hornlint: sync-ok
         decode = build.LAUNCHES[NAME_DECODE] - decode0
