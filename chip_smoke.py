@@ -167,6 +167,24 @@ Phases, each of which fails the script (non-zero exit, no result line):
               tok/s, TTFT, latency, ticks, accept rate, accepted tokens a
               slot-tick, draft calls and a profiled speculating tick
               printed.
+ 14. obs      observability and deterministic trace replay
+              (``serving/observability``), over the three pinned traces
+              under ``benchmarks/traces/``.  (a) qwen3-1.7b at full width,
+              2 layers, f32: each trace replayed at its header's engine
+              settings on the card and on the CPU plain path; equal
+              digests, ticks, TTFT and latency (a parting must be a tie:
+              top-2 logit gap at most 1e-3, draft or parent, printed);
+              both paged kernels' launches equal to the engine's counts.
+              (b) 28 layers, bf16: each trace replayed twice on one engine
+              with a timeline: the same digest, no compile after warm-up,
+              a CUDA-event ``device_ms_p50`` for every step variant, a
+              valid Chrome export; per variant calls, device ms p50, the
+              tick wall p50 and the busy share printed; the serve CLI's
+              ``--record-trace`` then ``--replay`` twice, one digest.  (c)
+              phase 5's load with and without telemetry: tick wall p50 of
+              each, and two warm decode ticks under
+              ``torch.cuda.set_sync_debug_mode("warn")``: the same
+              synchronising calls, none in the observability package.
 Phase 3 also holds the SSD chunk scan against its plain version (y and the
 final state): the JAX sweep's shapes, S 257 (chunks of 1 token), two more
 shapes of the wgmma route and the full-width shape B 2, S 2048, H 80, P
@@ -3304,6 +3322,546 @@ def phase_spec(torch, dev, build, kernel, ref):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: observability and deterministic trace replay
+# ---------------------------------------------------------------------------
+TRACES = ROOT / "benchmarks" / "traces"
+PINNED = ("bursty_multiclass", "decode_heavy", "shared_prefix")
+TIE_GAP = 1e-3                   # a top-2 logit gap this small is a tie
+
+
+def trace_engine(torch, meta, cfg, params, dev, telemetry, **over):
+    """The engine a pinned trace's header meta describes (the JAX package's
+    ``benchmarks/regression.py::build_engine``: its slots, pages, budget,
+    policy, prefix cache, K and the draft circuit 0 of a draft-only bank
+    at the meta's keep, 16-unit blocks), over ``cfg``/``params`` on
+    ``dev``; ``over`` replaces EngineConfig fields."""
+    from repro_torch.launch.serve import build_draft
+    from repro_torch.serving import Engine, EngineConfig
+
+    psize, seed = int(meta["page_size"]), int(meta.get("seed", 0))
+    ecfg = EngineConfig(
+        num_slots=int(meta["slots"]), num_pages=int(meta["pages"]),
+        page_size=psize,
+        max_prompt_len=-(-int(meta["max_prompt"]) // psize) * psize,
+        max_new_tokens=int(meta["gen"]),
+        token_budget=max(int(meta["budget"]), int(meta["slots"])),
+        seed=seed, policy=meta.get("policy", "on_demand"),
+        prefix_cache=bool(meta.get("prefix_cache", True)),
+        speculate_k=int(meta.get("speculate_k", 0)),
+        kv_dtype=meta.get("kv_dtype", "float32"),
+        compute_dtype=meta.get("compute_dtype", "float32"))
+    ecfg = dataclasses.replace(ecfg, **over)
+    draft = build_draft(cfg, params, None, speculate=ecfg.speculate_k,
+                        draft_circuit=0,
+                        draft_keep=float(meta.get("draft_keep", 0.875)),
+                        mask_block=16, seed=seed)
+    return Engine(cfg, params, ecfg, draft=draft, device=dev,
+                  telemetry=telemetry)
+
+
+class DraftTap:
+    """Records every draft call of ``eng``: the proposals by slot, and the
+    logits of each of the call's k paged steps (the draft's steps run
+    ``models.api.paged_step`` without a ``logit_index``), one host copy a
+    step.  Only the parity check uses it."""
+
+    def __init__(self, eng):
+        from repro_torch.models import api
+
+        self.calls, self.logits = [], []
+        self._api, self._orig = api, None
+        self._spec, self._propose = eng.spec, eng.spec.propose
+        tap, inside = self, [False]
+
+        def paged_step(*args, **kw):
+            out = tap._orig(*args, **kw)
+            if inside[0] and kw.get("logit_index") is None:
+                tap.logits[-1].append(out[0].float().cpu())
+            return out
+
+        def propose(units, k, key):
+            inside[0] = True
+            tap.logits.append([])
+            try:
+                drafts, q = tap._propose(units, k, key)
+            finally:
+                inside[0] = False
+            tap.calls.append({s: [int(t) for t in drafts[s, :k]]
+                              for s, _ in units})
+            return drafts, q
+
+        self._wrapped = (paged_step, propose)
+
+    def __enter__(self):
+        # wraps whatever is bound now (a LogitTap entered before it)
+        self._orig = self._api.paged_step
+        self._api.paged_step, self._spec.propose = self._wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self._api.paged_step = self._orig
+        self._spec.propose = self._propose
+
+
+def replay_tie_guard(torch, name, recs, card, cpu):
+    """Card against CPU replay of one trace on fresh engines (submission i
+    is request id i): (result, engine, LogitTap, DraftTap or None) each.
+    Where the draft's proposals part, the card's top-2 draft logit gap
+    there, and where a stream parts, the top-2 gap of the card's parent
+    logits there (as ``compare_streams`` reads it), must be a tie (at most
+    ``TIE_GAP``); with no parting, the digest, ticks, TTFT, latency and
+    accept rate must be equal.  Returns what was found."""
+    res, _, tap, dtap = card
+    cres, _, _, cdtap = cpu
+    out = {"digest_equal": res.token_digest == cres.token_digest,
+           "ties": []}
+    if dtap is not None:
+        for i, (a, b) in enumerate(zip(dtap.calls, cdtap.calls)):
+            if a == b:
+                continue
+            slot = next(s for s in sorted(a) if a[s] != b.get(s))
+            j = first_parting(a[slot], b[slot])
+            gap = top2_gap(torch, dtap.logits[i][j][slot])
+            log(f"    {name}: draft call {i}, slot {slot}: proposals part "
+                f"at {j} ({a[slot][j]} vs {b[slot][j]}), top-2 draft logit "
+                f"gap {gap:.3e}")
+            assert gap <= TIE_GAP, (name, "draft", i, gap)
+            out["ties"].append({"draft_call": i, "gap": gap})
+            break
+    plens = [len(r.prompt) for r in sorted(recs, key=lambda r: r.arrival_s)]
+    for (i, got), (_, want) in zip(res.streams, cres.streams):
+        j = first_parting(got, want)
+        if j is None:
+            continue
+        gap = top2_gap(torch, tap.store[(i, plens[i] + j)])
+        log(f"    {name}: stream {i} parts at token {j} ({got[j]} vs "
+            f"{want[j]}), top-2 logit gap on the card {gap:.3e}")
+        assert gap <= TIE_GAP, (name, "stream", i, gap)
+        out["ties"].append({"stream": i, "token": j, "gap": gap})
+        break
+    if not out["ties"]:
+        assert out["digest_equal"], name
+        assert (res.ticks, res.ttft_s, res.latency_s, res.accept_rate) == \
+            (cres.ticks, cres.ttft_s, cres.latency_s, cres.accept_rate), name
+    return out
+
+
+def phase_replay_parity(torch, dev, build, kernel):
+    """Phase 14(a): qwen3-1.7b at full width, 2 layers, f32 (TF32 off),
+    weights from seed 0.  Each pinned trace replayed at its meta's engine
+    settings on the card and, in the same process, through the plain path
+    on the CPU: equal digests, ticks, TTFT and latency, or a named tie
+    (``replay_tie_guard``); on the card, both paged kernels' launches
+    (counted from 0 around the replay) equal the engine's own counts,
+    parent and draft."""
+    from repro_torch.configs.base import get_model_config
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import Telemetry
+    from repro_torch.serving.observability import load_trace, replay
+
+    cfg = dataclasses.replace(get_model_config("qwen3-1.7b"), num_layers=2,
+                              dtype="float32")
+    params = {"card": init_params(cfg, 0, device=dev, dtype=torch.float32)}
+    params["cpu"] = copy.deepcopy(params["card"]).to("cpu")
+    out = {}
+    for name in PINNED:
+        t0 = time.perf_counter()
+        recs, meta = load_trace(str(TRACES / f"{name}.jsonl"))
+        tick_dt = float(meta.get("tick_dt", 0.01))
+        runs = {}
+        for where in ("card", "cpu"):
+            eng = trace_engine(torch, meta, cfg, params[where],
+                               dev if where == "card" else "cpu",
+                               Telemetry(trace_maxlen=None))
+            dtap = DraftTap(eng) if eng.spec is not None else None
+            build.reset_launches()
+            with LogitTap(eng) as tap, dtap or contextlib.nullcontext():
+                res = replay(eng, recs, tick_dt=tick_dt)
+            counted = {n: build.LAUNCHES[n]
+                       for n in (kernel.NAME, kernel.NAME_DECODE)}
+            eng.pool.check_invariants()
+            runs[where] = (res, eng, tap, dtap)
+            if where == "cpu":
+                assert sum(counted.values()) == 0, counted
+                continue
+            launches, s = counted, eng.stats
+            assert launches[kernel.NAME] + launches[kernel.NAME_DECODE] == \
+                s.attn_launches + s.draft_attn_launches, (launches, s)
+            assert launches[kernel.NAME_DECODE] == \
+                s.decode_launches + s.draft_decode_launches, (launches, s)
+            assert s.attn_launches == cfg.num_layers * s.steps > 0
+            assert s.decode_launches == cfg.num_layers * s.decode_ticks
+        res = runs["card"][0]
+        got = replay_tie_guard(torch, name, recs, runs["card"], runs["cpu"])
+        got.update(ticks=res.ticks, cpu_ticks=runs["cpu"][0].ticks,
+                   generated_tokens=res.generated_tokens,
+                   accept_rate=res.accept_rate, digest=res.token_digest,
+                   launches=launches)
+        out[name] = got
+        log(f"  {name}: {len(recs)} requests, {res.ticks} ticks, "
+            f"{res.generated_tokens} tokens, digest "
+            f"{res.token_digest[:16]}: card "
+            f"{'==' if got['digest_equal'] else '!='} CPU plain path"
+            f"{'' if not got['ties'] else ' (a tie, above)'}; TTFT and "
+            f"latency lists equal: "
+            f"{res.ttft_s == runs['cpu'][0].ttft_s}; accept rate "
+            f"{res.accept_rate:.3f}; launches {launches[kernel.NAME]} "
+            f"chunk + {launches[kernel.NAME_DECODE]} decode == the "
+            f"engine's counts ({time.perf_counter() - t0:.1f} s)")
+        del runs
+        gc.collect()
+    del params
+    return out
+
+
+def phase_replay_serve(torch, dev, build, kernel, params):
+    """Phase 14(b): qwen3-1.7b at full width (28 layers, bf16), each pinned
+    trace on one engine with ``Telemetry(timeline=True)``, warmed as the
+    JAX package's regression harness warms it (replayed until a replay
+    mints no new compile cell: the prefix cache's hits change the chunk
+    widths of the second replay, at most 4 times; that replay is the
+    first of two), then once more: the digest identical run to run, no compile cell after the warmup
+    boundary, a CUDA-event ``device_ms_p50`` for every profiler variant,
+    the Chrome export valid; per variant the calls and device ms p50 of
+    the last run, its tick wall p50 and busy share (CUDA-event device ms
+    over host tick wall)."""
+    import tempfile
+
+    from repro_torch.configs.base import get_model_config
+    from repro_torch.serving import Telemetry
+    from repro_torch.serving.observability import (load_trace, replay,
+                                                   validate_chrome_trace)
+
+    cfg = get_model_config("qwen3-1.7b")
+    out = {}
+    for name in PINNED:
+        t0 = time.perf_counter()
+        recs, meta = load_trace(str(TRACES / f"{name}.jsonl"))
+        tick_dt = float(meta.get("tick_dt", 0.01))
+        eng = trace_engine(torch, meta, cfg, params, dev,
+                           Telemetry(timeline=True),
+                           kv_dtype="bfloat16", compute_dtype="bfloat16")
+        prof = eng.obs.profiler
+        cold, warmups = None, 0
+        while True:                 # the last of these is the first run
+            build.reset_launches()
+            first = replay(eng, recs, tick_dt=tick_dt)
+            cold = cold or first
+            warmups += 1
+            if not prof.compiles_total or warmups == 4:
+                break
+        assert prof.compiles_total == 0, prof.summary()
+        warmups -= 1
+        launches1 = {n: build.LAUNCHES[n]
+                     for n in (kernel.NAME, kernel.NAME_DECODE)}
+        before = prof.cost_report()
+        build.reset_launches()
+        second = replay(eng, recs, tick_dt=tick_dt)
+        launches = {n: build.LAUNCHES[n]
+                    for n in (kernel.NAME, kernel.NAME_DECODE)}
+        cost = prof.cost_report()
+        assert second.token_digest == first.token_digest, name
+        assert (second.ticks, second.ttft_s, second.latency_s) == \
+            (first.ticks, first.ttft_s, first.latency_s), name
+        assert prof.compiles_post_warm == 0, prof.summary()
+        assert launches == launches1, (launches, launches1)
+        s = eng.stats
+        assert launches[kernel.NAME] + launches[kernel.NAME_DECODE] == \
+            s.attn_launches + s.draft_attn_launches > 0, (launches, s)
+        for req in eng.sched.finished:
+            assert all(0 <= t < cfg.vocab_size for t in req.out_tokens)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / f"{name}.trace.json"
+            n_events = eng.obs.timeline.export(str(path))
+            doc = json.loads(path.read_text())
+        assert validate_chrome_trace(doc) == n_events > 0
+        walls = sorted(second.tick_wall_s)
+        wall_p50 = float(np.percentile(walls, 50)) * 1e3
+        variants = {}
+        for label, c in cost.items():
+            assert c["device_ms_p50"] is not None, (label, c)
+            b = before.get(label, {"calls": 0, "device_ms_total": 0.0})
+            calls = c["calls"] - b["calls"]
+            total = c["device_ms_total"] - b["device_ms_total"]
+            variants[label] = {"calls": calls, "device_ms_p50":
+                               c["device_ms_p50"], "device_ms_total": total}
+        busy = sum(v["device_ms_total"] for v in variants.values()) \
+            / (sum(walls) * 1e3)
+        out[name] = {"ticks": second.ticks, "digest": second.token_digest,
+                     "generated_tokens": second.generated_tokens,
+                     "accept_rate": second.accept_rate,
+                     "tick_wall_p50_ms": wall_p50, "busy_share": busy,
+                     "chrome_events": n_events, "launches": launches,
+                     "warmup_replays": warmups,
+                     "cold_digest_equal": cold.token_digest
+                     == second.token_digest,
+                     "variants_seen": len(cost),
+                     "variants": variants,
+                     "decode_tok_s_p10": second.summary()[
+                         "decode_tok_s_p10"]}
+        log(f"  {name}: {len(recs)} requests, {second.ticks} ticks, "
+            f"{second.generated_tokens} tokens, digest "
+            f"{second.token_digest[:16]} twice after {warmups} warm-up "
+            f"replay(s) (cold replay's digest "
+            f"{'equal' if cold.token_digest == second.token_digest else 'other'}"
+            f"); 0 compiles after warm-up; "
+            f"tick wall p50 {wall_p50:.2f} ms; CUDA-event device time "
+            f"{busy:.1%} of the tick walls; accept rate "
+            f"{second.accept_rate:.3f}; {n_events} Chrome events, valid; "
+            f"launches {launches[kernel.NAME]} chunk + "
+            f"{launches[kernel.NAME_DECODE]} decode "
+            f"({time.perf_counter() - t0:.1f} s)")
+        for label, v in sorted(variants.items()):
+            log(f"    {label}: {v['calls']} calls, device ms p50 "
+                f"{v['device_ms_p50']:.3f} ({v['device_ms_p50'] / wall_p50:.1%}"
+                f" of the tick wall p50)")
+        del eng
+        gc.collect()
+    return out
+
+
+def phase_replay_cli(torch):
+    """Phase 14(b), the CLI: ``launch.serve --full-config`` (28 layers,
+    bf16) records a batch of 6 requests with ``--record-trace``, then
+    ``--replay`` serves the file twice; the same digest both times.  The
+    entry point runs in this process (``serve.main(argv)``), the file in a
+    temporary directory."""
+    import contextlib as cl
+    import io
+    import re
+    import tempfile
+
+    from repro_torch.launch import serve
+
+    def run(*argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with cl.redirect_stdout(buf):
+            serve.main(["--full-config", "--device", "cuda", *argv])
+        gc.collect()
+        torch.cuda.empty_cache()
+        return buf.getvalue(), time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = str(Path(tmp) / "t.jsonl")
+        text, sec = run("--requests", "6", "--gen", "8", "--stream", "batch",
+                        "--max-prompt", "64", "--record-trace", trace)
+        assert f"recorded 6 requests -> {trace}" in text, text[-2000:]
+        log(f"  serve --full-config --record-trace: 6 requests recorded "
+            f"({sec:.1f} s)")
+        digests = []
+        for _ in range(2):
+            text, sec = run("--replay", trace)
+            digests.append(re.search(r"digest ([0-9a-f]{64})",
+                                     text).group(1))
+            assert "alerts:" in text and "device ms p50" in text, \
+                text[-2000:]
+            log(f"  serve --replay: digest {digests[-1][:16]} ({sec:.1f} s)")
+    assert digests[0] == digests[1], digests
+    return {"digest": digests[0], "runs": 2}
+
+
+def sync_sites(torch, fn):
+    """The synchronising CUDA calls ``fn()`` makes
+    (``torch.cuda.set_sync_debug_mode("warn")`` warns once a call), each
+    as (the line that made the call, the innermost line of the port under
+    it: ``file:line`` of ``src/``, or "-" when no port code is on the
+    stack)."""
+    import traceback
+    import warnings
+
+    src = str(ROOT / "src")
+    sites = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(src)]
+        sites.append((f"{Path(filename).name}:{lineno}",
+                      f"{Path(ours[-1].filename).name}:{ours[-1].lineno}"
+                      if ours else "-"))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sites
+
+
+def phase_telemetry_cost(torch, dev, params):
+    """Phase 14(c): phase 5's load (28 layers, bf16, 16 requests x 32
+    tokens after 2 warm-up requests) with ``Telemetry()`` and with
+    ``Telemetry(tracer=False, profiler=False, anomaly=False)``, three
+    times each in alternation: the tick wall p50 of each run and of each
+    setting, and the host time spent in the telemetry hooks a tick
+    (``Telemetry.on_*`` and the profiler's wrappers, timed around each
+    call).  Then, after one priming pass of the sync debug mode, two warm
+    decode ticks under ``torch.cuda.set_sync_debug_mode("warn")`` with
+    each setting, twice in alternation: the same synchronising calls from
+    the same lines of the port, none in the observability package."""
+    from repro_torch.configs.base import get_model_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serving import Engine, EngineConfig, Telemetry
+
+    cfg = get_model_config("qwen3-1.7b")
+    ecfg = EngineConfig(num_slots=8, num_pages=512, page_size=16,
+                        max_prompt_len=256, max_new_tokens=32,
+                        token_budget=256, policy="on_demand",
+                        kv_dtype="bfloat16", compute_dtype="bfloat16")
+    settings = {"on": lambda: Telemetry(),
+                "off": lambda: Telemetry(tracer=False, profiler=False,
+                                         anomaly=False)}
+    engines = {k: Engine(cfg, params, ecfg, device=dev, telemetry=mk())
+               for k, mk in settings.items()}
+    rng = np.random.default_rng(0)                # phase 5's draws
+    warm = make_requests(2, cfg.vocab_size, rng, stream="batch",
+                         max_prompt=256, gen=4)
+    load = make_requests(16, cfg.vocab_size, rng, stream="batch",
+                         max_prompt=256, gen=32)
+
+    def serve(eng, reqs, gen):
+        for _, p, _ in reqs:
+            eng.submit(p, gen)
+        walls = []
+        while eng.sched.has_work():
+            t0 = time.perf_counter()
+            eng.step()
+            walls.append(time.perf_counter() - t0)
+        return walls
+
+    # host time inside telemetry: every Telemetry hook, timed around each
+    # call, and a profiler wrapper's own work, timed on a no-op step
+    obs = engines["on"].obs
+    hook_s = [0.0]
+
+    def timed(fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                hook_s[0] += time.perf_counter() - t0
+        return call
+
+    for name in ("on_submit", "on_admit", "on_prefill_chunk", "on_token",
+                 "on_speculate", "on_preempt", "on_finish", "on_tick"):
+        setattr(obs, name, timed(getattr(obs, name)))
+    from repro_torch.serving.observability import StepProfiler
+    prof = StepProfiler()
+    noop = prof.wrap("noop", lambda: None, key_fn=lambda a, kw: ((), ""),
+                     device=dev)
+    for _ in range(10):
+        noop()
+    t0 = time.perf_counter()
+    for i in range(2000):
+        noop()
+        if i % 8 == 7:
+            prof.drain()
+    wrap_us = (time.perf_counter() - t0) / 2000 * 1e6
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        (lambda: None)()
+    wrap_us -= (time.perf_counter() - t0) / 2000 * 1e6
+    torch.cuda.synchronize()
+    del prof, noop
+
+    for eng in engines.values():
+        serve(eng, warm, 4)
+        eng.reset_stats()
+    walls = {k: [] for k in engines}
+    runs = {k: [] for k in engines}
+    hooks_us = []
+    for _ in range(3):
+        for k, eng in engines.items():
+            hook_s[0] = 0.0
+            w = serve(eng, load, 32)
+            if k == "on":
+                hooks_us.append(hook_s[0] / len(w) * 1e6)
+            walls[k] += w
+            runs[k].append(float(np.percentile(w, 50)) * 1e3)
+            eng.reset_stats()
+    p50 = {k: float(np.percentile(v, 50)) * 1e3 for k, v in walls.items()}
+    cost = p50["on"] / p50["off"] - 1.0
+    log(f"  phase 5's load, three times a setting in alternation: tick "
+        f"wall p50 {p50['on']:.2f} ms with Telemetry() (runs "
+        f"{', '.join(f'{x:.2f}' for x in runs['on'])}), {p50['off']:.2f} ms"
+        f" with tracer, profiler and anomaly off (runs "
+        f"{', '.join(f'{x:.2f}' for x in runs['off'])}): {cost:+.1%}; "
+        f"{len(walls['on'])} and {len(walls['off'])} ticks")
+    hooks = float(np.median(hooks_us)) + wrap_us
+    log(f"  host time in telemetry: {hooks:.1f} us a tick "
+        f"({hooks / 1e3 / p50['on']:.2%} of the tick wall p50): the hooks "
+        f"{', '.join(f'{x:.1f}' for x in hooks_us)} us a tick in the three "
+        f"runs, the profiler's wrapper {wrap_us:.1f} us a call (CUDA "
+        f"events recorded, drained every 8 calls)")
+    for eng in engines.values():
+        rng = np.random.default_rng(5)
+        for _ in range(ecfg.num_slots):
+            eng.submit(rng.integers(1, cfg.vocab_size, (96,)), 32)
+        while eng.sched.waiting or any(r.in_prefill
+                                       for r in eng.sched.running.values()):
+            eng.step()
+        eng.step()                                 # warm decode tick
+    sync_sites(torch, lambda: None)                # the debug mode's priming
+    sites = {k: [] for k in engines}
+    for _ in range(2):
+        for k, eng in engines.items():
+            sites[k].append(sync_sites(torch, lambda: [eng.step()
+                                                       for _ in range(2)]))
+    for eng in engines.values():
+        eng.run()
+    ours = {k: [[p for _, p in r] for r in v] for k, v in sites.items()}
+    log(f"  two warm decode ticks under sync debug mode, twice a setting: "
+        f"with Telemetry() {[len(r) for r in sites['on']]} synchronising "
+        f"calls, without {[len(r) for r in sites['off']]}; sites "
+        f"{sorted(set(x for r in sites['on'] + sites['off'] for x in r))}")
+    assert ours["on"] == ours["off"], sites
+    assert not any(p.split(":")[0] in (
+        "telemetry.py", "profiler.py", "trace.py", "metrics.py",
+        "anomaly.py", "slo.py", "stats.py") for r in ours["on"] for p in r)
+    per_tick = len(sites["on"][0]) / 2
+    del engines, obs
+    gc.collect()
+    return {"tick_wall_p50_ms": p50, "tick_wall_p50_runs_ms": runs,
+            "telemetry_cost": cost, "telemetry_us_per_tick": hooks,
+            "profiler_wrap_us": wrap_us,
+            "ticks": {k: len(v) for k, v in walls.items()},
+            "syncs_per_tick": per_tick,
+            "sync_sites": sorted(set(x for r in sites["on"] for x in r))}
+
+
+def phase_observability(torch, dev, build, kernel):
+    """Phase 14: 14(a) replay parity, 14(b) replays and the CLI round trip
+    at 28 layers, 14(c) what telemetry costs a tick."""
+    from repro_torch.configs.base import get_model_config
+    from repro_torch.models.params import init_params
+
+    t0 = time.perf_counter()
+    out = {"parity": phase_replay_parity(torch, dev, build, kernel)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(get_model_config("qwen3-1.7b"), 0, device=dev,
+                         dtype=torch.bfloat16)
+    out["replay"] = phase_replay_serve(torch, dev, build, kernel, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["telemetry_cost"] = phase_telemetry_cost(torch, dev, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cli"] = phase_replay_cli(torch)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 14: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3432,6 +3990,12 @@ def main() -> int:
     phase("phase 13: speculative decoding, qwen3-1.7b: a Horn circuit "
           "drafts, the parent verifies a K + 1 window")
     spec = phase_spec(torch, dev, build, kernel, ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("phase 14: observability and deterministic replay of the pinned "
+          "traces, qwen3-1.7b")
+    obs = phase_observability(torch, dev, build, kernel)
 
     # headline shapes: the prompt-chunk tick for the chunk kernel (decode
     # ticks go to the decode kernel), the decode tick for the decode kernel
@@ -3467,6 +4031,12 @@ def main() -> int:
         shape = "verify" if which == "chunk" else "draft_decode"
         k["max_abs_err_phase13"] = max(e[shape] for e in errs)
         k["max_abs_err"] = max(k["max_abs_err"], k["max_abs_err_phase13"])
+    # phase 14's replays of the pinned traces: the card's launches of each
+    # at 2 layers (14(a)) and at 28 (14(b), the second replay)
+    for k in kernels[:2]:
+        k["launches_phase14"] = {
+            part: {t: obs[part][t]["launches"][k["name"]] for t in PINNED}
+            for part in ("parity", "replay")}
     kernels[0]["launches_by_kernel"] = {
         served["chunk_route"]: served["chunk_route_launches"],
         "wgmma_int8 (phase 5b)":
@@ -3523,7 +4093,7 @@ def main() -> int:
     line = {"kernels": kernels, "card": card, "serve": served,
             "train": trained, "horn_mlp": horn_mlp, "ssm": ssm,
             "mnist": mnist, "new_archs": new_archs, "bank": bank,
-            "spec": spec,
+            "spec": spec, "observability": obs,
             "flash_host_us": flash["host_us"]}
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

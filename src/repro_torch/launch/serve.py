@@ -34,6 +34,23 @@ non-speculative output token for token; a tick lands up to K + 1 tokens a
 slot.  The report then adds the accept rate, the accepted tokens a
 speculating slot-tick, the drafted tokens, the draft calls and the
 draft's own paged-kernel launches.
+
+Observability (``repro_torch.serving.observability``): ``--stats-every N``
+prints a periodic stats line off the engine's telemetry snapshot;
+``--trace-out trace.json`` records every tick's plan / host-prep /
+device-step / commit phases plus one track per slot and writes Chrome
+Trace Event JSON (open in https://ui.perfetto.dev); ``--slo-class
+name:ttft:latency`` (repeatable) sets per-class SLO targets and reports
+attainment at exit.  ``--record-trace trace.jsonl`` writes the request
+stream this run served as a versioned JSONL trace, the JAX package's
+format; ``--replay trace.jsonl`` serves a recorded stream on the virtual
+clock (arrivals at their recorded offsets, each tick advancing
+``--tick-dt`` seconds; no ``--arch`` needed, the header carries it) and
+prints the SHA-256 digest of the token streams, identical run to run
+under greedy sampling.  The exit report ends with the step profiler's
+variants (calls and device ms p50 from CUDA events on a card, host ms on
+the CPU), a warning on post-warmup compiles, and ``alerts:`` (tick
+spikes, SLO burn, pool leaks, accept-rate collapse, late compiles).
 """
 from __future__ import annotations
 
@@ -50,7 +67,10 @@ from repro_torch.configs.base import (HornConfig, get_model_config,
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.params import init_params
 from repro_torch.serving import (DraftModel, Engine, EngineConfig,
-                                 EngineOOM, ModelBank, Router)
+                                 EngineOOM, ModelBank, Router, Telemetry)
+from repro_torch.serving.observability import (TraceRecorder, load_trace,
+                                               parse_slo_class, replay)
+from repro_torch.serving.observability.replay import DEFAULT_TICK_DT
 
 
 def build_draft(cfg, params, bank, *, speculate: int, draft_circuit: int,
@@ -111,11 +131,12 @@ def with_ensembles(pending: list, rng: np.random.Generator, frac: float,
 
 
 def drive(engine: Engine, pending: list,
-          on_done: Optional[Callable] = None) -> float:
+          on_done: Optional[Callable] = None,
+          after_step: Optional[Callable] = None) -> float:
     """Serve ``pending`` (arrival, prompt, max_new) triples, or quadruples
     with an ensemble combine, on the wall clock, submitting each at its
     arrival offset; returns the wall seconds until the last request
-    finished."""
+    finished.  ``after_step(elapsed_s)`` runs after every tick."""
     pending = list(pending)
     t0 = time.monotonic()
     while pending or engine.sched.has_work():
@@ -131,6 +152,8 @@ def drive(engine: Engine, pending: list,
                                tick_clock=lambda: time.monotonic() - t0):
             if on_done is not None:
                 on_done(req)
+        if after_step is not None:
+            after_step(time.monotonic() - t0)
     return time.monotonic() - t0
 
 
@@ -182,7 +205,9 @@ def summarize(engine: Engine, wall: float) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-1.7b", choices=list_archs())
+    ap.add_argument("--arch", default=None, choices=list_archs(),
+                    help="model architecture (default qwen3-1.7b, or the "
+                         "arch a --replay trace's header records)")
     ap.add_argument("--full-config", action="store_true",
                     help="the arch at its published width (default: the "
                          "reduced smoke-test config)")
@@ -240,8 +265,39 @@ def main(argv=None) -> None:
                          "tracks how much of the FFN the draft keeps)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--record-trace", metavar="PATH", default=None,
+                    help="write the served request stream (arrivals, "
+                         "prompt ids, budgets, ensemble decisions) as a "
+                         "versioned JSONL traffic trace")
+    ap.add_argument("--replay", metavar="PATH", default=None,
+                    help="serve a recorded trace on the deterministic "
+                         "virtual clock instead of a synthetic stream "
+                         "(--requests/--stream/--rate are ignored)")
+    ap.add_argument("--tick-dt", type=float, default=DEFAULT_TICK_DT,
+                    help="virtual seconds per tick during --replay "
+                         f"(default {DEFAULT_TICK_DT})")
+    ap.add_argument("--trace-out", metavar="PATH", default=None,
+                    help="record the per-tick timeline (plan / host-prep / "
+                         "device-step / commit phases + one track per slot) "
+                         "and write Chrome Trace Event JSON here")
+    ap.add_argument("--stats-every", type=int, default=0, metavar="TICKS",
+                    help="print a periodic stats line every N engine ticks "
+                         "(0: off)")
+    ap.add_argument("--slo-class", action="append", default=[],
+                    metavar="NAME:TTFT:LAT",
+                    help="SLO targets (seconds; '-' leaves a bound unset), "
+                         "e.g. 'default:0.5:5'; repeatable.  Synthetic "
+                         "traffic is scored under class 'default', a "
+                         "replayed trace under its records' classes.")
     args = ap.parse_args(argv)
 
+    if args.arch is None:
+        args.arch = "qwen3-1.7b"
+        if args.replay:
+            args.arch = load_trace(args.replay)[1].get("arch")
+            if args.arch is None:
+                ap.error(f"--arch: {args.replay} records no arch in its "
+                         f"header meta; pass --arch explicitly")
     cfg = get_model_config(args.arch)
     if not args.full_config:
         cfg = reduced(cfg)
@@ -259,6 +315,9 @@ def main(argv=None) -> None:
                          dtype=dtype_of(args.compute_dtype))
     bank = router = None
     try:
+        telemetry = Telemetry(
+            timeline=args.trace_out is not None,
+            slo_classes=[parse_slo_class(s) for s in args.slo_class])
         if args.submodels > 0:
             if args.submodels > args.slots and args.ensemble_frac > 0:
                 raise SystemExit(
@@ -272,9 +331,40 @@ def main(argv=None) -> None:
                             draft_keep=args.draft_keep,
                             mask_block=args.mask_block, seed=args.seed)
         engine = Engine(cfg, params, ecfg, bank=bank, router=router,
-                        draft=draft, device=device)
+                        draft=draft, device=device, telemetry=telemetry)
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"{args.arch}: {e}")
+
+    if args.replay:
+        records, meta = load_trace(args.replay)
+        if meta.get("arch") not in (None, args.arch):
+            print(f"WARNING: trace was recorded on arch "
+                  f"{meta['arch']!r}, replaying on {args.arch!r}",
+                  file=sys.stderr)
+        print(f"replaying {len(records)} requests from {args.replay} "
+              f"({cfg.name} on {device}, virtual clock, "
+              f"{args.tick_dt * 1e3:g}ms/tick)")
+        try:
+            result = replay(engine, records, tick_dt=args.tick_dt)
+        except (EngineOOM, ValueError) as e:
+            print(f"FATAL: unservable request — {e}", file=sys.stderr)
+            sys.exit(2)
+        s = result.summary()
+        wall = sum(result.tick_wall_s)
+        print(f"\n{result.requests} requests in {result.virtual_s:.2f} "
+              f"virtual s ({wall:.2f}s host compute, "
+              f"{result.ticks} ticks)")
+        print(f"throughput: {s['decode_tok_s_p10'] or 0:.1f} tok/s "
+              f"(pooled-p10 tick estimate)  "
+              f"{result.generated_tokens} tokens  "
+              f"digest {result.token_digest}")
+        print(f"TTFT    p50 {s['ttft_p50_s']:.3f}s  "
+              f"p99 {s['ttft_p99_s']:.3f}s  (virtual clock)")
+        print(f"latency p50 {s['latency_p50_s']:.3f}s  "
+              f"p99 {s['latency_p99_s']:.3f}s")
+        _tail_report(engine, args, bank, cfg, wall)
+        return
+
     rng = np.random.default_rng(args.seed)
     pending = make_requests(args.requests, cfg.vocab_size, rng,
                             stream=args.stream, rate=args.rate,
@@ -303,11 +393,43 @@ def main(argv=None) -> None:
               f"ttft {req.t_first_token - req.arrival_time:6.3f}s  "
               f"latency {req.t_done - req.arrival_time:6.3f}s{tag}{pre}")
 
+    next_stats = [args.stats_every]
+
+    def stats_line(elapsed: float) -> None:
+        """One compact periodic line off the telemetry snapshot."""
+        if not args.stats_every or engine.steps < next_stats[0]:
+            return
+        next_stats[0] = engine.steps + args.stats_every
+        m = engine.metrics()
+        c, tick = m["counters"], m["tick"]["tick_s"]
+        hr = m["derived"]["prefix_hit_rate"]
+        print(f"  [tick {c['steps']}] "
+              f"{c['generated_tokens'] / max(elapsed, 1e-9):6.1f} tok/s  "
+              f"run {len(engine.sched.running)}/{args.slots}  "
+              f"wait {len(engine.sched.waiting)}  "
+              f"pool {m['pool']['utilization']:.0%}  "
+              f"tick p50 {(tick['p50'] or 0) * 1e3:.1f}ms  "
+              f"hit {'n/a' if hr is None else format(hr, '.0%')}  "
+              f"preempt {m['derived']['preemptions']}")
+
     try:
-        wall = drive(engine, pending, on_done=done_line)
+        wall = drive(engine, pending, on_done=done_line,
+                     after_step=stats_line)
     except (EngineOOM, ValueError) as e:
         print(f"FATAL: unservable request — {e}", file=sys.stderr)
         sys.exit(2)
+    if args.record_trace:
+        # the RESOLVED ensemble decisions are recorded, so replay does not
+        # depend on this run's RNG state
+        recorder = TraceRecorder(meta={
+            "arch": args.arch, "seed": args.seed, "stream": args.stream,
+            "rate": args.rate, "max_prompt": args.max_prompt,
+            "gen": args.gen, "long_frac": args.long_frac,
+            **engine.obs.engine_config})
+        for at, prompt, gen, *ens in pending:
+            recorder.add(at, prompt, gen, ensemble=ens[0] if ens else None)
+        n = recorder.save(args.record_trace)
+        print(f"recorded {n} requests -> {args.record_trace}")
     r = summarize(engine, wall)
     s = engine.stats
     print(f"\n{r['requests']} requests ({r['sequences']} sequences) in "
@@ -320,6 +442,16 @@ def main(argv=None) -> None:
     print(f"TTFT    p50 {r['ttft_p50_s']:.3f}s  p99 {r['ttft_p99_s']:.3f}s")
     print(f"latency p50 {r['latency_p50_s']:.3f}s  "
           f"p99 {r['latency_p99_s']:.3f}s")
+    _tail_report(engine, args, bank, cfg, wall)
+
+
+def _tail_report(engine: Engine, args, bank, cfg, wall: float) -> None:
+    """Exit-report sections shared by the live and replay drive loops:
+    pool / prefix-cache / bank / speculative state, both kernels'
+    launches, SLO attainment, the profiler's variants, anomaly alerts and
+    the trace export."""
+    r = summarize(engine, wall)
+    s = engine.stats
     print(f"page-pool peak utilization: {r['peak_utilization']:.0%}  "
           f"preemptions: {r['preemptions']}  block-table rows synced/tick: "
           f"{s.bt_rows_synced / max(s.steps, 1):.2f}")
@@ -352,6 +484,41 @@ def main(argv=None) -> None:
     print(f"paged_attention launches: {r['decode_launches']} "
           f"({cfg.num_layers} layers x {r['decode_ticks']} decode-only ticks "
           f"on a card)")
+    if args.slo_class:
+        for name, rep in engine.obs.slo.report().items():
+            att = rep["attainment"]
+            tt = rep["ttft_target_s"]
+            lt = rep["latency_target_s"]
+            print(f"SLO [{name}] attainment "
+                  f"{'n/a' if att is None else format(att, '.0%')} "
+                  f"({rep['met']}/{rep['finished']}; targets "
+                  f"ttft {'-' if tt is None else f'{tt:g}s'} "
+                  f"latency {'-' if lt is None else f'{lt:g}s'}; "
+                  f"violations ttft {rep['ttft_violations']} "
+                  f"latency {rep['latency_violations']})")
+    prof = engine.obs.profiler
+    if prof is not None:
+        for label, c in prof.cost_report().items():
+            unit = "device_ms" if "device_ms_p50" in c else "host_ms"
+            p50 = c[f"{unit}_p50"]
+            print(f"step {label}: {c['calls']} calls, {unit.replace('_', ' ')}"
+                  f" p50 {'n/a' if p50 is None else format(p50, '.3f')}")
+        if prof.compiles_post_warm:
+            print(f"compiles: {prof.compiles_post_warm} post-warmup "
+                  f"(of {prof.compiles_total} observed) — late compiles "
+                  f"are a perf regression signal")
+    mon = engine.obs.anomaly
+    if mon is not None and mon.counts:
+        print("alerts: " + "  ".join(f"{k} x{n}"
+                                     for k, n in sorted(mon.counts.items())))
+        for a in list(mon.alerts)[-5:]:
+            print(f"  [{a.kind}] tick {a.tick} t={a.t:.2f}s: {a.message}")
+    else:
+        print("alerts: none")
+    if args.trace_out:
+        n = engine.obs.timeline.export(args.trace_out)
+        print(f"trace: {n} events over {engine.obs.timeline.ticks} ticks "
+              f"-> {args.trace_out} (open in https://ui.perfetto.dev)")
 
 
 if __name__ == "__main__":

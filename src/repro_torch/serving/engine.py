@@ -49,12 +49,22 @@ rejection sampling against the draft's distribution, reproducible per
 (request, step) key.  The token budget meters the parent's work: a
 speculating slot costs 1 + K verified tokens, the drafted tokens nothing.
 The draft's paged-kernel launches are counted apart from the parent's.
+
+Observability (``serving/observability``, the port of the JAX package's):
+the engine writes a ``Telemetry`` at every stage of a request (submit,
+admit, prefill chunk, token, speculate, preempt, finish) and of a tick
+(its five phase marks, per-slot spans while a timeline records, pool
+counters, the KV bytes its attention reads).  The profiler wraps the
+unified step (and the draft's) with the JAX engine's variant labels and
+times each call with CUDA events read after the tick's host pull.
+``metrics()`` is the read surface; ``reset_stats()`` zeroes counters and
+telemetry together.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Union
 
 import numpy as np
@@ -71,14 +81,26 @@ from repro_torch.models.layers import dtype_of
 from repro_torch.models.params import cast_params
 from repro_torch.serving.block_table import (BlockTableMirror, marshal_i32,
                                              pow2_bucket)
-from repro_torch.serving.kv_cache import PagePool, PagePoolOOM
+from repro_torch.serving.kv_cache import PagePool, PagePoolOOM, kv_page_bytes
 from repro_torch.serving.model_bank import DraftModel, ModelBank
+from repro_torch.serving.observability import EngineStats, Telemetry
 from repro_torch.serving.router import Router
 from repro_torch.serving.scheduler import (EnsembleGroup, FCFSScheduler,
                                            Request, speculative_draft_len)
 from repro_torch.serving.speculative import DraftRunner
 
 COMBINES = ("mean_logit", "majority_vote")
+
+
+def _unified_step_key(args, kw):
+    """Compile-cell label for the profiler, the JAX engine's: the unified
+    step specialises on the chunk-width bucket (tokens arg), the verify
+    window extent (draft_probs arg) and the ensembles flag; everything
+    else is shape-fixed per engine."""
+    c = args[2].shape[1]                  # tokens [B, C]
+    sv = args[12].shape[1] + 1            # draft_probs [B, S_v - 1, V]
+    ens = bool(kw.get("ensembles", False))
+    return (c, sv, ens), f"C={c},Sv={sv},ens={ens}"
 
 
 class EngineOOM(RuntimeError):
@@ -111,64 +133,6 @@ class EngineConfig:
 
 
 @dataclass
-class EngineStats:
-    """Serving counters; ``reset()`` restores every field's default."""
-
-    steps: int = 0                   # unified device ticks issued
-    generated_tokens: int = 0        # committed (recorded) tokens
-    prefill_tokens: int = 0          # prompt/recompute tokens streamed
-    peak_utilization: float = 0.0    # page-pool high-water mark
-    bt_rows_synced: int = 0          # block-table rows re-uploaded
-    cache_hit_tokens: int = 0        # prompt tokens served from cache
-    cache_eligible_tokens: int = 0   # prompt tokens lookups could cover
-    cow_page_copies: int = 0         # device page copies issued
-    attn_launches: int = 0           # the parent's launches of both
-                                     # paged kernels
-    decode_launches: int = 0         # of them, the decode kernel's
-    draft_attn_launches: int = 0     # the draft's launches of both
-    draft_decode_launches: int = 0   # of them, the decode kernel's
-    decode_ticks: int = 0            # ticks of chunk bucket 1 (decode only)
-    ticks_nonempty: int = 0          # ticks that issued a device call
-    ticks_cobatched: int = 0         # ...carrying >= 2 distinct submodels
-    tokens_by_submodel: Dict[int, int] = field(default_factory=dict)
-    peak_util_by_submodel: Dict[int, float] = field(default_factory=dict)
-    prefill_tok_saved: int = 0       # hit tokens + ensemble fork savings
-    spec_slot_ticks: int = 0         # (speculating slot, tick) pairs
-    spec_drafted: int = 0            # draft tokens the parent verified
-    spec_accepted: int = 0           # drafts that survived verification
-    spec_committed: int = 0          # tokens committed by verify ticks
-
-    def reset(self) -> None:
-        for f in dataclasses.fields(self):
-            setattr(self, f.name, f.default_factory()
-                    if f.default_factory is not dataclasses.MISSING
-                    else f.default)
-
-    @property
-    def cobatch_ratio(self) -> float:
-        """Share of device ticks that co-batched >= 2 circuits."""
-        return self.ticks_cobatched / max(1, self.ticks_nonempty)
-
-    @property
-    def prefix_hit_rate(self) -> Optional[float]:
-        if self.cache_eligible_tokens == 0:
-            return None
-        return self.cache_hit_tokens / self.cache_eligible_tokens
-
-    @property
-    def accept_rate(self) -> float:
-        """Share of drafted tokens the parent accepted (0.0 when nothing
-        was drafted)."""
-        return self.spec_accepted / max(1, self.spec_drafted)
-
-    @property
-    def accepted_tok_per_tick(self) -> float:
-        """Tokens committed per (speculating slot, tick): 1.0 is plain
-        decode's ceiling, 0.0 when nothing speculated."""
-        return self.spec_committed / max(1, self.spec_slot_ticks)
-
-
-@dataclass
 class _Entry:
     """What one slot contributes to this tick's device call."""
     req: Request
@@ -188,7 +152,8 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig, *,
                  bank: Optional[ModelBank] = None,
                  router: Optional[Router] = None,
-                 draft: Optional[DraftModel] = None, device="cuda"):
+                 draft: Optional[DraftModel] = None, device="cuda",
+                 telemetry: Optional[Telemetry] = None):
         bad = [k for k in cfg.layer_pattern if k not in (ATTN, LOCAL)]
         if bad or cfg.is_encoder_decoder or cfg.num_patches or cfg.learned_pos:
             raise ValueError(
@@ -245,10 +210,17 @@ class Engine:
         # the mask row of dense-parent chunks (an ensemble's shared prompt
         # context): device_masks appends an all-ones row at index G
         self._dense_mask_id = bank.num_submodels if bank is not None else 0
+        # telemetry before the step: the profiler wraps it and must see
+        # its very first (warmup) call
+        self.obs = telemetry if telemetry is not None else Telemetry()
         self._step = S.make_unified_paged_step(
             cfg, temperature=ecfg.temperature,
             bank_masks=bank.device_masks(self.device)
             if bank is not None else None)
+        if self.obs.profiler is not None:
+            self._step = self.obs.profiler.wrap(
+                "unified_step", self._step, key_fn=_unified_step_key,
+                device=self.device)
         self._page_copy = S.make_page_copy_step()
         self.cache = T.init_paged_cache(cfg, ecfg.num_pages, ecfg.page_size,
                                         dtype=dtype_of(ecfg.kv_dtype),
@@ -260,18 +232,54 @@ class Engine:
                                     self.device)
         self._root_key = prng.key(ecfg.seed, self.device)
         self.spec: Optional[DraftRunner] = DraftRunner(
-            draft, ecfg, self.device) if draft is not None else None
+            draft, ecfg, self.device, profiler=self.obs.profiler) \
+            if draft is not None else None
         # the S_v == 1 verify window of a tick with no speculating slot
         self._noprobs = torch.zeros((ecfg.num_slots, 0, 1),
                                     dtype=torch.float32, device=self.device)
         self._next_id = 0
         self._next_group_id = 0
+        # serving counters live on an EngineStats dataclass
+        # (observability/stats.py); the properties set after the class
+        # keep every counter readable/writable as a plain engine attribute
         self.stats = EngineStats()
         self._evictions_base = 0         # pool evictions at last reset
+        # estimated bytes one tick's paged attention reads per live KV
+        # page across all layers (roofline gauges; see kv_page_bytes)
+        self._kv_bytes_per_page = cfg.num_layers * kv_page_bytes(
+            ecfg.page_size, cfg.num_kv_heads, cfg.head_dim, ecfg.kv_dtype)
+        # stamp the tuning knobs into exported traces + metrics snapshots
+        self.obs.set_engine_config(
+            kv_dtype=ecfg.kv_dtype, compute_dtype=ecfg.compute_dtype,
+            speculate_k=ecfg.speculate_k,
+            bank_size=bank.num_submodels if bank is not None else 0,
+            num_slots=ecfg.num_slots, num_pages=ecfg.num_pages,
+            page_size=ecfg.page_size, token_budget=ecfg.token_budget,
+            max_prompt_len=ecfg.max_prompt_len,
+            max_new_tokens=ecfg.max_new_tokens, policy=ecfg.policy,
+            prefix_cache=ecfg.prefix_cache,
+            temperature=ecfg.temperature, seed=ecfg.seed,
+            device=str(self.device))
 
     @property
     def preemptions(self) -> int:
         return self.sched.preemptions
+
+    @property
+    def accept_rate(self) -> float:
+        return self.stats.accept_rate
+
+    @property
+    def accepted_tok_per_tick(self) -> float:
+        return self.stats.accepted_tok_per_tick
+
+    @property
+    def cobatch_ratio(self) -> float:
+        return self.stats.cobatch_ratio
+
+    @property
+    def prefix_hit_rate(self) -> Optional[float]:
+        return self.stats.prefix_hit_rate
 
     @property
     def cache_evictions(self) -> int:
@@ -280,9 +288,18 @@ class Engine:
             return 0
         return self.pool.cache.evictions - self._evictions_base
 
+    def metrics(self) -> dict:
+        """Full telemetry snapshot: counters, derived rates, pool/router/
+        cache/spec state, latency + tick distributions, SLO attainment.
+        Also refreshes ``self.obs.registry``."""
+        self.obs.collect(self)
+        return self.obs.snapshot(self)
+
     def reset_stats(self) -> None:
         """Zero the serving counters without touching the pool (warm up on
-        the engine you measure, then discard the warmup's contribution)."""
+        the engine you measure, then discard the warmup's contribution).
+        Telemetry (histograms, traces, timeline, SLO scores) resets with
+        the counters, and the profiler marks the warmup boundary."""
         self.stats.reset()
         if self.spec is not None:
             self.spec.reset_stats()
@@ -290,17 +307,20 @@ class Engine:
             self._evictions_base = self.pool.cache.evictions
         self.sched.preemptions = 0
         self.sched.finished.clear()
+        self.obs.reset()
 
     # -- request intake ------------------------------------------------------
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
                arrival_time: float = 0.0, *,
                submodel_id: Optional[int] = None, session=None,
-               ensemble: Optional[str] = None
+               ensemble: Optional[str] = None, slo_class: str = "default"
                ) -> Union[Request, EnsembleGroup]:
         """Queue one request.  With a ModelBank attached, the Router picks
         (or validates) the circuit; ``ensemble`` ("mean_logit" or
         "majority_vote") instead fans the prompt across ALL G circuits as
-        one lockstep group and returns the ``EnsembleGroup``."""
+        one lockstep group and returns the ``EnsembleGroup``.
+        ``slo_class`` names the priority class the finished request is
+        scored under (observability/slo.py)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if not 0 < len(prompt) <= self.ecfg.max_prompt_len:
             raise ValueError(
@@ -335,7 +355,8 @@ class Engine:
                 Request(id=self._next_id + g, prompt=prompt,
                         max_new_tokens=mnt, arrival_time=arrival_time,
                         eos_id=self.ecfg.eos_id, submodel_id=g, group=group,
-                        kv_namespace=b"dense", mask_from=len(prompt) - 1)
+                        kv_namespace=b"dense", mask_from=len(prompt) - 1,
+                        slo_class=slo_class)
                 for g in range(G)]
             self._check_feasible(group.members[0])
             self._next_id += G
@@ -343,10 +364,12 @@ class Engine:
                 self.router.acquire(g)
             for req in group.members:
                 self.sched.submit(req)
+                self.obs.on_submit(req, arrival_time)
             return group
 
         req = Request(id=self._next_id, prompt=prompt, max_new_tokens=mnt,
-                      arrival_time=arrival_time, eos_id=self.ecfg.eos_id)
+                      arrival_time=arrival_time, eos_id=self.ecfg.eos_id,
+                      slo_class=slo_class)
         self._check_feasible(req)
         if self.bank is not None:
             req.submodel_id = self.router.route(
@@ -356,6 +379,7 @@ class Engine:
             raise ValueError("submodel routing requires a ModelBank")
         self._next_id += 1
         self.sched.submit(req)
+        self.obs.on_submit(req, arrival_time)
         return req
 
     def _check_feasible(self, req: Request) -> None:
@@ -399,9 +423,12 @@ class Engine:
 
     def _evict_finished(self, now: float) -> List[Request]:
         """Free the finished requests' slots and pages, hand their circuits
-        back to the router and drop their draft state."""
+        back to the router and drop their draft state.  Every finished
+        request passes through here exactly once, and telemetry scores it
+        here."""
         done = self.sched.evict_finished(now)
         for req in done:
+            self.obs.on_finish(req, req.t_done)
             if self.router is not None:
                 self.router.release(req.submodel_id)
             if self.spec is not None:
@@ -425,7 +452,7 @@ class Engine:
         self._flush_copies(self.pool.prepare_write(req.id, start, end))
 
     # -- tick planning -------------------------------------------------------
-    def _plan_tick(self) -> Dict[int, _Entry]:
+    def _plan_tick(self, now: float) -> Dict[int, _Entry]:
         """Fill the token budget; preempt the youngest running unit (a
         sequence or a whole ensemble group, and replan) on pool pressure;
         raise EngineOOM only when no preemption can help."""
@@ -440,11 +467,13 @@ class Engine:
                         f"left to preempt — this request can never fit; "
                         f"raise --pages, lower --gen, or use --policy "
                         f"reserve") from e
-                if self.spec is not None:
-                    # a preempted request's draft K/V is rebuilt by one
-                    # catch-up chunk on re-admission
-                    for m in (victim.group.members if victim.group
-                              is not None else [victim]):
+                for m in (victim.group.members if victim.group is not None
+                          else [victim]):
+                    m.t_preempted = now
+                    self.obs.on_preempt(m, now)
+                    if self.spec is not None:
+                        # a preempted request's draft K/V is rebuilt by one
+                        # catch-up chunk on re-admission
                         self.spec.drop(m.id)
 
     def _try_plan(self) -> Dict[int, _Entry]:
@@ -555,10 +584,13 @@ class Engine:
         call; without it every event of the tick shares ``now``."""
         now = time.monotonic() if now is None else now
         tick_now = tick_clock if tick_clock else (lambda: now)
+        pc = time.perf_counter                    # timeline clock (µs spans)
+        m_start = pc()
         for req in self.sched.admit(now):
             self.stats.cache_hit_tokens += req.num_cached_tokens
             self.stats.cache_eligible_tokens += req.cache_eligible_tokens
             self.stats.prefill_tok_saved += req.num_cached_tokens
+            self.obs.on_admit(req, now)
         self._sample_peak()                       # admissions allocate pages
         done = self._evict_finished(tick_now())   # e.g. max_new == 1
         if not self.sched.running:
@@ -573,17 +605,20 @@ class Engine:
                         f"fit — raise --pages or lower --gen")
             return done
 
-        entries = self._plan_tick()
+        entries = self._plan_tick(now)
         self._sample_peak()                       # decode growth allocates
         if not entries:
             return done
+        m_plan = pc()
 
         # draft proposals first: one draft call for every speculating
         # slot, whose tokens then ride the verify chunks of the parent call
         spec_units = [(slot, e) for slot, e in entries.items()
                       if e.draft_len > 0]
         draft_probs = self._noprobs
+        draft_span = ()
         if spec_units:
+            t_draft = pc()
             chunk0, decode0 = build.LAUNCHES[NAME], build.LAUNCHES[NAME_DECODE]
             drafts, draft_probs = self.spec.propose(
                 [(s, e.req) for s, e in spec_units],
@@ -594,6 +629,7 @@ class Engine:
                 build.LAUNCHES[NAME] - chunk0 + decode
             for slot, e in spec_units:
                 e.tokens[1:1 + e.draft_len] = drafts[slot, :e.draft_len]
+            draft_span = (("draft", t_draft, pc()),)
 
         B = self.ecfg.num_slots
         C = pow2_bucket(max(e.chunk_len for e in entries.values()))
@@ -628,6 +664,7 @@ class Engine:
         self._sync_block_tables()
         # ticks without an ensemble group skip the on-device combine
         ensembles = any(e.req.group is not None for e in entries.values())
+        m_host = pc()
         (d_tokens, d_starts, d_chunk_lens, d_req_ids, d_sample_steps,
          d_submodel_ids, d_seg_ids, d_vote_flags, d_draft_lens) = \
             marshal_i32(self.device, tokens, starts, chunk_lens, req_ids,
@@ -647,6 +684,7 @@ class Engine:
             sampled, accepted = both[0], both[1]
         else:
             sampled = np.asarray(sampled.cpu())  # hornlint: sync-ok
+        m_dev = pc()
         decode = build.LAUNCHES[NAME_DECODE] - decode0
         self.stats.decode_launches += decode
         self.stats.attn_launches += build.LAUNCHES[NAME] - chunk0 + decode
@@ -659,6 +697,7 @@ class Engine:
             was_prefill = req.in_prefill
             if was_prefill:
                 self.stats.prefill_tokens += e.chunk_len
+                self.obs.on_prefill_chunk(req, post, e.start, e.chunk_len)
             if e.draft_len:
                 self._commit_spec(slot, e, int(sampled[slot]),
                                   int(accepted[slot]), post)
@@ -678,7 +717,40 @@ class Engine:
                 self.stats.generated_tokens += 1
                 by = self.stats.tokens_by_submodel
                 by[req.submodel_id] = by.get(req.submodel_id, 0) + 1
-        return done + self._evict_finished(post)
+                self.obs.on_token(req, post)
+
+        finished = self._evict_finished(post)
+        # the tick's phase spans + per-slot device-window annotations:
+        # per-slot tuples are only built while a timeline records
+        if self.obs.timeline is not None:
+            slot_events = [
+                (slot, f"verify+{e.draft_len}" if e.draft_len
+                 else ("decode" if e.sample_step else "prefill"),
+                 m_host, m_dev,
+                 {"req": e.req.id, "tokens": e.chunk_len, "start": e.start})
+                for slot, e in entries.items()]
+            counters = {"used_pages": self.pool.used_pages,
+                        "cached_pages": self.pool.cached_pages,
+                        "running": len(self.sched.running),
+                        "waiting": len(self.sched.waiting)}
+        else:
+            slot_events, counters = (), None
+        # estimated KV traffic of this tick's device call (roofline
+        # gauges): every live slot's paged attention walks its whole
+        # table each layer
+        kv_read_bytes = self._kv_bytes_per_page * sum(
+            self.pool.pages_for(e.req.context_len)
+            for e in entries.values())
+        self.obs.on_tick(self.stats.steps - 1,
+                         (m_start, m_plan, m_host, m_dev, pc()),
+                         slot_events=slot_events, extra_spans=draft_span,
+                         counters=counters,
+                         tokens=int(sum(e.chunk_len
+                                        for e in entries.values())),
+                         t=post, used_pages=self.pool.used_pages,
+                         live_pages=self.pool.live_table_pages,
+                         kv_read_bytes=kv_read_bytes)
+        return done + finished
 
     def _commit_spec(self, slot: int, e: _Entry, sampled: int, acc: int,
                      now: float) -> None:
@@ -704,6 +776,8 @@ class Engine:
         self.stats.spec_drafted += e.draft_len
         self.stats.spec_accepted += min(acc, c)
         self.stats.spec_committed += c
+        self.obs.on_speculate(req, now, e.draft_len, min(acc, c), c)
+        self.obs.on_token(req, now, n=c)
         if req.finished:
             # the pages go with the slot and the draft state with it
             # (``_evict_finished``)
@@ -724,3 +798,22 @@ class Engine:
         while self.sched.has_work():
             self.step(clock())
         return self.sched.finished
+
+
+def _stats_attr(name: str) -> property:
+    def get(self):
+        return getattr(self.stats, name)
+
+    def set_(self, v):
+        setattr(self.stats, name, v)
+
+    return property(get, set_)
+
+
+# every EngineStats counter stays a plain engine attribute
+# (``engine.generated_tokens``, ``engine.steps``), as on the JAX engine:
+# derived from the dataclass fields, so a counter added to EngineStats is
+# an engine attribute too
+for _f in dataclasses.fields(EngineStats):
+    setattr(Engine, _f.name, _stats_attr(_f.name))
+del _f

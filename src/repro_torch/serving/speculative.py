@@ -48,9 +48,12 @@ class DraftRunner:
     one private page pool and paged cache on ``device``, a draft position
     per request (committed tokens whose K/V the draft has written), and
     one draft step per draft length in use.  The draft's parameters are
-    cast to the engine's compute dtype once, here."""
+    cast to the engine's compute dtype once, here.  With a ``profiler``
+    (the engine's ``StepProfiler``), each draft step is wrapped as
+    ``draft_step``, its variants labelled by catch-up bucket and draft
+    length, and timed like the unified step."""
 
-    def __init__(self, draft: DraftModel, ecfg, device):
+    def __init__(self, draft: DraftModel, ecfg, device, profiler=None):
         wrong = {str(p.device) for p in draft.params.parameters()
                  if p.device != device}
         if wrong:
@@ -59,6 +62,7 @@ class DraftRunner:
         self.draft = draft
         self.ecfg = ecfg
         self.device = device
+        self.profiler = profiler
         B = ecfg.num_slots
         self.k_max = ecfg.speculate_k
         psize = ecfg.page_size
@@ -85,8 +89,15 @@ class DraftRunner:
 
     def _step_for(self, k: int):
         if k not in self._steps:
-            self._steps[k] = S.make_draft_spec_step(
+            step = S.make_draft_spec_step(
                 self.draft.cfg, k=k, temperature=self.ecfg.temperature)
+            if self.profiler is not None:
+                step = self.profiler.wrap(
+                    "draft_step", step, device=self.device,
+                    key_fn=lambda args, kw, k=k: (
+                        (args[2].shape[1], k),
+                        f"C={args[2].shape[1]},k={k}"))
+            self._steps[k] = step
         return self._steps[k]
 
     def _catch_up_chunk(self, req: Request) -> np.ndarray:

@@ -52,7 +52,10 @@ def test_port_imports_with_jax_blocked():
               "configs.qwen1p5_4b", "configs.gemma3_4b",
               "checkpoint.checkpointer", "runtime.fault_tolerance",
               "benchmarks.mnist_repro", "optim.sgd", "optim.compression",
-              "data.pipeline", "data.mnist"):
+              "data.pipeline", "data.mnist", "serving.observability",
+              *(f"serving.observability.{n}" for n in (
+                  "anomaly", "metrics", "profiler", "replay", "slo",
+                  "stats", "telemetry", "trace"))):
         assert f"repro_torch.{m}" in mods, m
 
 
