@@ -26,7 +26,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
               torch autograd through the plain version, same dO; bf16 on
               the tensor-core kernels, f32 on the CUDA-core ones):
               qwen3-1.7b and gemma2-27b geometries, causal / window /
-              softcap / non-causal, S 1/7/256/1024.
+              softcap / non-causal, S 1/7/256/1024; llama4-maverick's G 5
+              and llava-next-34b's G 7, causal, S up to 2048.  The paged
+              sweeps also run phi3.5-moe's 32 / 8 heads (G 4).
               Dropout matmul: the JAX sweep's shapes, a ragged one (K 13:
               bf16 on the mma.sync kernel) and the full-width Horn MLP
               shape with a random, an all-dropped, an all-live and a
@@ -185,13 +187,40 @@ Phases, each of which fails the script (non-zero exit, no result line):
               each, and two warm decode ticks under
               ``torch.cuda.set_sync_debug_mode("warn")``: the same
               synchronising calls, none in the observability package.
+ 15. families the MoE, multimodal-prefix and hybrid families, at full
+              width, depth cut only as far as the card's memory forces.
+              (a) 2 layers, f32, on the card against the CPU plain path:
+              phi3.5-moe's ``moe_apply`` on a 256-token chunk and on 8
+              decode rows (expert choices and kept masks equal, output
+              within 1e-4 of its scale), its ``Engine`` with 4 requests x
+              8 tokens, plain and with a 2-circuit bank (equal streams, a
+              parting only at a top-2 tie); llama4-maverick (G 5) and
+              llava-next-34b (G 7), a prefill of 576 patches + 64 text
+              tokens and 4 decode steps (logits within 1e-4).  (b)
+              phi3.5-moe, 16 of 32 layers, bf16, phase 5's load: every
+              request finishes, both paged kernels once a layer a tick on
+              phase 5's routes; tok/s, TTFT, latency, peak memory and a
+              profiled decode tick's expert-FFN share; then a 4-circuit
+              bank ("moe" masks) on the same load.  (c) phi3.5-moe, 2
+              layers, train 3 steps at 2 x 1024 (f32 masters, bf16,
+              AdamW, Horn 4 groups): finite losses near ln(vocab), flash
+              launches, router losses and dropped fraction.  (d)
+              llama4-maverick (48 layers) and llava-next-34b (60), bf16:
+              a prefill of 576 patches + 1472 text tokens through
+              ``make_prefill_step``, 16 greedy decode steps; flash once a
+              layer at the prefill, on its bf16 kernel.  (e)
+              jamba-1.5-large, 5 of 72 layers (M M M M A, MoE at 1 and 3):
+              the same prefill (2048 text tokens) and decode, the SSD
+              kernel 4 times on ``wgmma`` at state 16 and never in decode;
+              then its kernel path against the plain path on the card.
 Phase 3 also holds the SSD chunk scan against its plain version (y and the
 final state): the JAX sweep's shapes, S 257 (chunks of 1 token), two more
 shapes of the wgmma route and the full-width shape B 2, S 2048, H 80, P
 64, N 128, chunk 256, f32 and bf16, each on the route ``kernel.route``
 gives it (bf16 at Q % 64 == 0 on the wgmma kernel, the rest on the
-CUDA-core one), printed and asserted by its launch count; then the wgmma
-kernel again with dt at 0, 1e-30 and -0.05 on some tokens.
+CUDA-core one), printed and asserted by its launch count, and jamba-1.5-
+large's B 1, S 2048, H 256, P 64, N 16, chunk 256; then the wgmma kernel
+again with dt at 0, 1e-30 and -0.05 on some tokens.
 Phase 8 reads the paged kernels by device time over windows of 50 calls
 profiled after a warm-up run (``device_ms``): a window must hold 50
 launches of the timed kernel and read at least its bound, else it is
@@ -288,6 +317,8 @@ def phase_kernels(torch, dev, kernel, ref, build):
                            kw={}),
         "gemma3-4b": dict(B=8, H=8, KH=4, D=256, psize=16, maxp=40,
                           kw={"window": 64}),
+        "phi3.5-moe": dict(B=8, H=32, KH=8, D=128, psize=16, maxp=40,
+                           kw={}),
     }
     tol = {"float32": 2e-5, "bfloat16": 2e-2}
     worst = 0.0
@@ -378,6 +409,7 @@ def phase_decode_kernels(torch, dev, kernel, ref):
         "gemma2-27b": dict(B=8, H=32, KH=16, D=128, psize=16, maxp=38),
         "qwen1.5-4b": dict(B=8, H=20, KH=20, D=128, psize=16, maxp=40),
         "gemma3-4b": dict(B=8, H=8, KH=4, D=256, psize=16, maxp=40),
+        "phi3.5-moe": dict(B=8, H=32, KH=8, D=128, psize=16, maxp=40),
     }
     variants = {"plain": {}, "window": {"window": 64},
                 "softcap": {"softcap": 50.0}}
@@ -452,6 +484,14 @@ def phase_flash_kernels(torch, dev, fkernel, fref):
             "causal": {}, "window": {"window": 64},
             "local": {"window": 1024}, "softcap": {"softcap": 50.0},
             "non-causal": {"causal": False}}),
+        # G = H / KH of 5 and 7: llama4-maverick's and llava-next-34b's
+        # causal prefill and train steps
+        "llama4-maverick": dict(H=40, KH=8, D=128, scale=128 ** -0.5,
+                                lengths=(1, 7, 256, 2048),
+                                variants={"causal": {}}),
+        "llava-next-34b": dict(H=56, KH=8, D=128, scale=128 ** -0.5,
+                               lengths=(1, 7, 256, 2048),
+                               variants={"causal": {}}),
     }
     tol = {"float32": 1e-4, "bfloat16": 2e-2}
     worst = 0.0
@@ -483,7 +523,8 @@ def phase_flash_kernels(torch, dev, fkernel, fref):
                             msg=lambda m: f"{name} {vname} S={S} {what}: {m}")
                     del leaves, want, wgrads, grads
             worst = max([worst] + list(errs.values()))
-            log(f"  flash {name:11s} D {g['D']} {dtype:8s} "
+            log(f"  flash {name:11s} D {g['D']} G {g['H'] // g['KH']} "
+                f"{dtype:8s} "
                 f"{len(g['variants'])} variants x S "
                 f"{'/'.join(map(str, lengths))}: max |kernel - plain| "
                 + " ".join(f"{k} {e:.3g}" for k, e in errs.items())
@@ -567,8 +608,11 @@ SSD_SWEEP = [(1, 64, 2, 16, 16, 16), (2, 128, 3, 16, 32, 32),
              (1, 256, 1, 32, 64, 64), (1, 257, 4, 64, 128, 256),
              (2, 256, 3, 16, 16, 64), (1, 512, 4, 48, 96, 128)]
 SSD_FULL = (2, 2048, 80, 64, 128, 256)
+# jamba-1.5-large's SSD (d_inner 16384 in heads of 64, state 16) at the
+# prefill of phase 15
+SSD_JAMBA = (1, 2048, 256, 64, 16, 256)
 # shapes of the wgmma route held again with dt at 0, tiny and negative
-SSD_EDGE_DT = [(1, 512, 4, 48, 96, 128), SSD_FULL]
+SSD_EDGE_DT = [(1, 512, 4, 48, 96, 128), SSD_FULL, SSD_JAMBA]
 
 
 def ssd_inputs(torch, dev, dtype, B, S, H, P, N, seed):
@@ -600,7 +644,8 @@ def phase_ssd_kernels(torch, dev, skernel, sref, build):
     worst = 0.0
     for dtype in ("float32", "bfloat16"):
         errs, routes = [], []
-        for i, (B, S, H, P, N, chunk) in enumerate(SSD_SWEEP + [SSD_FULL]):
+        for i, (B, S, H, P, N, chunk) in enumerate(
+                SSD_SWEEP + [SSD_FULL, SSD_JAMBA]):
             args = ssd_inputs(torch, dev, getattr(torch, dtype), B, S, H, P,
                               N, seed=i)
             how = skernel.route(args[0].dtype, P, N, chunk_len(chunk, S))
@@ -623,7 +668,8 @@ def phase_ssd_kernels(torch, dev, skernel, sref, build):
             del args, y, st, y_want, st_want
         worst = max([worst] + errs)
         log(f"  ssd_chunk_scan {dtype:8s} {len(SSD_SWEEP)} sweep shapes + "
-            f"full width {SSD_FULL}: max |kernel - plain| = {max(errs):.3g}"
+            f"full width {SSD_FULL} (mamba2-2.7b) and {SSD_JAMBA} "
+            f"(jamba-1.5-large): max |kernel - plain| = {max(errs):.3g}"
             f" (tol 2e-4 + 1e-3 |y|); routes "
             + ", ".join(f"{r} x{routes.count(r)}" for r in sorted(set(routes))))
     # any finite dt: the wgmma kernel multiplies by dt after the exponent
@@ -789,12 +835,13 @@ def phase_parity_int8(torch, dev, cfg, params, ecfg, prompts, max_new):
 # ---------------------------------------------------------------------------
 # phase 5: the serving path
 # ---------------------------------------------------------------------------
-def phase_serve(torch, dev, build, kernel, arch="qwen3-1.7b"):
-    """``arch`` at full width, bf16 weights from seed 0, serving phase 5's
-    load through ``Engine``: every request finishes, every tick launches
-    one paged kernel a layer, every chunk launch on the route
-    ``kernel.chunk_route`` gives the arch's bf16 q over bf16 pools and
-    every decode launch on the split rule's route."""
+def phase_serve(torch, dev, build, kernel, arch="qwen3-1.7b", cfg=None):
+    """``arch`` at full width (``cfg``: a config of it cut in depth), bf16
+    weights from seed 0, serving phase 5's load through ``Engine``: every
+    request finishes, every tick launches one paged kernel a layer, every
+    chunk launch on the route ``kernel.chunk_route`` gives the arch's bf16
+    q over bf16 pools and every decode launch on the split rule's
+    route."""
     from repro_torch.configs.base import get_model_config
     from repro_torch.launch.serve import drive, make_requests, summarize
     from repro_torch.models import api
@@ -802,7 +849,7 @@ def phase_serve(torch, dev, build, kernel, arch="qwen3-1.7b"):
     from repro_torch.models import transformer as T
     from repro_torch.serving import Engine, EngineConfig
 
-    cfg = get_model_config(arch)
+    cfg = cfg or get_model_config(arch)
     params = init_params(cfg, 0, device=dev, dtype=torch.bfloat16)
     gen = 32
     ecfg = EngineConfig(num_slots=8, num_pages=512, page_size=16,
@@ -1011,7 +1058,9 @@ def device_events(torch, fn, warmup: bool = False, cpu: bool = True):
     schedule, whose events it drops, and reports the second run's (the
     step's own annotation, which spans the step's host time, is not a
     device event here).  ``cpu=False`` traces the device alone, which
-    costs less on a window of many thousand ops."""
+    costs less on a window of many thousand ops.  A ``record_function``
+    scope (the MoE layer's ``moe_ffn``) also shows as a device range
+    spanning its kernels; it is left out, so the kernels count once."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for attempt in range(1, PROFILE_TRIES + 1):
@@ -1031,7 +1080,8 @@ def device_events(torch, fn, warmup: bool = False, cpu: bool = True):
             return []
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.key.startswith("ProfilerStep")]
+                  and not e.key.startswith("ProfilerStep")
+                  and not getattr(e, "is_user_annotation", False)]
         if sum(e.self_device_time_total for e in events) > 0:
             if attempt > 1:
                 log(f"  profiler: device events on try {attempt} of "
@@ -2790,7 +2840,8 @@ def phase_bank_parity(torch, dev):
     return out
 
 
-def phase_bank_serve(torch, dev, build, kernel, params, temperature):
+def phase_bank_serve(torch, dev, build, kernel, params, temperature,
+                     cfg=None):
     """Phase 12(b): qwen3-1.7b at full width (28 layers, bf16) as a bank
     of 4 circuits at keep 0.5 (16-unit blocks), ``least_loaded`` routing,
     a quarter of the requests mean-logit ensembles over all 4, serving
@@ -2804,7 +2855,7 @@ def phase_bank_serve(torch, dev, build, kernel, params, temperature):
                                           with_ensembles)
     from repro_torch.serving import Engine, EngineConfig, ModelBank, Router
 
-    cfg = get_model_config("qwen3-1.7b")
+    cfg = cfg or get_model_config("qwen3-1.7b")
     G, gen = 4, 32
     bank = ModelBank(cfg, HornConfig(**BANK_HORN), G, seed=0)
     ecfg = EngineConfig(num_slots=8, num_pages=512, page_size=16,
@@ -2861,9 +2912,11 @@ def phase_bank_serve(torch, dev, build, kernel, params, temperature):
         f"tok/s)  TTFT p50 {r['ttft_p50_s'] * 1e3:.1f} ms  p99 "
         f"{r['ttft_p99_s'] * 1e3:.1f} ms  tick {r['tick_ms']:.2f} ms  "
         f"wall {wall:.3f} s")
+    units = " + ".join(f"{k} {v.shape[-1]}" for k, v in bank.masks.items())
     log(f"    co-batch ratio {s.cobatch_ratio:.0%}; tokens by circuit "
         f"{dict(sorted(s.tokens_by_submodel.items()))}; bank on the card "
-        f"{bank.device_bytes():,} B ((G+1) x 28 x 6144 x 4)")
+        f"{bank.device_bytes():,} B ((G+1) x {cfg.num_layers} layers x "
+        f"({units}) x 4)")
     log(f"    {kernel.NAME_DECODE} launches {launches[kernel.NAME_DECODE]}"
         f" = {cfg.num_layers} x {s.decode_ticks} decode-only ticks, all on "
         f"'{decode_route}' (NS {splits}); {kernel.NAME} launches "
@@ -3862,6 +3915,528 @@ def phase_observability(torch, dev, build, kernel):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the MoE, multimodal-prefix and hybrid families
+# ---------------------------------------------------------------------------
+# depth of each arch on the card: cut only as far as 79.18 GiB forces (bf16
+# weights: phi3.5-moe 32 layers 78.0 GiB, 16 layers 39.2; jamba 72 layers
+# far past it, 5 (M M M M A, MoE at 1 and 3) 44.7); widths never cut
+FAMILY_DEPTH = {"phi3.5-moe-42b": 16, "llama4-maverick-400b": 48,
+                "llava-next-34b": 60, "jamba-1.5-large-398b": 5}
+FAMILY_PREFILL = 2048            # tokens a prefill, patches included
+FAMILY_DECODE = 16               # greedy decode steps after it
+TIE_GAP = 1e-3                   # a stream may part only at a top-2 tie
+
+
+def family_cfg(arch, num_layers=None, **over):
+    from repro_torch.configs.base import get_model_config
+
+    return dataclasses.replace(get_model_config(arch), num_layers=num_layers
+                               or FAMILY_DEPTH[arch], **over)
+
+
+def release(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe_layer_parity(torch, dev, cfg, params, cpu_params):
+    """Phase 15(a), the layer: layer 0's ``moe_apply`` on the card and on
+    the CPU plain path (f32, TF32 off) on one 256-token chunk and on 8
+    decode rows of one token: the expert choices and the kept masks equal,
+    the output within 1e-4 of its largest value (the fan-in-E init makes
+    expert outputs ~1e3; the two devices sum 4096 and 6400 terms in
+    different orders), the aux within 1e-5."""
+    from repro_torch.models import layers as L
+
+    out = {}
+    for what, (R, S) in (("chunk", (1, 256)), ("decode", (8, 1))):
+        gen = torch.Generator(dev).manual_seed(S)
+        x = torch.randn(R, S, cfg.d_model, generator=gen, device=dev)
+        res = {}
+        with torch.inference_mode():
+            for where, p, xx in (("card", params, x),
+                                 ("cpu", cpu_params, x.cpu())):
+                moe = p.layers[0].moe
+                rt = L.moe_route(moe, xx, cfg)
+                y, aux = L.moe_apply(moe, xx, cfg)
+                res[where] = (rt.gate_e.cpu(), rt.keep.cpu(), y.cpu(),
+                              {k: v.item() for k, v in aux.items()})
+        (ce, ck, cy, ca), (pe, pk, py, pa) = res["card"], res["cpu"]
+        err, scale = (cy - py).abs().max().item(), py.abs().max().item()
+        out[what] = {"rows": R, "tokens": S, "capacity":
+                     L.moe_capacity(cfg, S), "choices_equal":
+                     torch.equal(ce, pe), "kept_equal": torch.equal(ck, pk),
+                     "max_abs_err": err, "max_abs_out": scale,
+                     "aux_card": ca, "aux_cpu": pa}
+        log(f"  moe_apply {what} ({R} x {S} tokens, capacity "
+            f"{out[what]['capacity']}): expert choices equal "
+            f"{out[what]['choices_equal']}, kept equal "
+            f"{out[what]['kept_equal']}; max |card - CPU| {err:.3g} of max "
+            f"|out| {scale:.3g} (tol 1e-4 of it); aux card {ca}, CPU {pa}")
+        assert out[what]["choices_equal"] and out[what]["kept_equal"], what
+        assert err <= 1e-4 * scale, (what, err, scale)
+        for k in L.MOE_AUX:
+            assert abs(ca[k] - pa[k]) <= 1e-5 * max(1.0, abs(pa[k])), k
+    return out
+
+
+def phase_moe_engine_parity(torch, dev, cfg, params, cpu_params):
+    """Phase 15(a), the engine: 4 requests x 8 greedy tokens through
+    ``Engine`` on the card and on the CPU plain path, plain and with a
+    2-circuit bank (its "moe" masks live): the streams equal, the logits
+    behind them within 1e-4 where both computed them on one prefix, a
+    parting only at a top-2 tie (gap printed)."""
+    from repro_torch.configs.base import HornConfig
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import kernel
+    from repro_torch.serving import Engine, EngineConfig, ModelBank
+
+    max_new = 8
+    ecfg = EngineConfig(num_slots=4, num_pages=64, page_size=16,
+                        max_prompt_len=64, max_new_tokens=max_new,
+                        token_budget=64, policy="on_demand",
+                        kv_dtype="float32", compute_dtype="float32")
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 23, 40, 61)]
+    out = {}
+    for name, G in (("plain", 0), ("bank", 2)):
+        runs = {}
+        for where, p, d in (("card", params, dev), ("cpu", cpu_params,
+                                                    "cpu")):
+            bank = ModelBank(cfg, HornConfig(**BANK_HORN), G, seed=0) \
+                if G else None
+            eng = Engine(cfg, p, ecfg, bank=bank, device=d)
+            build.reset_launches()
+            with LogitTap(eng) as tap:
+                reqs = [eng.submit(pr, max_new) for pr in prompts]
+                eng.run()
+            eng.pool.check_invariants()
+            launches = sum(build.LAUNCHES[n] for n in (kernel.NAME,
+                                                       kernel.NAME_DECODE))
+            if where == "card":
+                assert launches == cfg.num_layers * eng.stats.steps > 0
+            runs[where] = (reqs, tap.store)
+            del eng
+        (creqs, ctap), (preqs, ptap) = runs["card"], runs["cpu"]
+        equal, worst = 0, 0.0
+        for i, (a, b, pr) in enumerate(zip(creqs, preqs, prompts)):
+            got, want = list(a.out_tokens), list(b.out_tokens)
+            same, d = compare_streams(torch, f"{name} request {i}",
+                                      (a.id, len(pr), b.id), got, want,
+                                      ctap, ptap)
+            j = first_parting(got, want)
+            if j is not None:
+                assert top2_gap(torch, ctap[(a.id, len(pr) + j)]) <= \
+                    TIE_GAP, (name, i, j)
+            equal += same
+            worst = max(worst, d)
+        out[name] = {"streams_equal": equal, "logit_max_abs_diff": worst}
+        log(f"  engine {name}{f' ({G} circuits)' if G else ''}: "
+            f"{equal}/{len(prompts)} streams card == CPU plain path, "
+            f"logits max |d| {worst:.2e} (tol {LOGIT_TOL:g})")
+    return out
+
+
+def phase_prefix_parity(torch, dev, build, fkernel, arch):
+    """Phase 15(a) for a multimodal arch: 2 layers at full width, f32, a
+    prefill of 1 x (576 patches + 64 text tokens) through
+    ``make_prefill_step`` and 4 greedy decode steps (tokens chosen on the
+    card, fed to both) on the card and on the CPU plain path: logits
+    within 1e-4 at every step; the card's prefill launches flash once a
+    layer on its f32 kernel, at G = H / KH of the arch."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.core import steps
+    from repro_torch.models.params import init_params
+
+    cfg = family_cfg(arch, 2, dtype="float32")
+    text, K = 64, 4
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "p", "prefill", cfg.num_patches + text + K, 1),
+        compute_dtype="float32")
+    params = init_params(cfg, 1234, device=dev, dtype=torch.float32)
+    cpu_params = copy.deepcopy(params).to("cpu")
+    gen = torch.Generator(dev).manual_seed(15)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (1, text),
+                                     generator=gen, device=dev),
+             "patch_embeds": torch.randn(1, cfg.num_patches, cfg.d_model,
+                                         generator=gen, device=dev)}
+    logits = {}
+    for where, p, d in (("card", params, dev), ("cpu", cpu_params, "cpu")):
+        prefill = steps.make_prefill_step(run, d)
+        decode = steps.make_decode_step(run, d)
+        build.reset_launches()
+        lg, cache = prefill(p, {k: v.to(d) for k, v in batch.items()})
+        rows = [lg.float().cpu()]
+        if where == "card":
+            route = fkernel.route(torch.float32, cfg.head_dim)
+            assert build.LAUNCHES[fkernel.FWD] == build.ROUTE_LAUNCHES.get(
+                f"{fkernel.FWD}:{route}") == cfg.num_layers
+            fed = []
+        for k in range(K):
+            if where == "card":
+                fed.append(torch.argmax(rows[-1], -1)[:, None])
+            lg, cache = decode(p, cache, fed[k].to(d),
+                               cfg.num_patches + text + k)
+            rows.append(lg.float().cpu())
+        logits[where] = rows
+        del cache
+    errs = [(a - b).abs().max().item()
+            for a, b in zip(logits["card"], logits["cpu"])]
+    log(f"  {arch} (G {cfg.num_heads // cfg.num_kv_heads}), 2 layers, f32: "
+        f"prefill 1 x ({cfg.num_patches} patches + {text} text) + {K} "
+        f"decode steps, card vs CPU plain path: logits max |d| by step "
+        + " ".join(f"{e:.2e}" for e in errs) + f" (tol {LOGIT_TOL:g}); "
+        f"flash launches at prefill: {cfg.num_layers} on "
+        f"'{fkernel.route(torch.float32, cfg.head_dim)}'")
+    assert max(errs) <= LOGIT_TOL, errs
+    del params, cpu_params
+    return {"logit_max_abs_diff_by_step": errs}
+
+
+def prefill_decode(torch, dev, build, fkernel, skernel, arch):
+    """Phase 15(d)/(e): ``arch`` at its phase-15 depth, full width, bf16
+    weights from seed 0: a prefill of 1 x 2048 tokens (a multimodal arch:
+    576 random patch embeddings + 1472 text tokens) through
+    ``make_prefill_step`` after one warm-up prefill, then 16 greedy
+    ``make_decode_step`` steps.  Flash launches once an attention layer at
+    the prefill on its bf16 kernel and never in decode; the SSD kernel once
+    a mamba layer on ``wgmma`` and never in decode; every logit finite.
+    Returns (results, params, the prefill's inputs)."""
+    from repro_torch.configs.base import MAMBA, RunConfig, ShapeConfig
+    from repro_torch.core import steps
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import init_params
+
+    cfg = family_cfg(arch)
+    npatch, text = cfg.num_patches, FAMILY_PREFILL - cfg.num_patches
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "p", "prefill", FAMILY_PREFILL + FAMILY_DECODE, 1))
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    release(torch)                   # the init's f32 temporaries
+    torch.cuda.reset_peak_memory_stats()
+    n_params = sum(p.numel() for p in params.parameters())
+    gen = torch.Generator(dev).manual_seed(0)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (1, text),
+                                     generator=gen, device=dev)}
+    if npatch:
+        batch["patch_embeds"] = torch.randn(
+            1, npatch, cfg.d_model, generator=gen,
+            device=dev).to(torch.bfloat16)
+    prefill = steps.make_prefill_step(run, dev)
+    decode = steps.make_decode_step(run, dev)
+    logits, cache = prefill(params, batch)                  # warm up
+    del logits, cache
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k != MAMBA for k in kinds)
+    n_mamba = len(kinds) - n_attn
+    frt = fkernel.route(torch.bfloat16, cfg.head_dim)
+    launches = {fkernel.FWD: build.LAUNCHES[fkernel.FWD],
+                skernel.NAME: build.LAUNCHES[skernel.NAME]}
+    on_route = {f"{fkernel.FWD}:{frt}": build.ROUTE_LAUNCHES.get(
+        f"{fkernel.FWD}:{frt}", 0), f"{skernel.NAME}:wgmma":
+        build.ROUTE_LAUNCHES.get(f"{skernel.NAME}:wgmma", 0)}
+    assert launches == {fkernel.FWD: n_attn, skernel.NAME: n_mamba}, launches
+    assert list(on_route.values()) == [n_attn, n_mamba], on_route
+    assert logits.shape == (1, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    t0 = time.perf_counter()
+    for i in range(FAMILY_DECODE):
+        nxt = torch.argmax(logits, -1)[:, None]
+        logits, cache = decode(params, cache, nxt, FAMILY_PREFILL + i)
+        assert torch.isfinite(logits).all(), i
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    assert {fkernel.FWD: build.LAUNCHES[fkernel.FWD],
+            skernel.NAME: build.LAUNCHES[skernel.NAME]} == launches, \
+        "decode launched a prefill kernel"
+    peak = torch.cuda.max_memory_allocated()
+    del cache
+    events = device_events(torch, lambda: prefill(params, batch))
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    top = [[e.key[:90], e.self_device_time_total / 1e3, e.count]
+           for e in sorted(events, key=lambda e: -e.self_device_time_total)
+           [:6]]
+    out = {"arch": arch, "layers": cfg.num_layers, "params": n_params,
+           "G": cfg.num_heads // cfg.num_kv_heads, "patches": npatch,
+           "text": text, "init_s": init_s, "prefill_s": prefill_s,
+           "prefill_tok_s": FAMILY_PREFILL / prefill_s,
+           "decode_step_ms": decode_s / FAMILY_DECODE * 1e3,
+           "peak_bytes": peak, "launches": launches,
+           "launches_on_route": on_route,
+           "prefill_device_busy_ms": busy or None, "prefill_top_kernels": top}
+    log(f"  {arch}: {cfg.num_layers} layers ({n_attn} attention, {n_mamba} "
+        f"mamba, {sum(isinstance(m, L.MoE) for m in params.modules())} "
+        f"MoE), {n_params / 1e9:.2f} B bf16 parameters built in "
+        f"{init_s:.1f} s; G {out['G']}")
+    log(f"    prefill 1 x ({npatch} patches + {text} text): "
+        f"{prefill_s * 1e3:.1f} ms wall ({out['prefill_tok_s']:,.0f} tok/s); "
+        f"{FAMILY_DECODE} greedy decode steps: {out['decode_step_ms']:.2f} "
+        f"ms a step; peak memory {peak / 2**30:.2f} GiB allocated")
+    log(f"    launches at prefill {launches} (on route {on_route}); in "
+        f"decode: none")
+    if busy > 0:
+        log(f"    profiled prefill: device busy {busy:.1f} ms "
+            f"({busy / (prefill_s * 1e3):.1%} of the unprofiled wall)")
+        for name, ms, count in top:
+            log(f"      {ms:8.2f} ms  x{count:5d}  {name}")
+    else:
+        log("    device time of the prefill: not measured (no device events)")
+    del logits
+    return out, params, batch
+
+
+def phase_hybrid_parity(torch, dev, build, fkernel, fref, skernel, sref,
+                        params, batch):
+    """Phase 15(a) for jamba (too large for the CPU in f32): its bf16
+    prefill through the kernels against the same prefill with the plain
+    SSD scan and the plain attention, on the card.  Each scan of the
+    kernel path against the plain scan on its own inputs at atol 2e-4 /
+    rtol 1e-3 (phase 3's tolerance).  The bf16 router's logits tie often
+    (a bf16 step at |logit| ~ 1 is 2^-7), and a tie flips with the last
+    bit of a layer's input, so the plain path routes with the kernel
+    path's expert choices (its own probabilities give the gates, its own
+    counts the drops); how many tokens would have chosen other experts on
+    their own is printed.  The logits of the two paths within 2e-2 in
+    relative norm, ||got - want|| / ||want|| (phase 9's criterion for the
+    final states): the residual stream here is ~1e3-1e4 (the fan-in-E
+    expert init, ROADMAP section 3), where one bf16 step is 4-64, so the
+    two paths' roundings part elementwise by whole steps and the logits
+    by a few of their own bf16 steps (max |d| printed).  Also printed:
+    the same comparison with the plain scan only (the flash kernel
+    kept)."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.core import steps
+    from repro_torch.models import attention, ssm
+    from repro_torch.models import layers as L
+
+    cfg = family_cfg("jamba-1.5-large-398b")
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "p", "prefill", FAMILY_PREFILL, 1))
+    prefill = steps.make_prefill_step(run, dev)
+    route, scan = L.moe_route, ssm.ssd_chunk_scan
+    calls, chosen = [], []
+
+    def recorded_scan(*args, chunk):
+        out = scan(*args, chunk=chunk)
+        calls.append((args, chunk, out))
+        return out
+
+    def recorded_route(*args):
+        rt = route(*args)
+        chosen.append(rt.gate_e)
+        return rt
+
+    def forced(parted):
+        def moe_route(params_, xr, cfg_):
+            own = route(params_, xr, cfg_)
+            gate_e = chosen[len(parted)]
+            parted.append(int((own.gate_e != gate_e).any(-1).sum()))
+            gate_w = torch.gather(own.probs, -1, gate_e)
+            gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True),
+                                          min=1e-9)
+            R, S, K = gate_e.shape
+            pos, counts, order = L._route_row(gate_e.reshape(R, S * K),
+                                              cfg_.num_experts)
+            return own._replace(gate_w=gate_w, gate_e=gate_e, pos=pos,
+                                counts=counts, order=order,
+                                keep=pos < own.C)
+        return moe_route
+
+    def plain_attention(q, k, v, *, scale, causal=True, window=None,
+                        softcap=None):
+        return fref.attention_ref(q, k, v, scale=scale, causal=causal,
+                                  window=window, softcap=softcap)
+
+    with mock.patch.object(ssm, "ssd_chunk_scan", recorded_scan), \
+            mock.patch.object(L, "moe_route", recorded_route):
+        got, _ = prefill(params, batch)
+    scan_errs = []
+    for args, chunk, (y, st) in calls:
+        y_want, st_want = sref.ssd_chunk_scan_ref(*args, chunk=chunk)
+        scan_errs.append(max((y - y_want).abs().max().item(),
+                             (st - st_want).abs().max().item()))
+        torch.testing.assert_close(y, y_want, atol=2e-4, rtol=1e-3)
+        torch.testing.assert_close(st, st_want, atol=2e-4, rtol=1e-3)
+    del calls, y, st, y_want, st_want
+    got_f, res, parted = got.float(), {}, []
+    for what, flash_plain in (("plain path", True), ("plain scan only",
+                                                     False)):
+        mine = []
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(
+                ssm, "ssd_chunk_scan", sref.ssd_chunk_scan_ref))
+            stack.enter_context(mock.patch.object(L, "moe_route",
+                                                  forced(mine)))
+            if flash_plain:
+                stack.enter_context(mock.patch.object(
+                    attention, "flash_attention", plain_attention))
+            want, _ = prefill(params, batch)
+        want_f = want.float()
+        res[what] = {"max_abs": (got_f - want_f).abs().max().item(),
+                     "rel_norm": ((got_f - want_f).norm()
+                                  / want_f.norm()).item(),
+                     "max_logit": want_f.abs().max().item()}
+        parted = parted or mine
+    log(f"  jamba, {cfg.num_layers} layers, bf16, 1 x {FAMILY_PREFILL}: "
+        f"each of {len(scan_errs)} scans against the plain scan on its "
+        f"inputs: max |d| " + " ".join(f"{e:.3g}" for e in scan_errs)
+        + f" (tol 2e-4 + 1e-3 |y|); tokens whose own choices part from the "
+        f"kernel path's, by MoE layer: {parted} of {FAMILY_PREFILL}")
+    for what, r in res.items():
+        log(f"    kernel path against the {what}, on the kernel path's "
+            f"expert choices: logits max |d| {r['max_abs']:.3g} (max "
+            f"|logit| {r['max_logit']:.3g}), relative norm "
+            f"{r['rel_norm']:.3g} (tol 2e-2)")
+    assert res["plain path"]["rel_norm"] <= 2e-2, res
+    return {"scan_max_abs_err": scan_errs, "tokens_parted_by_layer":
+            parted, "logits": res}
+
+
+def moe_tick_share(torch, eng, n=4):
+    """Device time of ``n`` decode ticks (8 running slots) under
+    torch.profiler: the busy time (kernels only) and the time of the
+    kernels launched inside the MoE layers' ``moe_ffn`` scope (the three
+    expert products and the activation), beside the unprofiled tick wall;
+    None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    rng = np.random.default_rng(6)
+    for _ in range(eng.ecfg.num_slots):
+        eng.submit(rng.integers(1, eng.cfg.vocab_size, (96,)), 2 * n + 8)
+    while eng.sched.waiting or any(r.in_prefill
+                                   for r in eng.sched.running.values()):
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+    eng.run()
+    events = prof.events()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == CUDA
+               and not getattr(e, "is_user_annotation", False)) / n / 1e3
+    # the scope's CPU range sums the kernels its ops launched
+    ffn = sum(e.device_time_total for e in events
+              if e.name == "moe_ffn" and e.device_type == CPU) / n / 1e3
+    out = {"decode_tick_ms": wall, "busy_ms": None, "moe_ffn_ms": None}
+    if busy <= 0:
+        log(f"  decode tick (8 slots): {wall:.2f} ms wall; device time not "
+            f"measured (no device events)")
+        return out
+    out.update(busy_ms=busy, moe_ffn_ms=ffn or None)
+    log(f"  decode tick (8 slots): {wall:.2f} ms wall, device busy "
+        f"{busy:.2f} ms ({busy / wall:.1%}, profiled), of it the experts' "
+        f"FFN (moe_ffn scope) {ffn:.2f} ms ({ffn / busy:.1%})")
+    return out
+
+
+def phase_families(torch, dev, build, kernel, fkernel, fref, skernel, sref):
+    """Phase 15: phi3.5-moe, llama4-maverick, llava-next-34b and jamba-1.5-
+    large on the card.  (a) 2 layers f32 against the CPU plain path
+    (jamba: its bf16 kernel path against its plain path); (b) phi3.5-moe
+    at 16 layers serving phase 5's load, plain and as a 4-circuit bank;
+    (c) phi3.5-moe at 2 layers training; (d) llama4 at 48 and llava at 60
+    layers, prefill + decode; (e) jamba at 5 layers, prefill + decode."""
+    from repro_torch.launch import train
+    from repro_torch.models.params import init_params
+
+    t0 = time.perf_counter()
+    out = {}
+    moe = "phi3.5-moe-42b"
+    log("  (a) 2 layers at full width, f32, card vs CPU plain path")
+    cfg = family_cfg(moe, 2, dtype="float32")
+    params = init_params(cfg, 1234, device=dev, dtype=torch.float32)
+    cpu_params = copy.deepcopy(params).to("cpu")
+    out["moe_layer"] = phase_moe_layer_parity(torch, dev, cfg, params,
+                                              cpu_params)
+    out["moe_engine"] = phase_moe_engine_parity(torch, dev, cfg, params,
+                                                cpu_params)
+    del params, cpu_params
+    release(torch)
+    for arch in ("llama4-maverick-400b", "llava-next-34b"):
+        out[f"parity_{arch}"] = phase_prefix_parity(torch, dev, build,
+                                                    fkernel, arch)
+        release(torch)
+
+    log(f"  (b) serve {moe}, {FAMILY_DEPTH[moe]} layers, bf16, phase 5's "
+        f"load")
+    cfg = family_cfg(moe)
+    torch.cuda.reset_peak_memory_stats()
+    launches, served, eng = phase_serve(torch, dev, build, kernel, moe, cfg)
+    served["launches"] = launches
+    served["moe_tick"] = moe_tick_share(torch, eng)
+    served["peak_bytes"] = torch.cuda.max_memory_allocated()
+    params = eng.params
+    del eng
+    release(torch)
+    log(f"    peak memory {served['peak_bytes'] / 2**30:.2f} GiB allocated")
+    out["serve"] = served
+    log(f"  (b) the same load on a bank of 4 circuits (\"moe\" masks), T 0")
+    out["serve_bank"] = phase_bank_serve(torch, dev, build, kernel, params,
+                                         0.0, cfg)
+    del params
+    release(torch)
+
+    log(f"  (c) train {moe}, 2 layers at full width")
+    real = train.get_model_config
+
+    def two_layers(arch):
+        return dataclasses.replace(real(arch), num_layers=2)
+
+    with mock.patch.object(train, "get_model_config", two_layers):
+        trained = phase_train(torch, build, fkernel, arch=moe, batch=2,
+                              seq=1024, steps=3)
+    for r in trained["steps"]:
+        assert all(math.isfinite(r[k]) for k in ("load_balance_loss",
+                                                 "router_z_loss",
+                                                 "dropped_frac")), r
+    log("    aux by step: " + "; ".join(
+        f"lb {r['load_balance_loss']:.4f} z {r['router_z_loss']:.3f} "
+        f"dropped {r['dropped_frac']:.4f}" for r in trained["steps"]))
+    out["train"] = trained
+    release(torch)
+
+    log("  (d) llama4-maverick and llava-next-34b at full depth, bf16")
+    for arch in ("llama4-maverick-400b", "llava-next-34b"):
+        res, params, _ = prefill_decode(torch, dev, build, fkernel, skernel,
+                                        arch)
+        out[arch] = res
+        del params
+        release(torch)
+
+    log("  (e) jamba-1.5-large, 5 layers, bf16")
+    arch = "jamba-1.5-large-398b"
+    res, params, batch = prefill_decode(torch, dev, build, fkernel, skernel,
+                                        arch)
+    out[arch] = res
+    out["jamba_parity"] = phase_hybrid_parity(
+        torch, dev, build, fkernel, fref, skernel, sref, params, batch)
+    del params, batch
+    release(torch)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 15: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3996,6 +4571,13 @@ def main() -> int:
     phase("phase 14: observability and deterministic replay of the pinned "
           "traces, qwen3-1.7b")
     obs = phase_observability(torch, dev, build, kernel)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("phase 15: the MoE, multimodal-prefix and hybrid families: "
+          "phi3.5-moe, llama4-maverick, llava-next-34b, jamba-1.5-large")
+    fam = phase_families(torch, dev, build, kernel, fkernel, fref, skernel,
+                         sref)
 
     # headline shapes: the prompt-chunk tick for the chunk kernel (decode
     # ticks go to the decode kernel), the decode tick for the decode kernel
@@ -4037,6 +4619,11 @@ def main() -> int:
         k["launches_phase14"] = {
             part: {t: obs[part][t]["launches"][k["name"]] for t in PINNED}
             for part in ("parity", "replay")}
+    # phase 15: phi3.5-moe's serving (plain and a 4-circuit bank)
+    for k in kernels[:2]:
+        k["launches_phase15"] = {
+            "phi3.5-moe serve": fam["serve"]["launches"][k["name"]],
+            "phi3.5-moe bank": fam["serve_bank"]["launches"][k["name"]]}
     kernels[0]["launches_by_kernel"] = {
         served["chunk_route"]: served["chunk_route_launches"],
         "wgmma_int8 (phase 5b)":
@@ -4065,6 +4652,14 @@ def main() -> int:
                 "head_dim": f["D"],
                 "shapes": {k: flash[k][part] for k in shapes},
             })
+            if run is trained:          # phase 15's runs at head dim 128
+                kernels[-1]["launches_phase15"] = {
+                    "phi3.5-moe train": fam["train"]["launches"][name]}
+                if part == "fwd":
+                    kernels[-1]["launches_phase15"].update(
+                        {f"{a} prefill": fam[a]["launches"][name] for a in (
+                            "llama4-maverick-400b", "llava-next-34b",
+                            "jamba-1.5-large-398b")})
     d = dm["0.5"]                       # the Horn MLP's keep rate
     kernels.append({
         "name": dkernel.NAME, "route": "cuda",
@@ -4088,12 +4683,14 @@ def main() -> int:
         "library_ms": None,
         "library": "none: no single PyTorch call computes an SSD chunk scan",
         "launches_by_kernel": ssm["launches_by_route"],
+        "launches_phase15": {"jamba-1.5-large prefill": fam[
+            "jamba-1.5-large-398b"]["launches"][skernel.NAME]},
         "shapes": {"prefill": ssd},
     })
     line = {"kernels": kernels, "card": card, "serve": served,
             "train": trained, "horn_mlp": horn_mlp, "ssm": ssm,
             "mnist": mnist, "new_archs": new_archs, "bank": bank,
-            "spec": spec, "observability": obs,
+            "spec": spec, "observability": obs, "families": fam,
             "flash_host_us": flash["host_us"]}
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

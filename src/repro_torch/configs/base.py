@@ -6,8 +6,11 @@ the same field names and defaults, so a test builds the same config on
 both sides, its layer kinds,
 ``register``/``get_model_config`` and ``reduced``.  The registry covers the
 archs the port runs so far: qwen3-1.7b, qwen1.5-4b, gemma2-27b, gemma3-4b,
-mamba2-2.7b and the paper's MNIST classifier horn-mnist (family "mlp":
-trained by ``launch.train``'s own branch, refused by the serve CLI).
+mamba2-2.7b, the MoE, multimodal-prefix and hybrid families
+(phi3.5-moe-42b, llama4-maverick-400b, llava-next-34b,
+jamba-1.5-large-398b) and the paper's MNIST classifier horn-mnist (family
+"mlp": trained by ``launch.train``'s own branch, refused by the serve
+CLI).
 """
 from __future__ import annotations
 
@@ -188,7 +191,8 @@ def _ensure_loaded() -> None:
     # import the config modules once (registration side effect)
     import importlib
     for mod in ("qwen3_1p7b", "qwen1p5_4b", "gemma2_27b", "gemma3_4b",
-                "mamba2_2p7b", "horn_mnist"):
+                "mamba2_2p7b", "llava_next_34b", "jamba_1p5_large",
+                "phi3p5_moe", "llama4_maverick", "horn_mnist"):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -94,7 +94,8 @@ def state_from_jax_flat(flat, run: RunConfig, device="cuda") -> Dict:
 def make_train_step(run: RunConfig, device="cuda"):
     """step(state, batch) -> (new state, metrics).
 
-    ``batch`` holds "tokens" and "labels" [B, S] (numpy or tensors).  The
+    ``batch`` holds "tokens" and "labels" [B, S] (numpy or tensors), and
+    "patch_embeds" [B, num_patches, d_model] for a multimodal config.  The
     loss is differentiated against a compute-dtype copy of the masters
     (bf16 by default: the gradients come out in bf16, as in JAX), clipped
     at global norm 1.0 and applied to the masters by the optimizer, in
@@ -111,7 +112,8 @@ def make_train_step(run: RunConfig, device="cuda"):
     tolerant loop's "skip") keeps the old dict and nothing of the step
     remains.  A finite step gives the bits it gave before this rule.
     ``state["rng"]`` stays.  Metrics are 0-dim device tensors: "loss",
-    "xent", "grad_norm"."""
+    "xent", the MoE aux ("load_balance_loss", "router_z_loss",
+    "dropped_frac": zeros for a dense model) and "grad_norm"."""
     cfg = run.model
     dev = resolve_device(device)
     _, opt_update = make_optimizer(run.optimizer)
@@ -134,7 +136,7 @@ def make_train_step(run: RunConfig, device="cuda"):
                 p.requires_grad_(True)
         cparams = copy_into(held["cparams"], params)
         batch = {k: torch.as_tensor(batch[k], device=dev)
-                 for k in ("tokens", "labels")}
+                 for k in ("tokens", "labels", "patch_embeds") if k in batch}
         horn = make_horn_state(state["rng"], run.horn, state["step"], dev)
         M = max(1, run.microbatches)
         if M == 1:
@@ -179,24 +181,26 @@ def make_train_step(run: RunConfig, device="cuda"):
 def make_prefill_step(run: RunConfig, device="cuda"):
     """step(params, batch) -> (logits [B, vocab] at the last position, the
     decode cache of this shape cell), ``batch["tokens"]`` [B, S] (numpy or
-    a tensor), S at most ``run.shape.seq_len``.  Runs ``api.prefill`` under
-    inference mode on ``params`` cast to the compute dtype on every call,
-    as the JAX step casts inside every call (``cast_params`` returns
-    ``params`` itself when they already are in it: a caller that steps
-    many times casts once and passes that).  Mamba layers run their
+    a tensor) behind ``batch["patch_embeds"]`` [B, num_patches, d] for a
+    multimodal config, patches plus S at most ``run.shape.seq_len``.  Runs
+    ``api.prefill`` under inference mode on ``params`` cast to the compute
+    dtype on every call, as the JAX step casts inside every call
+    (``cast_params`` returns ``params`` itself when they already are in
+    it: a caller that steps many times casts once and passes that).  Mamba layers run their
     chunked SSD through ``ssd_chunk_scan``.  Each attention layer's (k, v)
     is copied into buffers of ``run.shape.seq_len`` tokens
     (``T.decode_cache_of_prefill``), so ``make_decode_step`` continues the
-    cache at position S."""
+    cache at the position after the prompt (patches plus S)."""
     cfg = run.model
     dev = resolve_device(device)
     cdtype = dtype_of(run.compute_dtype)
 
     @torch.inference_mode()
     def prefill_step(params, batch):
-        tokens = torch.as_tensor(batch["tokens"], device=dev)
-        logits, cache = api.prefill(cast_params(params, cdtype),
-                                    {"tokens": tokens}, cfg)
+        inputs = {k: torch.as_tensor(batch[k], device=dev)
+                  for k in ("tokens", "patch_embeds") if k in batch}
+        logits, cache = api.prefill(cast_params(params, cdtype), inputs,
+                                    cfg)
         return logits, T.decode_cache_of_prefill(cfg, cache,
                                                  run.shape.seq_len)
 

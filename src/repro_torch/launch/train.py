@@ -24,9 +24,14 @@ unless ``--horn-groups``, ``--batch // 20`` samples a group, ``--lr`` or
 ``--topology``, ``--optimizer``, ``--no-horn`` and ``--checkpoint-dir``,
 as the JAX launcher does.
 
+A multimodal arch (llava-next-34b, llama4-maverick-400b) trains on zero
+``patch_embeds`` in front of ``--seq`` minus its patch count of text
+tokens, as the JAX launcher feeds it; an MoE arch adds its router losses
+to the loss and logs them with the dropped fraction each step.
+
 Not ported yet, and refused with the ROADMAP item that ports them: archs
-with Mamba layers (mamba2-2.7b), ``--topology`` other than allreduce and a
-mesh larger than 1 x 1.
+with Mamba layers (mamba2-2.7b, jamba-1.5-large-398b), ``--topology``
+other than allreduce and a mesh larger than 1 x 1.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -50,6 +56,7 @@ from repro_torch.data.pipeline import (SyntheticTokenPipeline,
                                        TokenPipelineConfig)
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import kernel as flash
+from repro_torch.models.layers import MOE_AUX
 from repro_torch.runtime.fault_tolerance import fault_tolerant_loop
 
 NOT_PORTED = {
@@ -133,8 +140,17 @@ def setup(argv=None) -> Session:
     pipe = SyntheticTokenPipeline(TokenPipelineConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
         global_batch=args.batch, seed=args.seed))
+
+    def batch_at(step: int) -> Dict:
+        b = pipe.batch_at(step)
+        if cfg.num_patches:         # the stub vision frontend's output
+            b = {k: v[:, :args.seq - cfg.num_patches] for k, v in b.items()}
+            b["patch_embeds"] = np.zeros(
+                (args.batch, cfg.num_patches, cfg.d_model), np.float32)
+        return b
+
     return Session(args, run, dev, state, S.make_train_step(run, dev),
-                   pipe.batch_at)
+                   batch_at)
 
 
 def sync(device: torch.device) -> None:
@@ -164,9 +180,15 @@ def record(sess: Session, step: int, metrics: Dict,
     rec = {"step": step, "loss": metrics["loss"],
            "grad_norm": metrics["grad_norm"], "step_s": dt,
            "tok_s": a.batch * a.seq / dt}
+    moe = ""
+    if sess.run.model.num_experts:
+        rec.update((k, metrics[k]) for k in MOE_AUX)
+        moe = (f" lb {rec['load_balance_loss']:.4f} z "
+               f"{rec['router_z_loss']:.3f} dropped "
+               f"{rec['dropped_frac']:.4f}")
     if log and (step % a.log_every == 0 or step == 1):
         log(f"step {step:5d} loss {rec['loss']:.4f} grad_norm "
-            f"{rec['grad_norm']:.3f} {rec['tok_s']:,.0f} tok/s "
+            f"{rec['grad_norm']:.3f}{moe} {rec['tok_s']:,.0f} tok/s "
             f"({dt * 1e3:.1f} ms)")
     return rec
 

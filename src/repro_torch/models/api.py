@@ -1,5 +1,9 @@
 """Model API of the port (decoder-only LMs): the train loss, prefill and
-one-token decode over a dense cache, and the unified paged serving step."""
+one-token decode over a dense cache, and the unified paged serving step.
+
+``batch`` holds "tokens" [B, S_text] (and "labels" [B, S_text] for the
+loss); a multimodal config's stub frontend adds "patch_embeds"
+[B, num_patches, d_model], fused in front of the text."""
 from __future__ import annotations
 
 import torch
@@ -23,37 +27,44 @@ def paged_step(params, cache, tokens, starts, chunk_lens, block_tables,
     positions instead.  The lm head only ever runs on the selected rows.
     ``serve_masks`` selects each slot's circuit (``lm_forward``)."""
     if logit_index is not None:
-        hidden, _ = T.lm_forward(params, tokens, cfg, mode="decode",
-                                 cache=cache, cache_index=starts,
-                                 block_tables=block_tables,
-                                 chunk_lens=chunk_lens,
-                                 logit_index=logit_index,
-                                 serve_masks=serve_masks)
+        hidden, _, _ = T.lm_forward(params, tokens, cfg, mode="decode",
+                                    cache=cache, cache_index=starts,
+                                    block_tables=block_tables,
+                                    chunk_lens=chunk_lens,
+                                    logit_index=logit_index,
+                                    serve_masks=serve_masks)
         return T.lm_logits(params, hidden, cfg), cache
     last = torch.clamp(chunk_lens.long() - 1, min=0)[:, None]
-    hidden, _ = T.lm_forward(params, tokens, cfg, mode="decode", cache=cache,
-                             cache_index=starts, block_tables=block_tables,
-                             chunk_lens=chunk_lens, logit_index=last,
-                             serve_masks=serve_masks)
+    hidden, _, _ = T.lm_forward(params, tokens, cfg, mode="decode",
+                                cache=cache, cache_index=starts,
+                                block_tables=block_tables,
+                                chunk_lens=chunk_lens, logit_index=last,
+                                serve_masks=serve_masks)
     return T.lm_logits(params, hidden, cfg)[:, 0], cache
 
 
 def prefill(params, batch, cfg: ModelConfig, *, serve_masks=None):
     """Full-sequence forward for serving: (logits [B, vocab] at the last
     position, the per-layer cache: attention (k, v) [B, S, KH, D], mamba
-    (raw conv tail, final SSM state)).  The last position is gathered
-    before the final norm (bitwise the same: the norm is row-wise), so the
-    norm and the lm head run on one row per sequence.  The JAX function
-    also returns an encoder output and takes right-padded prompts'
-    ``last_index``; the port's LMs are decoder-only and its callers pass
-    whole prompts.  ``serve_masks`` selects a fixed circuit per sequence
-    (``lm_forward``)."""
+    (raw conv tail, final SSM state)).  With ``batch["patch_embeds"]`` the
+    sequence is the patches then the text: the logits are the last text
+    token's and the cache covers patches plus text.  The last position is
+    gathered before the final norm (bitwise the same: the norm is
+    row-wise), so the norm and the lm head run on one row per sequence.
+    The JAX function also returns an encoder output and takes right-padded
+    prompts' ``last_index``; the port's LMs are decoder-only and its
+    callers pass whole prompts.  ``serve_masks`` selects a fixed circuit
+    per sequence (``lm_forward``)."""
     tokens = torch.as_tensor(batch["tokens"])
+    patches = batch.get("patch_embeds")
     B, S = tokens.shape
+    if patches is not None:
+        S += patches.shape[1]
     idx = torch.full((B, 1), S - 1, device=tokens.device)
-    hidden, cache = T.lm_forward(params, tokens, cfg, mode="prefill",
-                                 remat=False, logit_index=idx,
-                                 serve_masks=serve_masks)
+    hidden, cache, _ = T.lm_forward(params, tokens, cfg, mode="prefill",
+                                    remat=False, logit_index=idx,
+                                    serve_masks=serve_masks,
+                                    patch_embeds=patches)
     return T.lm_logits(params, hidden, cfg)[:, 0], cache
 
 
@@ -61,28 +72,46 @@ def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig, *,
                 serve_masks=None):
     """One-token decode over a dense cache.  tokens: [B, 1]; cache_index:
     the position of that token (an int or 0-dim tensor), the same for
-    every sequence.  Returns (logits [B, vocab], the new cache); attention
+    every sequence (after a prefill with patches, their count plus the
+    text's).  Returns (logits [B, vocab], the new cache); attention
     buffers are written in place.  ``serve_masks`` as in ``prefill``."""
-    hidden, new_cache = T.lm_forward(params, tokens, cfg, mode="decode",
-                                     remat=False, cache=cache,
-                                     cache_index=cache_index,
-                                     serve_masks=serve_masks)
+    hidden, new_cache, _ = T.lm_forward(params, tokens, cfg, mode="decode",
+                                        remat=False, cache=cache,
+                                        cache_index=cache_index,
+                                        serve_masks=serve_masks)
     return T.lm_logits(params, hidden, cfg)[:, 0], new_cache
 
 
 def forward_hidden(params, batch, cfg: ModelConfig, *, horn=None,
                    remat: bool = True):
-    """Train-mode hidden states [B, S, d] (final-normed) of
-    ``batch["tokens"]`` [B, S]; ``horn`` as in ``lm_forward``."""
-    return T.lm_forward(params, batch["tokens"], cfg, mode="train",
-                        horn=horn, remat=remat)[0]
+    """Train-mode (hidden states [B, S, d], final-normed, of
+    ``batch["tokens"]`` [B, S] behind any ``batch["patch_embeds"]``; the
+    MoE aux dict); ``horn`` as in ``lm_forward``."""
+    hidden, _, aux = T.lm_forward(params, batch["tokens"], cfg, mode="train",
+                                  horn=horn, remat=remat,
+                                  patch_embeds=batch.get("patch_embeds"))
+    return hidden, aux
+
+
+LB_COEF, Z_COEF = 0.01, 1e-3     # the router losses' weights in the loss
 
 
 def model_loss(params, batch, cfg: ModelConfig, *, horn=None,
                remat: bool = True):
-    """(scalar loss, {"loss", "xent"}) of next-token prediction on
-    ``batch`` ({"tokens", "labels"}, [B, S] each); the loss is the mean
-    cross-entropy (dense models add no auxiliary terms)."""
-    hidden = forward_hidden(params, batch, cfg, horn=horn, remat=remat)
+    """(scalar loss, metrics) of next-token prediction on ``batch``
+    ({"tokens", "labels"} [B, S_text], and "patch_embeds" for a multimodal
+    config, whose positions are dropped from the hidden state before the
+    cross-entropy: labels cover the text only).  The loss is the mean
+    cross-entropy, plus ``LB_COEF * load_balance_loss + Z_COEF *
+    router_z_loss`` (the JAX defaults) when the config has experts.
+    metrics: "loss", "xent" and the three MoE aux values (zeros for a
+    dense model)."""
+    hidden, aux = forward_hidden(params, batch, cfg, horn=horn, remat=remat)
+    if cfg.num_patches and batch.get("patch_embeds") is not None:
+        hidden = hidden[:, batch["patch_embeds"].shape[1]:]
     xent = T.chunked_xent(hidden, params, batch["labels"], cfg)
-    return xent, {"loss": xent, "xent": xent}
+    loss = xent
+    if cfg.num_experts:
+        loss = loss + LB_COEF * aux["load_balance_loss"] \
+            + Z_COEF * aux["router_z_loss"]
+    return loss, {"loss": loss, "xent": xent, **aux}

@@ -1,8 +1,8 @@
-"""Shared layers: norms, RoPE, the gated MLP (dense and block-sparse),
-embeddings.
+"""Shared layers: norms, RoPE, the gated MLP (dense and block-sparse), the
+sort-based mixture of experts, embeddings.
 
 Parameters live in ``nn.Module`` containers whose attributes keep the JAX
-package's names and shapes (``scale``, ``wi``/``wg``/``wo``,
+package's names and shapes (``scale``, ``wi``/``wg``/``wo``, ``router``,
 ``embedding``); the math is plain functions ``<name>_apply(params, x, cfg)``
 as in ``repro.models.layers``.  Each container is built from a ``make``
 callable, ``make(shape, init) -> nn.Parameter``, so one declaration serves
@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import math
 from functools import partial
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -166,6 +167,160 @@ def _mlp_blocks(params, x, cfg: ModelConfig, act, mask_blocks):
         h = act(product(params.wi, blocks01)) * mask[:, None, :]
     h = h.to(x.dtype).reshape(B, S, cfg.d_ff)
     return mm("...f,fd->...d", h, params.wo)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (sort-based, static-capacity dispatch)
+# ---------------------------------------------------------------------------
+MOE_AUX = ("load_balance_loss", "router_z_loss", "dropped_frac")
+
+
+class MoE(nn.Module):
+    """``router`` [d, E] and the experts' ``wi``/``wg``/``wo`` [E, d, ff]
+    / [E, ff, d] (``wg`` when the MLP is gated)."""
+
+    def __init__(self, cfg: ModelConfig, make):
+        super().__init__()
+        d, ff, e = cfg.d_model, cfg.moe_ff, cfg.num_experts
+        self.router = make((d, e))
+        self.wi = make((e, d, ff))
+        self.wo = make((e, ff, d))
+        if cfg.mlp_gated:
+            self.wg = make((e, d, ff))
+
+
+def _positions_in_segment(sorted_ids, length: int):
+    """Rank of each element of the (last-axis) sorted expert ids within its
+    run of equal ids."""
+    idx = torch.arange(length, device=sorted_ids.device)
+    is_start = torch.ones_like(sorted_ids, dtype=torch.bool)
+    is_start[..., 1:] = sorted_ids[..., 1:] != sorted_ids[..., :-1]
+    starts = torch.where(is_start, idx, torch.zeros_like(idx))
+    return idx - torch.cummax(starts, dim=-1).values
+
+
+def _route_row(flat_e, num_experts: int):
+    """Routing bookkeeping of rows of expert ids ``flat_e`` [..., S*K]:
+    (each choice's position within its expert [..., S*K], counts per expert
+    [..., E], the stable sort order by expert [..., S*K]).  Choices of one
+    expert keep their flat order, so a row's right padding sorts after its
+    valid tokens."""
+    n = flat_e.shape[-1]
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    pos_sorted = _positions_in_segment(torch.gather(flat_e, -1, order), n)
+    pos = torch.empty_like(order).scatter_(-1, order, pos_sorted)
+    counts = torch.zeros(flat_e.shape[:-1] + (num_experts,),
+                         dtype=torch.long, device=flat_e.device)
+    counts.scatter_add_(-1, flat_e.long(), torch.ones_like(flat_e,
+                                                           dtype=torch.long))
+    return pos, counts, order
+
+
+def moe_capacity(cfg: ModelConfig, S: int) -> int:
+    """Slots per expert in a row of ``S`` tokens: ceil(S K cf / E) in
+    floats, at least 4 and at most S K (the JAX package's rule, so the
+    expert drops of a prompt depend on the chunk it arrives in)."""
+    E, K = cfg.num_experts, cfg.experts_per_tok
+    C = -(-S * K * cfg.capacity_factor // E) if E else S
+    return max(4, min(int(C), S * K))
+
+
+class MoERouting(NamedTuple):
+    """One call's routing: router ``logits`` (f32) and ``probs`` [R, S, E],
+    the top-K ``gate_w`` (renormalised) and ``gate_e`` [R, S, K], each
+    choice's ``pos`` within its expert, the expert ``counts`` [R, E], the
+    stable sort ``order`` and ``keep`` (pos < capacity) [R, S*K], and the
+    capacity ``C``."""
+    logits: torch.Tensor
+    probs: torch.Tensor
+    gate_w: torch.Tensor
+    gate_e: torch.Tensor
+    pos: torch.Tensor
+    counts: torch.Tensor
+    order: torch.Tensor
+    keep: torch.Tensor
+    C: int
+
+
+def moe_route(params, xr, cfg: ModelConfig) -> MoERouting:
+    """The routing of rows ``xr`` [R, S, d]: the router's logits (in x's
+    dtype, then f32) give softmax probabilities, each token takes its top
+    ``experts_per_tok`` (ties to the lower expert, as ``lax.top_k``) with
+    gates renormalised over them, and the choices are ranked within their
+    expert in the stable sort order; a choice past ``moe_capacity`` is
+    dropped."""
+    R, S, _ = xr.shape
+    K = cfg.experts_per_tok
+    logits = mm("rsd,de->rse", xr, params.router).to(f32)
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, gate_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_w, gate_e = gate_w[..., :K], gate_e[..., :K]
+    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+    pos, counts, order = _route_row(gate_e.reshape(R, S * K),
+                                    cfg.num_experts)
+    C = moe_capacity(cfg, S)
+    return MoERouting(logits, probs, gate_w, gate_e, pos, counts, order,
+                      pos < C, C)
+
+
+def moe_apply(params, x, cfg: ModelConfig, *, hidden_mask=None):
+    """x [..., S, d] -> (out [..., S, d], aux dict), the JAX package's
+    ``moe_apply`` rule for rule.
+
+    Routing is per row (one sequence, GShard's group = sequence;
+    ``moe_route``); the choices are gathered in their sort order into a
+    static [R, E, C, d] buffer, the expert FFN runs as batched products
+    over all E x C slots (under the profiler scope ``moe_ffn``), and each
+    kept choice reads its slot back, weighted by its gate.  Choices past
+    an expert's capacity are dropped (the residual carries the token).
+    ``hidden_mask`` ([B, 1, 1, ff]-broadcastable) multiplies the experts'
+    hidden units.  aux: ``load_balance_loss`` (E times the routed
+    fractions dotted with the mean router mass), ``router_z_loss`` (mean
+    squared logsumexp of the logits) and ``dropped_frac``, all f32
+    scalars."""
+    orig_shape = x.shape
+    d = orig_shape[-1]
+    xr = x.reshape((-1,) + tuple(orig_shape[-2:]))      # [R, S, d] rows
+    R, S, _ = xr.shape
+    E, K = cfg.num_experts, cfg.experts_per_tok
+    act = ACTS[cfg.act]
+    rt = moe_route(params, xr, cfg)
+    C, counts, order, keep = rt.C, rt.counts, rt.order, rt.keep
+    flat_e = rt.gate_e.reshape(R, S * K)
+
+    # dispatch: [R, E, C] source tokens from the sort order
+    slots = torch.arange(C, device=x.device)
+    starts = torch.cumsum(counts, dim=-1) - counts              # [R, E]
+    slot_idx = torch.clamp(starts[:, :, None] + slots, 0, S * K - 1)
+    slot_valid = slots < torch.clamp(counts, max=C)[:, :, None]
+    src_tok = torch.gather(order, 1, slot_idx.reshape(R, E * C)) // K
+    disp = torch.gather(xr, 1, src_tok[..., None].expand(-1, -1, d))
+    disp = disp.reshape(R, E, C, d) * slot_valid[..., None].to(x.dtype)
+
+    with torch.profiler.record_function("moe_ffn"):
+        up = mm("recd,edf->recf", disp, params.wi)
+        if cfg.mlp_gated:
+            h = act(mm("recd,edf->recf", disp, params.wg)) * up
+        else:
+            h = act(up)
+        if hidden_mask is not None:
+            h = h * hidden_mask.to(h.dtype)
+        eout = mm("recf,efd->recd", h, params.wo)
+
+    # combine: each (token, k) reads its slot (e, pos) if kept
+    slot_of_choice = flat_e * C + torch.clamp(rt.pos, 0, C - 1)  # [R, S*K]
+    gathered = torch.gather(eout.reshape(R, E * C, d), 1,
+                            slot_of_choice[..., None].expand(-1, -1, d))
+    gathered = gathered.reshape(R, S, K, d) * keep.reshape(
+        R, S, K, 1).to(x.dtype)
+    out = mm("rskd,rsk->rsd", gathered, rt.gate_w.to(x.dtype))
+
+    me = F.one_hot(rt.gate_e, E).to(f32).mean(dim=(0, 1, 2))  # frac routed
+    ce = rt.probs.mean(dim=(0, 1))                             # router mass
+    aux = {"load_balance_loss": E * (me * ce).sum(),
+           "router_z_loss": (torch.logsumexp(rt.logits, dim=-1) ** 2).mean(),
+           "dropped_frac": 1.0 - keep.to(f32).mean()}
+    return out.reshape(orig_shape), aux
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 ``init_params`` builds the LM with the JAX package's per-leaf rule
 (``repro/models/params.py::_init_leaf``): normal with std
 ``scale / sqrt(fan_in)``, fan-in being the leaf's first dimension (the
-unstacked one), ``ones * scale``, and zeros for RMSNorm scales and biases
+unstacked one, so E for an expert leaf [E, d, ff]: std 0.25 at 16
+experts), ``ones * scale``, and zeros for RMSNorm scales and biases
 (``scale`` is the spec's: 0.5 for mamba's ``A_log`` and convs, else 1).  The numbers come
 from a ``torch.Generator``, so they differ from JAX's for the same seed;
 tests that compare the two packages carry weights over with
@@ -60,8 +61,10 @@ def init_params(cfg: ModelConfig, generator, *, device="cuda",
         if init == "ones":
             return torch.full(shape, scale, device=device, dtype=dtype)
         std = scale / np.sqrt(max(1, shape[0]))
-        return (torch.randn(shape, generator=generator, device=device,
-                            dtype=torch.float32) * std).to(dtype)
+        # in place: one f32 temporary a leaf (an expert leaf of jamba is
+        # 3.2 B values)
+        return torch.randn(shape, generator=generator, device=device,
+                           dtype=torch.float32).mul_(std).to(dtype)
 
     return LM(cfg, _maker(fill, dev, dtype))
 

@@ -4,12 +4,14 @@ the paged serving step.
 The JAX package scans a stacked ``[R, ...]`` superblock; here the stack is
 a ``ModuleList`` of per-layer ``Block``s run by a Python loop, layer ``i``
 having kind ``cfg.layer_kinds()[i]`` (attention, local attention or
-Mamba2).  Training rematerialises each block in the backward
-(``torch.utils.checkpoint``) where the JAX package checkpoints the
-superblock scan body; the gradients are the same.  Caches are lists with
-one entry per layer: a dense ``(k_buf, v_buf)`` or ``(conv_state,
-ssm_state)`` pair (``init_cache``), or a paged ``(k_pages, v_pages)`` pair
-or int8 ``(k_pages, v_pages, k_scale, v_scale)`` 4-tuple
+Mamba2) and an MoE FFN where ``layer_moe_flags`` says so.  A multimodal
+config's stub frontend hands ``patch_embeds`` [B, num_patches, d], which
+go in front of the text embeddings.  Training rematerialises each block
+in the backward (``torch.utils.checkpoint``) where the JAX package
+checkpoints the superblock scan body; the gradients are the same.  Caches
+are lists with one entry per layer: a dense ``(k_buf, v_buf)`` or
+``(conv_state, ssm_state)`` pair (``init_cache``), or a paged ``(k_pages,
+v_pages)`` pair or int8 ``(k_pages, v_pages, k_scale, v_scale)`` 4-tuple
 (``init_paged_cache``).  Attention buffers and pools are written in place
 by every step; Mamba states are replaced.
 """
@@ -31,12 +33,25 @@ from repro_torch.models.attention import (Attention, attn_apply,
 from repro_torch.models.ssm import Mamba, mamba_apply, ssm_dims
 
 
+def layer_moe_flags(cfg: ModelConfig) -> List[bool]:
+    """Which layers hold an MoE FFN, by the JAX package's rule: a layer of
+    the scanned superblocks by its index inside the pattern
+    (``cfg.layer_is_moe(i)``, i < len(pattern)), a remainder layer by its
+    absolute index.  So llama4-maverick's pattern ``(ATTN,)`` with MoE
+    period 2, offset 1 has no MoE layer: ``load_jax_flat`` needs the same
+    leaves as the JAX spec tree."""
+    P, R = len(cfg.layer_pattern), cfg.pattern_repeats
+    return [cfg.layer_is_moe(li % P if li < R * P else li)
+            for li in range(cfg.num_layers)]
+
+
 class Block(nn.Module):
     """One decoder layer: ``pre_norm``, the mixer (``attn`` or ``mamba``),
-    ``ffn_norm`` and ``mlp`` when ``d_ff > 0`` and, for gemma,
-    ``post_mixer_norm``/``post_ffn_norm``."""
+    ``ffn_norm`` and ``moe`` on an MoE layer, else ``mlp`` when
+    ``d_ff > 0``, and, for gemma, ``post_mixer_norm``/``post_ffn_norm``."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, make):
+    def __init__(self, cfg: ModelConfig, kind: str, make, *,
+                 is_moe: bool = False):
         super().__init__()
         self.pre_norm = L.Norm(cfg, cfg.d_model, make)
         if kind in (ATTN, LOCAL):
@@ -48,9 +63,12 @@ class Block(nn.Module):
                              f"got {kind!r}")
         if cfg.post_sublayer_norm:
             self.post_mixer_norm = L.Norm(cfg, cfg.d_model, make)
-        if cfg.d_ff > 0:
+        if is_moe or cfg.d_ff > 0:
             self.ffn_norm = L.Norm(cfg, cfg.d_model, make)
-            self.mlp = L.MLP(cfg, make)
+            if is_moe:
+                self.moe = L.MoE(cfg, make)
+            else:
+                self.mlp = L.MLP(cfg, make)
             if cfg.post_sublayer_norm:
                 self.post_ffn_norm = L.Norm(cfg, cfg.d_model, make)
 
@@ -60,13 +78,14 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, make):
         super().__init__()
-        if cfg.is_encoder_decoder or cfg.num_patches or cfg.learned_pos:
-            raise ValueError(f"{cfg.name}: the port runs decoder-only LMs")
-        if any(cfg.layer_is_moe(i) for i in range(cfg.num_layers)):
-            raise ValueError(f"{cfg.name}: MoE layers are not ported yet")
+        if cfg.is_encoder_decoder or cfg.learned_pos:
+            raise ValueError(
+                f"{cfg.name}: encoder-decoder models and learned positions "
+                f"are not ported yet (ROADMAP slice 4, item 18: whisper)")
         self.embed = L.Embed(cfg, make)
         self.layers = nn.ModuleList(
-            Block(cfg, kind, make) for kind in cfg.layer_kinds())
+            Block(cfg, kind, make, is_moe=moe)
+            for kind, moe in zip(cfg.layer_kinds(), layer_moe_flags(cfg)))
         self.final_norm = L.Norm(cfg, cfg.d_model, make)
 
 
@@ -156,15 +175,17 @@ def _serve_slice(serve_masks, key: str, layer_idx: int):
 
 
 def _block_apply(bp, x, cfg: ModelConfig, *, kind: str, layer_idx: int,
-                 horn=None, positions, cache=None, cache_index=None,
-                 block_tables=None, chunk_lens=None, decode_lengths=None,
-                 serve_masks=None):
-    """One decoder layer; returns (x, the mixer's new cache).  ``horn``
-    (train only) draws this layer's head, channel and FFN masks with the
-    JAX package's layer index and salts (13, 3 and 5); ``serve_masks``
+                 is_moe: bool = False, horn=None, positions, cache=None,
+                 cache_index=None, block_tables=None, chunk_lens=None,
+                 decode_lengths=None, serve_masks=None):
+    """One decoder layer; returns (x, the mixer's new cache, the MoE aux
+    dict, empty on a dense layer).  ``horn`` (train only) draws this
+    layer's head, channel and FFN (or expert hidden) masks with the JAX
+    package's layer index and salts (13, 3 and 5); ``serve_masks``
     (serving) multiplies this layer's rows of the slots' circuit masks into
-    the head and FFN hidden masks."""
+    the head and FFN (``"ffn"``) or expert (``"moe"``) hidden masks."""
     B = x.shape[0]
+    aux = {}
     h = L.norm_apply(bp.pre_norm, x, cfg)
     if kind in (ATTN, LOCAL):
         hm = pdrop.head_mask(horn, layer_idx, B, cfg.num_heads)
@@ -183,25 +204,47 @@ def _block_apply(bp, x, cfg: ModelConfig, *, kind: str, layer_idx: int,
     if cfg.post_sublayer_norm:
         out = L.norm_apply(bp.post_mixer_norm, out, cfg)
     x = x + out.to(x.dtype)
-    if cfg.d_ff > 0:
+    if hasattr(bp, "ffn_norm"):     # mamba2-style blocks have no FFN
         h = L.norm_apply(bp.ffn_norm, x, cfg)
-        fm = pdrop.unit_mask(horn, layer_idx, B, cfg.d_ff, salt=5)
-        sf = _serve_slice(serve_masks, "ffn", layer_idx)
-        if sf is not None:
-            fm = _mix_mask(fm, sf[:, None, :])               # [B, 1, ff]
-        out = L.mlp_apply(bp.mlp, h, cfg, hidden_mask=fm)
+        if is_moe:
+            mm = pdrop.unit_mask(horn, layer_idx, B, cfg.moe_ff, salt=5)
+            mm = None if mm is None else mm[:, None]       # [B, 1, 1, ff]
+            sm = _serve_slice(serve_masks, "moe", layer_idx)
+            if sm is not None:
+                mm = _mix_mask(mm, sm[:, None, None, :])
+            out, aux = L.moe_apply(bp.moe, h, cfg, hidden_mask=mm)
+        else:
+            fm = pdrop.unit_mask(horn, layer_idx, B, cfg.d_ff, salt=5)
+            sf = _serve_slice(serve_masks, "ffn", layer_idx)
+            if sf is not None:
+                fm = _mix_mask(fm, sf[:, None, :])           # [B, 1, ff]
+            out = L.mlp_apply(bp.mlp, h, cfg, hidden_mask=fm)
         if cfg.post_sublayer_norm:
             out = L.norm_apply(bp.post_ffn_norm, out, cfg)
         x = x + out.to(x.dtype)
-    return x, new_cache
+    return x, new_cache, aux
+
+
+def _remat_block(fn, x):
+    """A train-mode block for ``checkpoint``: (x, its MoE aux)."""
+    x, _, aux = fn(x)
+    return x, aux
 
 
 def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
                horn=None, remat: bool = True, cache=None, cache_index=None,
                block_tables=None, chunk_lens=None, logit_index=None,
-               serve_masks=None):
+               serve_masks=None, patch_embeds=None):
     """Returns (hidden [B, S, d] final-normed, or [B, n, d] with
-    ``logit_index``; the new per-layer cache, None in train mode).
+    ``logit_index``; the new per-layer cache, None in train mode; the MoE
+    aux: each of ``load_balance_loss``, ``router_z_loss`` and
+    ``dropped_frac`` summed over the MoE layers and divided by
+    ``num_layers``, f32 zeros for a dense model).
+
+    ``patch_embeds`` ([B, num_patches, d], a multimodal config's stub
+    frontend) are cast to the embeddings' dtype and put in front of the
+    text embeddings, before the Horn and serve input masks; positions run
+    over the whole sequence, so the hidden state holds the patches first.
 
     mode "train": tokens [B, S] attend causally to themselves at positions
     ``arange(S)``; ``horn`` (a ``HornState`` or None) masks the embedding
@@ -232,15 +275,14 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
     [B, d_model] multiplies the embeddings, "heads" [B, L, H] the
     attention heads and "ffn" [B, L, d_ff] the MLP's hidden units, all
     binary {0, 1}, so each slot runs its own Horn circuit of the shared
-    weights.  MoE masks ("moe") wait for MoE layers (ROADMAP slice 4,
-    item 18)."""
+    weights; "moe" [B, L, moe_ff] masks the experts' hidden units of the
+    MoE layers."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"lm_forward: mode {mode!r} is not ported")
-    if serve_masks is not None and "moe" in serve_masks:
-        raise NotImplementedError(
-            "serve masks over MoE experts wait for MoE layers (ROADMAP "
-            "slice 4, item 18)")
     x = L.embed_apply(params.embed, tokens, cfg)
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(device=x.device, dtype=x.dtype), x],
+                      dim=1)
     B, S = x.shape[:2]
     steps = torch.arange(S, device=x.device)[None, :]
     if mode == "train":
@@ -260,26 +302,31 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
         if S == 1:                   # once a tick, not once a layer
             decode_lengths = paged_decode_lengths(cache_index, chunk_lens)
     new_cache = None if mode == "train" else []
-    for li, (bp, kind) in enumerate(zip(params.layers, cfg.layer_kinds())):
+    aux = {}
+    for li, (bp, kind, moe) in enumerate(zip(
+            params.layers, cfg.layer_kinds(), layer_moe_flags(cfg))):
         fn = partial(_block_apply, bp, cfg=cfg, kind=kind, layer_idx=li,
-                     horn=horn, positions=positions,
+                     is_moe=moe, horn=horn, positions=positions,
                      cache=cache[li] if mode == "decode" else None,
                      cache_index=cache_index, block_tables=block_tables,
                      chunk_lens=chunk_lens, decode_lengths=decode_lengths,
                      serve_masks=serve_masks)
-        if mode == "train":
-            if remat:
-                x = checkpoint(lambda x, fn=fn: fn(x)[0], x,
-                               use_reentrant=False)
-            else:
-                x = fn(x)[0]
+        if mode == "train" and remat:
+            x, layer_aux = checkpoint(_remat_block, fn, x,
+                                      use_reentrant=False)
         else:
-            x, layer_cache = fn(x)
-            new_cache.append(layer_cache)
+            x, layer_cache, layer_aux = fn(x)
+            if mode != "train":
+                new_cache.append(layer_cache)
+        for k, v in layer_aux.items():
+            aux[k] = aux[k] + v if k in aux else v
     if logit_index is not None:
         idx = logit_index.long()[..., None].expand(-1, -1, x.shape[-1])
         x = torch.gather(x, 1, idx)
-    return L.norm_apply(params.final_norm, x, cfg), new_cache
+    zero = x.new_zeros((), dtype=torch.float32)
+    aux = {k: aux[k] / max(1, cfg.num_layers) if k in aux else zero
+           for k in L.MOE_AUX}
+    return L.norm_apply(params.final_norm, x, cfg), new_cache, aux
 
 
 def lm_logits(params, hidden, cfg: ModelConfig):

@@ -110,7 +110,8 @@ def test_bank_input_and_head_masks_when_configured():
          mask_attention_heads=True),
     dict(keep_hidden=0.25, keep_input=0.8, block_size=4, seed_salt=17),
 ], ids=["ffn", "ffn-input-heads", "block4-salt17"])
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma2-27b",
+                                  "phi3.5-moe-42b"])
 def test_bank_masks_equal_jax_bit_for_bit(arch, horn, seed):
     """The port's threefry draw gives JAX's ``ModelBank`` masks exactly,
     for every masked axis, and the same device tensors with the dense
@@ -143,16 +144,31 @@ def test_bank_rejects_no_masked_axis():
 
 
 def test_moe_serve_masks_wait_for_moe_layers(model):
-    """A "moe" serve mask is refused by the forward, naming its item; a
-    bank over an MoE config cannot materialize."""
+    """A "moe" serve mask reaches the MoE layers' expert hidden units: the
+    port's prefill of reduced phi3.5-moe under a bank's "moe" rows equals
+    the JAX prefill under the same rows (1e-4, f32).  A bank over an MoE
+    config still cannot materialize, as in the JAX package."""
     _, _, cfg, params = model
-    with pytest.raises(NotImplementedError, match="item 18"):
-        T.lm_forward(params, torch.ones((1, 2), dtype=torch.long), cfg,
-                     mode="prefill",
-                     serve_masks={"moe": torch.ones(1, cfg.num_layers, 8)})
-    moe = _cfg(num_experts=4, experts_per_tok=2, moe_period=1)
+    jmoe = jax_reduced(jax_config("phi3.5-moe-42b"), dtype="float32")
+    jparams = jax_api.model_init(jax.random.key(1), jmoe)
+    moe = reduced(get_model_config("phi3.5-moe-42b"), dtype="float32")
+    mparams = load_jax_flat(
+        {jax.tree_util.keystr(p): np.asarray(leaf) for p, leaf in
+         jax.tree_util.tree_leaves_with_path(jparams)}, moe, device="cpu")
     bank = ModelBank(moe, HORN, 2)
     assert "moe" in bank.masks
+    tok = np.random.default_rng(2).integers(1, moe.vocab_size, (2, 7))
+    rows = {"moe": torch.from_numpy(bank.masks["moe"][[1, 0]])}
+    got, _ = api.prefill(mparams, {"tokens": torch.from_numpy(tok)}, moe,
+                         serve_masks=rows)
+    want, _, _ = jax_api.prefill(
+        jparams, {"tokens": jax.numpy.asarray(tok, jax.numpy.int32)}, jmoe,
+        make_ctx(jmoe, None),
+        serve_masks={"moe": jax.numpy.asarray(rows["moe"].numpy())})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    plain, _ = api.prefill(mparams, {"tokens": torch.from_numpy(tok)}, moe)
+    assert not torch.allclose(got, plain)         # the mask did something
     with pytest.raises(ValueError, match="FFN-only|MoE"):
         bank.materialize(0, params)
 

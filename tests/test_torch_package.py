@@ -160,6 +160,7 @@ def test_engine_refuses_unported_features(what):
      "slice 5, item 10"),
     (["--mesh-data", "2"], "slice 5"),
     (["--arch", "mamba2-2.7b"], "slice 4"),
+    (["--arch", "jamba-1.5-large-398b"], "slice 4"),
 ])
 def test_train_cli_refuses_unported_features(argv, item):
     """The trainer names the ROADMAP item that ports what it refuses,
@@ -180,7 +181,8 @@ def test_configs_match_the_jax_package():
     from repro.configs import base as jbase
 
     for arch in ("qwen3-1.7b", "qwen1.5-4b", "gemma2-27b", "gemma3-4b",
-                 "mamba2-2.7b"):
+                 "mamba2-2.7b", "phi3.5-moe-42b", "llama4-maverick-400b",
+                 "llava-next-34b", "jamba-1.5-large-398b"):
         ours, theirs = get_model_config(arch), jbase.get_model_config(arch)
         assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
         assert dataclasses.asdict(reduced(ours)) == \
@@ -211,3 +213,23 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     assert out.count(" done: ") == 5
     assert "throughput:" in out and "TTFT" in out
     assert "paged_chunk_attention launches: 0" in out
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "llama4-maverick-400b"])
+def test_serve_cli_refuses_a_patch_frontend(arch):
+    """The paged engine serves text-only LMs: a multimodal arch exits 1
+    with the engine's "unsupported input frontend" message, as the JAX
+    CLI does."""
+    from repro_torch.launch import serve
+
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--arch", arch, "--device", "cpu", "--requests", "1",
+                    "--gen", "2", "--stream", "batch"])
+    assert "unsupported input frontend" in str(exc.value.code)
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        "--arch", arch, "--device", "cpu", "--requests",
+                        "1", "--gen", "2"], env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 1, r.stderr
+    assert "unsupported input frontend" in r.stderr

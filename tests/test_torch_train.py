@@ -32,6 +32,8 @@ from repro_torch.optim.sgd import make_optimizer  # noqa: E402
 from test_torch_parallel_dropout import jax_uniform_horn  # noqa: E402
 
 ARCHS = ["qwen3-1.7b", "gemma2-27b", "qwen1.5-4b", "gemma3-4b"]
+# the train step over MoE layers too (its router losses in the loss)
+STEP_ARCHS = ARCHS + ["phi3.5-moe-42b"]
 B, S = 4, 32
 HORN = dict(num_groups=2, block_size=32, mask_attention_heads=True)
 
@@ -98,12 +100,13 @@ def test_model_loss_and_grads_match_jax(arch, horn):
 
 @pytest.mark.parametrize("optimizer,micro", [("sgdm", 1), ("sgdm", 2),
                                              ("adamw", 1), ("adamw", 2)])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", STEP_ARCHS)
 def test_three_train_steps_match_jax(arch, optimizer, micro, monkeypatch):
     """Three steps of ``make_train_step`` with Horn on (JAX's uniforms on
-    both sides), f32 compute: loss and grad norm of every step within rtol
-    1e-5, and every parameter after the third step within rtol 1e-4 of the
-    JAX step's.  atol: 2e-5 for sgdm (the update is lr-scaled and clipped
+    both sides), f32 compute: loss, grad norm and the MoE aux metrics
+    (load balance, router z, dropped fraction; zeros for a dense arch) of
+    every step within rtol 1e-5 (atol 1e-6 for the aux), and every
+    parameter after the third step within rtol 1e-4 of the JAX step's.  atol: 2e-5 for sgdm (the update is lr-scaled and clipped
     at norm 1, so a gradient difference at f32 rounding stays at rounding);
     1e-4, a tenth of one step of lr 1e-3, for AdamW, which divides each
     element's step by its own gradient scale, so an element whose gradient
@@ -134,8 +137,12 @@ def test_three_train_steps_match_jax(arch, optimizer, micro, monkeypatch):
         jstate, jm = step_fn(jstate, {k: jnp.asarray(v)
                                       for k, v in nb.items()})
         tstate, tm = tstep(tstate, nb)
+        assert set(tm) == set(jm)
         for k in ("loss", "xent", "grad_norm"):
             np.testing.assert_allclose(tm[k].item(), float(jm[k]),
+                                       rtol=1e-5, err_msg=f"step {i} {k}")
+        for k in ("load_balance_loss", "router_z_loss", "dropped_frac"):
+            np.testing.assert_allclose(tm[k].item(), float(jm[k]), atol=1e-6,
                                        rtol=1e-5, err_msg=f"step {i} {k}")
     assert tstate["step"] == int(jstate["step"]) == 3
     want = flatten(jstate["params"])
