@@ -26,8 +26,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
               torch autograd through the plain version, same dO; bf16 on
               the tensor-core kernels, f32 on the CUDA-core ones):
               qwen3-1.7b and gemma2-27b geometries, causal / window /
-              softcap / non-causal, S 1/7/256/1024; llama4-maverick's G 5
-              and llava-next-34b's G 7, causal, S up to 2048.  The paged
+              softcap / non-causal, S 1/7/256/1024; phi3.5-moe's G 4,
+              llama4-maverick's G 5, llava-next-34b's G 7 and
+              jamba-1.5-large's G 8, causal, S up to 2048.  The paged
               sweeps also run phi3.5-moe's 32 / 8 heads (G 4).
               Dropout matmul: the JAX sweep's shapes, a ragged one (K 13:
               bf16 on the mma.sync kernel) and the full-width Horn MLP
@@ -212,7 +213,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
               jamba-1.5-large, 5 of 72 layers (M M M M A, MoE at 1 and 3):
               the same prefill (2048 text tokens) and decode, the SSD
               kernel 4 times on ``wgmma`` at state 16 and never in decode;
-              then its kernel path against the plain path on the card.
+              then each scan and the flash call of that prefill against
+              its plain version on the inputs the model gave it, with a
+              broken result that each check must reject.
 Phase 3 also holds the SSD chunk scan against its plain version (y and the
 final state): the JAX sweep's shapes, S 257 (chunks of 1 token), two more
 shapes of the wgmma route and the full-width shape B 2, S 2048, H 80, P
@@ -484,14 +487,21 @@ def phase_flash_kernels(torch, dev, fkernel, fref):
             "causal": {}, "window": {"window": 64},
             "local": {"window": 1024}, "softcap": {"softcap": 50.0},
             "non-causal": {"causal": False}}),
-        # G = H / KH of 5 and 7: llama4-maverick's and llava-next-34b's
-        # causal prefill and train steps
+        # G = H / KH of 4, 5, 7 and 8: phi3.5-moe's train step (S 1024),
+        # llama4-maverick's and llava-next-34b's prefill and train steps,
+        # jamba-1.5-large's prefill (S 2048); all causal
+        "phi3.5-moe": dict(H=32, KH=8, D=128, scale=128 ** -0.5,
+                           lengths=(1, 7, 256, 1024, 2048),
+                           variants={"causal": {}}),
         "llama4-maverick": dict(H=40, KH=8, D=128, scale=128 ** -0.5,
                                 lengths=(1, 7, 256, 2048),
                                 variants={"causal": {}}),
         "llava-next-34b": dict(H=56, KH=8, D=128, scale=128 ** -0.5,
                                lengths=(1, 7, 256, 2048),
                                variants={"causal": {}}),
+        "jamba-1.5-large": dict(H=64, KH=8, D=128, scale=128 ** -0.5,
+                                lengths=(1, 7, 256, 2048),
+                                variants={"causal": {}}),
     }
     tol = {"float32": 1e-4, "bfloat16": 2e-2}
     worst = 0.0
@@ -523,7 +533,7 @@ def phase_flash_kernels(torch, dev, fkernel, fref):
                             msg=lambda m: f"{name} {vname} S={S} {what}: {m}")
                     del leaves, want, wgrads, grads
             worst = max([worst] + list(errs.values()))
-            log(f"  flash {name:11s} D {g['D']} G {g['H'] // g['KH']} "
+            log(f"  flash {name:15s} D {g['D']} G {g['H'] // g['KH']} "
                 f"{dtype:8s} "
                 f"{len(g['variants'])} variants x S "
                 f"{'/'.join(map(str, lengths))}: max |kernel - plain| "
@@ -1045,7 +1055,8 @@ KERNEL_KEYS = {"paged_chunk_attention": "paged_chunk_",
                "paged_attention": "paged_attention_kernel"}
 
 
-def device_events(torch, fn, warmup: bool = False, cpu: bool = True):
+def device_events(torch, fn, warmup: bool = False, cpu: bool = True,
+                  scopes=None):
     """CUDA kernel events of ``fn()`` under torch.profiler, or [] when the
     profiler sees none.  The profiler sometimes sees no device activity in
     a window that had some, so a window without device time is profiled
@@ -1060,7 +1071,10 @@ def device_events(torch, fn, warmup: bool = False, cpu: bool = True):
     device event here).  ``cpu=False`` traces the device alone, which
     costs less on a window of many thousand ops.  A ``record_function``
     scope (the MoE layer's ``moe_ffn``) also shows as a device range
-    spanning its kernels; it is left out, so the kernels count once."""
+    spanning its kernels; it is left out, so the kernels count once.  The
+    keys of a ``scopes`` dict name such scopes: each is set to the device
+    time (us) of the kernels launched inside its CPU ranges, from the same
+    window as the events returned."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for attempt in range(1, PROFILE_TRIES + 1):
@@ -1083,6 +1097,11 @@ def device_events(torch, fn, warmup: bool = False, cpu: bool = True):
                   and not e.key.startswith("ProfilerStep")
                   and not getattr(e, "is_user_annotation", False)]
         if sum(e.self_device_time_total for e in events) > 0:
+            for name in scopes or {}:
+                scopes[name] = sum(
+                    e.device_time_total for e in prof.events()
+                    if e.name == name
+                    and e.device_type == torch.autograd.DeviceType.CPU)
             if attempt > 1:
                 log(f"  profiler: device events on try {attempt} of "
                     f"{PROFILE_TRIES}")
@@ -4196,125 +4215,101 @@ def prefill_decode(torch, dev, build, fkernel, skernel, arch):
     return out, params, batch
 
 
-def phase_hybrid_parity(torch, dev, build, fkernel, fref, skernel, sref,
-                        params, batch):
-    """Phase 15(a) for jamba (too large for the CPU in f32): its bf16
-    prefill through the kernels against the same prefill with the plain
-    SSD scan and the plain attention, on the card.  Each scan of the
-    kernel path against the plain scan on its own inputs at atol 2e-4 /
-    rtol 1e-3 (phase 3's tolerance).  The bf16 router's logits tie often
-    (a bf16 step at |logit| ~ 1 is 2^-7), and a tie flips with the last
-    bit of a layer's input, so the plain path routes with the kernel
-    path's expert choices (its own probabilities give the gates, its own
-    counts the drops); how many tokens would have chosen other experts on
-    their own is printed.  The logits of the two paths within 2e-2 in
-    relative norm, ||got - want|| / ||want|| (phase 9's criterion for the
-    final states): the residual stream here is ~1e3-1e4 (the fan-in-E
-    expert init, ROADMAP section 3), where one bf16 step is 4-64, so the
-    two paths' roundings part elementwise by whole steps and the logits
-    by a few of their own bf16 steps (max |d| printed).  Also printed:
-    the same comparison with the plain scan only (the flash kernel
-    kept)."""
+def rejects(check, what):
+    """A control: ``check()`` on a deliberately broken result must raise
+    AssertionError; returns the failure's first line."""
+    try:
+        check()
+    except AssertionError as e:
+        return str(e).strip().splitlines()[0]
+    raise AssertionError(f"control {what}: the check passed a broken result")
+
+
+def phase_hybrid_parity(torch, dev, fref, sref, params, batch):
+    """Phase 15(e) for jamba (too large for the CPU in f32): each kernel
+    call of its bf16 prefill against the kernel's plain version on the
+    inputs the model gave it, as phase 9 holds each scan: the 4 scans (y
+    and the final state at atol 2e-4 / rtol 1e-3, phase 3's tolerance)
+    and the attention layer's flash call at G 8 (atol / rtol 2e-2, phase
+    3's bf16 tolerance).  The whole prefill is not held against a plain
+    path: its ~1e4 residual stream (the fan-in-E expert init, ROADMAP
+    section 3) hides the attention layer's output under the bf16 steps of
+    the residual, so the logits read the same with the flash kernel or the
+    plain attention.  Controls, which each check must reject: the last
+    scan's final state zeroed, and the plain attention with the KV heads
+    rolled by one (every query head on the wrong group)."""
     from repro_torch.configs.base import RunConfig, ShapeConfig
     from repro_torch.core import steps
     from repro_torch.models import attention, ssm
-    from repro_torch.models import layers as L
 
     cfg = family_cfg("jamba-1.5-large-398b")
     run = RunConfig(model=cfg, shape=ShapeConfig(
         "p", "prefill", FAMILY_PREFILL, 1))
     prefill = steps.make_prefill_step(run, dev)
-    route, scan = L.moe_route, ssm.ssd_chunk_scan
-    calls, chosen = [], []
+    scan, flash = ssm.ssd_chunk_scan, attention.flash_attention
+    scans, flashes = [], []
 
     def recorded_scan(*args, chunk):
         out = scan(*args, chunk=chunk)
-        calls.append((args, chunk, out))
+        scans.append((args, chunk, out))
         return out
 
-    def recorded_route(*args):
-        rt = route(*args)
-        chosen.append(rt.gate_e)
-        return rt
-
-    def forced(parted):
-        def moe_route(params_, xr, cfg_):
-            own = route(params_, xr, cfg_)
-            gate_e = chosen[len(parted)]
-            parted.append(int((own.gate_e != gate_e).any(-1).sum()))
-            gate_w = torch.gather(own.probs, -1, gate_e)
-            gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True),
-                                          min=1e-9)
-            R, S, K = gate_e.shape
-            pos, counts, order = L._route_row(gate_e.reshape(R, S * K),
-                                              cfg_.num_experts)
-            return own._replace(gate_w=gate_w, gate_e=gate_e, pos=pos,
-                                counts=counts, order=order,
-                                keep=pos < own.C)
-        return moe_route
-
-    def plain_attention(q, k, v, *, scale, causal=True, window=None,
-                        softcap=None):
-        return fref.attention_ref(q, k, v, scale=scale, causal=causal,
-                                  window=window, softcap=softcap)
+    def recorded_flash(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        flashes.append((q, k, v, kw, out))
+        return out
 
     with mock.patch.object(ssm, "ssd_chunk_scan", recorded_scan), \
-            mock.patch.object(L, "moe_route", recorded_route):
-        got, _ = prefill(params, batch)
+            mock.patch.object(attention, "flash_attention", recorded_flash):
+        prefill(params, batch)
+    assert len(scans) == 4 and len(flashes) == 1, (len(scans), len(flashes))
     scan_errs = []
-    for args, chunk, (y, st) in calls:
+    for args, chunk, (y, st) in scans:
         y_want, st_want = sref.ssd_chunk_scan_ref(*args, chunk=chunk)
         scan_errs.append(max((y - y_want).abs().max().item(),
                              (st - st_want).abs().max().item()))
         torch.testing.assert_close(y, y_want, atol=2e-4, rtol=1e-3)
         torch.testing.assert_close(st, st_want, atol=2e-4, rtol=1e-3)
-    del calls, y, st, y_want, st_want
-    got_f, res, parted = got.float(), {}, []
-    for what, flash_plain in (("plain path", True), ("plain scan only",
-                                                     False)):
-        mine = []
-        with contextlib.ExitStack() as stack:
-            stack.enter_context(mock.patch.object(
-                ssm, "ssd_chunk_scan", sref.ssd_chunk_scan_ref))
-            stack.enter_context(mock.patch.object(L, "moe_route",
-                                                  forced(mine)))
-            if flash_plain:
-                stack.enter_context(mock.patch.object(
-                    attention, "flash_attention", plain_attention))
-            want, _ = prefill(params, batch)
-        want_f = want.float()
-        res[what] = {"max_abs": (got_f - want_f).abs().max().item(),
-                     "rel_norm": ((got_f - want_f).norm()
-                                  / want_f.norm()).item(),
-                     "max_logit": want_f.abs().max().item()}
-        parted = parted or mine
+    scan_control = rejects(lambda: torch.testing.assert_close(
+        torch.zeros_like(st), st_want, atol=2e-4, rtol=1e-3),
+        "scan state zeroed")
+    del scans, y, st, y_want
+    q, k, v, kw, o = flashes.pop()
+    want = fref.attention_ref(q, k, v, **kw)
+    flash_err = (o.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(o.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    wrong = fref.attention_ref(q, torch.roll(k, 1, 1), torch.roll(v, 1, 1),
+                               **kw)
+    wrong_err = (wrong.float() - want.float()).abs().max().item()
+    flash_control = rejects(lambda: torch.testing.assert_close(
+        wrong.float(), want.float(), atol=2e-2, rtol=2e-2),
+        "KV heads rolled")
+    G = q.shape[1] // k.shape[1]
     log(f"  jamba, {cfg.num_layers} layers, bf16, 1 x {FAMILY_PREFILL}: "
         f"each of {len(scan_errs)} scans against the plain scan on its "
         f"inputs: max |d| " + " ".join(f"{e:.3g}" for e in scan_errs)
-        + f" (tol 2e-4 + 1e-3 |y|); tokens whose own choices part from the "
-        f"kernel path's, by MoE layer: {parted} of {FAMILY_PREFILL}")
-    for what, r in res.items():
-        log(f"    kernel path against the {what}, on the kernel path's "
-            f"expert choices: logits max |d| {r['max_abs']:.3g} (max "
-            f"|logit| {r['max_logit']:.3g}), relative norm "
-            f"{r['rel_norm']:.3g} (tol 2e-2)")
-    assert res["plain path"]["rel_norm"] <= 2e-2, res
-    return {"scan_max_abs_err": scan_errs, "tokens_parted_by_layer":
-            parted, "logits": res}
+        + f" (tol 2e-4 + 1e-3 |y|); the flash call (G {G}) against the "
+        f"plain attention on its inputs: max |d| {flash_err:.3g} (tol 2e-2 "
+        f"+ 2e-2 |o|)")
+    log(f"    controls rejected: last scan's final state zeroed (max "
+        f"|state| {st_want.abs().max().item():.3g}): {scan_control}; KV "
+        f"heads rolled by one (max |d| {wrong_err:.3g}): {flash_control}")
+    return {"scan_max_abs_err": scan_errs, "flash_max_abs_err": flash_err,
+            "control_state_zeroed_max_abs": st_want.abs().max().item(),
+            "control_heads_rolled_max_abs": wrong_err}
 
 
 def moe_tick_share(torch, eng, n=4):
-    """Device time of ``n`` decode ticks (8 running slots) under
-    torch.profiler: the busy time (kernels only) and the time of the
-    kernels launched inside the MoE layers' ``moe_ffn`` scope (the three
-    expert products and the activation), beside the unprofiled tick wall;
-    None where the profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    """Device time of ``n`` decode ticks (8 running slots) from one
+    ``device_events`` window: the busy time and the time of the kernels
+    launched inside the MoE layers' ``moe_ffn`` scope (the three expert
+    products and the activation), beside the unprofiled tick wall; None
+    where the profiler saw no device time."""
     rng = np.random.default_rng(6)
     for _ in range(eng.ecfg.num_slots):
-        eng.submit(rng.integers(1, eng.cfg.vocab_size, (96,)), 2 * n + 8)
+        eng.submit(rng.integers(1, eng.cfg.vocab_size, (96,)),
+                   n * (PROFILE_TRIES + 1) + 8)
     while eng.sched.waiting or any(r.in_prefill
                                    for r in eng.sched.running.values()):
         eng.step()
@@ -4324,19 +4319,12 @@ def moe_tick_share(torch, eng, n=4):
         eng.step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            eng.step()
-        torch.cuda.synchronize()
+    scopes = {"moe_ffn": 0.0}
+    events = device_events(torch, lambda: [eng.step() for _ in range(n)],
+                           scopes=scopes)
     eng.run()
-    events = prof.events()
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type == CUDA
-               and not getattr(e, "is_user_annotation", False)) / n / 1e3
-    # the scope's CPU range sums the kernels its ops launched
-    ffn = sum(e.device_time_total for e in events
-              if e.name == "moe_ffn" and e.device_type == CPU) / n / 1e3
+    busy = sum(e.self_device_time_total for e in events) / n / 1e3
+    ffn = scopes["moe_ffn"] / n / 1e3
     out = {"decode_tick_ms": wall, "busy_ms": None, "moe_ffn_ms": None}
     if busy <= 0:
         log(f"  decode tick (8 slots): {wall:.2f} ms wall; device time not "
@@ -4351,8 +4339,8 @@ def moe_tick_share(torch, eng, n=4):
 
 def phase_families(torch, dev, build, kernel, fkernel, fref, skernel, sref):
     """Phase 15: phi3.5-moe, llama4-maverick, llava-next-34b and jamba-1.5-
-    large on the card.  (a) 2 layers f32 against the CPU plain path
-    (jamba: its bf16 kernel path against its plain path); (b) phi3.5-moe
+    large on the card.  (a) 2 layers f32 against the CPU plain path (not
+    jamba: its kernel calls are held in (e)); (b) phi3.5-moe
     at 16 layers serving phase 5's load, plain and as a 4-circuit bank;
     (c) phi3.5-moe at 2 layers training; (d) llama4 at 48 and llava at 60
     layers, prefill + decode; (e) jamba at 5 layers, prefill + decode."""
@@ -4428,8 +4416,8 @@ def phase_families(torch, dev, build, kernel, fkernel, fref, skernel, sref):
     res, params, batch = prefill_decode(torch, dev, build, fkernel, skernel,
                                         arch)
     out[arch] = res
-    out["jamba_parity"] = phase_hybrid_parity(
-        torch, dev, build, fkernel, fref, skernel, sref, params, batch)
+    out["jamba_parity"] = phase_hybrid_parity(torch, dev, fref, sref,
+                                              params, batch)
     del params, batch
     release(torch)
     out["seconds"] = time.perf_counter() - t0

@@ -27,19 +27,19 @@ def paged_step(params, cache, tokens, starts, chunk_lens, block_tables,
     positions instead.  The lm head only ever runs on the selected rows.
     ``serve_masks`` selects each slot's circuit (``lm_forward``)."""
     if logit_index is not None:
-        hidden, _, _ = T.lm_forward(params, tokens, cfg, mode="decode",
-                                    cache=cache, cache_index=starts,
-                                    block_tables=block_tables,
-                                    chunk_lens=chunk_lens,
-                                    logit_index=logit_index,
-                                    serve_masks=serve_masks)
+        hidden, _ = T.lm_forward(params, tokens, cfg, mode="decode",
+                                 cache=cache, cache_index=starts,
+                                 block_tables=block_tables,
+                                 chunk_lens=chunk_lens,
+                                 logit_index=logit_index,
+                                 serve_masks=serve_masks)
         return T.lm_logits(params, hidden, cfg), cache
     last = torch.clamp(chunk_lens.long() - 1, min=0)[:, None]
-    hidden, _, _ = T.lm_forward(params, tokens, cfg, mode="decode",
-                                cache=cache, cache_index=starts,
-                                block_tables=block_tables,
-                                chunk_lens=chunk_lens, logit_index=last,
-                                serve_masks=serve_masks)
+    hidden, _ = T.lm_forward(params, tokens, cfg, mode="decode",
+                             cache=cache, cache_index=starts,
+                             block_tables=block_tables,
+                             chunk_lens=chunk_lens, logit_index=last,
+                             serve_masks=serve_masks)
     return T.lm_logits(params, hidden, cfg)[:, 0], cache
 
 
@@ -61,10 +61,10 @@ def prefill(params, batch, cfg: ModelConfig, *, serve_masks=None):
     if patches is not None:
         S += patches.shape[1]
     idx = torch.full((B, 1), S - 1, device=tokens.device)
-    hidden, cache, _ = T.lm_forward(params, tokens, cfg, mode="prefill",
-                                    remat=False, logit_index=idx,
-                                    serve_masks=serve_masks,
-                                    patch_embeds=patches)
+    hidden, cache = T.lm_forward(params, tokens, cfg, mode="prefill",
+                                 remat=False, logit_index=idx,
+                                 serve_masks=serve_masks,
+                                 patch_embeds=patches)
     return T.lm_logits(params, hidden, cfg)[:, 0], cache
 
 
@@ -75,10 +75,10 @@ def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig, *,
     every sequence (after a prefill with patches, their count plus the
     text's).  Returns (logits [B, vocab], the new cache); attention
     buffers are written in place.  ``serve_masks`` as in ``prefill``."""
-    hidden, new_cache, _ = T.lm_forward(params, tokens, cfg, mode="decode",
-                                        remat=False, cache=cache,
-                                        cache_index=cache_index,
-                                        serve_masks=serve_masks)
+    hidden, new_cache = T.lm_forward(params, tokens, cfg, mode="decode",
+                                     remat=False, cache=cache,
+                                     cache_index=cache_index,
+                                     serve_masks=serve_masks)
     return T.lm_logits(params, hidden, cfg)[:, 0], new_cache
 
 
@@ -87,10 +87,9 @@ def forward_hidden(params, batch, cfg: ModelConfig, *, horn=None,
     """Train-mode (hidden states [B, S, d], final-normed, of
     ``batch["tokens"]`` [B, S] behind any ``batch["patch_embeds"]``; the
     MoE aux dict); ``horn`` as in ``lm_forward``."""
-    hidden, _, aux = T.lm_forward(params, batch["tokens"], cfg, mode="train",
-                                  horn=horn, remat=remat,
-                                  patch_embeds=batch.get("patch_embeds"))
-    return hidden, aux
+    return T.lm_forward(params, batch["tokens"], cfg, mode="train",
+                        horn=horn, remat=remat,
+                        patch_embeds=batch.get("patch_embeds"))
 
 
 LB_COEF, Z_COEF = 0.01, 1e-3     # the router losses' weights in the loss

@@ -263,9 +263,10 @@ def moe_route(params, xr, cfg: ModelConfig) -> MoERouting:
                       pos < C, C)
 
 
-def moe_apply(params, x, cfg: ModelConfig, *, hidden_mask=None):
-    """x [..., S, d] -> (out [..., S, d], aux dict), the JAX package's
-    ``moe_apply`` rule for rule.
+def moe_apply(params, x, cfg: ModelConfig, *, hidden_mask=None,
+              with_aux: bool = True):
+    """x [..., S, d] -> (out [..., S, d], aux dict, empty without
+    ``with_aux``), the JAX package's ``moe_apply`` rule for rule.
 
     Routing is per row (one sequence, GShard's group = sequence;
     ``moe_route``); the choices are gathered in their sort order into a
@@ -277,7 +278,7 @@ def moe_apply(params, x, cfg: ModelConfig, *, hidden_mask=None):
     hidden units.  aux: ``load_balance_loss`` (E times the routed
     fractions dotted with the mean router mass), ``router_z_loss`` (mean
     squared logsumexp of the logits) and ``dropped_frac``, all f32
-    scalars."""
+    scalars; serving, which reads none of them, passes ``with_aux=False``."""
     orig_shape = x.shape
     d = orig_shape[-1]
     xr = x.reshape((-1,) + tuple(orig_shape[-2:]))      # [R, S, d] rows
@@ -314,6 +315,8 @@ def moe_apply(params, x, cfg: ModelConfig, *, hidden_mask=None):
     gathered = gathered.reshape(R, S, K, d) * keep.reshape(
         R, S, K, 1).to(x.dtype)
     out = mm("rskd,rsk->rsd", gathered, rt.gate_w.to(x.dtype))
+    if not with_aux:
+        return out.reshape(orig_shape), {}
 
     me = F.one_hot(rt.gate_e, E).to(f32).mean(dim=(0, 1, 2))  # frac routed
     ce = rt.probs.mean(dim=(0, 1))                             # router mass

@@ -175,15 +175,16 @@ def _serve_slice(serve_masks, key: str, layer_idx: int):
 
 
 def _block_apply(bp, x, cfg: ModelConfig, *, kind: str, layer_idx: int,
-                 is_moe: bool = False, horn=None, positions, cache=None,
-                 cache_index=None, block_tables=None, chunk_lens=None,
-                 decode_lengths=None, serve_masks=None):
+                 is_moe: bool = False, with_aux: bool = False, horn=None,
+                 positions, cache=None, cache_index=None, block_tables=None,
+                 chunk_lens=None, decode_lengths=None, serve_masks=None):
     """One decoder layer; returns (x, the mixer's new cache, the MoE aux
-    dict, empty on a dense layer).  ``horn`` (train only) draws this
-    layer's head, channel and FFN (or expert hidden) masks with the JAX
-    package's layer index and salts (13, 3 and 5); ``serve_masks``
-    (serving) multiplies this layer's rows of the slots' circuit masks into
-    the head and FFN (``"ffn"``) or expert (``"moe"``) hidden masks."""
+    dict: empty on a dense layer or without ``with_aux``).  ``horn``
+    (train only) draws this layer's head, channel and FFN (or expert
+    hidden) masks with the JAX package's layer index and salts (13, 3 and
+    5); ``serve_masks`` (serving) multiplies this layer's rows of the
+    slots' circuit masks into the head and FFN (``"ffn"``) or expert
+    (``"moe"``) hidden masks."""
     B = x.shape[0]
     aux = {}
     h = L.norm_apply(bp.pre_norm, x, cfg)
@@ -212,7 +213,8 @@ def _block_apply(bp, x, cfg: ModelConfig, *, kind: str, layer_idx: int,
             sm = _serve_slice(serve_masks, "moe", layer_idx)
             if sm is not None:
                 mm = _mix_mask(mm, sm[:, None, None, :])
-            out, aux = L.moe_apply(bp.moe, h, cfg, hidden_mask=mm)
+            out, aux = L.moe_apply(bp.moe, h, cfg, hidden_mask=mm,
+                                   with_aux=with_aux)
         else:
             fm = pdrop.unit_mask(horn, layer_idx, B, cfg.d_ff, salt=5)
             sf = _serve_slice(serve_masks, "ffn", layer_idx)
@@ -236,10 +238,11 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
                block_tables=None, chunk_lens=None, logit_index=None,
                serve_masks=None, patch_embeds=None):
     """Returns (hidden [B, S, d] final-normed, or [B, n, d] with
-    ``logit_index``; the new per-layer cache, None in train mode; the MoE
-    aux: each of ``load_balance_loss``, ``router_z_loss`` and
-    ``dropped_frac`` summed over the MoE layers and divided by
-    ``num_layers``, f32 zeros for a dense model).
+    ``logit_index``; in prefill and decode the new per-layer cache, in
+    train mode the MoE aux instead: each of ``load_balance_loss``,
+    ``router_z_loss`` and ``dropped_frac`` summed over the MoE layers and
+    divided by ``num_layers``, f32 zeros for a dense model).  Serving
+    computes no aux.
 
     ``patch_embeds`` ([B, num_patches, d], a multimodal config's stub
     frontend) are cast to the embeddings' dtype and put in front of the
@@ -306,7 +309,8 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
     for li, (bp, kind, moe) in enumerate(zip(
             params.layers, cfg.layer_kinds(), layer_moe_flags(cfg))):
         fn = partial(_block_apply, bp, cfg=cfg, kind=kind, layer_idx=li,
-                     is_moe=moe, horn=horn, positions=positions,
+                     is_moe=moe, with_aux=mode == "train", horn=horn,
+                     positions=positions,
                      cache=cache[li] if mode == "decode" else None,
                      cache_index=cache_index, block_tables=block_tables,
                      chunk_lens=chunk_lens, decode_lengths=decode_lengths,
@@ -323,10 +327,12 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
     if logit_index is not None:
         idx = logit_index.long()[..., None].expand(-1, -1, x.shape[-1])
         x = torch.gather(x, 1, idx)
+    hidden = L.norm_apply(params.final_norm, x, cfg)
+    if mode != "train":
+        return hidden, new_cache
     zero = x.new_zeros((), dtype=torch.float32)
-    aux = {k: aux[k] / max(1, cfg.num_layers) if k in aux else zero
-           for k in L.MOE_AUX}
-    return L.norm_apply(params.final_norm, x, cfg), new_cache, aux
+    return hidden, {k: aux[k] / max(1, cfg.num_layers) if k in aux else zero
+                    for k in L.MOE_AUX}
 
 
 def lm_logits(params, hidden, cfg: ModelConfig):

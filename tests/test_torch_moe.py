@@ -210,3 +210,29 @@ def test_moe_weights_follow_the_reference_init():
         assert abs(std - 1 / np.sqrt(E)) < 0.02, (name, std)
     assert abs(moe.router.std().item() - 1 / np.sqrt(cfg.d_model)) < 0.01
     assert not hasattr(model.layers[0], "mlp")
+
+
+@pytest.mark.parametrize("S", [1, 64])
+def test_serving_forward_skips_the_aux(S):
+    """Without ``with_aux`` the layer's output is bitwise the same and no
+    aux is built; a serving forward (prefill, decode) returns (hidden,
+    cache), a train forward (hidden, aux)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    _, cfg = configs()
+    model = init_params(cfg, 0, device="cpu", dtype=torch.float32)
+    moe = model.layers[0].moe
+    x = torch.tensor(np.random.default_rng(S).standard_normal(
+        (ROWS, S, cfg.d_model)), dtype=torch.float32)
+    with torch.no_grad():
+        want, aux = L.moe_apply(moe, x, cfg)
+        got, none = L.moe_apply(moe, x, cfg, with_aux=False)
+        assert torch.equal(got, want) and set(aux) == set(L.MOE_AUX)
+        assert none == {}
+        tokens = torch.randint(0, cfg.vocab_size, (ROWS, S))
+        hidden, cache = T.lm_forward(model, tokens, cfg, mode="prefill")
+        assert isinstance(cache, list) and len(cache) == cfg.num_layers
+        h_train, aux = T.lm_forward(model, tokens, cfg, mode="train",
+                                    remat=False)
+        assert set(aux) == set(L.MOE_AUX)
+        torch.testing.assert_close(hidden, h_train, atol=ATOL, rtol=RTOL)
