@@ -28,7 +28,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
               qwen3-1.7b and gemma2-27b geometries, causal / window /
               softcap / non-causal, S 1/7/256/1024; phi3.5-moe's G 4,
               llama4-maverick's G 5, llava-next-34b's G 7 and
-              jamba-1.5-large's G 8, causal, S up to 2048.  The paged
+              jamba-1.5-large's G 8, causal, S up to 2048; whisper-base's
+              8 / 8 heads x 64 (D 64, G 1), causal and non-causal, S
+              1/7/448/1536.  The paged
               sweeps also run phi3.5-moe's 32 / 8 heads (G 4).
               Dropout matmul: the JAX sweep's shapes, a ragged one (K 13:
               bf16 on the mma.sync kernel) and the full-width Horn MLP
@@ -79,7 +81,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
               at 64 slots, with the decode kernel's split count; flash: the
               train steps' (qwen3-1.7b's; gemma3-4b's at head dim 256,
               causal and with its window of 1024, SDPA given a boolean
-              mask), with |SDPA - plain| beside |kernel - plain|,
+              mask; whisper-base's encoder at head dim 64, B 16, S 1536,
+              non-causal), with |SDPA - plain| beside |kernel - plain|,
               TFLOP/s and the share of the bound, and the wrapper's host
               time per call with and without tensor maps; dropout matmul:
               the Horn MLP's at keep 1, 0.5 and 0.25, beside cuBLAS on
@@ -216,6 +219,22 @@ Phases, each of which fails the script (non-zero exit, no result line):
               then each scan and the flash call of that prefill against
               its plain version on the inputs the model gave it, with a
               broken result that each check must reject.
+ 16. encdec   whisper-base (encoder-decoder).  (a) 2 + 2 layers at full
+              width, f32, the same weights and seeded frames on the card
+              and on the CPU plain path: the loss, a prefill's logits and
+              encoder output and 4 greedy decode steps' logits within
+              1e-4.  (b) ``launch.train`` at full size (6 + 6 layers),
+              bf16 compute, f32 masters, Horn 4 groups, AdamW, 4 steps of
+              16 x 448 decoder tokens beside 1536 seeded bf16 frames:
+              finite losses near ln(vocab), flash launched 2 x 12 times a
+              step forward (remat) and 12 backward, every launch on
+              ``wgmma_d64`` (none for cross-attention); step wall, tok/s,
+              busy share, peak memory.  (c) a prefill of 8 x (1536 frames
+              + 64 tokens) and 32 greedy decode steps: flash once a layer
+              at the prefill on ``wgmma_d64``, never in decode; prefill
+              wall, decode step time.  (d) each flash call of (c)'s
+              prefill against the plain attention on its inputs, each
+              check rejecting a flipped mask and rolled KV heads.
 Phase 3 also holds the SSD chunk scan against its plain version (y and the
 final state): the JAX sweep's shapes, S 257 (chunks of 1 token), two more
 shapes of the wgmma route and the full-width shape B 2, S 2048, H 80, P
@@ -259,6 +278,12 @@ DM_TPU_KERNEL = "src/repro/kernels/dropout_matmul/kernel.py:48"
 SSD_TPU_KERNEL = "src/repro/kernels/ssd/kernel.py:65"
 TRAIN_STEPS = 4
 SSM_BATCH, SSM_SEQ, SSM_DECODE = 4, 2048, 32    # the ssm phase's prefill
+# phase 16, whisper-base: frames an utterance (the config's encoder_seq),
+# the train step's batch x decoder tokens, the prefill's batch x prompt
+# and its greedy decode steps
+ENCDEC_FRAMES = 1536
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 16, 448
+ENCDEC_PREFILL_BATCH, ENCDEC_PROMPT, ENCDEC_DECODE = 8, 64, 32
 # the int8 serve phase: phase 5's load on a bf16 pool of this many pages
 # (its peak is 49, so it preempts), against int8 pools of the same bytes
 INT8_SERVE_BF16_PAGES = 28
@@ -502,6 +527,12 @@ def phase_flash_kernels(torch, dev, fkernel, fref):
         "jamba-1.5-large": dict(H=64, KH=8, D=128, scale=128 ** -0.5,
                                 lengths=(1, 7, 256, 2048),
                                 variants={"causal": {}}),
+        # whisper-base: D 64 at G 1, the encoder non-causal over its 1536
+        # frames, the decoder causal (phase 16 trains at 448 tokens)
+        "whisper-base": dict(H=8, KH=8, D=64, scale=64 ** -0.5,
+                             lengths=(1, 7, 448, 1536),
+                             variants={"causal": {},
+                                       "non-causal": {"causal": False}}),
     }
     tol = {"float32": 1e-4, "bfloat16": 2e-2}
     worst = 0.0
@@ -731,7 +762,7 @@ def dense_logits(torch, params, cfg, tokens):
         theta = 10_000.0 if (kind == LOCAL and cfg.rope_theta > 1e5) \
             else cfg.rope_theta
         h = L.norm_apply(bp.pre_norm, x, cfg)
-        q, k, v = _project_qkv(bp.attn, h, cfg, pos, use_rope=cfg.use_rope,
+        q, k, v = _project_qkv(bp.attn, h, h, cfg, pos, use_rope=cfg.use_rope,
                                rope_theta=theta)
         G = cfg.num_heads // cfg.num_kv_heads
         qg = q.reshape(1, S, cfg.num_kv_heads, G, -1).float()
@@ -1162,14 +1193,16 @@ def phase_tick_profile(torch, eng, kernel, ensembles: int = 0):
 # phase 6: the training path
 # ---------------------------------------------------------------------------
 def phase_train(torch, build, fkernel, arch="qwen3-1.7b", batch=8,
-                seq=1024, steps=TRAIN_STEPS, optimizer="adamw"):
+                seq=1024, steps=TRAIN_STEPS, optimizer="adamw",
+                prepare=None):
     """``launch.train`` on ``arch`` at full width (f32 masters, bf16
     compute, Horn on with 4 groups, lr 3e-4), ``steps`` steps of batch x
-    seq: launch counts (remat: the forward twice a layer a step, the
-    backward once, every launch at the arch's head dim on the bf16
-    kernels), finite losses, the first near its random-init value; then
-    one profiled
-    step."""
+    seq: launch counts (remat: the forward twice an attention layer a
+    step, an encoder's layers included, the backward once, every launch
+    at the arch's head dim on the bf16 kernels), finite losses, the first
+    near its random-init value; then one profiled step.  ``prepare(sess)``
+    may change the session before the steps (phase 16 feeds seeded
+    frames)."""
     from repro_torch.launch import train
 
     argv = ["--arch", arch, "--full-config", "--steps", str(steps),
@@ -1178,10 +1211,15 @@ def phase_train(torch, build, fkernel, arch="qwen3-1.7b", batch=8,
             "--seed", "0", "--device", "cuda"]
     t0 = time.perf_counter()
     sess = train.setup(argv)
+    if prepare is not None:
+        prepare(sess)
     cfg, a = sess.run.model, sess.args
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in sess.state["params"].parameters())
-    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    enc = (f" + {cfg.num_encoder_layers} encoder layers"
+           if cfg.num_encoder_layers else "")
+    log(f"  {cfg.name}: {cfg.num_layers} layers{enc}, d_model "
+        f"{cfg.d_model}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B "
         f"parameters; f32 masters + {optimizer} moments built in "
@@ -1194,7 +1232,7 @@ def phase_train(torch, build, fkernel, arch="qwen3-1.7b", batch=8,
     on_route = [build.ROUTE_LAUNCHES.get(f"{n}:{route}", 0)
                 for n in (fkernel.FWD, fkernel.BWD)]
     peak = torch.cuda.max_memory_allocated()
-    L = cfg.num_layers
+    L = cfg.num_layers + cfg.num_encoder_layers
     assert fwd == 2 * L * steps and bwd == L * steps, (fwd, bwd, L)
     assert on_route == [fwd, bwd], (route, on_route, fwd, bwd)
     for r in recs:
@@ -1665,15 +1703,17 @@ def phase_decode_sweep(torch, dev, kernel):
     return out
 
 
-def flash_work(B, H, KH, S, D, itemsize, window=None):
+def flash_work(B, H, KH, S, D, itemsize, window=None, causal=True):
     """(forward bytes, forward flops, backward bytes, backward flops) of
-    causal attention at these shapes, with a sliding ``window`` if given.
-    Each input read once and each output written once; forward 2 products
-    (QK^T, PV), backward 5 (S recomputed from the inputs, dP, dV, dQ, dK),
-    2 * D flops each per visible (row, key) pair: min(i + 1, window) keys
-    for row i."""
+    attention at these shapes: causal, with a sliding ``window`` if given,
+    or non-causal (every row sees all S keys).  Each input read once and
+    each output written once; forward 2 products (QK^T, PV), backward 5
+    (S recomputed from the inputs, dP, dV, dQ, dK), 2 * D flops each per
+    visible (row, key) pair: min(i + 1, window) keys for row i when
+    causal, S when not."""
     w = window or S
-    pairs = B * H * (w * (w + 1) // 2 + max(0, S - w) * w)
+    pairs = B * H * (w * (w + 1) // 2 + max(0, S - w) * w) if causal \
+        else B * H * S * S
     q = B * H * S * D * itemsize
     kv = B * KH * S * D * itemsize
     lse = B * H * S * 4
@@ -1698,17 +1738,21 @@ def host_us(torch, fn, iters: int = 200) -> float:
 
 def phase_flash_timing(torch, dev, fkernel, fref):
     """Forward and backward at the train steps' shapes, bf16: qwen3-1.7b's
-    (B 8, S 1024, H 16, KH 8, D 128, causal) and gemma3-4b's at head dim
-    256 (B 2, S 2048, H 8, KH 4; causal, and its local layers' window of
-    1024), each by ``flash_timing``; then the forward wrapper's host time
-    per call in bf16 (three tensor maps encoded) and f32 (none) at a small
-    shape."""
+    (B 8, S 1024, H 16, KH 8, D 128, causal), gemma3-4b's at head dim 256
+    (B 2, S 2048, H 8, KH 4; causal, and its local layers' window of 1024)
+    and whisper-base's encoder at head dim 64 (B 16, S 1536, H 8, KH 8,
+    non-causal; phase 16's train step), each by ``flash_timing``; then the
+    forward wrapper's host time per call in bf16 (three tensor maps
+    encoded) and f32 (none) at a small shape."""
     out = {"train": flash_timing(torch, dev, fkernel, fref, 8, 16, 8, 1024,
                                  128)}
     for name, window in (("gemma3_train", None),
                          ("gemma3_train_window", 1024)):
         out[name] = flash_timing(torch, dev, fkernel, fref, 2, 8, 4, 2048,
                                  256, window)
+    out["whisper_encoder"] = flash_timing(
+        torch, dev, fkernel, fref, ENCDEC_TRAIN_BATCH, 8, 8,
+        ENCDEC_FRAMES, 64, causal=False)
     kw = dict(scale=128 ** -0.5, causal=True)
     small = {dt: flash_case(torch, dev, dt, 1, 2, 1, 64, 128, 12)[:3]
              for dt in (torch.bfloat16, torch.float32)}
@@ -1722,19 +1766,21 @@ def phase_flash_timing(torch, dev, fkernel, fref):
     return out
 
 
-def flash_timing(torch, dev, fkernel, fref, B, H, KH, S, D, window=None):
-    """Forward and backward at one shape (bf16, causal, ``window`` if
-    given): kernel, plain version (autograd for the backward) and SDPA
-    with ``enable_gqa`` as the library yardstick (with a window, through a
-    boolean mask of the visible keys).  Also |SDPA - plain| at the same
-    inputs (SDPA rounds P to bf16 as the kernels do)."""
+def flash_timing(torch, dev, fkernel, fref, B, H, KH, S, D, window=None,
+                 causal=True):
+    """Forward and backward at one shape (bf16, causal with ``window`` if
+    given, or non-causal): kernel, plain version (autograd for the
+    backward) and SDPA with ``enable_gqa`` as the library yardstick (with
+    a window, through a boolean mask of the visible keys).  Also |SDPA -
+    plain| at the same inputs (SDPA rounds P to bf16 as the kernels
+    do)."""
     import torch.nn.functional as F
 
     scale = D ** -0.5
     q, k, v, do = flash_case(torch, dev, torch.bfloat16, B, H, KH, S, D, 11)
-    kw = dict(scale=scale, causal=True, window=window)
+    kw = dict(scale=scale, causal=causal, window=window)
     if window is None:
-        lib_kw = dict(is_causal=True)
+        lib_kw = dict(is_causal=causal)
     else:
         i = torch.arange(S, device=dev)
         lib_kw = dict(attn_mask=(i[None, :] <= i[:, None])
@@ -1777,20 +1823,21 @@ def flash_timing(torch, dev, fkernel, fref, B, H, KH, S, D, window=None):
         "bwd_library": cuda_ms(torch, lambda i: torch.autograd.grad(
             lib_out, lib_leaves, do, retain_graph=True), 20),
     }
-    fb, ff, bb, bf = flash_work(B, H, KH, S, D, 2, window)
+    fb, ff, bb, bf = flash_work(B, H, KH, S, D, 2, window, causal)
     out = {}
     for name, nbytes, flops in (("fwd", fb, ff), ("bwd", bb, bf)):
         b_ms, b_by = bound(nbytes, flops)
         out[name] = {
             "B": B, "S": S, "H": H, "KH": KH, "D": D, "dtype": "bfloat16",
-            "causal": True, "window": window, "ms": times[name],
+            "causal": causal, "window": window, "ms": times[name],
             "plain_ms": times[f"{name}_plain"],
             "library_ms": times[f"{name}_library"], "bound_ms": b_ms,
             "bound_by": b_by, "bytes": nbytes, "flops": flops,
             "max_abs_err": errs[name], "library_max_abs_err": lib_errs[name],
             "tflops": flops / (times[name] * 1e-3) / 1e12,
             "bound_share": b_ms / times[name]}
-        log(f"  flash {name} B {B} S {S} H {H}/{KH} D {D} window {window}: "
+        log(f"  flash {name} B {B} S {S} H {H}/{KH} D {D} "
+            f"{'causal' if causal else 'non-causal'} window {window}: "
             f"kernel {times[name]:8.3f} ms  plain "
             f"{times[name + '_plain']:8.3f} ms  SDPA "
             f"{times[name + '_library']:7.3f} ms  bound {b_ms:.3f} ms "
@@ -4425,6 +4472,309 @@ def phase_families(torch, dev, build, kernel, fkernel, fref, skernel, sref):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the encoder-decoder family (whisper-base)
+# ---------------------------------------------------------------------------
+def encdec_cfg(**over):
+    from repro_torch.configs.base import get_model_config
+
+    return dataclasses.replace(get_model_config("whisper-base"), **over)
+
+
+def encdec_batch(torch, dev, cfg, batch, prompt, seed, dtype, labels=False):
+    """Seeded tokens [batch, prompt] (and labels) and normal frames
+    [batch, ENCDEC_FRAMES, d_model] in ``dtype``, on ``dev``."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    out = {"tokens": torch.randint(1, cfg.vocab_size, (batch, prompt),
+                                   generator=gen, device=dev),
+           "frames": torch.randn(batch, ENCDEC_FRAMES, cfg.d_model,
+                                 generator=gen, device=dev).to(dtype)}
+    if labels:
+        out["labels"] = torch.randint(1, cfg.vocab_size, (batch, prompt),
+                                      generator=gen, device=dev)
+    return out
+
+
+def phase_encdec_parity(torch, dev, build, fkernel):
+    """Phase 16(a): whisper-base at full width, 2 + 2 layers, f32, the
+    same weights (seed 1234) and seeded frames on the card and on the CPU
+    plain path: the loss of a seeded batch, then a prefill of 2 x (1536
+    frames + 64 tokens) through ``make_prefill_step`` (logits and the
+    encoder output) and 4 greedy decode steps fed that output (tokens
+    chosen on the card, fed to both), all within 1e-4.  The card's
+    prefill launches flash once a layer (2 encoder, non-causal; 2
+    decoder) on its f32 kernel and its decode none."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.core import steps
+    from repro_torch.models import api
+    from repro_torch.models.params import init_params
+
+    cfg = encdec_cfg(num_layers=2, num_encoder_layers=2, dtype="float32")
+    B, K = 2, 4
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "p", "prefill", ENCDEC_PROMPT + K, B), compute_dtype="float32")
+    params = init_params(cfg, 1234, device=dev, dtype=torch.float32)
+    cpu_params = copy.deepcopy(params).to("cpu")
+    batch = encdec_batch(torch, dev, cfg, B, ENCDEC_PROMPT, 16,
+                         torch.float32, labels=True)
+    n = cfg.num_layers + cfg.num_encoder_layers
+    route = fkernel.route(torch.float32, cfg.head_dim)
+    losses, logits, encs = {}, {}, {}
+    for where, p, d in (("card", params, dev), ("cpu", cpu_params, "cpu")):
+        b = {k: v.to(d) for k, v in batch.items()}
+        with torch.no_grad():
+            losses[where] = api.model_loss(p, b, cfg, remat=False)[0].item()
+        prefill = steps.make_prefill_step(run, d)
+        decode = steps.make_decode_step(run, d)
+        build.reset_launches()
+        lg, cache, enc = prefill(p, {k: b[k] for k in ("tokens", "frames")})
+        rows = [lg.float().cpu()]
+        if where == "card":
+            assert build.LAUNCHES[fkernel.FWD] == build.ROUTE_LAUNCHES.get(
+                f"{fkernel.FWD}:{route}") == n, dict(build.ROUTE_LAUNCHES)
+            fed = []
+        for k in range(K):
+            if where == "card":
+                fed.append(torch.argmax(rows[-1], -1)[:, None])
+            lg, cache = decode(p, cache, fed[k].to(d), ENCDEC_PROMPT + k,
+                               enc)
+            rows.append(lg.float().cpu())
+        if where == "card":
+            assert build.LAUNCHES[fkernel.FWD] == n, "decode launched flash"
+        logits[where], encs[where] = rows, enc.float().cpu()
+        del cache, enc
+    loss_err = abs(losses["card"] - losses["cpu"])
+    enc_err = (encs["card"] - encs["cpu"]).abs().max().item()
+    errs = [(a - b).abs().max().item()
+            for a, b in zip(logits["card"], logits["cpu"])]
+    log(f"  (a) 2 + 2 layers, f32, B {B}: loss card {losses['card']:.6f} "
+        f"CPU {losses['cpu']:.6f} (|d| {loss_err:.2e}); prefill {B} x "
+        f"({ENCDEC_FRAMES} frames + {ENCDEC_PROMPT} tokens) + {K} decode "
+        f"steps: encoder output max |d| {enc_err:.2e}, logits max |d| by "
+        f"step " + " ".join(f"{e:.2e}" for e in errs) + f" (tol "
+        f"{LOGIT_TOL:g}); flash at prefill: {n} on '{route}', none in "
+        f"decode")
+    assert loss_err <= LOGIT_TOL and enc_err <= LOGIT_TOL, (loss_err,
+                                                            enc_err)
+    assert max(errs) <= LOGIT_TOL, errs
+    del params, cpu_params
+    return {"loss": losses, "loss_abs_diff": loss_err,
+            "encoder_out_max_abs_diff": enc_err,
+            "logit_max_abs_diff_by_step": errs}
+
+
+def seeded_frames(torch, seed):
+    """A ``phase_train`` hook: each step's batch gets normal bf16 frames
+    [batch, encoder_seq, d_model] from ``seed + step`` on the card, in
+    place of the CLI's zero f32 frames, so the encoder runs in bf16 on the
+    tensor-core flash kernels."""
+    def prepare(sess):
+        cfg, a, base = sess.run.model, sess.args, sess.batch_at
+
+        def batch_at(step):
+            gen = torch.Generator(sess.device).manual_seed(seed + step)
+            return dict(base(step), frames=torch.randn(
+                a.batch, cfg.encoder_seq, cfg.d_model, generator=gen,
+                device=sess.device).to(torch.bfloat16))
+
+        sess.batch_at = batch_at
+    return prepare
+
+
+def encdec_prefill_decode(torch, dev, build, fkernel):
+    """Phase 16(c): whisper-base at full size (6 + 6 layers), bf16 weights
+    from seed 0: a prefill of 8 x (1536 seeded bf16 frames + 64 tokens)
+    through ``make_prefill_step`` after one warm-up prefill (its memory
+    left in PyTorch's caching allocator, so the timed prefill makes no
+    ``cudaMalloc``), then 32 greedy ``make_decode_step`` steps fed its
+    encoder output; one decode step and one prefill profiled.  Flash
+    launches once a self-attention layer at the prefill (6 encoder, 6
+    decoder), all on ``wgmma_d64``, and never in decode (cross-attention
+    and dense decode stay plain); every logit finite.  Returns (results,
+    params, the prefill's inputs)."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.core import steps
+    from repro_torch.models.params import init_params
+
+    cfg = encdec_cfg()
+    B = ENCDEC_PREFILL_BATCH
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "p", "prefill", ENCDEC_PROMPT + ENCDEC_DECODE, B))
+    params = init_params(cfg, 0, device=dev, dtype=torch.bfloat16)
+    n_params = sum(p.numel() for p in params.parameters())
+    batch = encdec_batch(torch, dev, cfg, B, ENCDEC_PROMPT, 0,
+                         torch.bfloat16)
+    prefill = steps.make_prefill_step(run, dev)
+    decode = steps.make_decode_step(run, dev)
+    logits, cache, enc = prefill(params, batch)            # warm up
+    del logits, cache, enc          # kept in the allocator for the next
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache, enc = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    n = cfg.num_layers + cfg.num_encoder_layers
+    route = fkernel.route(torch.bfloat16, cfg.head_dim)
+    launches = {fkernel.FWD: build.LAUNCHES[fkernel.FWD],
+                fkernel.BWD: build.LAUNCHES[fkernel.BWD]}
+    on_route = build.ROUTE_LAUNCHES.get(f"{fkernel.FWD}:{route}", 0)
+    assert launches == {fkernel.FWD: n, fkernel.BWD: 0}, launches
+    assert on_route == n, (route, on_route)
+    assert logits.shape == (B, cfg.vocab_size) and enc.shape == (
+        B, ENCDEC_FRAMES, cfg.d_model) and enc.dtype == torch.bfloat16
+    assert torch.isfinite(logits).all() and torch.isfinite(enc).all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(ENCDEC_DECODE):
+        nxt = torch.argmax(logits, -1)[:, None]
+        logits, cache = decode(params, cache, nxt, ENCDEC_PROMPT + i, enc)
+        assert torch.isfinite(logits).all(), i
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    assert build.LAUNCHES[fkernel.FWD] == n, "decode launched flash"
+    peak = torch.cuda.max_memory_allocated()
+    # one decode step profiled (it rewrites the last position, in range)
+    step_events = device_events(torch, lambda: decode(
+        params, cache, nxt, ENCDEC_PROMPT + ENCDEC_DECODE - 1, enc))
+    decode_busy = sum(e.self_device_time_total for e in step_events) / 1e3
+    del cache, enc
+    events = device_events(torch, lambda: prefill(params, batch))
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in events
+                   if "flash_fwd" in e.key) / 1e3
+    top = [[e.key[:90], e.self_device_time_total / 1e3, e.count]
+           for e in sorted(events, key=lambda e: -e.self_device_time_total)
+           [:6]]
+    out = {"layers": [cfg.num_encoder_layers, cfg.num_layers],
+           "params": n_params, "batch": B, "frames": ENCDEC_FRAMES,
+           "prompt": ENCDEC_PROMPT, "prefill_s": prefill_s,
+           "prefill_tok_s": B * ENCDEC_PROMPT / prefill_s,
+           "decode_steps": ENCDEC_DECODE,
+           "decode_step_ms": decode_s / ENCDEC_DECODE * 1e3,
+           "decode_tok_s": B * ENCDEC_DECODE / decode_s,
+           "peak_bytes": peak, "launches": launches,
+           "launches_on_route": {f"{fkernel.FWD}:{route}": on_route},
+           "prefill_device_busy_ms": busy or None,
+           "decode_step_device_busy_ms": decode_busy or None,
+           "prefill_flash_ms": flash_ms if busy > 0 else None,
+           "prefill_top_kernels": top}
+    log(f"  (c) {cfg.num_encoder_layers} + {cfg.num_layers} layers, bf16, "
+        f"{n_params / 1e6:.1f} M parameters: prefill {B} x "
+        f"({ENCDEC_FRAMES} frames + {ENCDEC_PROMPT} tokens) "
+        f"{prefill_s * 1e3:.1f} ms wall; {ENCDEC_DECODE} greedy decode "
+        f"steps {out['decode_step_ms']:.2f} ms a step "
+        f"({out['decode_tok_s']:,.0f} tok/s); peak memory "
+        f"{peak / 2**30:.2f} GiB allocated")
+    if decode_busy > 0:
+        log(f"    profiled decode step: device busy {decode_busy:.2f} ms "
+            f"({decode_busy / out['decode_step_ms']:.1%} of the unprofiled "
+            f"step)")
+    else:
+        log("    device time of a decode step: not measured (no device "
+            "events)")
+    log(f"    flash launches at prefill: {n} ({cfg.num_encoder_layers} "
+        f"non-causal, {cfg.num_layers} causal), all on '{route}'; in "
+        f"decode: none")
+    if busy > 0:
+        log(f"    profiled prefill: device busy {busy:.1f} ms "
+            f"({busy / (prefill_s * 1e3):.1%} of the unprofiled wall), "
+            f"flash forward {flash_ms:.2f} ms")
+        for name, ms, count in top:
+            log(f"      {ms:8.2f} ms  x{count:5d}  {name}")
+    else:
+        log("    device time of the prefill: not measured (no device events)")
+    del logits
+    return out, params, batch
+
+
+def encdec_flash_calls(torch, dev, fref, params, batch):
+    """Phase 16(d): each flash call of (c)'s prefill against the plain
+    attention on the inputs the model gave it, bf16, at phase 3's bf16
+    tolerance (atol / rtol 2e-2): the 6 encoder calls non-causal over the
+    1536 frames, the 6 decoder calls causal over the 64 tokens, in that
+    order.  Each check must reject two broken controls: the plain
+    attention with the mask flipped (causal for an encoder call,
+    non-causal for a decoder one) and with the KV heads rolled by one
+    (every query head on another head's keys)."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.core import steps
+    from repro_torch.models import attention
+
+    cfg = encdec_cfg()
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "p", "prefill", ENCDEC_PROMPT + ENCDEC_DECODE, ENCDEC_PREFILL_BATCH))
+    prefill = steps.make_prefill_step(run, dev)
+    flash, calls = attention.flash_attention, []
+
+    def recorded(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        calls.append((q, k, v, kw, out))
+        return out
+
+    with mock.patch.object(attention, "flash_attention", recorded):
+        prefill(params, batch)
+    causal = [c[3]["causal"] for c in calls]
+    assert causal == [False] * cfg.num_encoder_layers \
+        + [True] * cfg.num_layers, causal
+    errs, control_errs, controls = [], [], []
+    while calls:
+        q, k, v, kw, o = calls.pop(0)
+        want = fref.attention_ref(q, k, v, **kw)
+
+        def check(got):
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                       rtol=2e-2)
+
+        errs.append((o.float() - want.float()).abs().max().item())
+        check(o)
+        flipped = fref.attention_ref(q, k, v, **dict(kw,
+                                                     causal=not kw["causal"]))
+        rolled = fref.attention_ref(q, torch.roll(k, 1, 1),
+                                    torch.roll(v, 1, 1), **kw)
+        control_errs.append([(t.float() - want.float()).abs().max().item()
+                             for t in (flipped, rolled)])
+        controls.append([rejects(lambda: check(flipped), "mask flipped"),
+                         rejects(lambda: check(rolled), "KV heads rolled")])
+        del q, k, v, o, want, flipped, rolled
+    E = cfg.num_encoder_layers
+    log(f"  (d) each flash call of (c)'s prefill against the plain attention "
+        f"on its inputs: max |d| encoder " + " ".join(
+            f"{e:.3g}" for e in errs[:E]) + "; decoder " + " ".join(
+            f"{e:.3g}" for e in errs[E:]) + " (tol 2e-2 + 2e-2 |o|)")
+    log(f"    controls rejected by all {len(errs)} checks: mask flipped "
+        f"(max |d| {min(c[0] for c in control_errs):.3g} or more), KV heads "
+        f"rolled by one (max |d| {min(c[1] for c in control_errs):.3g} or "
+        f"more); first: {controls[0][0]}")
+    return {"flash_max_abs_err": errs, "control_max_abs": control_errs}
+
+
+def phase_encdec(torch, dev, build, fkernel, fref):
+    """Phase 16: whisper-base on the card.  (a) 2 + 2 layers f32 against
+    the CPU plain path; (b) training at full size; (c) prefill and greedy
+    decode at full size; (d) (c)'s flash calls one by one."""
+    t0 = time.perf_counter()
+    out = {"parity": phase_encdec_parity(torch, dev, build, fkernel)}
+    release(torch)
+    log(f"  (b) train whisper-base, 6 + 6 layers, {ENCDEC_TRAIN_BATCH} x "
+        f"{ENCDEC_TRAIN_SEQ} decoder tokens beside {ENCDEC_FRAMES} seeded "
+        f"bf16 frames")
+    out["train"] = phase_train(torch, build, fkernel, arch="whisper-base",
+                               batch=ENCDEC_TRAIN_BATCH,
+                               seq=ENCDEC_TRAIN_SEQ,
+                               prepare=seeded_frames(torch, 16))
+    release(torch)
+    res, params, batch = encdec_prefill_decode(torch, dev, build, fkernel)
+    out["serve"] = res
+    out["calls"] = encdec_flash_calls(torch, dev, fref, params, batch)
+    del params, batch
+    release(torch)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 16: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4566,6 +4916,11 @@ def main() -> int:
           "phi3.5-moe, llama4-maverick, llava-next-34b, jamba-1.5-large")
     fam = phase_families(torch, dev, build, kernel, fkernel, fref, skernel,
                          sref)
+    release(torch)
+
+    phase("phase 16: the encoder-decoder family, whisper-base: card against "
+          "CPU, training, prefill and decode, flash call by call")
+    encdec = phase_encdec(torch, dev, build, fkernel, fref)
 
     # headline shapes: the prompt-chunk tick for the chunk kernel (decode
     # ticks go to the decode kernel), the decode tick for the decode kernel
@@ -4648,6 +5003,26 @@ def main() -> int:
                         {f"{a} prefill": fam[a]["launches"][name] for a in (
                             "llama4-maverick-400b", "llava-next-34b",
                             "jamba-1.5-large-398b")})
+    # flash at head dim 64 and G 1 (whisper-base, phase 16): its train
+    # step's launches, timed at the encoder's shape (non-causal)
+    for part, name in (("fwd", fkernel.FWD), ("bwd", fkernel.BWD)):
+        f = flash["whisper_encoder"][part]
+        errs = [flash_sweep_err, f["max_abs_err"]]
+        if part == "fwd":
+            errs += encdec["calls"]["flash_max_abs_err"]
+        kernels.append({
+            "name": f"{name}:{encdec['train']['route']}", "route": "cuda",
+            "source": str(fkernel.SOURCE.relative_to(ROOT)),
+            "replaces": FLASH_TPU_KERNEL,
+            "launches": encdec["train"]["launches"][name],
+            "max_abs_err": max(errs), "ms": f["ms"], "kernel_ms": f["ms"],
+            "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+            "bound_by": f["bound_by"], "library_ms": f["library_ms"],
+            "head_dim": f["D"], "shapes": {"whisper_encoder": f},
+            "launches_phase16": {
+                "train": encdec["train"]["launches"][name],
+                "prefill": encdec["serve"]["launches"][name]},
+        })
     d = dm["0.5"]                       # the Horn MLP's keep rate
     kernels.append({
         "name": dkernel.NAME, "route": "cuda",
@@ -4679,7 +5054,7 @@ def main() -> int:
             "train": trained, "horn_mlp": horn_mlp, "ssm": ssm,
             "mnist": mnist, "new_archs": new_archs, "bank": bank,
             "spec": spec, "observability": obs, "families": fam,
-            "flash_host_us": flash["host_us"]}
+            "encdec": encdec, "flash_host_us": flash["host_us"]}
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))

@@ -1,6 +1,8 @@
 """Model and run configs and the arch registry of the port.
 
-A copy of the JAX package's ``ModelConfig`` and of the run configs
+A copy of the JAX package's ``ModelConfig`` (with ``param_count``, the
+estimate model-FLOPs figures use, not the count of the spec tree) and of
+the run configs
 (``ShapeConfig``, ``HornConfig``, ``TopologyConfig``, ``RunConfig``) with
 the same field names and defaults, so a test builds the same config on
 both sides, its layer kinds,
@@ -8,9 +10,10 @@ both sides, its layer kinds,
 archs the port runs so far: qwen3-1.7b, qwen1.5-4b, gemma2-27b, gemma3-4b,
 mamba2-2.7b, the MoE, multimodal-prefix and hybrid families
 (phi3.5-moe-42b, llama4-maverick-400b, llava-next-34b,
-jamba-1.5-large-398b) and the paper's MNIST classifier horn-mnist (family
-"mlp": trained by ``launch.train``'s own branch, refused by the serve
-CLI).
+jamba-1.5-large-398b), the encoder-decoder whisper-base (refused by the
+serve CLI, as the JAX engine refuses it) and the paper's MNIST classifier
+horn-mnist (family "mlp": trained by ``launch.train``'s own branch,
+refused by the serve CLI).
 """
 from __future__ import annotations
 
@@ -112,6 +115,49 @@ class ModelConfig:
             return False
         return idx % self.moe_period == self.moe_offset
 
+    # Parameter count (embedding + stack), used for 6ND model-FLOPs.
+    def param_count(self, active_only: bool = False) -> int:
+        d, h, kv, hd, ff = (self.d_model, self.num_heads, self.num_kv_heads,
+                            self.head_dim, self.d_ff)
+        n = self.vocab_size * d                       # embed
+        if not self.tie_embeddings:
+            n += self.vocab_size * d
+        kinds = self.layer_kinds()
+        for i, kind in enumerate(kinds):
+            n += d  # pre-norm
+            if kind in (ATTN, LOCAL):
+                n += d * h * hd + 2 * d * kv * hd + h * hd * d  # q,k,v,o
+                if self.qkv_bias:
+                    n += (h + 2 * kv) * hd
+                if self.qk_norm:
+                    n += 2 * hd
+            elif kind == MAMBA:
+                d_in = self.ssm_expand * d
+                nh = d_in // self.ssm_head_dim
+                proj_in = 2 * d_in + 2 * self.ssm_state + nh   # z,x,B,C,dt
+                n += d * proj_in                                # in_proj
+                n += self.ssm_conv_width * (d_in + 2 * self.ssm_state)
+                n += 2 * nh + nh * 0 + d_in * d                 # A,D(+dt_bias), out_proj
+                n += d_in                                       # gated norm
+            if self.layer_is_moe(i):
+                e = self.experts_per_tok if active_only else self.num_experts
+                mult = 3 if self.mlp_gated else 2
+                n += e * mult * d * self.moe_ff + self.num_experts * d  # experts + router
+                n += d  # ffn pre-norm
+            else:
+                mult = 3 if self.mlp_gated else 2
+                n += mult * d * ff
+                n += d
+        n += d  # final norm
+        if self.is_encoder_decoder:
+            # encoder stack (self-attn + mlp) + decoder cross-attn blocks
+            enc = self.num_encoder_layers * (
+                d * h * hd + 2 * d * kv * hd + h * hd * d
+                + (3 if self.mlp_gated else 2) * d * ff + 2 * d)
+            xattn = self.num_layers * (d * h * hd + 2 * d * kv * hd + h * hd * d + d)
+            n += enc + xattn
+        return n
+
 
 @dataclass(frozen=True)
 class ShapeConfig:
@@ -192,7 +238,8 @@ def _ensure_loaded() -> None:
     import importlib
     for mod in ("qwen3_1p7b", "qwen1p5_4b", "gemma2_27b", "gemma3_4b",
                 "mamba2_2p7b", "llava_next_34b", "jamba_1p5_large",
-                "phi3p5_moe", "llama4_maverick", "horn_mnist"):
+                "whisper_base", "phi3p5_moe", "llama4_maverick",
+                "horn_mnist"):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -48,7 +48,8 @@ def init_state(run: RunConfig, device="cuda") -> Dict:
 
 def state_to_jax_flat(state: Dict, run: RunConfig) -> Dict[str, np.ndarray]:
     """The train state in the JAX package's checkpoint layout, {keystr:
-    numpy array}: ``['params']...`` as ``to_jax_flat`` lays out the LM, each
+    numpy array}: ``['params']...`` as ``to_jax_flat`` lays out the model
+    (an encoder-decoder's under ``['encoder']`` and ``['decoder']``), each
     optimizer moment under its parameter's path (``['opt']['mom']...``, or
     ``['opt']['m'|'v']...`` and ``['opt']['t']`` int32), ``['step']``
     int32 and ``['rng']`` the uint32 key data of ``jax.random.key(seed)``,
@@ -95,7 +96,9 @@ def make_train_step(run: RunConfig, device="cuda"):
     """step(state, batch) -> (new state, metrics).
 
     ``batch`` holds "tokens" and "labels" [B, S] (numpy or tensors), and
-    "patch_embeds" [B, num_patches, d_model] for a multimodal config.  The
+    "patch_embeds" [B, num_patches, d_model] for a multimodal config or
+    "frames" [B, encoder_seq, d_model] for an encoder-decoder (the
+    encoder's stream keeps their dtype).  The
     loss is differentiated against a compute-dtype copy of the masters
     (bf16 by default: the gradients come out in bf16, as in JAX), clipped
     at global norm 1.0 and applied to the masters by the optimizer, in
@@ -136,7 +139,8 @@ def make_train_step(run: RunConfig, device="cuda"):
                 p.requires_grad_(True)
         cparams = copy_into(held["cparams"], params)
         batch = {k: torch.as_tensor(batch[k], device=dev)
-                 for k in ("tokens", "labels", "patch_embeds") if k in batch}
+                 for k in ("tokens", "labels", "patch_embeds", "frames")
+                 if k in batch}
         horn = make_horn_state(state["rng"], run.horn, state["step"], dev)
         M = max(1, run.microbatches)
         if M == 1:
@@ -182,7 +186,10 @@ def make_prefill_step(run: RunConfig, device="cuda"):
     """step(params, batch) -> (logits [B, vocab] at the last position, the
     decode cache of this shape cell), ``batch["tokens"]`` [B, S] (numpy or
     a tensor) behind ``batch["patch_embeds"]`` [B, num_patches, d] for a
-    multimodal config, patches plus S at most ``run.shape.seq_len``.  Runs
+    multimodal config, patches plus S at most ``run.shape.seq_len``.  An
+    encoder-decoder's step encodes ``batch["frames"]`` [B, S_enc, d] and
+    returns the encoder output as a third value, which its decode step
+    takes.  Runs
     ``api.prefill`` under inference mode on ``params`` cast to the compute
     dtype on every call, as the JAX step casts inside every call
     (``cast_params`` returns ``params`` itself when they already are in
@@ -198,11 +205,12 @@ def make_prefill_step(run: RunConfig, device="cuda"):
     @torch.inference_mode()
     def prefill_step(params, batch):
         inputs = {k: torch.as_tensor(batch[k], device=dev)
-                  for k in ("tokens", "patch_embeds") if k in batch}
-        logits, cache = api.prefill(cast_params(params, cdtype), inputs,
-                                    cfg)
-        return logits, T.decode_cache_of_prefill(cfg, cache,
-                                                 run.shape.seq_len)
+                  for k in ("tokens", "patch_embeds", "frames")
+                  if k in batch}
+        logits, cache, *enc = api.prefill(cast_params(params, cdtype),
+                                          inputs, cfg)
+        return (logits, T.decode_cache_of_prefill(cfg, cache,
+                                                  run.shape.seq_len), *enc)
 
     return prefill_step
 
@@ -216,20 +224,22 @@ def decode_cache_specs(run: RunConfig):
 
 
 def make_decode_step(run: RunConfig, device="cuda"):
-    """step(params, cache, tokens [B, 1], pos) -> (logits [B, vocab], the
-    new cache): one token at position ``pos`` (an int) for every sequence,
-    under inference mode, on ``params`` cast to the compute dtype on every
-    call as in ``make_prefill_step``.  Attention buffers are written in
-    place (``pos`` must lie inside them); mamba states are replaced."""
+    """step(params, cache, tokens [B, 1], pos, encoder_out=None) ->
+    (logits [B, vocab], the new cache): one token at position ``pos`` (an
+    int) for every sequence, under inference mode, on ``params`` cast to
+    the compute dtype on every call as in ``make_prefill_step``.
+    Attention buffers are written in place (``pos`` must lie inside them);
+    mamba states are replaced.  An encoder-decoder needs ``encoder_out``,
+    its prefill step's third value."""
     cfg = run.model
     dev = resolve_device(device)
     cdtype = dtype_of(run.compute_dtype)
 
     @torch.inference_mode()
-    def decode_step(params, cache, tokens, pos):
+    def decode_step(params, cache, tokens, pos, encoder_out=None):
         tokens = torch.as_tensor(tokens, device=dev)
         return api.decode_step(cast_params(params, cdtype), cache, tokens,
-                               pos, cfg)
+                               pos, cfg, encoder_out=encoder_out)
 
     return decode_step
 

@@ -26,8 +26,10 @@ as the JAX launcher does.
 
 A multimodal arch (llava-next-34b, llama4-maverick-400b) trains on zero
 ``patch_embeds`` in front of ``--seq`` minus its patch count of text
-tokens, as the JAX launcher feeds it; an MoE arch adds its router losses
-to the loss and logs them with the dropped fraction each step.
+tokens, as the JAX launcher feeds it; an encoder-decoder (whisper-base)
+on zero f32 ``frames`` [batch, encoder_seq, d_model] beside ``--seq``
+decoder tokens, as the JAX launcher feeds it; an MoE arch adds its router
+losses to the loss and logs them with the dropped fraction each step.
 
 Not ported yet, and refused with the ROADMAP item that ports them: archs
 with Mamba layers (mamba2-2.7b, jamba-1.5-large-398b), ``--topology``
@@ -143,6 +145,9 @@ def setup(argv=None) -> Session:
 
     def batch_at(step: int) -> Dict:
         b = pipe.batch_at(step)
+        if cfg.is_encoder_decoder:  # the stub audio frontend's output
+            b["frames"] = np.zeros((args.batch, cfg.encoder_seq,
+                                    cfg.d_model), np.float32)
         if cfg.num_patches:         # the stub vision frontend's output
             b = {k: v[:, :args.seq - cfg.num_patches] for k, v in b.items()}
             b["patch_embeds"] = np.zeros(

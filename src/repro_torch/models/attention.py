@@ -17,6 +17,13 @@ append the chunk's K/V to the pools in place (``paged_pool_append``, or
 when the tick's chunk width is 1 (a decode-only tick) and
 ``paged_chunk_attention`` otherwise; both are CUDA kernels on a card.
 Then the optional Horn head mask and the out-projection.
+
+``causal=False`` runs the non-paged branch without the causal mask (an
+encoder's self-attention).  Cross-attention (``kv_x``, the encoder
+output) projects k/v from ``kv_x`` without RoPE and runs one
+plain masked softmax over all of it (``decode_attention``) in every mode,
+with no cache and never through flash, as the JAX package sends it to its
+plain path.
 """
 from __future__ import annotations
 
@@ -43,9 +50,10 @@ def paged_decode_lengths(cache_index, chunk_lens):
 
 class Attention(nn.Module):
     """``wq [d, H, hd]``, ``wk``/``wv [d, KH, hd]``, ``wo [H, hd, d]``,
-    optional ``bq``/``bk``/``bv`` and ``q_norm``/``k_norm``."""
+    optional ``bq``/``bk``/``bv`` and ``q_norm``/``k_norm`` (never on a
+    ``cross`` attention)."""
 
-    def __init__(self, cfg: ModelConfig, make):
+    def __init__(self, cfg: ModelConfig, make, *, cross: bool = False):
         super().__init__()
         d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                         cfg.head_dim)
@@ -57,19 +65,21 @@ class Attention(nn.Module):
             self.bq = make((h, hd), "zeros")
             self.bk = make((kv, hd), "zeros")
             self.bv = make((kv, hd), "zeros")
-        if cfg.qk_norm:
+        if cfg.qk_norm and not cross:
             self.q_norm = Norm(cfg, hd, make)
             self.k_norm = Norm(cfg, hd, make)
 
 
-def _project_qkv(params, x, cfg: ModelConfig, positions, *, use_rope: bool,
-                 rope_theta: float):
+def _project_qkv(params, x, kv_x, cfg: ModelConfig, positions, *,
+                 use_rope: bool, rope_theta: float):
+    """q from ``x``, k and v from ``kv_x`` (``x`` itself but for
+    cross-attention, which has no qk-norm and no RoPE)."""
     q = mm("bsd,dhk->bshk", x, params.wq)
-    k = mm("bsd,dhk->bshk", x, params.wk)
-    v = mm("bsd,dhk->bshk", x, params.wv)
+    k = mm("bsd,dhk->bshk", kv_x, params.wk)
+    v = mm("bsd,dhk->bshk", kv_x, params.wv)
     if cfg.qkv_bias:
         q, k, v = q + params.bq, k + params.bk, v + params.bv
-    if cfg.qk_norm:
+    if hasattr(params, "q_norm"):
         q = norm_apply(params.q_norm, q, cfg)
         k = norm_apply(params.k_norm, k, cfg)
     if use_rope:
@@ -121,7 +131,8 @@ def decode_attention(q, k_buf, v_buf, *, scale: float, window, softcap,
 
 def attn_apply(params, x, cfg: ModelConfig, *, kind: str, positions,
                cache=None, cache_index=None, block_tables=None,
-               chunk_lens=None, decode_lengths=None, head_mask=None):
+               chunk_lens=None, decode_lengths=None, head_mask=None,
+               causal: bool = True, kv_x=None):
     """Attention sublayer for one layer; returns (out [B, S, d] in x.dtype,
     new_kv).
 
@@ -141,18 +152,33 @@ def attn_apply(params, x, cfg: ModelConfig, *, kind: str, positions,
     for an idle slot, so that it emits zeros as the chunk kernel does;
     ``lm_forward`` computes it once a tick, and it is computed here when
     not given.  ``head_mask`` ([B, 1, H, 1] or None) is Horn's per-group
-    head dropout."""
+    head dropout.  ``causal`` (train and prefill only) masks keys after the
+    query; an encoder passes False.
+
+    Cross-attention (``kv_x`` given, ``params`` an ``Attention(cross=
+    True)``): x [B, S, d] attends to all of ``kv_x`` [B, S_kv, d] (the
+    encoder output) in any mode, through the plain softmax, with no cache
+    and no RoPE; ``cache`` must be None and new_kv is None."""
     window = cfg.sliding_window if kind == LOCAL else None
     theta = 10_000.0 if (kind == LOCAL and cfg.rope_theta > 1e5) \
         else cfg.rope_theta
     # gemma2 scales queries by query_pre_attn_scalar instead of head_dim
     scale = cfg.query_scale if cfg.query_scale else cfg.head_dim ** -0.5
-    q, k, v = _project_qkv(params, x, cfg, positions,
-                           use_rope=cfg.use_rope, rope_theta=theta)
-    if cache is None:
+    cross = kv_x is not None
+    q, k, v = _project_qkv(params, x, kv_x if cross else x, cfg, positions,
+                           use_rope=cfg.use_rope and not cross,
+                           rope_theta=theta)
+    if cross:
+        if cache is not None:
+            raise ValueError("cross-attention keeps no cache")
+        out = decode_attention(q, k, v, scale=scale, window=None,
+                               softcap=cfg.attn_logit_softcap, kv_len=None,
+                               q_positions=positions)
+        new_kv = None
+    elif cache is None:
         out = flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            scale=scale, causal=True, window=window,
+            scale=scale, causal=causal, window=window,
             softcap=cfg.attn_logit_softcap).transpose(1, 2)
         new_kv = (k, v)
     elif block_tables is None:

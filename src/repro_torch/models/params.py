@@ -1,6 +1,6 @@
 """Parameter init and the weight bridge from the JAX package.
 
-``init_params`` builds the LM with the JAX package's per-leaf rule
+``init_params`` builds the model with the JAX package's per-leaf rule
 (``repro/models/params.py::_init_leaf``): normal with std
 ``scale / sqrt(fan_in)``, fan-in being the leaf's first dimension (the
 unstacked one, so E for an expert leaf [E, d, ff]: std 0.25 at 16
@@ -14,7 +14,10 @@ tests that compare the two packages carry weights over with
 ``repro/checkpoint/checkpointer.py`` writes to ``shard_0.npz`` (or the path
 of such a file), unstacks the ``[R, ...]`` superblock leaves into the
 per-layer blocks and keeps every other shape as it is; ``to_jax_flat`` is
-its inverse.  ``load_jax_cache``/``to_jax_cache`` carry a cache pytree
+its inverse.  An encoder-decoder's leaves sit under ``['encoder']`` (its
+``['blocks']['l0']`` stacked over ``num_encoder_layers``) and
+``['decoder']`` (an LM's layout), the port's under ``encoder.`` and
+``decoder.``.  ``load_jax_cache``/``to_jax_cache`` carry a cache pytree
 (numpy leaves) to and from the port's per-layer list the same way: a dense
 decode cache (``repro/models/transformer.py::init_cache``) or a paged one
 (``init_paged_cache``), whose int8 layers are 4-tuples of int8 pools and
@@ -37,7 +40,10 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.encdec import EncDec, encoder_cfg
 from repro_torch.models.transformer import LM
+
+Model = Union[LM, EncDec]
 
 
 def _maker(fill, device, dtype):
@@ -47,10 +53,16 @@ def _maker(fill, device, dtype):
     return make
 
 
+def model_class(cfg: ModelConfig):
+    """``EncDec`` for an encoder-decoder config, else ``LM``."""
+    return EncDec if cfg.is_encoder_decoder else LM
+
+
 def init_params(cfg: ModelConfig, generator, *, device="cuda",
-                dtype=torch.float32) -> LM:
-    """A randomly initialized LM on ``device`` in ``dtype``.  ``generator``
-    is a ``torch.Generator`` on ``device``, or an int seed for one."""
+                dtype=torch.float32) -> Model:
+    """A randomly initialized model (``model_class(cfg)``) on ``device`` in
+    ``dtype``.  ``generator`` is a ``torch.Generator`` on ``device``, or an
+    int seed for one."""
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(dev).manual_seed(generator)
@@ -66,10 +78,19 @@ def init_params(cfg: ModelConfig, generator, *, device="cuda",
         return torch.randn(shape, generator=generator, device=device,
                            dtype=torch.float32).mul_(std).to(dtype)
 
-    return LM(cfg, _maker(fill, dev, dtype))
+    return model_class(cfg)(cfg, _maker(fill, dev, dtype))
 
 
 _KEY = re.compile(r"\['([^'\]]*)'\]")
+
+
+def _stacks(cfg: ModelConfig):
+    """[(torch name prefix, JAX key, the config of that layer stack)]: the
+    LM alone, or an encoder-decoder's encoder and decoder."""
+    if cfg.is_encoder_decoder:
+        return [("encoder.", "encoder", encoder_cfg(cfg)),
+                ("decoder.", "decoder", cfg)]
+    return [("", None, cfg)]
 
 
 def _torch_names(key: str, cfg: ModelConfig):
@@ -77,34 +98,42 @@ def _torch_names(key: str, cfg: ModelConfig):
     path = _KEY.findall(key)
     if not path or "".join(f"['{p}']" for p in path) != key:
         raise KeyError(f"not a keystr of dict keys: {key!r}")
-    P, R = len(cfg.layer_pattern), cfg.pattern_repeats
+    for prefix, jkey, scfg in _stacks(cfg):
+        if jkey is None or path[0] == jkey:
+            break
+    else:
+        raise KeyError(f"{key}: not under {[s[1] for s in _stacks(cfg)]}")
+    if jkey is not None:
+        path = path[1:]
+    P, R = len(scfg.layer_pattern), scfg.pattern_repeats
     head, rest = path[0], ".".join(path[2:])
     if head == "blocks":
         i = int(path[1][1:])
-        return [(f"layers.{r * P + i}.{rest}", r) for r in range(R)]
+        return [(f"{prefix}layers.{r * P + i}.{rest}", r) for r in range(R)]
     if head == "rem":
-        return [(f"layers.{R * P + int(path[1][1:])}.{rest}", None)]
-    return [(".".join(path), None)]
+        return [(f"{prefix}layers.{R * P + int(path[1][1:])}.{rest}", None)]
+    return [(prefix + ".".join(path), None)]
 
 
 def load_jax_flat(flat: Union[Mapping[str, np.ndarray], str, os.PathLike],
                   cfg: ModelConfig, *, device="cuda", dtype=torch.float32,
                   prefix: str = "",
                   into: Optional[Mapping[str, torch.Tensor]] = None):
-    """The LM holding the JAX parameters in ``flat``: a ``{keystr: array}``
+    """The model (``model_class(cfg)``) holding the JAX parameters in
+    ``flat``: a ``{keystr: array}``
     mapping or the path of a ``shard_0.npz``.  Only keys starting with
     ``prefix`` are read (``"['params']"`` for a train-state checkpoint),
     with the prefix stripped.  Missing, extra or mis-shaped leaves raise.
 
-    ``into``: a mapping of the LM's parameter names to tensors (an
+    ``into``: a mapping of the model's parameter names to tensors (an
     optimizer moment a parameter, ``"['opt']['mom']"`` as the prefix) is
-    filled in place and returned instead of a new LM."""
+    filled in place and returned instead of a new model."""
     dev = resolve_device(device)
     if isinstance(flat, (str, os.PathLike)):
         with np.load(flat) as npz:
             flat = {k: npz[k] for k in npz.files}
     if into is None:
-        model = LM(cfg, _maker(
+        model = model_class(cfg)(cfg, _maker(
             lambda shape, init, scale, device, dtype: torch.empty(
                 shape, device=device, dtype=dtype), dev, dtype))
         want: Mapping[str, torch.Tensor] = dict(model.named_parameters())
@@ -115,13 +144,14 @@ def load_jax_flat(flat: Union[Mapping[str, np.ndarray], str, os.PathLike],
         if not key.startswith(prefix):
             continue
         arr = np.asarray(arr)
-        for name, r in _torch_names(key[len(prefix):], cfg):
+        names = _torch_names(key[len(prefix):], cfg)
+        for name, r in names:
             if name not in want:
                 raise KeyError(f"{key}: no parameter {name!r} in the port's "
                                f"{cfg.name} model")
-            if r is not None and arr.shape[:1] != (cfg.pattern_repeats,):
+            if r is not None and arr.shape[:1] != (len(names),):
                 raise ValueError(f"{key}: leading dim {arr.shape[:1]}, "
-                                 f"expected {cfg.pattern_repeats} superblocks")
+                                 f"expected {len(names)} superblocks")
             leaf = arr if r is None else arr[r]
             p = want[name]
             if tuple(leaf.shape) != tuple(p.shape):
@@ -136,15 +166,15 @@ def load_jax_flat(flat: Union[Mapping[str, np.ndarray], str, os.PathLike],
     return model
 
 
-def to_jax_flat(model: Union[LM, Mapping[str, torch.Tensor]],
+def to_jax_flat(model: Union[Model, Mapping[str, torch.Tensor]],
                 cfg: ModelConfig) -> Dict[str, np.ndarray]:
     """The JAX package's flat ``{keystr: array}`` layout of ``model``: the
     per-layer blocks restacked into ``[R, ...]`` superblock leaves
-    (``['blocks']['l{i}']``) and remainder layers (``['rem']['r{i}']``);
-    bf16 leaves come out as f32 arrays.  ``model`` may also be a mapping
-    of the LM's parameter names to tensors (an optimizer moment a
-    parameter), laid out by the same paths."""
-    P, R = len(cfg.layer_pattern), cfg.pattern_repeats
+    (``['blocks']['l{i}']``) and remainder layers (``['rem']['r{i}']``),
+    under ``['encoder']`` / ``['decoder']`` for an encoder-decoder; bf16
+    leaves come out as f32 arrays.  ``model`` may also be a mapping of the
+    model's parameter names to tensors (an optimizer moment a parameter),
+    laid out by the same paths."""
     stacks: Dict[str, list] = {}
     flat: Dict[str, np.ndarray] = {}
     named = (model.named_parameters() if isinstance(model, nn.Module)
@@ -152,16 +182,24 @@ def to_jax_flat(model: Union[LM, Mapping[str, torch.Tensor]],
     for name, p in named:
         t = p.detach().cpu()
         arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-        parts = name.split(".")
+        for prefix, jkey, scfg in _stacks(cfg):
+            if name.startswith(prefix):
+                break
+        else:
+            raise KeyError(f"{name}: not a parameter of a {cfg.name} model")
+        P, R = len(scfg.layer_pattern), scfg.pattern_repeats
+        parts = name[len(prefix):].split(".")
+        head = [] if jkey is None else [jkey]
         if parts[0] == "layers":
             idx, rest = int(parts[1]), parts[2:]
             if idx < R * P:
                 r, i = divmod(idx, P)
-                key = "".join(f"['{s}']" for s in ["blocks", f"l{i}", *rest])
+                key = "".join(f"['{s}']" for s in
+                              [*head, "blocks", f"l{i}", *rest])
                 stacks.setdefault(key, [None] * R)[r] = arr
                 continue
             parts = ["rem", f"r{idx - R * P}", *rest]
-        flat["".join(f"['{s}']" for s in parts)] = arr
+        flat["".join(f"['{s}']" for s in [*head, *parts])] = arr
     for key, leaves in stacks.items():
         flat[key] = np.stack(leaves)
     return flat
@@ -216,7 +254,7 @@ def to_jax_cache(cache, cfg: ModelConfig) -> Dict[str, Dict]:
 
 
 @torch.no_grad()
-def copy_into(dst: LM, src: LM) -> LM:
+def copy_into(dst: Model, src: Model) -> Model:
     """Cast ``src``'s parameters into ``dst``'s, in place (a no-op when they
     are the same LM)."""
     if dst is not src:
@@ -225,7 +263,7 @@ def copy_into(dst: LM, src: LM) -> LM:
     return dst
 
 
-def cast_params(model: LM, dtype) -> LM:
+def cast_params(model: Model, dtype) -> Model:
     """``model`` with floating parameters in ``dtype``: itself when they
     already are, else a cast copy (the caller's model is left alone)."""
     if all(p.dtype == dtype for p in model.parameters()):

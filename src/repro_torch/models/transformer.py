@@ -6,7 +6,10 @@ a ``ModuleList`` of per-layer ``Block``s run by a Python loop, layer ``i``
 having kind ``cfg.layer_kinds()[i]`` (attention, local attention or
 Mamba2) and an MoE FFN where ``layer_moe_flags`` says so.  A multimodal
 config's stub frontend hands ``patch_embeds`` [B, num_patches, d], which
-go in front of the text embeddings.  Training rematerialises each block
+go in front of the text embeddings.  An encoder-decoder's decoder
+(``LM(cross=True)``) adds learned positions (``pos_embed``) and a
+cross-attention sublayer to each block, which attends to the
+``encoder_out`` it is given (``models/encdec.py``).  Training rematerialises each block
 in the backward (``torch.utils.checkpoint``) where the JAX package
 checkpoints the superblock scan body; the gradients are the same.  Caches
 are lists with one entry per layer: a dense ``(k_buf, v_buf)`` or
@@ -47,11 +50,12 @@ def layer_moe_flags(cfg: ModelConfig) -> List[bool]:
 
 class Block(nn.Module):
     """One decoder layer: ``pre_norm``, the mixer (``attn`` or ``mamba``),
-    ``ffn_norm`` and ``moe`` on an MoE layer, else ``mlp`` when
-    ``d_ff > 0``, and, for gemma, ``post_mixer_norm``/``post_ffn_norm``."""
+    ``cross_norm`` and ``cross_attn`` with ``cross``, ``ffn_norm`` and
+    ``moe`` on an MoE layer, else ``mlp`` when ``d_ff > 0``, and, for
+    gemma, ``post_mixer_norm``/``post_ffn_norm``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, make, *,
-                 is_moe: bool = False):
+                 is_moe: bool = False, cross: bool = False):
         super().__init__()
         self.pre_norm = L.Norm(cfg, cfg.d_model, make)
         if kind in (ATTN, LOCAL):
@@ -63,6 +67,9 @@ class Block(nn.Module):
                              f"got {kind!r}")
         if cfg.post_sublayer_norm:
             self.post_mixer_norm = L.Norm(cfg, cfg.d_model, make)
+        if cross:
+            self.cross_norm = L.Norm(cfg, cfg.d_model, make)
+            self.cross_attn = Attention(cfg, make, cross=True)
         if is_moe or cfg.d_ff > 0:
             self.ffn_norm = L.Norm(cfg, cfg.d_model, make)
             if is_moe:
@@ -74,19 +81,19 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """``embed``, ``layers`` (one ``Block`` per layer), ``final_norm``."""
+    """``embed``, ``layers`` (one ``Block`` per layer, each with a
+    cross-attention sublayer when ``cross``), ``final_norm``, and
+    ``pos_embed`` [max_pos, d] with learned positions."""
 
-    def __init__(self, cfg: ModelConfig, make):
+    def __init__(self, cfg: ModelConfig, make, *, cross: bool = False):
         super().__init__()
-        if cfg.is_encoder_decoder or cfg.learned_pos:
-            raise ValueError(
-                f"{cfg.name}: encoder-decoder models and learned positions "
-                f"are not ported yet (ROADMAP slice 4, item 18: whisper)")
         self.embed = L.Embed(cfg, make)
         self.layers = nn.ModuleList(
-            Block(cfg, kind, make, is_moe=moe)
+            Block(cfg, kind, make, is_moe=moe, cross=cross)
             for kind, moe in zip(cfg.layer_kinds(), layer_moe_flags(cfg)))
         self.final_norm = L.Norm(cfg, cfg.d_model, make)
+        if cfg.learned_pos:
+            self.pos_embed = make((cfg.max_pos, cfg.d_model), "normal", 0.02)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -177,14 +184,17 @@ def _serve_slice(serve_masks, key: str, layer_idx: int):
 def _block_apply(bp, x, cfg: ModelConfig, *, kind: str, layer_idx: int,
                  is_moe: bool = False, with_aux: bool = False, horn=None,
                  positions, cache=None, cache_index=None, block_tables=None,
-                 chunk_lens=None, decode_lengths=None, serve_masks=None):
+                 chunk_lens=None, decode_lengths=None, serve_masks=None,
+                 encoder_out=None, causal: bool = True):
     """One decoder layer; returns (x, the mixer's new cache, the MoE aux
     dict: empty on a dense layer or without ``with_aux``).  ``horn``
     (train only) draws this layer's head, channel and FFN (or expert
     hidden) masks with the JAX package's layer index and salts (13, 3 and
     5); ``serve_masks`` (serving) multiplies this layer's rows of the
     slots' circuit masks into the head and FFN (``"ffn"``) or expert
-    (``"moe"``) hidden masks."""
+    (``"moe"``) hidden masks.  A block with ``cross_attn`` attends to
+    ``encoder_out`` after its mixer (no head mask there, as in the JAX
+    package); ``causal`` is the self-attention's mask."""
     B = x.shape[0]
     aux = {}
     h = L.norm_apply(bp.pre_norm, x, cfg)
@@ -197,7 +207,7 @@ def _block_apply(bp, x, cfg: ModelConfig, *, kind: str, layer_idx: int,
             bp.attn, h, cfg, kind=kind, positions=positions, cache=cache,
             cache_index=cache_index, block_tables=block_tables,
             chunk_lens=chunk_lens, decode_lengths=decode_lengths,
-            head_mask=hm)
+            head_mask=hm, causal=causal)
     else:
         cm = pdrop.unit_mask(horn, layer_idx, B, ssm_dims(cfg)[0], salt=3)
         out, new_cache = mamba_apply(bp.mamba, h, cfg, cache=cache,
@@ -205,6 +215,11 @@ def _block_apply(bp, x, cfg: ModelConfig, *, kind: str, layer_idx: int,
     if cfg.post_sublayer_norm:
         out = L.norm_apply(bp.post_mixer_norm, out, cfg)
     x = x + out.to(x.dtype)
+    if hasattr(bp, "cross_attn") and encoder_out is not None:
+        h = L.norm_apply(bp.cross_norm, x, cfg)
+        out, _ = attn_apply(bp.cross_attn, h, cfg, kind=ATTN,
+                            positions=positions, kv_x=encoder_out)
+        x = x + out.to(x.dtype)
     if hasattr(bp, "ffn_norm"):     # mamba2-style blocks have no FFN
         h = L.norm_apply(bp.ffn_norm, x, cfg)
         if is_moe:
@@ -236,7 +251,7 @@ def _remat_block(fn, x):
 def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
                horn=None, remat: bool = True, cache=None, cache_index=None,
                block_tables=None, chunk_lens=None, logit_index=None,
-               serve_masks=None, patch_embeds=None):
+               serve_masks=None, patch_embeds=None, encoder_out=None):
     """Returns (hidden [B, S, d] final-normed, or [B, n, d] with
     ``logit_index``; in prefill and decode the new per-layer cache, in
     train mode the MoE aux instead: each of ``load_balance_loss``,
@@ -248,6 +263,10 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
     frontend) are cast to the embeddings' dtype and put in front of the
     text embeddings, before the Horn and serve input masks; positions run
     over the whole sequence, so the hidden state holds the patches first.
+    With learned positions each token adds its position's row of
+    ``pos_embed`` (in the embeddings' dtype) before those masks.
+    ``encoder_out`` ([B, S_enc, d], an encoder-decoder's) is what every
+    block's cross-attention attends to, in every mode.
 
     mode "train": tokens [B, S] attend causally to themselves at positions
     ``arange(S)``; ``horn`` (a ``HornState`` or None) masks the embedding
@@ -288,12 +307,6 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
                       dim=1)
     B, S = x.shape[:2]
     steps = torch.arange(S, device=x.device)[None, :]
-    if mode == "train":
-        im = pdrop.input_mask(horn, B, cfg.d_model)
-        if im is not None:
-            x = x * im.to(x.dtype)
-    if serve_masks is not None and "input" in serve_masks:
-        x = x * serve_masks["input"][:, None, :].to(x.dtype)
     decode_lengths = None
     if mode != "decode":
         positions = steps
@@ -304,6 +317,21 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
         positions = cache_index.long()[:, None] + steps
         if S == 1:                   # once a tick, not once a layer
             decode_lengths = paged_decode_lengths(cache_index, chunk_lens)
+    if cfg.learned_pos:
+        if block_tables is not None:
+            raise ValueError("learned positions are not served from pages "
+                             "(the engine refuses such configs)")
+        start = cache_index if mode == "decode" else 0
+        if start + S > cfg.max_pos:
+            raise ValueError(f"positions {start}..{start + S - 1} run past "
+                             f"the {cfg.max_pos} learned positions")
+        x = x + params.pos_embed[start:start + S].to(x.dtype)
+    if mode == "train":
+        im = pdrop.input_mask(horn, B, cfg.d_model)
+        if im is not None:
+            x = x * im.to(x.dtype)
+    if serve_masks is not None and "input" in serve_masks:
+        x = x * serve_masks["input"][:, None, :].to(x.dtype)
     new_cache = None if mode == "train" else []
     aux = {}
     for li, (bp, kind, moe) in enumerate(zip(
@@ -314,7 +342,7 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
                      cache=cache[li] if mode == "decode" else None,
                      cache_index=cache_index, block_tables=block_tables,
                      chunk_lens=chunk_lens, decode_lengths=decode_lengths,
-                     serve_masks=serve_masks)
+                     serve_masks=serve_masks, encoder_out=encoder_out)
         if mode == "train" and remat:
             x, layer_aux = checkpoint(_remat_block, fn, x,
                                       use_reentrant=False)
