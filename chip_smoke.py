@@ -235,6 +235,29 @@ Phases, each of which fails the script (non-zero exit, no result line):
               wall, decode step time.  (d) each flash call of (c)'s
               prefill against the plain attention on its inputs, each
               check rejecting a flipped mask and rolled KV heads.
+ 17. scale    scale-out on ``torch.distributed``, over one NCCL process
+              group of one rank (a ``file://`` store in a temp dir; NCCL
+              takes one rank per device, so every multi-rank check is the
+              CPU tests' job, ``tests/test_torch_distributed.py``).  (a)
+              ``psum_mean``, ``merge_grads`` (none and int8) and
+              ``psum_mean_compressed`` over the gradients of one
+              full-width qwen3-1.7b train step: the f32 cast and the
+              dequantized error-feedback value bit for bit; bytes and the
+              all-reduce's time.  (b) phase 6's run (qwen3-1.7b, 28
+              layers, 8 x 1024, Horn 4 groups, AdamW, remat) mesh-free,
+              then its state through ``remesh_state`` onto a 1 x 1
+              ``DeviceMesh`` and 4 steps of ``make_train_step(mesh=)``:
+              losses and grad norms bit-equal, flash 2 x 28 forward and 28
+              backward a step on ``wgmma_d128``, both step walls.  (c) at
+              2 layers (full width): save after step 2, restore with
+              ``shardings=`` onto a fresh 1 x 1 mesh, steps 3-4 bit-equal
+              to the unbroken run's.  (d) ``pipelined_apply`` (S 1) over
+              the 28 bf16 blocks as one stage, M 8 micro-batches of 1 x
+              1024: forward and gradients against the unpipelined stack
+              within 2e-2; ``bubble_fraction(4, 8)``.  (e) ``launch.train
+              --full-config --steps 2 --horn-groups 4`` with ``--topology
+              zero1``, then ``--topology local_sgd --mesh-data 2``: the
+              1 x 1 mesh line, finite losses.
 Phase 3 also holds the SSD chunk scan against its plain version (y and the
 final state): the JAX sweep's shapes, S 257 (chunks of 1 token), two more
 shapes of the wgmma route and the full-width shape B 2, S 2048, H 80, P
@@ -4775,6 +4798,386 @@ def phase_encdec(torch, dev, build, fkernel, fref):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: scale-out on torch.distributed, on the one card
+# ---------------------------------------------------------------------------
+SCALE_STEPS = 4                  # phase 6's steps, seed and settings
+SCALE_SAVE_AT = 2                # 17(c): the checkpoint's step
+SCALE_RESUME_LAYERS = 2          # 17(c): depth of the restarted run
+PIPE_MICRO = 8                   # 17(d): M micro-batches of 1 x 1024
+PIPE_SEQ = 1024
+
+
+def scale_run(num_layers=None):
+    """Phase 6's run at full width: qwen3-1.7b, batch 8 x 1024, f32
+    masters, bf16 compute, Horn on with 4 groups, AdamW at lr 3e-4, remat,
+    seed 0 (``num_layers`` cuts the depth)."""
+    from repro_torch.configs.base import (HornConfig, RunConfig, ShapeConfig,
+                                          get_model_config)
+    cfg = get_model_config("qwen3-1.7b")
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    return RunConfig(model=cfg, shape=ShapeConfig("cli", "train", 1024, 8),
+                     horn=HornConfig(num_groups=4), optimizer="adamw",
+                     learning_rate=3e-4, seed=0)
+
+
+def scale_batches(run):
+    from repro_torch.data.pipeline import (SyntheticTokenPipeline,
+                                           TokenPipelineConfig)
+    return SyntheticTokenPipeline(TokenPipelineConfig(
+        vocab_size=run.model.vocab_size, seq_len=run.shape.seq_len,
+        global_batch=run.shape.global_batch, seed=run.seed)).batch_at
+
+
+def scale_steps(torch, state, step, batch_at, n):
+    """``n`` steps: [(loss, grad norm, host wall s)], synced each step."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch_at(state["step"]))
+        loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+        torch.cuda.synchronize()
+        out.append((loss, gnorm, time.perf_counter() - t0))
+    return state, out
+
+
+def phase_scale_merges(torch, dev, group):
+    """17(a): the merges across the NCCL group of one rank over the
+    gradients of one full-width qwen3-1.7b train step (bf16, phase 6's
+    step 0): at world size 1 ``psum_mean`` and ``merge_grads(none)`` must
+    give the f32 cast bit for bit, ``merge_grads(int8)`` and
+    ``psum_mean_compressed`` the dequantized error-feedback value of the
+    single-process arithmetic (``ef_compress``)."""
+    from repro_torch.configs.base import TopologyConfig
+    from repro_torch.core import group_sync as gs
+    from repro_torch.core import steps as S
+    from repro_torch.core.parallel_dropout import make_horn_state
+    from repro_torch.models import api
+    from repro_torch.models.params import cast_params
+    from repro_torch.optim import compression as C
+
+    run = scale_run()
+    state = S.init_state(run, dev)
+    cparams = cast_params(state["params"], torch.bfloat16)
+    names = [n for n, _ in cparams.named_parameters()]
+    leaves = [p.requires_grad_(True) for p in cparams.parameters()]
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in scale_batches(run)(0).items()}
+    horn = make_horn_state(run.seed, run.horn, 0, dev)
+    loss, _ = api.model_loss(cparams, batch, run.model, horn=horn)
+    grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    del cparams, leaves, state
+    release(torch)
+    nbytes = sum(g.numel() * 4 for g in grads.values())
+    out = {"leaves": len(grads), "f32_bytes": nbytes}
+
+    def exact(what, got, want):
+        bad = [k for k in want if not torch.equal(got[k], want[k])]
+        assert not bad, (what, bad[:4])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    merged = gs.psum_mean(grads, group)
+    torch.cuda.synchronize()
+    out["psum_mean_s"] = time.perf_counter() - t0
+    exact("psum_mean", merged, {k: g.float() for k, g in grads.items()})
+    exact("merge_grads none", gs.merge_grads(grads, group,
+                                             TopologyConfig())[0], merged)
+    f32 = list(merged.values())
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for x in f32:
+        torch.distributed.all_reduce(x, group=group)
+    ev[1].record()
+    torch.cuda.synchronize()
+    out["all_reduce_ms"] = ev[0].elapsed_time(ev[1])
+    del merged, f32
+    release(torch)
+    int8 = TopologyConfig(grad_compression="int8")
+    got, res = gs.merge_grads(grads, group, int8)
+    for k, g in grads.items():
+        q, sc, r = C.ef_compress(g, None)
+        assert torch.equal(got[k], C.dequantize_int8(q, sc)), k
+        assert torch.equal(res[k], r), k
+        direct = C.psum_mean_compressed({k: q}, {k: sc}, group)[k]
+        assert torch.equal(direct, got[k]), k
+    del got, res, grads
+    release(torch)
+    log(f"  (a) merges over the NCCL group of 1 rank, {out['leaves']} "
+        f"gradient leaves of a qwen3-1.7b step, {nbytes / 2**30:.2f} GiB in "
+        f"f32: psum_mean and merge_grads(none) == the f32 cast, "
+        f"merge_grads(int8) and psum_mean_compressed == ef_compress's "
+        f"dequantized value and residual, bit for bit; psum_mean "
+        f"{out['psum_mean_s'] * 1e3:.1f} ms wall, the all-reduce alone "
+        f"{out['all_reduce_ms']:.3f} ms (CUDA events)")
+    return out
+
+
+def phase_scale_train(torch, dev, build, fkernel):
+    """17(b): phase 6's 4 steps mesh-free, then through ``remesh_state``
+    onto a 1 x 1 DeviceMesh and 4 steps of ``make_train_step(mesh=)``:
+    losses and grad norms bit-equal; flash 2 x 28 forward and 28 backward
+    a step, all on ``wgmma_d128``; both step walls."""
+    from repro_torch.core import steps as S
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.runtime.elastic import remesh_state
+
+    run = scale_run()
+    batch_at = scale_batches(run)
+    L = run.model.num_layers
+    state = S.init_state(run, dev)
+    _, free = scale_steps(torch, state, S.make_train_step(run, dev),
+                          batch_at, SCALE_STEPS)
+    del state
+    release(torch)
+    mesh = make_test_mesh(1, 1)
+    state = remesh_state(S.init_state(run, dev), S.state_axes(run),
+                         S.make_ctx(run.model, mesh, run.shape))
+    kinds = sorted({type(p.data).__name__
+                    for p in state["params"].parameters()})
+    step = S.make_train_step(run, dev, mesh=mesh)
+    build.reset_launches()
+    _, meshed = scale_steps(torch, state, step, batch_at, SCALE_STEPS)
+    fwd, bwd = build.LAUNCHES[fkernel.FWD], build.LAUNCHES[fkernel.BWD]
+    route = fkernel.route(torch.bfloat16, run.model.head_dim)
+    on_route = [build.ROUTE_LAUNCHES.get(f"{n}:{route}", 0)
+                for n in (fkernel.FWD, fkernel.BWD)]
+    del state, step
+    release(torch)
+    a = [(l, g) for l, g, _ in free]
+    b = [(l, g) for l, g, _ in meshed]
+    log(f"  (b) 1 x 1 DeviceMesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+        f" on {mesh.device_type}, parameters as {kinds}")
+    log(f"      mesh-free (loss, grad norm) {a}")
+    log(f"      mesh      (loss, grad norm) {b}")
+    assert kinds == ["DTensor"], kinds
+    assert a == b, (a, b)
+    assert fwd == 2 * L * SCALE_STEPS and bwd == L * SCALE_STEPS, (fwd, bwd)
+    assert on_route == [fwd, bwd], (route, on_route)
+    wall = {k: sum(r[2] for r in v[1:]) / (len(v) - 1) * 1e3
+            for k, v in (("mesh_free", free), ("mesh", meshed))}
+    log(f"      bit-equal over {SCALE_STEPS} steps (tolerance 0); "
+        f"{fkernel.FWD} {fwd} = 2 x {L} x {SCALE_STEPS}, {fkernel.BWD} "
+        f"{bwd} = {L} x {SCALE_STEPS}, all on '{route}'; step wall (mean of "
+        f"steps 2-{SCALE_STEPS}) mesh-free {wall['mesh_free']:.1f} ms, "
+        f"mesh {wall['mesh']:.1f} ms")
+    return {"mesh_free": a, "mesh": b, "step_ms": wall,
+            "launches": {fkernel.FWD: fwd, fkernel.BWD: bwd},
+            "route": route}
+
+
+def phase_scale_resume(torch, dev):
+    """17(c): elastic restart at full width, ``SCALE_RESUME_LAYERS``
+    layers (a full-depth checkpoint is 24 GB): 4 unbroken steps on a 1 x 1
+    mesh; then 2 steps, a save, a restore with ``shardings=`` onto a fresh
+    1 x 1 mesh, and steps 3-4, bit-equal to the unbroken run's."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import steps as S
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import TrainStateCheckpointer
+    from repro_torch.runtime.elastic import remesh_state
+
+    run = scale_run(SCALE_RESUME_LAYERS)
+    batch_at = scale_batches(run)
+
+    def fresh():
+        mesh = make_test_mesh(1, 1)
+        step = S.make_train_step(run, dev, mesh=mesh)
+        return mesh, step
+
+    mesh, step = fresh()
+    ctx = S.make_ctx(run.model, mesh, run.shape)
+    state = remesh_state(S.init_state(run, dev), S.state_axes(run), ctx)
+    _, unbroken = scale_steps(torch, state, step, batch_at, SCALE_STEPS)
+    state = remesh_state(S.init_state(run, dev), S.state_axes(run), ctx)
+    state, first = scale_steps(torch, state, step, batch_at, SCALE_SAVE_AT)
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        ck = TrainStateCheckpointer(root, run)
+        t0 = time.perf_counter()
+        ck.save(SCALE_SAVE_AT, state)
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(root).rglob("*")
+                   if f.is_file())
+        like = state
+        mesh2, step2 = fresh()
+        t0 = time.perf_counter()
+        restored, at = ck.restore(like, shardings=S.state_shardings(
+            run, mesh2))
+        restore_s = time.perf_counter() - t0
+        del state, like
+        release(torch)
+        _, resumed = scale_steps(torch, restored, step2, batch_at,
+                                 SCALE_STEPS - SCALE_SAVE_AT)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del restored
+    release(torch)
+    a = [(l, g) for l, g, _ in unbroken]
+    b = [(l, g) for l, g, _ in first + resumed]
+    log(f"  (c) elastic restart, {SCALE_RESUME_LAYERS} layers at full "
+        f"width: checkpoint of step {at} {size / 2**30:.2f} GiB, saved in "
+        f"{save_s:.1f} s, restored onto a fresh 1 x 1 mesh in "
+        f"{restore_s:.1f} s")
+    log(f"      unbroken {a}")
+    log(f"      restarted {b}")
+    assert at == SCALE_SAVE_AT and a == b, (at, a, b)
+    return {"unbroken": a, "restarted": b, "checkpoint_bytes": size,
+            "save_s": save_s, "restore_s": restore_s}
+
+
+def phase_scale_pipeline(torch, dev, build, fkernel, group):
+    """17(d): ``pipelined_apply`` on the NCCL group (S 1) over qwen3-1.7b's
+    28 bf16 blocks as one stage, M 8 micro-batches of 1 x 1024 hidden
+    states (seeded), held against the unpipelined stack run on each
+    micro-batch: the forward bit for bit and every parameter's gradient of
+    mean(out^2) within 2e-2 of its largest value (phase 11's rule: each
+    bf16 gradient sums 8 bf16 contributions, whose order autograd picks).
+    The stack on the whole 8 x 1024 batch at once (other GEMM shapes) is
+    printed beside it.  Flash is launched once a layer a micro-batch,
+    forward and backward."""
+    from repro_torch.configs.base import ATTN
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.runtime.pipeline import bubble_fraction, pipelined_apply
+
+    cfg = scale_run().model
+    layers = init_params(cfg, 0, device=dev, dtype=torch.bfloat16).layers
+    params = list(layers.parameters())
+    for p in params:
+        p.requires_grad_(True)
+    gen = torch.Generator(dev).manual_seed(17)
+    x = torch.randn(PIPE_MICRO, 1, PIPE_SEQ, cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    positions = torch.arange(PIPE_SEQ, device=dev)[None, :]
+
+    def block_fn(stage, h):
+        for li, bp in enumerate(stage):
+            h = T._block_apply(bp, h, cfg, kind=ATTN, layer_idx=li,
+                               positions=positions)[0]
+        return h
+
+    def run(fn):
+        out = fn()
+        return out.detach(), torch.autograd.grad(
+            out.float().square().mean(), params)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp(min=1e-30)).item()
+
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, g_pipe = run(lambda: pipelined_apply(block_fn, layers, x,
+                                              group=group))
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    launches = {n: build.LAUNCHES[n] for n in (fkernel.FWD, fkernel.BWD)}
+    ref, g_ref = run(lambda: torch.stack([block_fn(layers, x[m])
+                                          for m in range(PIPE_MICRO)]))
+    same = torch.equal(out, ref)
+    grad_err = max(rel(a, b) for a, b in zip(g_pipe, g_ref))
+    del ref, g_ref
+    release(torch)
+    full, g_full = run(lambda: block_fn(layers, x[:, 0]).unsqueeze(1))
+    full_err = rel(out, full)
+    full_grad_err = max(rel(a, b) for a, b in zip(g_pipe, g_full))
+    L = cfg.num_layers
+    log(f"  (d) pipelined_apply, S 1 (NCCL), M {PIPE_MICRO} x 1 x "
+        f"{PIPE_SEQ} over {L} bf16 blocks: {pipe_s:.2f} s forward + "
+        f"backward; against the stack on each micro-batch: forward "
+        f"{'bit-equal' if same else 'DIFFERS'}, gradients (each of "
+        f"{len(params)}) max |d| / max |ref| at most {grad_err:.3g} "
+        f"(tolerance 2e-2); against the stack on the whole 8 x "
+        f"{PIPE_SEQ} batch: forward {full_err:.3g}, gradients "
+        f"{full_grad_err:.3g}; flash {launches}; bubble_fraction(4, 8) = "
+        f"{bubble_fraction(4, 8):.4f}")
+    assert same and grad_err <= SUPERBLOCK_TOL, (same, grad_err)
+    assert launches == {fkernel.FWD: L * PIPE_MICRO,
+                        fkernel.BWD: L * PIPE_MICRO}, launches
+    del layers, params, out, full, g_pipe, g_full
+    release(torch)
+    return {"forward_bit_equal": same, "grad_err": grad_err,
+            "full_batch_fwd_err": full_err,
+            "full_batch_grad_err": full_grad_err, "seconds": pipe_s,
+            "launches": launches, "bubble_4_8": bubble_fraction(4, 8)}
+
+
+def phase_scale_cli(torch):
+    """17(e): the train CLI at full width on the card with what it refused
+    before: ``--topology zero1``, then ``--topology local_sgd
+    --mesh-data 2`` (clamped to the one rank): each prints the topology,
+    the 1 x 1 mesh line and finite losses."""
+    import io
+
+    from repro_torch.launch import train
+
+    out = {}
+    for extra in (["--topology", "zero1"],
+                  ["--topology", "local_sgd", "--mesh-data", "2"]):
+        argv = ["--arch", "qwen3-1.7b", "--full-config", "--steps", "2",
+                "--horn-groups", "4", "--device", "cuda", "--log-every",
+                "1"] + extra
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = train.main(argv)
+        wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        for line in text.splitlines():
+            log("      " + line)
+        assert "mesh: {'data': 1, 'model': 1}  arch: qwen3-1.7b" in text
+        assert text.startswith(f"topology: {extra[1]}: ")
+        assert all(math.isfinite(r["loss"]) for r in res["steps"])
+        out[" ".join(extra)] = {"losses": [r["loss"] for r in res["steps"]],
+                                "wall_s": wall,
+                                "launches": {k: res["launches"][k] for k in
+                                             ("flash_attention_fwd",
+                                              "flash_attention_bwd")}}
+        log(f"  (e) launch.train {' '.join(extra)}: {wall:.1f} s")
+        release(torch)
+    return out
+
+
+def phase_scaleout(torch, dev, build, fkernel):
+    """Phase 17 on the one card: (a) merges, (b) the 1 x 1 mesh step, (c)
+    elastic restart, (d) the GPipe schedule, (e) the CLI, all over one
+    NCCL process group of one rank from a ``file://`` store in a temp
+    dir."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    log("  multi-rank runs are held on the CPU (tests/test_torch_"
+        "distributed.py: 4 gloo ranks): NCCL takes one rank per device, "
+        "and this machine has one card, so every run here is world size 1")
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/pg",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        group = dist.group.WORLD
+        out = {"merges": phase_scale_merges(torch, dev, group)}
+        out["train"] = phase_scale_train(torch, dev, build, fkernel)
+        out["resume"] = phase_scale_resume(torch, dev)
+        out["pipeline"] = phase_scale_pipeline(torch, dev, build, fkernel,
+                                               group)
+        out["cli"] = phase_scale_cli(torch)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 17: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4921,6 +5324,11 @@ def main() -> int:
     phase("phase 16: the encoder-decoder family, whisper-base: card against "
           "CPU, training, prefill and decode, flash call by call")
     encdec = phase_encdec(torch, dev, build, fkernel, fref)
+    release(torch)
+
+    phase("phase 17: scale-out on torch.distributed (one NCCL rank): "
+          "merges, the 1 x 1 mesh step, elastic restart, GPipe, the CLI")
+    scale = phase_scaleout(torch, dev, build, fkernel)
 
     # headline shapes: the prompt-chunk tick for the chunk kernel (decode
     # ticks go to the decode kernel), the decode tick for the decode kernel
@@ -4998,6 +5406,11 @@ def main() -> int:
             if run is trained:          # phase 15's runs at head dim 128
                 kernels[-1]["launches_phase15"] = {
                     "phi3.5-moe train": fam["train"]["launches"][name]}
+                kernels[-1]["launches_phase17"] = {
+                    "mesh train": scale["train"]["launches"][name],
+                    "pipeline": scale["pipeline"]["launches"][name],
+                    **{f"cli {k}": v["launches"][name]
+                       for k, v in scale["cli"].items()}}
                 if part == "fwd":
                     kernels[-1]["launches_phase15"].update(
                         {f"{a} prefill": fam[a]["launches"][name] for a in (
@@ -5054,7 +5467,8 @@ def main() -> int:
             "train": trained, "horn_mlp": horn_mlp, "ssm": ssm,
             "mnist": mnist, "new_archs": new_archs, "bank": bank,
             "spec": spec, "observability": obs, "families": fam,
-            "encdec": encdec, "flash_host_us": flash["host_us"]}
+            "encdec": encdec, "scaleout": scale,
+            "flash_host_us": flash["host_us"]}
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))

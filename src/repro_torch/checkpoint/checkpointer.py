@@ -1,4 +1,4 @@
-"""Checkpointing: async save and integrity-checked restore.
+"""Checkpointing: async save, integrity-checked restore, elastic reshard.
 
 The port of ``repro/checkpoint/checkpointer.py``, with the same layout on
 disk, so a checkpoint of either package restores in the other.  One
@@ -15,9 +15,15 @@ A state is a tree of dicts (keys sorted, as JAX flattens them), lists and
 tuples whose leaves are tensors, numpy arrays or Python numbers; None is
 no leaf.  ``restore`` fills ``like_state``'s tree: a tensor leaf comes
 back as a tensor on ``device`` (by default the leaf's own), a Python
-number as one of its type, anything else as a numpy array.  The JAX
-package's elastic reshard onto another mesh waits for scale-out (ROADMAP
-slice 5, item 19).
+number as one of its type, anything else as a numpy array.
+
+Across ranks: a DTensor leaf is saved as its full array, in the same
+``shard_0.npz`` layout.  Every rank gathers (``save`` is a collective on
+a process group of several ranks), rank 0 alone writes, synchronously,
+and a barrier commits the save for all.  ``restore(shardings=)`` lays
+each array out onto the given ``NamedSharding`` (``launch/mesh.py``):
+the elastic reshard onto any mesh whose sharded dims divide the global
+shapes, as the JAX package's ``device_put`` onto new shardings.
 """
 from __future__ import annotations
 
@@ -32,17 +38,24 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.launch.mesh import NamedSharding
+from repro_torch.runtime.elastic import place
 
 _KEY = re.compile(r"\['([^'\]]*)'\]")
 
 
-def _leaves_with_path(tree, path=""):
-    if isinstance(tree, dict):
+def _leaves_with_path(tree, path="", leaf=lambda x: False):
+    if leaf(tree):
+        yield path, tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _leaves_with_path(tree[k], f"{path}['{k}']")
+            yield from _leaves_with_path(tree[k], f"{path}['{k}']", leaf)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _leaves_with_path(v, f"{path}[{i}]")
+            yield from _leaves_with_path(v, f"{path}[{i}]", leaf)
     elif tree is not None:
         yield path, tree
 
@@ -69,10 +82,18 @@ def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
 
 def _to_host(leaf) -> np.ndarray:
     """A host copy of ``leaf``, taken now: the caller may update the
-    tensor in place while a background thread writes the copy."""
+    tensor in place while a background thread writes the copy.  A
+    DTensor is gathered whole first."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
+
+
+def _ranks() -> int:
+    """Ranks of the default process group (1 without one)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def _from_host(arr: np.ndarray, like, device):
@@ -98,7 +119,10 @@ class Checkpointer:
     def save(self, step: int, state, *, blocking: bool = True) -> str:
         """Copy the state to host memory now, then write it to disk, on a
         background thread unless ``blocking`` (training goes on while the
-        file is written)."""
+        file is written).  On several ranks every rank must call it:
+        DTensors are gathered, rank 0 writes before it returns, and a
+        barrier commits the checkpoint for every rank (a collective no
+        background thread may issue beside the step's)."""
         host = {k: _to_host(v) for k, v in flatten(state).items()}
         path = os.path.join(self.dir, f"step_{step:09d}")
 
@@ -122,7 +146,12 @@ class Checkpointer:
             os.rename(tmp, path)
             self._gc()
 
-        if blocking:
+        if _ranks() > 1:
+            self.wait()
+            if dist.get_rank() == 0:
+                write()
+            dist.barrier()
+        elif blocking:
             write()
         else:
             self.wait()
@@ -156,9 +185,14 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, like_state, *, step: Optional[int] = None,
-                device=None, verify: bool = True) -> Tuple[Any, int]:
+                device=None, shardings=None,
+                verify: bool = True) -> Tuple[Any, int]:
         """Restore into the tree of ``like_state`` (its leaves say only
         what type each comes back as); returns (state, step).
+
+        ``shardings``: a tree like ``like_state``'s of ``NamedSharding``
+        (or None) leaves: each tensor leaf is laid out onto its mesh and
+        placements, the elastic reshard onto the current mesh.
 
         Raises ValueError on a checksum mismatch (a corrupt shard) and
         KeyError on a leaf the checkpoint lacks, so the caller can fall
@@ -178,14 +212,20 @@ class Checkpointer:
                             f"checksum mismatch at {k} (step {step})")
             restored = {k: _from_host(data[k], like, device)
                         for k, like in flatten(like_state).items()}
+        if shardings is not None:
+            where = dict(_leaves_with_path(
+                shardings, leaf=lambda x: isinstance(x, NamedSharding)))
+            restored = {k: place(v, where.get(k))
+                        for k, v in restored.items()}
         return _fill(like_state, restored), step
 
-    def restore_latest_good(self, like_state, *, device=None):
+    def restore_latest_good(self, like_state, *, device=None,
+                            shardings=None):
         """Walk back through checkpoints until one passes verification."""
         for step in reversed(self.available_steps()):
             try:
                 return self.restore(like_state, step=step, device=device,
-                                    verify=True)
+                                    shardings=shardings, verify=True)
             except (ValueError, KeyError, OSError):
                 continue
         raise FileNotFoundError("no restorable checkpoint")

@@ -4,7 +4,8 @@ A copy of the JAX package's ``ModelConfig`` (with ``param_count``, the
 estimate model-FLOPs figures use, not the count of the spec tree) and of
 the run configs
 (``ShapeConfig``, ``HornConfig``, ``TopologyConfig``, ``RunConfig``) with
-the same field names and defaults, so a test builds the same config on
+the same field names and defaults, the assigned shape cells (``SHAPES``,
+which the sharding rules' shape-aware fallbacks read), so a test builds the same config on
 both sides, its layer kinds,
 ``register``/``get_model_config`` and ``reduced``.  The registry covers the
 archs the port runs so far: qwen3-1.7b, qwen1.5-4b, gemma2-27b, gemma3-4b,
@@ -167,6 +168,14 @@ class ShapeConfig:
     kind: str                        # train | prefill | decode
     seq_len: int
     global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
 
 
 @dataclass(frozen=True)

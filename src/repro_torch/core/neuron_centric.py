@@ -20,8 +20,8 @@ names.  ``apply`` takes one network, ``x [B, units]``, or G of them at
 once: parameters stacked ``[G, ...]`` and ``x [G, b, units]``, each layer
 one ``torch.baddbmm`` over the groups, with one mask row per group.
 ``from_jax_params``/``to_jax_params`` carry weights between the packages.
-The logical sharding axes (``axes()``) wait for scale-out (ROADMAP slice
-5, item 19).
+``axes()`` gives the logical sharding axes of each parameter, as the JAX
+``NeuronNetwork.axes()`` does.
 """
 from __future__ import annotations
 
@@ -67,11 +67,12 @@ class LayerSpec:
 
 @dataclass(frozen=True)
 class ParamSpec:
-    """Shape and initializer of one parameter (the JAX package's
-    ``ParamSpec`` without the sharding axes)."""
+    """Shape, initializer and logical sharding axes of one parameter (the
+    JAX package's ``ParamSpec``)."""
     shape: Tuple[int, ...]
     init: str = "normal"              # normal | zeros
     scale: float = 1.0
+    axes: Tuple[Optional[str], ...] = ()
 
 
 @dataclass
@@ -95,10 +96,16 @@ class NeuronNetwork:
         specs = {}
         prev = self.input_units
         for i, l in enumerate(self.layers):
-            specs[f"w{i}"] = ParamSpec((prev, l.units), "normal", 2.0)
-            specs[f"b{i}"] = ParamSpec((l.units,), "zeros")
+            specs[f"w{i}"] = ParamSpec((prev, l.units), "normal", 2.0,
+                                       ("embed", "ffn"))
+            specs[f"b{i}"] = ParamSpec((l.units,), "zeros", axes=("ffn",))
             prev = l.units
         return specs
+
+    def axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """{name: logical axes}: the partition plan ``launch/mesh.py``'s
+        rules map onto a mesh (units over "ffn")."""
+        return {name: s.axes for name, s in self.specs().items()}
 
     def init(self, generator: torch.Generator, device="cuda") -> Params:
         """f32 parameters on ``device``: weights normal with std

@@ -37,6 +37,9 @@ class HornState:
     cfg: HornConfig
     num_groups: int           # resolved group count (>= 1)
     device: torch.device
+    # (first row, global batch) of a data-parallel rank's rows; None: the
+    # rows a layer sees are the whole batch
+    rows: Optional[Tuple[int, int]] = None
 
     def uniform(self, layer_idx: int, salt: int,
                 shape: Tuple[int, ...]) -> torch.Tensor:
@@ -51,16 +54,21 @@ class HornState:
                           dtype=f32)
 
 
-def make_horn_state(seed: int, cfg: HornConfig, step: int,
-                    device) -> Optional[HornState]:
-    """The step's dropout context, or None with Horn off.  The port trains
-    on one card, one data-parallel shard, so ``num_groups=0`` means one
-    group."""
+def make_horn_state(seed: int, cfg: HornConfig, step: int, device, *,
+                    dp_size: int = 1,
+                    rows: Optional[Tuple[int, int]] = None
+                    ) -> Optional[HornState]:
+    """The step's dropout context, or None with Horn off.
+    ``num_groups=0`` means one group per data-parallel shard
+    (``dp_size``), as in the JAX package.  ``rows``: (first row, global
+    batch) when the layers see one data-parallel rank's rows of a global
+    batch, so each row keeps its group by its global index."""
     if not cfg.enabled:
         return None
-    groups = cfg.num_groups or 1
+    groups = cfg.num_groups or max(1, dp_size)
     return HornState(seed=int(seed), step=int(step), cfg=cfg,
-                     num_groups=groups, device=torch.device(device))
+                     num_groups=groups, device=torch.device(device),
+                     rows=rows)
 
 
 def group_block_mask(u: torch.Tensor, keep: float) -> torch.Tensor:
@@ -113,7 +121,11 @@ def unit_mask(state: Optional[HornState], layer_idx: int, batch: int,
     bs = state.cfg.block_size if block_size is None else block_size
     nb = max(1, units // max(1, bs))
     u = state.uniform(layer_idx, salt, (state.num_groups, nb))
-    return expand_mask(group_block_mask(u, keep), units, batch)
+    mask = group_block_mask(u, keep)
+    if state.rows is None:
+        return expand_mask(mask, units, batch)
+    start, total = state.rows        # rows map to groups by global index
+    return expand_mask(mask, units, total)[start:start + batch]
 
 
 def input_mask(state: Optional[HornState], batch: int, units: int):

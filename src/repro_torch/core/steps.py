@@ -4,7 +4,10 @@ of circuits, with the speculative verify window), the draft step of
 speculative decoding and the device-side KV page copy.
 
 PyTorch runs eagerly, so a "step" is a plain function; nothing is traced
-or compiled per shape.  Serving casts the parameters to the compute dtype
+or compiled per shape.  The train step also runs on a ``DeviceMesh``
+(``make_train_step(mesh=)``): the state as DTensors laid out by
+``state_shardings`` (the logical axes of ``launch/mesh.py``), each rank on
+its rows of the global batch, gradients averaged over the data ranks.  Serving casts the parameters to the compute dtype
 once, when the engine is built (``models/params.py::cast_params``); the
 prefill and decode steps cast on every call, which costs nothing when the
 caller passes compute-dtype parameters; the train step refreshes a compute-dtype copy from the f32 masters every step
@@ -13,23 +16,34 @@ and differentiates that copy, as the JAX step differentiates
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import prng
+from repro_torch.core.group_sync import psum_mean
 from repro_torch.core.parallel_dropout import make_horn_state
+from repro_torch.launch.mesh import (NamedSharding, ShardingCtx, local_range,
+                                     local_shard, sharding_rules,
+                                     tree_shardings)
 from repro_torch.models import api
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import dtype_of
-from repro_torch.models.params import (cast_params, copy_into, init_params,
-                                       load_jax_flat, to_jax_flat)
+from repro_torch.models.params import (cast_params, copy_into, empty_params,
+                                       init_params, layer_axes, load_jax_flat,
+                                       to_jax_flat)
 from repro_torch.optim.sgd import clip_by_global_norm, make_optimizer
 
 f32 = torch.float32
+
+
+def make_ctx(model_cfg: ModelConfig, mesh, shape=None) -> ShardingCtx:
+    return ShardingCtx(mesh=mesh,
+                       rules=sharding_rules(model_cfg, mesh, shape))
 
 
 # ---------------------------------------------------------------------------
@@ -46,6 +60,45 @@ def init_state(run: RunConfig, device="cuda") -> Dict:
             "step": 0, "rng": run.seed}
 
 
+def state_axes(run: RunConfig) -> Dict:
+    """The logical axes of the train state, in its own tree: "params"
+    {parameter name: axes} (each layer's ``AXES``), the optimizer moments
+    a list in parameter order mirroring them (ZeRO-style: the "parameter
+    server" state lives wherever its parameter's shard lives), AdamW's
+    "t", "step" and "rng" replicated."""
+    paxes = layer_axes(empty_params(run.model, "meta"))
+    moment = list(paxes.values())
+    opt = ({"mom": moment} if run.optimizer == "sgdm"
+           else {"m": moment, "v": moment, "t": ()})
+    return {"params": paxes, "opt": opt, "step": (), "rng": (None,)}
+
+
+def state_shardings(run: RunConfig, mesh) -> Dict:
+    """``state_axes`` laid onto ``mesh`` (``NamedSharding`` leaves; None
+    off-mesh)."""
+    return tree_shardings(state_axes(run), make_ctx(run.model, mesh,
+                                                    run.shape))
+
+
+def batch_axes(run: RunConfig) -> Dict[str, Tuple]:
+    cfg = run.model
+    ax: Dict[str, Tuple] = {"tokens": ("batch", "seq"),
+                            "labels": ("batch", "seq")}
+    if cfg.is_encoder_decoder:
+        ax["frames"] = ("batch", None, None)
+    if cfg.num_patches:
+        ax["patch_embeds"] = ("batch", None, None)
+    return ax
+
+
+def batch_shardings(run: RunConfig, mesh) -> Dict:
+    ctx = make_ctx(run.model, mesh, run.shape)
+    ax = batch_axes(run)
+    if run.shape.kind != "train":
+        ax.pop("labels", None)
+    return {k: ctx.sharding(*v) for k, v in ax.items()}
+
+
 def state_to_jax_flat(state: Dict, run: RunConfig) -> Dict[str, np.ndarray]:
     """The train state in the JAX package's checkpoint layout, {keystr:
     numpy array}: ``['params']...`` as ``to_jax_flat`` lays out the model
@@ -53,7 +106,8 @@ def state_to_jax_flat(state: Dict, run: RunConfig) -> Dict[str, np.ndarray]:
     optimizer moment under its parameter's path (``['opt']['mom']...``, or
     ``['opt']['m'|'v']...`` and ``['opt']['t']`` int32), ``['step']``
     int32 and ``['rng']`` the uint32 key data of ``jax.random.key(seed)``,
-    ``[0, seed]``."""
+    ``[0, seed]``.  A DTensor state is gathered whole (every rank of its
+    mesh must call this)."""
     cfg, params = run.model, state["params"]
     names = [n for n, _ in params.named_parameters()]
     flat = {"['params']" + k: v for k, v in to_jax_flat(params, cfg).items()}
@@ -92,7 +146,7 @@ def state_from_jax_flat(flat, run: RunConfig, device="cuda") -> Dict:
             "rng": (hi << 32) | lo}
 
 
-def make_train_step(run: RunConfig, device="cuda"):
+def make_train_step(run: RunConfig, device="cuda", mesh=None):
     """step(state, batch) -> (new state, metrics).
 
     ``batch`` holds "tokens" and "labels" [B, S] (numpy or tensors), and
@@ -116,11 +170,38 @@ def make_train_step(run: RunConfig, device="cuda"):
     remains.  A finite step gives the bits it gave before this rule.
     ``state["rng"]`` stays.  Metrics are 0-dim device tensors: "loss",
     "xent", the MoE aux ("load_balance_loss", "router_z_loss",
-    "dropped_frac": zeros for a dense model) and "grad_norm"."""
+    "dropped_frac": zeros for a dense model) and "grad_norm".
+
+    ``mesh`` (a ``DeviceMesh`` on ``device``'s type, the ranks of this
+    step's job): the parameters and moments are DTensors, as
+    ``state_shardings`` lays them out (FSDP on "embed" over data, the wide
+    dims over model; ``runtime/elastic.py::remesh_state`` puts a state
+    there).  Every rank passes the same global batch and computes on its
+    rows of it, by the "batch" rule over data (and pod), on plain local
+    tensors: the parameters gathered whole in the compute dtype.  Ranks
+    along "model" compute the same rows (the function of JAX's GSPMD step,
+    not its tensor-parallel compute).  Gradients are averaged over the
+    data ranks (``group_sync.psum_mean``, written back in their dtype),
+    clipped, and each rank updates its own shard of the masters and
+    moments.  Loss and grad norm are the global ones: every rank holds
+    the same token count, so the mean of the ranks' losses is the batch's.
+    A Horn row keeps its group by its global index; ``num_groups=0``
+    means one group a data shard, as in JAX.  An MoE config is refused on
+    more than one data rank: its router losses are not means over rows."""
     cfg = run.model
     dev = resolve_device(device)
     _, opt_update = make_optimizer(run.optimizer)
     cdtype = dtype_of(run.compute_dtype)
+    ctx = None
+    if mesh is not None:
+        ctx = make_ctx(cfg, mesh, run.shape)
+        if mesh.device_type != dev.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a step on "
+                             f"{dev}")
+        if cfg.num_experts and ctx.dp_size > 1:
+            raise NotImplementedError(
+                "MoE router losses over a batch split across data ranks "
+                "(ROADMAP item 32)")
     held = {}                       # the masters and their compute copy
 
     def grads_of(cparams, batch, horn):
@@ -131,49 +212,107 @@ def make_train_step(run: RunConfig, device="cuda"):
                                     materialize_grads=True)
         return loss, metrics, list(grads)
 
-    def train_step(state, batch):
-        params = state["params"]
-        if held.get("params") is not params:
-            held.update(params=params, cparams=cast_params(params, cdtype))
-            for p in held["cparams"].parameters():
-                p.requires_grad_(True)
-        cparams = copy_into(held["cparams"], params)
-        batch = {k: torch.as_tensor(batch[k], device=dev)
-                 for k in ("tokens", "labels", "patch_embeds", "frames")
-                 if k in batch}
-        horn = make_horn_state(state["rng"], run.horn, state["step"], dev)
+    def loss_and_grads(cparams, batch, horn):
         M = max(1, run.microbatches)
         if M == 1:
             _, metrics, grads = grads_of(cparams, batch, horn)
-        else:
-            per = batch["tokens"].shape[0] // M
-            grads, parts = None, []
-            for i in range(M):
-                mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-                _, m, g = grads_of(cparams, mb, horn)
-                if grads is None:
-                    grads = [gi.to(f32) for gi in g]
-                else:
-                    for a, gi in zip(grads, g):
-                        a.add_(gi)
-                parts.append(m)
-            for a in grads:
-                a.div_(M)
-            metrics = {k: torch.stack([m[k] for m in parts]).mean()
-                       for k in parts[0]}
-        grads, gnorm = clip_by_global_norm(grads, 1.0)
+            return metrics, grads
+        per = batch["tokens"].shape[0] // M
+        grads, parts = None, []
+        for i in range(M):
+            mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+            _, m, g = grads_of(cparams, mb, horn)
+            if grads is None:
+                grads = [gi.to(f32) for gi in g]
+            else:
+                for a, gi in zip(grads, g):
+                    a.add_(gi)
+            parts.append(m)
+        for a in grads:
+            a.div_(M)
+        return ({k: torch.stack([m[k] for m in parts]).mean()
+                 for k in parts[0]}, grads)
+
+    def compute_copy(params):
+        if held.get("params") is not params:
+            held.update(params=params, cparams=(
+                cast_params(params, cdtype) if mesh is None
+                else empty_params(cfg, dev, cdtype)))
+            for p in held["cparams"].parameters():
+                p.requires_grad_(True)
+        if mesh is None:
+            return copy_into(held["cparams"], params)
+        with torch.no_grad():           # cast locally, gather in cdtype
+            for c, p in zip(held["cparams"].parameters(),
+                            params.parameters()):
+                if isinstance(p, DTensor):
+                    p = DTensor.from_local(
+                        p.to_local().to(cdtype), p.device_mesh,
+                        p.placements, run_check=False).full_tensor()
+                c.copy_(p)
+        return held["cparams"]
+
+    def rank_rows(batch):
+        """(this rank's rows, (first row, global batch) or None)."""
+        if mesh is None:
+            return batch, None
+        B = batch["tokens"].shape[0]
+        # equal rows a rank (local_range raises on an uneven split): the
+        # mean of the ranks' losses is then the batch's
+        lo, hi = local_range(B, mesh, ctx.placements("batch"), 0)
+        return {k: v[lo:hi] for k, v in batch.items()}, (lo, B)
+
+    def merge(metrics, grads):
+        """Means over the data ranks, each gradient's written back into it
+        (its dtype and its strides: a reduction over it then runs in the
+        order it runs off-mesh)."""
+        if mesh is None:
+            return metrics, grads
+        groups = ctx.dp_groups
+        merged = psum_mean(dict(enumerate(grads)), groups)
+        with torch.no_grad():
+            for i, g in enumerate(grads):
+                g.copy_(merged[i])
+        return psum_mean(metrics, groups), grads
+
+    def local(x):
+        return x.to_local() if isinstance(x, DTensor) else x
+
+    def train_step(state, batch):
+        params = state["params"]
+        cparams = compute_copy(params)
+        batch = {k: torch.as_tensor(batch[k], device=dev)
+                 for k in ("tokens", "labels", "patch_embeds", "frames")
+                 if k in batch}
+        batch, rows = rank_rows(batch)
+        kw = {} if mesh is None else dict(dp_size=ctx.dp_size, rows=rows)
+        horn = make_horn_state(state["rng"], run.horn, state["step"], dev,
+                               **kw)
+        metrics, grads = loss_and_grads(cparams, batch, horn)
         metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics, grads = merge(metrics, grads)
+        grads, gnorm = clip_by_global_norm(grads, 1.0)
         metrics["grad_norm"] = gnorm
         finite = torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm)
         masters = list(params.parameters())
         opt = dict(state["opt"])
+        with torch.no_grad():           # each rank's own shards
+            grads = [local_shard(g, NamedSharding(p.device_mesh,
+                                                  p.placements))
+                     if isinstance(p, DTensor) else g
+                     for g, p in zip(grads, masters)]
+            lopt = {k: ([local(x) for x in v] if isinstance(v, list) else v)
+                    for k, v in opt.items()}
+            lmasters = [local(p) for p in masters]
         if run.optimizer == "sgdm":
-            opt_update(grads, opt, masters, lr=run.learning_rate,
+            opt_update(grads, lopt, lmasters, lr=run.learning_rate,
                        momentum=run.momentum,
                        weight_decay=run.weight_decay, apply=finite)
         else:
-            opt_update(grads, opt, masters, lr=run.learning_rate,
+            opt_update(grads, lopt, lmasters, lr=run.learning_rate,
                        weight_decay=run.weight_decay, apply=finite)
+        opt.update((k, v) for k, v in lopt.items()
+                   if not isinstance(v, list))
         return dict(state, opt=opt, step=state["step"] + 1), metrics
 
     return train_step

@@ -4,8 +4,9 @@ A copy of the JAX package's ``TokenPipelineConfig``,
 ``SyntheticTokenPipeline`` and ``MnistBatcher``: a batch is a pure
 function of (seed, step), so a resumed run replays exactly the batches it
 would have consumed, and the two packages hand their trainers
-byte-identical batches.  The port trains
-on one host, so the JAX package's per-host slicing is left for scale-out.
+byte-identical batches.  On a mesh every rank builds the global batch
+and the train step takes its own rows (``core/steps.py``), so the JAX
+package's per-host slicing (``host_slice``) has no counterpart.
 """
 from __future__ import annotations
 

@@ -2,20 +2,37 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --full-config --steps 4 --batch 8 --seq 1024 --horn-groups 4 \\
+        [--topology allreduce|zero1|local_sgd] [--mesh-data 1 --mesh-model 1] \\
         [--checkpoint-dir ckpt/ --checkpoint-every 50]
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch qwen3-1.7b --device cpu --mesh-data 2 --mesh-model 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch horn-mnist
 
-Mirrors ``repro/launch/train.py`` on one device: the train step of
-``core/steps.py`` (Horn parallel dropout, f32 masters, bf16 compute,
-AdamW or momentum SGD) over the deterministic synthetic token pipeline.
-Runs on the card by default; ``--device cpu`` runs the plain versions (use
-the reduced config there).  Each logged step prints loss, grad norm and
+Mirrors ``repro/launch/train.py``: the train step of ``core/steps.py``
+(Horn parallel dropout, f32 masters, bf16 compute, AdamW or momentum SGD)
+over the deterministic synthetic token pipeline.  Runs on the card by
+default; ``--device cpu`` runs the plain versions (use the reduced config
+there).  The run's first line describes ``--topology`` (validated; the LM
+step does not read it, as the JAX step does not), the second is the JAX
+launcher's ``mesh: {...}  arch: ...  params: ...`` (``params`` the
+config's ``param_count``).  Each logged step prints loss, grad norm and
 tokens per second; the run ends with the first and last loss and each
 kernel's launch count.  With ``--checkpoint-dir`` the steps run in
 ``runtime/fault_tolerance.py``'s loop: the run resumes from the newest
-checkpoint there, saves every ``--checkpoint-every`` steps and at the end,
-in the JAX package's layout (``TrainStateCheckpointer``), and stops at
-step ``--steps``.
+checkpoint there (laid out onto this run's mesh: an elastic restart),
+saves every ``--checkpoint-every`` steps and at the end, in the JAX
+package's layout (``TrainStateCheckpointer``), and stops at step
+``--steps``.
+
+Several ranks: under ``torchrun`` every rank joins the job's process group
+(NCCL on cards, one card a rank; gloo with ``--device cpu``) and the step
+runs on ``make_test_mesh(--mesh-data, --mesh-model)``, clamped to the
+ranks there are, with the state laid out by the sharding rules
+(``core/steps.py::make_train_step(mesh=)``); rank 0 prints.  A process
+that already belongs to a process group does the same on it.  One process
+without a group is the 1 x 1 mesh, and runs the mesh-free step, which
+computes the same bits.  When NCCL cannot start on a card the run fails:
+it never switches to gloo or the CPU by itself.
 
 ``--arch horn-mnist`` runs the paper's MNIST experiment through the
 collective trainer instead, with the JAX launcher's arithmetic (20 groups
@@ -31,20 +48,21 @@ on zero f32 ``frames`` [batch, encoder_seq, d_model] beside ``--seq``
 decoder tokens, as the JAX launcher feeds it; an MoE arch adds its router
 losses to the loss and logs them with the dropped fraction each step.
 
-Not ported yet, and refused with the ROADMAP item that ports them: archs
-with Mamba layers (mamba2-2.7b, jamba-1.5-large-398b), ``--topology``
-other than allreduce and a mesh larger than 1 x 1.
+Not ported yet, and refused with the ROADMAP item that ports it:
+training archs with Mamba layers (mamba2-2.7b, jamba-1.5-large-398b).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import (MAMBA, HornConfig, RunConfig,
@@ -53,17 +71,18 @@ from repro_torch.configs.base import (MAMBA, HornConfig, RunConfig,
 from repro_torch.checkpoint.checkpointer import (Checkpointer, flatten,
                                                  unflatten)
 from repro_torch.core import steps as S
+from repro_torch.core import topology
 from repro_torch.core.collective_trainer import train_mnist
 from repro_torch.data.pipeline import (SyntheticTokenPipeline,
                                        TokenPipelineConfig)
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import kernel as flash
+from repro_torch.launch.mesh import ensure_process_group, make_test_mesh
 from repro_torch.models.layers import MOE_AUX
+from repro_torch.runtime.elastic import remesh_state, reshard
 from repro_torch.runtime.fault_tolerance import fault_tolerant_loop
 
 NOT_PORTED = {
-    "topology": "ROADMAP slice 5, item 10: group topologies",
-    "mesh": "ROADMAP slice 5: scale-out",
     "mamba": "ROADMAP slice 4, item 18: training through SSM layers needs "
              "an SSD backward kernel; the ported ssd_chunk_scan is "
              "forward-only, for prefill",
@@ -98,36 +117,50 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def refuse_unported(args: argparse.Namespace) -> None:
     if MAMBA in get_model_config(args.arch).layer_pattern:
-        what = "mamba"
-    elif args.topology != "allreduce":
-        what = "topology"
-    elif args.mesh_data != 1 or args.mesh_model != 1:
-        what = "mesh"
-    else:
-        return
-    raise NotImplementedError(f"{what} is not ported yet ({NOT_PORTED[what]})")
+        raise NotImplementedError(
+            f"mamba is not ported yet ({NOT_PORTED['mamba']})")
 
 
 @dataclass
 class Session:
-    """What a training run holds: its config, device, state, step and
-    batches."""
+    """What a training run holds: its config, device, mesh (None: one
+    process, no group), state, step and batches."""
     args: argparse.Namespace
     run: RunConfig
     device: torch.device
+    mesh: object
     state: Dict
     step_fn: Callable
     batch_at: Callable[[int], Dict]
 
+    @property
+    def mesh_shape(self) -> Dict[str, int]:
+        """{"data": n, "model": m} of the mesh the run uses."""
+        if self.mesh is None:
+            return {"data": 1, "model": 1}
+        return dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))
+
+    @property
+    def rank(self) -> int:
+        return dist.get_rank() if self.mesh is not None else 0
+
 
 def setup(argv=None) -> Session:
-    """Parse ``argv``, refuse what is not ported, build the state (f32
-    masters from ``--seed``), the train step and the pipeline."""
+    """Parse ``argv``, refuse what is not ported, join the job's process
+    group when there is one (``torchrun``, or one this process belongs
+    to), build the mesh, the state (f32 masters from ``--seed``, laid out
+    on the mesh), the train step and the pipeline."""
     args = parse_args(argv)
     if args.arch == "horn-mnist":
         raise ValueError("horn-mnist is a classifier: main() trains it "
                          "through core/collective_trainer.py")
     refuse_unported(args)
+    topo = topology.validate(TopologyConfig(kind=args.topology))
+    dev = torch.device(args.device)
+    mesh = None
+    if dist.is_initialized() or "WORLD_SIZE" in os.environ:
+        ensure_process_group(dev.type)
+        mesh = make_test_mesh(args.mesh_data, args.mesh_model, dev.type)
     dev = resolve_device(args.device)
     cfg = get_model_config(args.arch)
     if not args.full_config:
@@ -136,9 +169,12 @@ def setup(argv=None) -> Session:
         model=cfg, shape=ShapeConfig("cli", "train", args.seq, args.batch),
         horn=HornConfig(enabled=not args.no_horn,
                         num_groups=args.horn_groups),
-        topology=TopologyConfig(kind=args.topology),
-        optimizer=args.optimizer, learning_rate=args.lr, seed=args.seed)
+        topology=topo, optimizer=args.optimizer, learning_rate=args.lr,
+        seed=args.seed)
     state = S.init_state(run, dev)
+    if mesh is not None:
+        state = remesh_state(state, S.state_axes(run),
+                             S.make_ctx(cfg, mesh, run.shape))
     pipe = SyntheticTokenPipeline(TokenPipelineConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
         global_batch=args.batch, seed=args.seed))
@@ -154,8 +190,8 @@ def setup(argv=None) -> Session:
                 (args.batch, cfg.num_patches, cfg.d_model), np.float32)
         return b
 
-    return Session(args, run, dev, state, S.make_train_step(run, dev),
-                   batch_at)
+    return Session(args, run, dev, mesh, state,
+                   S.make_train_step(run, dev, mesh=mesh), batch_at)
 
 
 def sync(device: torch.device) -> None:
@@ -215,22 +251,31 @@ class TrainStateCheckpointer(Checkpointer):
     """A ``Checkpointer`` of the LM train state in the JAX package's
     layout (``core/steps.py::state_to_jax_flat``): a checkpoint of either
     package restores in the other.  ``restore`` returns a train state of
-    ``run`` on ``device`` (by default the masters' own)."""
+    ``run`` on ``device`` (by default the masters' own), laid out on
+    ``shardings`` (``core/steps.py::state_shardings`` of the run's mesh,
+    by default the one given here; None: plain tensors).  A state on a
+    mesh is gathered whole to save it (every rank calls ``save``)."""
 
-    def __init__(self, directory: str, run: RunConfig, *, keep: int = 3):
+    def __init__(self, directory: str, run: RunConfig, *, keep: int = 3,
+                 shardings=None):
         super().__init__(directory, keep=keep)
         self.run = run
+        self.shardings = shardings
 
     def save(self, step: int, state, *, blocking: bool = True) -> str:
         return super().save(step,
                             unflatten(S.state_to_jax_flat(state, self.run)),
                             blocking=blocking)
 
-    def restore(self, like_state, *, step=None, device=None, verify=True):
+    def restore(self, like_state, *, step=None, device=None,
+                shardings=None, verify=True):
         like = unflatten(S.state_to_jax_flat(like_state, self.run))
         tree, at = super().restore(like, step=step, verify=verify)
         device = device or next(like_state["params"].parameters()).device
-        return S.state_from_jax_flat(flatten(tree), self.run, device), at
+        state = S.state_from_jax_flat(flatten(tree), self.run, device)
+        shardings = shardings or self.shardings
+        return (state if shardings is None
+                else reshard(state, shardings)), at
 
 
 def run_checkpointed(sess: Session,
@@ -240,7 +285,9 @@ def run_checkpointed(sess: Session,
     and train to step ``--steps`` in the fault-tolerant loop; returns one
     record a step taken."""
     a = sess.args
-    ck = TrainStateCheckpointer(a.checkpoint_dir, sess.run)
+    ck = TrainStateCheckpointer(a.checkpoint_dir, sess.run,
+                                shardings=S.state_shardings(sess.run,
+                                                            sess.mesh))
     if ck.latest_step() is not None:
         sess.state, at = ck.restore(sess.state, device=sess.device)
         if log:
@@ -274,20 +321,31 @@ def main(argv=None) -> Dict:
         return run_horn_mnist(args)
     sess = setup(argv)
     cfg = sess.run.model
+    say = print if sess.rank == 0 else None
     n_params = sum(p.numel() for p in sess.state["params"].parameters())
-    print(f"device: {sess.device}  arch: {cfg.name}  params: {n_params:,}  "
-          f"horn: {'off' if sess.args.no_horn else 'on'}  "
-          f"optimizer: {sess.run.optimizer}")
+    lines = [
+        f"topology: {args.topology}: {topology.describe(sess.run.topology)}",
+        f"mesh: {sess.mesh_shape}  arch: {cfg.name}  params: "
+        f"{cfg.param_count():,}",
+        f"device: {sess.device}  ranks: "
+        f"{dist.get_world_size() if sess.mesh is not None else 1}  "
+        f"parameters: {n_params:,}  horn: "
+        f"{'off' if sess.args.no_horn else 'on'}  optimizer: "
+        f"{sess.run.optimizer}"]
     build.reset_launches()
-    recs = (run_checkpointed(sess) if args.checkpoint_dir
-            else run_steps(sess, args.steps))
-    if recs:
+    if say:
+        say("\n".join(lines))
+    recs = (run_checkpointed(sess, log=say) if args.checkpoint_dir
+            else run_steps(sess, args.steps, log=say))
+    if recs and say:
         first, last = recs[0]["loss"], recs[-1]["loss"]
-        print(f"loss: first={first:.4f} last={last:.4f} "
-              f"({'improved' if last < first else 'NOT improved'})")
-    for name in (flash.FWD, flash.BWD):
-        print(f"{name} launches: {build.LAUNCHES[name]}")
-    return {"steps": recs, "launches": dict(build.LAUNCHES)}
+        say(f"loss: first={first:.4f} last={last:.4f} "
+            f"({'improved' if last < first else 'NOT improved'})")
+    if say:
+        for name in (flash.FWD, flash.BWD):
+            say(f"{name} launches: {build.LAUNCHES[name]}")
+    return {"steps": recs, "launches": dict(build.LAUNCHES),
+            "mesh": sess.mesh_shape}
 
 
 if __name__ == "__main__":

@@ -15,6 +15,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
+from repro_torch.models.params import param_axes
+
+
+def model_axes(cfg: ModelConfig):
+    """{JAX keystr: logical axes} of every parameter of ``cfg``'s model,
+    the layout the JAX spec tree declares (``params.param_axes``)."""
+    return param_axes(cfg)
 
 
 def _decoder(params, cfg: ModelConfig):

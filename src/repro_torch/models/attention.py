@@ -53,6 +53,14 @@ class Attention(nn.Module):
     optional ``bq``/``bk``/``bv`` and ``q_norm``/``k_norm`` (never on a
     ``cross`` attention)."""
 
+    AXES = {"wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "kv_head_dim"),
+            "wv": ("embed", "kv_heads", "kv_head_dim"),
+            "wo": ("heads", "head_dim", "embed"),
+            "bq": ("heads", "head_dim"),
+            "bk": ("kv_heads", "kv_head_dim"),
+            "bv": ("kv_heads", "kv_head_dim")}
+
     def __init__(self, cfg: ModelConfig, make, *, cross: bool = False):
         super().__init__()
         d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,

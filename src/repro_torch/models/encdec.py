@@ -35,6 +35,8 @@ class Encoder(nn.Module):
     """``pos_embed`` [encoder_seq, d], ``layers`` (one attention ``Block``
     per encoder layer), ``final_norm``."""
 
+    AXES = {"pos_embed": ("noshard", "embed")}
+
     def __init__(self, cfg: ModelConfig, make):
         super().__init__()
         ecfg = encoder_cfg(cfg)

@@ -6,7 +6,10 @@ package's names and shapes (``scale``, ``wi``/``wg``/``wo``, ``router``,
 ``embedding``); the math is plain functions ``<name>_apply(params, x, cfg)``
 as in ``repro.models.layers``.  Each container is built from a ``make``
 callable, ``make(shape, init) -> nn.Parameter``, so one declaration serves
-both random init and the weight bridge (``models/params.py``).
+both random init and the weight bridge (``models/params.py``).  Each
+container's ``AXES`` names the logical sharding axes of its leaves, the
+ones the JAX ``ParamSpec``s declare (``launch/mesh.py`` maps them to mesh
+dims; ``params.param_axes`` collects them).
 
 Dtypes follow the JAX package: where jnp promotes a bf16 activation times
 an f32 weight to f32, ``mm`` casts both to the promoted type explicitly
@@ -52,6 +55,8 @@ def mm(eq: str, a, b, out_dtype=None):
 class Norm(nn.Module):
     """RMSNorm weight ``scale`` (applied as ``1 + scale``, zeros at init) or
     LayerNorm ``scale``/``bias``."""
+
+    AXES = {"scale": ("noshard",), "bias": ("noshard",)}
 
     def __init__(self, cfg: ModelConfig, dim: int, make):
         super().__init__()
@@ -99,6 +104,9 @@ def apply_rope(x, positions, theta: float):
 # Gated MLP (SwiGLU / GeGLU): dense path and Horn's block-sparse path
 # ---------------------------------------------------------------------------
 class MLP(nn.Module):
+    AXES = {"wi": ("embed", "ffn"), "wo": ("ffn", "embed"),
+            "wg": ("embed", "ffn")}
+
     def __init__(self, cfg: ModelConfig, make):
         super().__init__()
         d, ff = cfg.d_model, cfg.d_ff
@@ -178,6 +186,11 @@ MOE_AUX = ("load_balance_loss", "router_z_loss", "dropped_frac")
 class MoE(nn.Module):
     """``router`` [d, E] and the experts' ``wi``/``wg``/``wo`` [E, d, ff]
     / [E, ff, d] (``wg`` when the MLP is gated)."""
+
+    AXES = {"router": ("embed", "experts"),
+            "wi": ("experts", "embed", "moe_ffn"),
+            "wo": ("experts", "moe_ffn", "embed"),
+            "wg": ("experts", "embed", "moe_ffn")}
 
     def __init__(self, cfg: ModelConfig, make):
         super().__init__()
@@ -330,6 +343,8 @@ def moe_apply(params, x, cfg: ModelConfig, *, hidden_mask=None,
 # Embedding
 # ---------------------------------------------------------------------------
 class Embed(nn.Module):
+    AXES = {"embedding": ("vocab", "embed"), "unembed": ("embed", "vocab")}
+
     def __init__(self, cfg: ModelConfig, make):
         super().__init__()
         self.embedding = make((cfg.vocab_size, cfg.d_model))

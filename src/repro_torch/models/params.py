@@ -37,6 +37,7 @@ from typing import Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -79,6 +80,14 @@ def init_params(cfg: ModelConfig, generator, *, device="cuda",
                            dtype=torch.float32).mul_(std).to(dtype)
 
     return model_class(cfg)(cfg, _maker(fill, dev, dtype))
+
+
+def empty_params(cfg: ModelConfig, device, dtype=torch.float32) -> Model:
+    """``model_class(cfg)`` with uninitialized parameters on ``device``
+    (``"meta"``: shapes only)."""
+    return model_class(cfg)(cfg, _maker(
+        lambda shape, init, scale, device, dtype: torch.empty(
+            shape, device=device, dtype=dtype), torch.device(device), dtype))
 
 
 _KEY = re.compile(r"\['([^'\]]*)'\]")
@@ -133,9 +142,7 @@ def load_jax_flat(flat: Union[Mapping[str, np.ndarray], str, os.PathLike],
         with np.load(flat) as npz:
             flat = {k: npz[k] for k in npz.files}
     if into is None:
-        model = model_class(cfg)(cfg, _maker(
-            lambda shape, init, scale, device, dtype: torch.empty(
-                shape, device=device, dtype=dtype), dev, dtype))
+        model = empty_params(cfg, dev, dtype)
         want: Mapping[str, torch.Tensor] = dict(model.named_parameters())
     else:
         model = want = into
@@ -166,6 +173,30 @@ def load_jax_flat(flat: Union[Mapping[str, np.ndarray], str, os.PathLike],
     return model
 
 
+def _jax_key(name: str, cfg: ModelConfig
+             ) -> Tuple[str, Optional[int], int]:
+    """A torch parameter name -> (its JAX keystr, its superblock index r
+    when it is one of the ``[R, ...]`` stacked leaves, else None, and the
+    R of its stack)."""
+    for prefix, jkey, scfg in _stacks(cfg):
+        if name.startswith(prefix):
+            break
+    else:
+        raise KeyError(f"{name}: not a parameter of a {cfg.name} model")
+    P, R = len(scfg.layer_pattern), scfg.pattern_repeats
+    parts = name[len(prefix):].split(".")
+    head = [] if jkey is None else [jkey]
+    r = None
+    if parts[0] == "layers":
+        idx, rest = int(parts[1]), parts[2:]
+        if idx < R * P:
+            r, i = divmod(idx, P)
+            parts = ["blocks", f"l{i}", *rest]
+        else:
+            parts = ["rem", f"r{idx - R * P}", *rest]
+    return "".join(f"['{s}']" for s in [*head, *parts]), r, R
+
+
 def to_jax_flat(model: Union[Model, Mapping[str, torch.Tensor]],
                 cfg: ModelConfig) -> Dict[str, np.ndarray]:
     """The JAX package's flat ``{keystr: array}`` layout of ``model``: the
@@ -174,35 +205,48 @@ def to_jax_flat(model: Union[Model, Mapping[str, torch.Tensor]],
     under ``['encoder']`` / ``['decoder']`` for an encoder-decoder; bf16
     leaves come out as f32 arrays.  ``model`` may also be a mapping of the
     model's parameter names to tensors (an optimizer moment a parameter),
-    laid out by the same paths."""
+    laid out by the same paths.  A DTensor leaf is gathered whole first
+    (``full_tensor``: every rank of its mesh must call this)."""
     stacks: Dict[str, list] = {}
     flat: Dict[str, np.ndarray] = {}
     named = (model.named_parameters() if isinstance(model, nn.Module)
              else model.items())
     for name, p in named:
-        t = p.detach().cpu()
+        t = p.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        t = t.cpu()
         arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-        for prefix, jkey, scfg in _stacks(cfg):
-            if name.startswith(prefix):
-                break
+        key, r, R = _jax_key(name, cfg)
+        if r is None:
+            flat[key] = arr
         else:
-            raise KeyError(f"{name}: not a parameter of a {cfg.name} model")
-        P, R = len(scfg.layer_pattern), scfg.pattern_repeats
-        parts = name[len(prefix):].split(".")
-        head = [] if jkey is None else [jkey]
-        if parts[0] == "layers":
-            idx, rest = int(parts[1]), parts[2:]
-            if idx < R * P:
-                r, i = divmod(idx, P)
-                key = "".join(f"['{s}']" for s in
-                              [*head, "blocks", f"l{i}", *rest])
-                stacks.setdefault(key, [None] * R)[r] = arr
-                continue
-            parts = ["rem", f"r{idx - R * P}", *rest]
-        flat["".join(f"['{s}']" for s in [*head, *parts])] = arr
+            stacks.setdefault(key, [None] * R)[r] = arr
     for key, leaves in stacks.items():
         flat[key] = np.stack(leaves)
     return flat
+
+
+def layer_axes(model: nn.Module) -> Dict[str, Tuple]:
+    """{parameter name: its logical axes}, from the ``AXES`` of the module
+    that owns each parameter (``models/layers.py``)."""
+    out = {}
+    for name, _ in model.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        out[name] = type(model.get_submodule(owner)).AXES[leaf]
+    return out
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """{JAX keystr: logical axes}: the axes JAX's spec tree declares for
+    every leaf of ``cfg``'s model (``repro/models/params.py::param_axes``
+    flattened by keystr), stacked leaves with their leading "layers".  The
+    model is built on the meta device: no memory at any width."""
+    out = {}
+    for name, axes in layer_axes(empty_params(cfg, "meta")).items():
+        key, r, _ = _jax_key(name, cfg)
+        out[key] = axes if r is None else ("layers",) + axes
+    return out
 
 
 def load_jax_cache(tree: Mapping, cfg: ModelConfig, *, device="cuda"

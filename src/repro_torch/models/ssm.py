@@ -44,6 +44,14 @@ class Mamba(nn.Module):
     ``conv_x_bias``), ``conv_B``/``conv_C`` [W, N]; ``gnorm`` [d_in]; the
     out-projection ``wo`` [d_in, d]."""
 
+    AXES = {"wz": ("embed", "ssm_inner"), "wx": ("embed", "ssm_inner"),
+            "wB": ("embed", "ssm_state"), "wC": ("embed", "ssm_state"),
+            "wdt": ("embed", "ssm_heads"), "dt_bias": ("ssm_heads",),
+            "A_log": ("ssm_heads",), "D": ("ssm_heads",),
+            "conv_x": ("conv", "ssm_inner"), "conv_x_bias": ("ssm_inner",),
+            "conv_B": ("conv", "ssm_state"), "conv_C": ("conv", "ssm_state"),
+            "gnorm": ("ssm_inner",), "wo": ("ssm_inner", "embed")}
+
     def __init__(self, cfg: ModelConfig, make):
         super().__init__()
         d = cfg.d_model

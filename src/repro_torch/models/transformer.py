@@ -85,6 +85,8 @@ class LM(nn.Module):
     cross-attention sublayer when ``cross``), ``final_norm``, and
     ``pos_embed`` [max_pos, d] with learned positions."""
 
+    AXES = {"pos_embed": ("noshard", "embed")}
+
     def __init__(self, cfg: ModelConfig, make, *, cross: bool = False):
         super().__init__()
         self.embed = L.Embed(cfg, make)

@@ -7,8 +7,8 @@ The paged KV pools use the per-axis variant: int8 pages [P, psize, KH, D]
 with one f32 scale per (page, kv head).  The collective trainer's int8
 merge compresses each group's gradients with one scale per group and leaf
 (``ef_compress_tree(..., groups=True)``, the port of JAX's
-``jax.vmap(ef_compress_tree)``).  ``psum_mean_compressed`` waits for the
-group topologies (ROADMAP slice 5, item 10).
+``jax.vmap(ef_compress_tree)``).  ``psum_mean_compressed`` is the merge
+of such gradients across processes (``core/group_sync.py::merge_grads``).
 """
 from __future__ import annotations
 
@@ -77,3 +77,20 @@ def ef_compress_tree(grads: Dict[str, torch.Tensor],
                           tuple(range(1, g.ndim)) if groups else None)
            for k, g in grads.items()}
     return tuple({k: t[i] for k, t in out.items()} for i in range(3))
+
+
+def psum_mean_compressed(q_tree: Dict[str, torch.Tensor],
+                         scale_tree: Dict[str, torch.Tensor], group
+                         ) -> Dict[str, torch.Tensor]:
+    """The mean over the ranks of ``group`` (a process group, a tuple of
+    them or None, as ``group_sync.psum_mean`` takes it) of each rank's
+    dequantized gradients: ``q.to(f32) * scale`` all-reduced and divided
+    by the rank count, JAX's arithmetic.  Scales differ from rank to rank,
+    so the sum runs over the widened f32 values, as the JAX function's
+    does: the wire carries f32, and no claim is made about int8 bytes on
+    it."""
+    from repro_torch.core.group_sync import all_reduce_sum, group_size
+
+    n = float(group_size(group))
+    return {k: all_reduce_sum(q.to(f32) * scale_tree[k], group) / n
+            for k, q in q_tree.items()}

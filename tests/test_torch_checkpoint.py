@@ -2,7 +2,7 @@
 cross between the packages.
 
 The first tests are ports of ``tests/test_checkpoint.py`` (the elastic
-reshard waits for scale-out).  Then the LM train state on reduced
+reshard across ranks is in ``tests/test_torch_distributed.py``).  Then the LM train state on reduced
 qwen3-1.7b, with momentum SGD and with AdamW: the port writes JAX's
 layout (keys, shapes, dtypes), a JAX checkpoint restores in the port and
 a port checkpoint in JAX with equal arrays, and a run resumed from a

@@ -154,11 +154,6 @@ def test_engine_refuses_unported_features(what):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--topology", "zero1"], "slice 5, item 10"),
-    (["--topology", "local_sgd"], "slice 5, item 10"),
-    (["--checkpoint-dir", "ckpt", "--topology", "local_sgd"],
-     "slice 5, item 10"),
-    (["--mesh-data", "2"], "slice 5"),
     (["--arch", "mamba2-2.7b"], "slice 4"),
     (["--arch", "jamba-1.5-large-398b"], "slice 4"),
 ])
@@ -173,10 +168,41 @@ def test_train_cli_refuses_unported_features(argv, item):
         train.main(argv + ["--device", "cpu"])
 
 
+@pytest.mark.parametrize("argv,line", [
+    (["--topology", "zero1"], "topology: zero1: sharded parameter-server"),
+    (["--topology", "local_sgd"],
+     "topology: local_sgd: Downpour-SGD analogue"),
+    (["--checkpoint-dir", "ckpt", "--topology", "local_sgd"],
+     "exit: completed at step 1"),
+    (["--mesh-data", "2"], "mesh: {'data': 1, 'model': 1}  arch: "
+     "qwen3-1.7b-reduced  params: "),
+])
+def test_train_cli_takes_topologies_and_meshes(argv, line, tmp_path,
+                                               capsys):
+    """What the trainer refused before the scale-out slice it now takes,
+    as the JAX launcher does: one reduced CPU step prints the topology's
+    description first, then the JAX launcher's mesh line (one process, no
+    process group: the 1 x 1 mesh, whatever ``--mesh-data`` asks for),
+    and a finite loss."""
+    from repro_torch.launch import train
+
+    argv = [str(tmp_path / a) if a == "ckpt" else a for a in argv]
+    out = train.main(["--arch", "qwen3-1.7b", "--device", "cpu", "--steps",
+                      "1", "--batch", "2", "--seq", "16"] + argv)
+    text = capsys.readouterr().out
+    assert line in text
+    first, second = text.splitlines()[:2]
+    assert first.startswith("topology: ")
+    assert second.startswith("mesh: {'data': 1, 'model': 1}  arch: ")
+    assert out["mesh"] == {"data": 1, "model": 1}
+    assert len(out["steps"]) == 1 and np.isfinite(out["steps"][0]["loss"])
+
+
 def test_configs_match_the_jax_package():
     """Same field names, defaults and values for every arch the port
-    registers, full and reduced, and for the run configs (``RunConfig``,
-    ``HornConfig``, ``TopologyConfig``, ``ShapeConfig``)."""
+    registers, full and reduced, for the run configs (``RunConfig``,
+    ``HornConfig``, ``TopologyConfig``, ``ShapeConfig``) and for the shape
+    cells (``SHAPES``)."""
     pytest.importorskip("jax")
     from repro.configs import base as jbase
 
@@ -199,6 +225,8 @@ def test_configs_match_the_jax_package():
             [(f.name, f.default) for f in dataclasses.fields(theirs)], name
     assert dataclasses.asdict(base.HornConfig()) == \
         dataclasses.asdict(jbase.HornConfig())
+    assert {k: dataclasses.asdict(v) for k, v in base.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jbase.SHAPES.items()}
 
 
 def test_serve_cli_runs_on_the_cpu(capsys):
