@@ -258,6 +258,32 @@ Phases, each of which fails the script (non-zero exit, no result line):
               --full-config --steps 2 --horn-groups 4`` with ``--topology
               zero1``, then ``--topology local_sgd --mesh-data 2``: the
               1 x 1 mesh line, finite losses.
+ 18. analysis the analysis tooling (``repro_torch.analysis``).  (a) the
+              launch-geometry models against the launches: every route of
+              the five kernels at hornshape's cases, at phase 8's timing
+              shapes and at the engine's serving geometry, under
+              torch.profiler; each launch's grid, block and shared memory
+              (static + dynamic) in the Chrome trace equal its model's
+              (the trace carries no cluster: the decode launcher sets it
+              to (gridDim.x, 1, 1), which the grid check covers); launches
+              compared by route.  (b) guard-band probes: every operand a
+              16-byte-aligned view inside NaN bands (0, the null page, for
+              the tables and per-slot arrays; 127 for int8 pools), every
+              output allocated inside NaN bands and pre-filled with NaN;
+              after each route the bands are unchanged, the outputs finite
+              and equal to the plain version's on clean inputs; dead
+              block-table entries (and a window's pages before its first
+              visible key) point at a NaN-filled null page; two controls
+              must be rejected (a live entry at the NaN page, a pool view
+              shifted so its last page lies in the band).  (c) ``serve
+              --sanitize`` at full width on phase 5's load: bf16 pools,
+              int8 pools, speculation at K 4, each 0 alerts over its tick
+              count; controls at 2 layers: a lost table (pool-leak), a
+              stale device row (block-table), a NaN in one layer's wo
+              (the guard names the op), a [B, S, d] + [d] add (the rank
+              guard).  (d) the sanitized tick's wall against phase 5's,
+              and the hornlint and hornshape CLIs' walls (their ``main``
+              in this process; each exits 0).
 Phase 3 also holds the SSD chunk scan against its plain version (y and the
 final state): the JAX sweep's shapes, S 257 (chunks of 1 token), two more
 shapes of the wgmma route and the full-width shape B 2, S 2048, H 80, P
@@ -5178,6 +5204,787 @@ def phase_scaleout(torch, dev, build, fkernel):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the analysis tooling
+# ---------------------------------------------------------------------------
+GUARD_BAND = 4096                # elements of each band around an operand
+PROBE_TOL = {"float32": 1e-3, "bfloat16": 3e-2}   # max |d| / max(1, |ref|)
+
+
+def kernel_base_name(name: str) -> str:
+    """``paged_chunk_tc_kernel`` of a Chrome-trace kernel name such as
+    ``void (anonymous namespace)::paged_chunk_tc_kernel<64, false>(...)``."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].split("::")[-1].split()[-1]
+
+
+def trace_launches(torch, fn, names):
+    """(kernel, grid, block, shared memory) of every launch of ``fn()``
+    whose kernel is one of ``names``, in launch order, from the Chrome
+    trace torch.profiler exports.  ``fn`` runs once as the schedule's
+    warm-up step and once profiled."""
+    import os
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    return [(kernel_base_name(e["name"]), list(e["args"]["grid"]),
+             list(e["args"]["block"]), int(e["args"]["shared memory"]))
+            for e in kernels if kernel_base_name(e["name"]) in names]
+
+
+def _rand(torch, dev, gen, shape, dtype, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+
+def launch_call(torch, dev, call, nan_page=False):
+    """Inputs for the wrapper call a model's ``call`` describes, on the
+    card, and a zero-argument function that makes the call.  Block-table
+    entries outside the pool (hornshape's dead entries) become the null
+    page 0."""
+    from repro_torch.kernels.dropout_matmul import kernel as dkernel
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.paged_attention import kernel
+    from repro_torch.kernels.ssd import kernel as skernel
+
+    c = dict(call)
+    m = c.pop("model")
+    gen = torch.Generator(dev).manual_seed(18)
+    i32 = dict(dtype=torch.int32, device=dev)
+    if m.startswith("paged."):
+        B, H, KH, D, P, psize = (c[k] for k in ("B", "H", "KH", "D", "P",
+                                                "psize"))
+        dt = c["dtype"]
+        kp, vp = (_rand(torch, dev, gen, (P, psize, KH, D), dt)
+                  for _ in range(2))
+        sc = {}
+        if c["quant"]:
+            kp, vp, sc = quantize_pools(torch, kp, vp)
+        table = np.asarray(c["block_tables"]).copy()
+        table[(table < 0) | (table >= P)] = 0
+        bt = torch.as_tensor(table, **i32)
+        kw = dict(scale=D ** -0.5, window=c["window"], **sc)
+        if m == "paged.decode":
+            q = _rand(torch, dev, gen, (B, H, D), dt)
+            lens = torch.as_tensor(np.asarray(c["lengths"]), **i32)
+            return lambda: kernel.paged_attention(q, kp, vp, bt, lens, **kw)
+        q = _rand(torch, dev, gen, (B, c["C"], H, D), dt)
+        st = torch.as_tensor(np.asarray(c["starts"]), **i32)
+        cl = torch.as_tensor(np.asarray(c["chunk_lens"]), **i32)
+        if c["logit_index"] is not None:
+            kw["logit_index"] = torch.as_tensor(c["logit_index"], **i32)
+        return lambda: kernel.paged_chunk_attention(q, kp, vp, bt, st, cl,
+                                                    **kw)
+    if m.startswith("flash."):
+        B, H, KH, Sq, Skv, D, dt = (c[k] for k in ("B", "H", "KH", "Sq",
+                                                   "Skv", "D", "dtype"))
+        q = _rand(torch, dev, gen, (B, H, Sq, D), dt)
+        k, v = (_rand(torch, dev, gen, (B, KH, Skv, D), dt)
+                for _ in range(2))
+        kw = dict(scale=D ** -0.5, causal=c["causal"], window=c["window"])
+        if m == "flash.fwd":
+            return lambda: fkernel.flash_attention_fwd(q, k, v, **kw)
+        o, lse = fkernel.flash_attention_fwd(q, k, v, **kw)
+        do = _rand(torch, dev, gen, (B, H, Sq, D), dt)
+        return lambda: fkernel.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    if m == "dropout":
+        G, M, K, N, dt = (c[k] for k in ("G", "M", "K_", "N", "dtype"))
+        x = _rand(torch, dev, gen, (G, M, K), dt)
+        w = _rand(torch, dev, gen, (K, N), dt, K ** -0.5)
+        mask = torch.as_tensor(np.asarray(c["mask_blocks"], np.float32),
+                               device=dev)
+        return lambda: dkernel.dropout_matmul(x, w, mask,
+                                              block_n=c["block_n"])
+    if m == "ssd":
+        B, S, H, P, N, dt = (c[k] for k in ("B", "S", "H", "P", "N",
+                                            "dtype"))
+        x, dtv, A, Bm, Cm = ssd_inputs(torch, dev, dt, B, S, H, P, N, 18)
+        return lambda: skernel.ssd_chunk_scan(x, dtv, A, Bm, Cm,
+                                              chunk=c["chunk"])
+    raise ValueError(f"no call for model {m!r}")
+
+
+def model_geometries(call, sms):
+    """The launches the model ``call["model"]`` gives for ``call``, on a
+    card of ``sms`` SMs."""
+    from repro_torch.kernels.dropout_matmul import geometry as dgeo
+    from repro_torch.kernels.flash_attention import geometry as fgeo
+    from repro_torch.kernels.paged_attention import geometry as pgeo
+    from repro_torch.kernels.ssd import geometry as sgeo
+
+    c = dict(call)
+    m = c.pop("model")
+    if "sm_count" in c:
+        c["sm_count"] = sms
+    return {"paged.chunk": lambda: [pgeo.chunk_geometry(**c)],
+            "paged.decode": lambda: [pgeo.decode_geometry(**c)],
+            "flash.fwd": lambda: [fgeo.fwd_geometry(**c)],
+            "flash.bwd": lambda: fgeo.bwd_geometries(**c),
+            "dropout": lambda: [dgeo.geometry(**c)],
+            "ssd": lambda: [sgeo.geometry(**c)]}[m]()
+
+
+def geometry_calls(torch, sms):
+    """(label, call) of every wrapper call phase 18(a) makes: each call of
+    hornshape's registry (a call whose launches depend on the SM count is
+    taken on this card), phase 8's timing shapes and the engine's serving
+    geometry (qwen3-1.7b, 8 slots, 512 x 16-token pages, 18-page tables;
+    chunk buckets 64 and 256 on bf16 and int8 pools, the decode tick)."""
+    from repro_torch.analysis import hornshape as hs
+
+    out, seen = [], set()
+    for label, build in hs.registry():
+        for g in build():
+            c = dict(g.call)
+            if "sm_count" in c:
+                c["sm_count"] = sms
+            key = repr(sorted((k, repr(v)) for k, v in c.items()))
+            if key not in seen:
+                seen.add(key)
+                out.append((label, c))
+    bf = torch.bfloat16
+    B, H, KH, D, psize, maxp, P = 8, 16, 8, 128, 16, 18, 512
+    for quant in (False, True):
+        for C in (64, 256):
+            starts = [0] + [288 - C - b for b in range(1, B)]
+            clens = [C] + [1] * (B - 1)
+            live = [-(-(s + n) // psize) for s, n in zip(starts, clens)]
+            out.append((f"serve/chunk{C}{'-int8' if quant else ''}", dict(
+                model="paged.chunk", B=B, C=C, H=H, KH=KH, D=D, psize=psize,
+                maxp=maxp, P=P, dtype=bf, quant=quant, starts=starts,
+                chunk_lens=clens, block_tables=hs.paged_table(B, maxp, P,
+                                                              live),
+                window=None, logit_index=None)))
+        lens = [288 - 3 * b for b in range(B)]
+        out.append((f"serve/decode{'-int8' if quant else ''}", dict(
+            model="paged.decode", B=B, H=H, KH=KH, D=D, psize=psize,
+            maxp=maxp, P=P, dtype=bf, quant=quant, lengths=lens,
+            block_tables=hs.paged_table(B, maxp, P, [-(-n // psize)
+                                                     for n in lens]),
+            window=None, sm_count=sms)))
+    for label, (B, H, KH, S, D, causal, window) in (
+            ("phase8/flash-train", (8, 16, 8, 1024, 128, True, None)),
+            ("phase8/flash-gemma3", (2, 8, 4, 2048, 256, True, None)),
+            ("phase8/flash-gemma3-window", (2, 8, 4, 2048, 256, True, 1024)),
+            ("phase8/flash-whisper", (ENCDEC_TRAIN_BATCH, 8, 8,
+                                      ENCDEC_FRAMES, 64, False, None))):
+        for m in ("flash.fwd", "flash.bwd"):
+            out.append((label, dict(model=m, B=B, H=H, KH=KH, Sq=S, Skv=S,
+                                    D=D, dtype=bf, causal=causal,
+                                    window=window)))
+    # the decode kernel at every split count 1-8 on this card: B slots of
+    # one kv head and one query head, B = ceil(2 SMs / NS) units
+    from repro_torch.kernels.paged_attention import kernel as pk
+    for ns in range(1, 9):
+        B = -(-pk.DECODE_WAVES * sms // ns)
+        assert pk.decode_splits(B, 1, 1, 8, sms) == ns, (ns, B)
+        lens = [int(n) for n in np.random.default_rng(ns).integers(0, 65, B)]
+        out.append((f"card/decode-ns{ns}", dict(
+            model="paged.decode", B=B, H=1, KH=1, D=32, psize=8, maxp=8,
+            P=64, dtype=bf, quant=False, lengths=lens,
+            block_tables=hs.paged_table(B, 8, 64, [-(-n // 8)
+                                                   for n in lens]),
+            window=None, sm_count=sms)))
+    G, M, K, N, bn = DM_FULL
+    mask = (np.random.default_rng(18).random((G, N // bn)) < 0.5) * 2.0
+    out.append(("phase8/dropout", dict(model="dropout", G=G, M=M, K_=K, N=N,
+                                      dtype=bf, mask_blocks=mask,
+                                      block_n=bn, sm_count=sms)))
+    for label, shape in (("phase8/ssd", SSD_FULL), ("phase15/ssd-jamba",
+                                                    SSD_JAMBA)):
+        B, S, H, P_, N_, chunk = shape
+        out.append((label, dict(model="ssd", B=B, S=S, H=H, P=P_, N=N_,
+                                dtype=bf, chunk=chunk)))
+    return out
+
+
+def phase_geometry_twin(torch, dev, kernel):
+    """18(a): every call's launches in the trace against its model's."""
+    sms = kernel.sm_count(dev.index)
+    calls = geometry_calls(torch, sms)
+    by_family = {}
+    for label, call in calls:
+        by_family.setdefault(call["model"].split(".")[0], []).append(
+            (label, call))
+    compared = {}
+    for family, items in by_family.items():
+        fns, want, labels = [], [], []
+        for label, call in items:
+            fns.append(launch_call(torch, dev, call))
+            for g in model_geometries(call, sms):
+                l = g.launch()
+                want.append((l["kernel"], l["grid"], l["block"],
+                             l["shared_memory"]))
+                labels.append((label, g.name))
+        names = {w[0] for w in want}
+
+        def run_all(fns=fns):
+            for fn in fns:
+                fn()
+        for attempt in range(1, PROFILE_TRIES + 1):
+            got = trace_launches(torch, run_all, names)
+            if len(got) == len(want):
+                break
+            log(f"  18(a) {family}: the trace holds {len(got)} launches of "
+                f"{len(want)}, try {attempt} of {PROFILE_TRIES}")
+        assert len(got) == len(want), (family, len(got), len(want))
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g == w, (f"18(a) {labels[i][0]} ({labels[i][1]}): the "
+                            f"trace's launch {g} != the model's {w}")
+            compared[labels[i][1]] = compared.get(labels[i][1], 0) + 1
+        log(f"  18(a) {family}: {len(items)} calls, {len(want)} launches, "
+            f"grid/block/shared memory equal to the models'")
+    for name in sorted(compared):
+        log(f"    {name}: {compared[name]} launches compared")
+    return {"calls": len(calls), "launches_compared": compared}
+
+
+class GuardedAlloc:
+    """Allocations inside guard bands: ``banded`` places a tensor's
+    contents in a 16-byte-aligned view between two bands of ``fill``;
+    while active, ``torch.empty``/``empty_like``/``zeros`` (the wrappers'
+    output allocations) return such views, NaN bands around a NaN body (a
+    zero body for ``zeros``).  ``check`` reports every band that changed
+    and every output with a non-finite element."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.real = {n: getattr(torch, n) for n in ("empty", "empty_like",
+                                                    "zeros")}
+        self.regions = []            # (label, buf, view, saved bands)
+        self.outputs = []
+
+    @staticmethod
+    def band_fill(dtype, torch):
+        if dtype.is_floating_point:
+            return float("nan")
+        return 127 if dtype == torch.int8 else 0
+
+    def banded(self, label, t, shift=0, fill=None):
+        torch = self.torch
+        n = t.numel()
+        buf = self.real["empty"](n + 2 * GUARD_BAND + shift, dtype=t.dtype,
+                                 device=t.device)
+        buf.fill_(self.band_fill(t.dtype, torch) if fill is None else fill)
+        buf[GUARD_BAND:GUARD_BAND + n].copy_(t.reshape(-1))
+        view = buf[GUARD_BAND + shift:GUARD_BAND + shift + n].view(t.shape)
+        assert view.data_ptr() % 16 == 0 and view.is_contiguous()
+        self.regions.append((label, buf, view, self._bands(buf, view)))
+        return view
+
+    @staticmethod
+    def _bands(buf, view):
+        lo = (view.data_ptr() - buf.data_ptr()) // buf.element_size()
+        hi = lo + view.numel()
+        return (lo, hi, buf[:lo].clone(), buf[hi:].clone())
+
+    def _out(self, shape, dtype, device, body):
+        torch = self.torch
+        t = self.real["zeros"](shape, dtype=dtype, device=device)
+        if body is not None:
+            t.fill_(body)
+        view = self.banded(f"out{len(self.outputs)}", t,
+                           fill=self.band_fill(dtype, torch))
+        self.outputs.append(view)
+        return view
+
+    def __enter__(self):
+        torch = self.torch
+        nan = float("nan")
+
+        def empty(*shape, dtype=None, device=None, **kw):
+            shape = shape[0] if len(shape) == 1 and isinstance(
+                shape[0], (tuple, list, torch.Size)) else shape
+            dtype = dtype or torch.get_default_dtype()
+            return self._out(tuple(shape), dtype, device,
+                             nan if dtype.is_floating_point else None)
+
+        def empty_like(t, **kw):
+            return self._out(tuple(t.shape), t.dtype, t.device,
+                             nan if t.dtype.is_floating_point else None)
+
+        def zeros(*shape, dtype=None, device=None, **kw):
+            shape = shape[0] if len(shape) == 1 and isinstance(
+                shape[0], (tuple, list, torch.Size)) else shape
+            return self._out(tuple(shape), dtype or torch.get_default_dtype(),
+                             device, None)
+        torch.empty, torch.empty_like, torch.zeros = empty, empty_like, zeros
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(self.torch, n, fn)
+
+    def check(self):
+        torch = self.torch
+        torch.cuda.synchronize()
+        bad = []
+        for label, buf, view, (lo, hi, before, after) in self.regions:
+            for side, old, new in (("before", before, buf[:lo]),
+                                   ("after", after, buf[hi:])):
+                same = (old == new) | (torch.isnan(old) & torch.isnan(new)) \
+                    if old.is_floating_point() else old == new
+                if not bool(same.all()):
+                    bad.append(f"{label}: the band {side} it was written")
+        for i, t in enumerate(self.outputs):
+            if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                bad.append(f"out{i}: {int((~torch.isfinite(t)).sum())} "
+                           f"non-finite elements")
+        return bad
+
+
+def _close(torch, got, want, dtype):
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+    tol = PROBE_TOL[str(dtype).split(".")[1]]
+    return None if err <= tol else f"differs from the plain version by " \
+                                   f"{err:.2e} (> {tol})"
+
+
+def probe_paged(torch, dev, kernel, ref, *, decode, dtype, quant, B, C=1,
+                H=16, KH=8, D=128, psize=16, maxp=12, P=40, window=None,
+                S_w=0, control=None, sm=None):
+    """One guard-band probe of a paged kernel: q, pools, scales, table and
+    per-slot arrays banded; the null page 0 filled with NaN (int8: its
+    scales), every dead table entry (past the live pages, and before a
+    window's first visible page) pointing at it.  ``control``:
+    ``"live_nan"`` points a live entry at the NaN page; ``"shifted"``
+    shifts the pool views by a page so their last page lies in the band and
+    points a live entry at it.  Returns the failures."""
+    gen = torch.Generator(dev).manual_seed(81)
+    rng = np.random.default_rng(81)
+    full = maxp * psize
+    if decode:
+        lens = [full - 1, 0, psize + 1] + [int(x) for x in rng.integers(
+            1, full + 1, B - 3)]
+        ends, firsts = lens, [max(0, n - window) if window else 0
+                              for n in lens]
+    else:
+        starts = [0, 5, full - C] + [int(x) for x in rng.integers(
+            0, full - C, B - 3)]
+        clens = [C, 0, C] + [int(x) for x in rng.integers(1, C + 1, B - 3)]
+        starts[1] = 0                      # the engine's idle slot
+        ends = [s + c for s, c in zip(starts, clens)]
+        firsts = [max(0, s - window + 1) if window and c else 0
+                  for s, c in zip(starts, clens)]
+    table = np.zeros((B, maxp), np.int32)
+    for b in range(B):
+        n = -(-ends[b] // psize) if ends[b] else 0
+        table[b, firsts[b] // psize:n] = rng.integers(1, P - 1, n - firsts[
+            b] // psize)
+    kp, vp = (_rand(torch, dev, gen, (P, psize, KH, D), dtype)
+              for _ in range(2))
+    sc = {}
+    if quant:
+        kp, vp, sc = quantize_pools(torch, kp, vp)
+    # the kernel's pools: the null page NaN (int8: its scales); the plain
+    # version, which gathers the null page and masks it, gets the clean ones
+    kpn, vpn = kp.clone(), vp.clone()
+    scn = {n: t.clone() for n, t in sc.items()}
+    if quant:
+        scn["k_scale"][0] = scn["v_scale"][0] = float("nan")
+    else:
+        kpn[0] = vpn[0] = float("nan")
+    live_b = 0                             # a slot with live pages
+    if control == "live_nan":
+        table[live_b, -(-ends[live_b] // psize) - 1] = 0
+    if control == "shifted":
+        table[live_b, -(-ends[live_b] // psize) - 1] = P - 1
+    i32 = dict(dtype=torch.int32, device=dev)
+    g = GuardedAlloc(torch)
+    pe = psize * KH * D
+    shift = pe if control == "shifted" else 0
+    kpg, vpg = (g.banded(n, t, shift=shift)
+                for n, t in (("k_pages", kpn), ("v_pages", vpn)))
+    scg = {n: g.banded(n, t) for n, t in scn.items()}
+    btg = g.banded("block_tables", torch.as_tensor(table, **i32))
+    kw = dict(scale=D ** -0.5, window=window)
+    # the plain version on clean inputs: dead entries at a finite page
+    clean = table.copy()
+    clean[clean == 0] = 1
+    if decode:
+        q = _rand(torch, dev, gen, (B, H, D), dtype)
+        qg = g.banded("q", q)
+        lg = g.banded("lengths", torch.as_tensor(lens, **i32))
+        with g:
+            out = kernel.paged_attention(qg, kpg, vpg, btg, lg, **kw, **scg)
+        want = ref.paged_attention_ref(
+            q, kp, vp, torch.as_tensor(clean, **i32),
+            torch.as_tensor(lens, **i32), **kw, **sc)
+        outs = [(out, want)]
+    else:
+        q = _rand(torch, dev, gen, (B, C, H, D), dtype)
+        qg = g.banded("q", q)
+        stg, clg = (g.banded(n, torch.as_tensor(v, **i32))
+                    for n, v in (("starts", starts), ("chunk_lens", clens)))
+        li = None
+        if S_w:
+            li = torch.as_tensor([[max(0, c - S_w + j) for j in range(S_w)]
+                                  for c in clens], **i32)
+            kw["logit_index"] = g.banded("logit_index", li)
+        with g:
+            out = kernel.paged_chunk_attention(qg, kpg, vpg, btg, stg, clg,
+                                               **kw, **scg)
+        if li is not None:
+            kw["logit_index"] = li
+        want = ref.paged_chunk_attention_ref(
+            q, kp, vp, torch.as_tensor(clean, **i32),
+            torch.as_tensor(starts, **i32), torch.as_tensor(clens, **i32),
+            **kw, **sc)
+        outs = list(zip(out, want)) if S_w else [(out, want)]
+    bad = g.check()
+    for i, (got, w) in enumerate(outs):
+        if not bool(torch.isfinite(got).all()):
+            bad.append(f"output {i}: {int((~torch.isfinite(got)).sum())} "
+                       f"non-finite elements")
+        elif control is None:
+            d = _close(torch, got, w, dtype)
+            if d:
+                bad.append(d)
+    return bad
+
+
+def probe_call(torch, dev, label, fn, ref, dtype):
+    """A guard-band probe of a non-paged kernel: ``fn(g)`` bands its inputs
+    through ``g.banded`` and makes the call inside ``with g``; ``ref()``
+    is the plain version on the same (clean) inputs."""
+    g = GuardedAlloc(torch)
+    got = fn(g)
+    bad = g.check()
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = ref()
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not bool(torch.isfinite(a).all()):
+            bad.append(f"output {i}: {int((~torch.isfinite(a)).sum())} "
+                       f"non-finite elements")
+            continue
+        d = _close(torch, a, b, dtype)
+        if d:
+            bad.append(d)
+    return bad
+
+
+def phase_guard_bands(torch, dev, kernel, ref, fkernel, fref, dkernel, dref,
+                      skernel, sref):
+    """18(b): every route inside guard bands, then the two controls."""
+    bf, f32 = torch.bfloat16, torch.float32
+    results = {}
+    paged = [
+        ("chunk:cuda_core f32 window", dict(decode=False, dtype=f32,
+                                            quant=False, B=4, C=70,
+                                            window=40, S_w=3)),
+        ("chunk:cuda_core bf16 psize 12", dict(decode=False, dtype=bf,
+                                               quant=False, B=4, C=20,
+                                               psize=12)),
+        ("chunk:wgmma window", dict(decode=False, dtype=bf, quant=False,
+                                    B=4, C=70, window=40, S_w=3)),
+        ("chunk:wgmma_int8 window", dict(decode=False, dtype=bf, quant=True,
+                                         B=4, C=70, window=40, S_w=3)),
+        ("decode:split window", dict(decode=True, dtype=bf, quant=False,
+                                     B=4, window=50)),
+        ("decode:split int8", dict(decode=True, dtype=bf, quant=True, B=4)),
+        ("decode:single", dict(decode=True, dtype=f32, quant=False, B=40)),
+    ]
+    for label, kw in paged:
+        bad = probe_paged(torch, dev, kernel, ref, **kw)
+        assert not bad, (label, bad)
+        results[label] = "clean"
+    for control in ("live_nan", "shifted"):
+        bad = probe_paged(torch, dev, kernel, ref, decode=False, dtype=bf,
+                          quant=False, B=4, C=70, control=control)
+        assert bad, f"18(b) control {control} was not rejected"
+        results[f"control {control}"] = f"rejected: {bad[0]}"
+        bad = probe_paged(torch, dev, kernel, ref, decode=True, dtype=bf,
+                          quant=False, B=4, control=control)
+        assert bad, f"18(b) decode control {control} was not rejected"
+    gen = torch.Generator(dev).manual_seed(82)
+    for dt, D, causal, window in ((bf, 128, True, None), (f32, 64, False, 48),
+                                  (bf, 256, True, None), (bf, 64, False,
+                                                          None)):
+        B, H, KH, S = 2, 4, 2, 200
+        q = _rand(torch, dev, gen, (B, H, S, D), dt)
+        k, v, do = (_rand(torch, dev, gen, s, dt) for s in (
+            (B, KH, S, D), (B, KH, S, D), (B, H, S, D)))
+        kw = dict(scale=D ** -0.5, causal=causal, window=window)
+
+        def run(g, q=q, k=k, v=v, do=do, kw=kw):
+            qg, kg, vg, dog = (g.banded(n, t) for n, t in (
+                ("q", q), ("k", k), ("v", v), ("dout", do)))
+            with g:
+                o, lse = fkernel.flash_attention_fwd(qg, kg, vg, **kw)
+                dq, dk, dv = fkernel.flash_attention_bwd(qg, kg, vg, o, lse,
+                                                         dog, **kw)
+            return o, dq, dk, dv
+
+        def plain(q=q, k=k, v=v, do=do, kw=kw):
+            qq, kk, vv = (t.float().requires_grad_() for t in (q, k, v))
+            o = fref.attention_ref(qq, kk, vv, **kw)
+            o.backward(do.float())
+            return o, qq.grad, kk.grad, vv.grad
+        label = f"flash {fkernel.route(dt, D)}{' window' if window else ''}"
+        bad = probe_call(torch, dev, label, run, plain, dt)
+        assert not bad, (label, bad)
+        results[label] = "clean"
+    for dt, K, bn in ((bf, 128, 128), (bf, 128, 64), (bf, 13, 128),
+                      (f32, 128, 128)):
+        G, M, N = 2, 300, 512
+        x, w, _ = dm_inputs(torch, dev, dt, G, M, K, N, seed=83)
+        mask = (torch.rand(G, N // bn, generator=gen, device=dev) < 0.5
+                ).float() * 2.0
+
+        def run(g, x=x, w=w, mask=mask, bn=bn):
+            xg, wg, mg = (g.banded(n, t) for n, t in (
+                ("x", x), ("w", w), ("mask_blocks", mask)))
+            with g:
+                return dkernel.dropout_matmul(xg, wg, mg, block_n=bn)
+        label = f"dropout_matmul {dkernel.route(dt, K)} block_n {bn}"
+        bad = probe_call(torch, dev, label, run, lambda x=x, w=w, mask=mask,
+                         bn=bn: dref.dropout_matmul_ref(x, w, mask,
+                                                        block_n=bn), dt)
+        assert not bad, (label, bad)
+        results[label] = "clean"
+    for dt, shape in ((bf, (2, 256, 3, 64, 64, 128)),
+                      (f32, (2, 200, 3, 48, 40, 64))):
+        B, S, H, P_, N_, chunk = shape
+        ins = ssd_inputs(torch, dev, dt, B, S, H, P_, N_, 84)
+
+        def run(g, ins=ins, chunk=chunk):
+            gi = [g.banded(n, t) for n, t in zip(("x", "dt", "A", "Bm", "Cm"),
+                                                 ins)]
+            with g:
+                return skernel.ssd_chunk_scan(*gi, chunk=chunk)
+        Q = sref.chunk_len(chunk, S)
+        label = f"ssd_chunk_scan {skernel.route(dt, P_, N_, Q)}"
+        bad = probe_call(torch, dev, label, run, lambda ins=ins, chunk=chunk:
+                         sref.ssd_chunk_scan_ref(*ins, chunk=chunk), dt)
+        assert not bad, (label, bad)
+        results[label] = "clean"
+    for label, r in results.items():
+        log(f"  18(b) {label}: {r}")
+    return results
+
+
+def serve_sanitized(argv):
+    """``launch.serve.main(argv)`` in this process, its standard output
+    captured; the kernel entries the guards wrap are restored after.
+    Returns (exit code, output lines)."""
+    import importlib
+    import io
+    from repro_torch.analysis.sanitize import KERNEL_ENTRIES
+    from repro_torch.launch import serve
+
+    saved = [(importlib.import_module(m), a) for m, a in KERNEL_ENTRIES]
+    saved = [(m, a, getattr(m, a)) for m, a in saved]
+    buf = io.StringIO()
+    code = 0
+    try:
+        with contextlib.redirect_stdout(buf):
+            serve.main(argv)
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else 1
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+    return code, buf.getvalue().splitlines()
+
+
+SANITIZE_LOAD = ["--arch", "qwen3-1.7b", "--full-config", "--device", "cuda",
+                 "--stream", "batch", "--requests", "16", "--slots", "8",
+                 "--pages", "512", "--page-size", "16", "--max-prompt",
+                 "256", "--gen", "32", "--budget", "256", "--policy",
+                 "on_demand", "--compute-dtype", "bfloat16", "--sanitize"]
+
+
+def phase_sanitize_runs(torch, dev, build, kernel):
+    """18(c): ``serve --sanitize`` at full width on phase 5's load, three
+    ways, then the in-process controls at 2 layers."""
+    out = {}
+    for label, extra in (("bf16", ["--kv-dtype", "bfloat16"]),
+                         ("int8", ["--kv-dtype", "int8"]),
+                         ("speculate4", ["--kv-dtype", "bfloat16",
+                                         "--speculate", "4"])):
+        build.reset_launches()
+        t0 = time.perf_counter()
+        code, lines = serve_sanitized(SANITIZE_LOAD + extra)
+        run_s = time.perf_counter() - t0
+        assert code == 0, (label, code, lines[-20:])
+        verdict = lines[-1]
+        summary = next(ln for ln in lines if " requests (" in ln
+                       and ln.endswith("s"))
+        ticks = int(next(ln for ln in lines if ln.startswith("throughput:"))
+                    .split("(")[1].split()[0])
+        checked = int(verdict.split(" over ")[1].split()[0])
+        assert verdict.startswith("sanitizer: 0 invariant alerts over ") \
+            and checked == ticks > 0, (label, verdict, ticks)
+        wall = float(summary.split(" in ")[1].rstrip("s"))
+        launches = dict(build.LAUNCHES)
+        assert launches[kernel.NAME] > 0 and launches[kernel.NAME_DECODE] \
+            > 0, launches
+        out[label] = {"ticks": ticks, "checked_ticks": checked,
+                      "wall_s": wall, "tick_s": wall / ticks,
+                      "run_s": run_s,
+                      "launches": {n: launches[n] for n in (
+                          kernel.NAME, kernel.NAME_DECODE)}}
+        for ln in lines:
+            if ln.startswith(("throughput", "speculative:")):
+                log(f"  18(c) {label}: {ln}")
+        log(f"  18(c) {label}: {verdict}; {summary}; "
+            f"{wall / ticks * 1e3:.1f} ms a tick")
+    out["controls"] = phase_sanitize_controls(torch, dev)
+    return out
+
+
+def phase_sanitize_controls(torch, dev):
+    """The sanitizer's controls on a 2-layer full-width engine: a lost
+    table, a stale device row, a NaN in one layer's wo, a rank mismatch;
+    each must fire."""
+    from repro_torch.analysis.sanitize import (KERNEL_ENTRIES,
+                                               NaNGuardError,
+                                               RankPromotionError, Sanitizer)
+    from repro_torch.configs.base import get_model_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import Engine, EngineConfig
+    import importlib
+
+    saved = [(importlib.import_module(m), a) for m, a in KERNEL_ENTRIES]
+    saved = [(m, a, getattr(m, a)) for m, a in saved]
+    cfg = dataclasses.replace(get_model_config("qwen3-1.7b"), num_layers=2)
+    params = init_params(cfg, 0, device=dev, dtype=torch.bfloat16)
+    ecfg = EngineConfig(num_slots=8, num_pages=512, page_size=16,
+                        max_prompt_len=256, max_new_tokens=8,
+                        token_budget=256, kv_dtype="bfloat16",
+                        compute_dtype="bfloat16")
+    fired = {}
+    try:
+        def engine():
+            eng = Engine(cfg, params, ecfg, device=dev)
+            san = Sanitizer()
+            san.install_torch_guards()
+            san.attach(eng)
+            for _, p, g in make_requests(4, cfg.vocab_size,
+                                         np.random.default_rng(5),
+                                         stream="batch", max_prompt=64,
+                                         gen=8):
+                eng.submit(p, g)
+            eng.step(0.0)
+            eng.step(0.0)
+            assert san.alerts == [], san.render_report()
+            return eng, san
+
+        eng, san = engine()
+        rid = next(iter(eng.sched.running.values())).id
+        eng.pool._tables.pop(rid)              # a lost table
+        san.check(eng, eng.steps)
+        fired["pool-leak"] = [a.render() for a in san.alerts
+                              if a.kind == "pool-leak"]
+        eng, san = engine()
+        slot = next(iter(eng.sched.running))
+        eng._bt.dev[slot, 0] += 1              # the device row goes stale
+        eng.step(0.0)
+        fired["block-table"] = [a.render() for a in san.alerts
+                                if a.kind == "block-table"]
+        eng, san = engine()
+        try:
+            with san.guards:
+                x = torch.ones(8, 16, cfg.d_model, device=dev)
+                x + torch.ones(cfg.d_model, device=dev)
+            fired["rank"] = []
+        except RankPromotionError as e:
+            fired["rank"] = [str(e)]
+        eng, san = engine()
+        wo = eng.params.layers[1].attn.wo    # the engine's (shared) weight
+        keep = wo[0, 0, 0].clone()
+        with torch.no_grad():
+            wo[0, 0, 0] = float("nan")
+        try:
+            eng.step(0.0)
+            fired["nan"] = []
+        except NaNGuardError as e:
+            fired["nan"] = [str(e)]
+        finally:
+            with torch.no_grad():
+                wo[0, 0, 0] = keep
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+    for kind, msgs in fired.items():
+        assert msgs, f"18(c) control {kind} did not fire"
+        log(f"  18(c) control {kind}: {msgs[0][:200]}")
+    assert "einsum" in fired["nan"][0] and "attention.py" in fired["nan"][0]
+    return {k: v[0] for k, v in fired.items()}
+
+
+def phase_analysis_clis():
+    """18(d): the hornlint and hornshape CLIs' walls, each ``main`` run in
+    this process on the checkout (each must exit 0)."""
+    import io
+    from repro_torch.analysis import hornlint, hornshape
+
+    out = {}
+    for name, main, argv in (
+            ("hornlint", hornlint.main,
+             [str(ROOT / "src" / "repro_torch"), "--root", str(ROOT)]),
+            ("hornshape", hornshape.main, [])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        wall = time.perf_counter() - t0
+        last = buf.getvalue().strip().splitlines()[-1]
+        assert rc == 0, (name, rc, buf.getvalue()[-2000:])
+        log(f"  18(d) {name}: exit 0 in {wall:.2f} s: {last}")
+        out[name] = {"wall_s": wall, "last_line": last}
+    return out
+
+
+def phase_analysis(torch, dev, build, kernel, ref, fkernel, fref, dkernel,
+                   dref, skernel, sref, served=None):
+    """Phase 18: (a) the geometry twin, (b) guard bands, (c) ``serve
+    --sanitize`` and its controls, (d) cost."""
+    t0 = time.perf_counter()
+    out = {"geometry": phase_geometry_twin(torch, dev, kernel)}
+    log(f"  18(a) in {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    out["guard_bands"] = phase_guard_bands(torch, dev, kernel, ref, fkernel,
+                                           fref, dkernel, dref, skernel,
+                                           sref)
+    log(f"  18(b) in {time.perf_counter() - t1:.1f} s")
+    release(torch)
+    t1 = time.perf_counter()
+    out["sanitize"] = phase_sanitize_runs(torch, dev, build, kernel)
+    log(f"  18(c) in {time.perf_counter() - t1:.1f} s")
+    release(torch)
+    out["clis"] = phase_analysis_clis()
+    if served is not None:
+        base = served["wall_s"] / served["ticks"]
+        for label in ("bf16", "int8", "speculate4"):
+            s = out["sanitize"][label]
+            log(f"  18(d) sanitized {label} tick {s['tick_s'] * 1e3:.1f} ms "
+                f"against phase 5's {base * 1e3:.1f} ms "
+                f"({s['tick_s'] / base:.2f}x)")
+        out["phase5_tick_s"] = base
+    log(f"  phase 18 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5329,6 +6136,12 @@ def main() -> int:
     phase("phase 17: scale-out on torch.distributed (one NCCL rank): "
           "merges, the 1 x 1 mesh step, elastic restart, GPipe, the CLI")
     scale = phase_scaleout(torch, dev, build, fkernel)
+    release(torch)
+
+    phase("phase 18: the analysis tooling: launch geometry against the "
+          "trace, guard bands, serve --sanitize, the CLIs")
+    analysis = phase_analysis(torch, dev, build, kernel, ref, fkernel, fref,
+                              dkernel, dref, skernel, sref, served)
 
     # headline shapes: the prompt-chunk tick for the chunk kernel (decode
     # ticks go to the decode kernel), the decode tick for the decode kernel
@@ -5467,7 +6280,7 @@ def main() -> int:
             "train": trained, "horn_mlp": horn_mlp, "ssm": ssm,
             "mnist": mnist, "new_archs": new_archs, "bank": bank,
             "spec": spec, "observability": obs, "families": fam,
-            "encdec": encdec, "scaleout": scale,
+            "encdec": encdec, "scaleout": scale, "analysis": analysis,
             "flash_host_us": flash["host_us"]}
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

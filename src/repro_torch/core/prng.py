@@ -99,9 +99,11 @@ def random_bits(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     [*batch, 2] give [*batch, *shape], every key drawing the whole shape
     as ``jax.random.bits(key, shape, uint32)`` does."""
     shape = tuple(int(s) for s in shape)
-    hi, lo = _counts(shape, k.device)
     lead = k.shape[:-1]
     view = lead + (1,) * len(shape)
+    # the counts at the keys' rank (rank clean under --sanitize)
+    hi, lo = (c.reshape((1,) * len(lead) + shape)
+              for c in _counts(shape, k.device))
     y0, y1 = threefry2x32(k[..., 0].reshape(view), k[..., 1].reshape(view),
                           hi, lo)
     return y0 ^ y1

@@ -520,13 +520,14 @@ paged_chunk_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int start = starts[b], clen = chunk_lens[b];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  // keys [kb0, k_hi] that some valid row of the tile can see, in n tiles
+  // keys [k_lo, k_hi] that some valid row of the tile can see, in n tiles
+  // from kb0 (k_lo rounded down to a tile)
   const int t_first = row0 / G;
-  int n = 0, kb0 = 0, k_hi = -1;
+  int n = 0, kb0 = 0, k_lo = 0, k_hi = -1;
   if (t_first < clen) {
     const int t_last = min((min(row0 + TQ, CG) - 1) / G, clen - 1);
     k_hi = start + t_last;
-    const int k_lo = window > 0 ? max(0, start + t_first - window + 1) : 0;
+    k_lo = window > 0 ? max(0, start + t_first - window + 1) : 0;
     kb0 = k_lo / TK * TK;
     n = (k_hi - kb0) / TK + 1;
   }
@@ -560,12 +561,14 @@ paged_chunk_tc_kernel(const __grid_constant__ CUtensorMap tq,
     // l % ppt of tile l / ppt of a round of 32 / ppt tiles, and the lanes
     // that issue a tile's copies take them by shuffles, so no block-table
     // load (or int8 scale load) sits between one tile's copies and the
-    // next's.
+    // next's.  Only pages holding a key of [k_lo, k_hi] are fetched: a
+    // window's pages wholly before k_lo load as zeros, like pages past
+    // k_hi, and their entries are never read.
     const int ppt = TK / psize, tpr = 32 / ppt;  // pages a tile, tiles a round
     auto fetch_round = [&](int r) {
       const int t = r * tpr + lane / ppt;
       const int pg = (kb0 + t * TK) / psize + lane % ppt;
-      return t < n && pg * psize <= k_hi
+      return t < n && pg * psize <= k_hi && (pg + 1) * psize > k_lo
                  ? block_tables[(size_t)b * maxp + pg] : -1;
     };
     int cur = fetch_round(0), nxt = fetch_round(1);

@@ -51,6 +51,13 @@ under greedy sampling.  The exit report ends with the step profiler's
 variants (calls and device ms p50 from CUDA events on a card, host ms on
 the CPU), a warning on post-warmup compiles, and ``alerts:`` (tick
 spikes, SLO burn, pool leaks, accept-rate collapse, late compiles).
+
+``--sanitize`` runs the runtime sanitizers (``repro_torch.analysis.
+sanitize``): the NaN guard and strict rank promotion over every step,
+per-tick pool and block-table audits (the draft pool too), and the
+launch-geometry twin of the paged kernels at this engine's shapes.  The
+verdict prints last, ``sanitizer: 0 invariant alerts over N checked
+ticks``; the run exits 3 if any alert fired.
 """
 from __future__ import annotations
 
@@ -289,6 +296,12 @@ def main(argv=None) -> None:
                          "e.g. 'default:0.5:5'; repeatable.  Synthetic "
                          "traffic is scored under class 'default', a "
                          "replayed trace under its records' classes.")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="runtime sanitizers (hornlint's dynamic twin): "
+                         "the NaN guard, strict rank promotion, per-tick "
+                         "pool/block-table invariant checks and the paged "
+                         "kernels' geometry at this engine's shapes; "
+                         "exits 3 if any invariant alert fires")
     args = ap.parse_args(argv)
 
     if args.arch is None:
@@ -311,6 +324,11 @@ def main(argv=None) -> None:
         temperature=args.temperature, seed=args.seed, policy=args.policy,
         prefix_cache=args.prefix_cache, speculate_k=args.speculate,
         kv_dtype=args.kv_dtype, compute_dtype=args.compute_dtype)
+    sanitizer = None
+    if args.sanitize:
+        from repro_torch.analysis.sanitize import Sanitizer
+        sanitizer = Sanitizer()
+        sanitizer.install_torch_guards()    # before the engine is built
     params = init_params(cfg, args.seed, device=device,
                          dtype=dtype_of(args.compute_dtype))
     bank = router = None
@@ -334,6 +352,8 @@ def main(argv=None) -> None:
                         draft=draft, device=device, telemetry=telemetry)
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"{args.arch}: {e}")
+    if sanitizer is not None:
+        sanitizer.attach(engine)
 
     if args.replay:
         records, meta = load_trace(args.replay)
@@ -363,6 +383,7 @@ def main(argv=None) -> None:
         print(f"latency p50 {s['latency_p50_s']:.3f}s  "
               f"p99 {s['latency_p99_s']:.3f}s")
         _tail_report(engine, args, bank, cfg, wall)
+        _exit_sanitize(engine)
         return
 
     rng = np.random.default_rng(args.seed)
@@ -443,6 +464,18 @@ def main(argv=None) -> None:
     print(f"latency p50 {r['latency_p50_s']:.3f}s  "
           f"p99 {r['latency_p99_s']:.3f}s")
     _tail_report(engine, args, bank, cfg, wall)
+    _exit_sanitize(engine)
+
+
+def _exit_sanitize(engine: Engine) -> None:
+    """Sanitizer verdict last, after every report section: a replay that
+    served every token can still have leaked pages on the way."""
+    san = getattr(engine, "_sanitizer", None)
+    if san is None:
+        return
+    print(san.render_report())
+    if san.alerts:
+        sys.exit(3)
 
 
 def _tail_report(engine: Engine, args, bank, cfg, wall: float) -> None:

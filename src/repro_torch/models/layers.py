@@ -67,17 +67,22 @@ class Norm(nn.Module):
 
 def norm_apply(params, x, cfg: ModelConfig):
     """RMSNorm/LayerNorm: statistics in f32, elementwise math in x.dtype."""
+    # the (D,) weights at x's rank, as the JAX package writes them (rank
+    # clean under --sanitize's strict rank promotion; same numbers)
+    def wide(w):
+        return w.to(x.dtype).view((1,) * (x.dim() - 1) + (-1,))
+
     if cfg.norm == "rmsnorm":
         var = x.to(f32).square().mean(-1, keepdim=True)
         mult = torch.rsqrt(var + cfg.norm_eps).to(x.dtype)
-        y = x * mult * (1.0 + params.scale).to(x.dtype)
+        y = x * mult * wide(1.0 + params.scale)
     else:
         xf = x.to(f32)
         mu = xf.mean(-1, keepdim=True)
         var = xf.var(-1, keepdim=True, unbiased=False)
         mult = torch.rsqrt(var + cfg.norm_eps)
         y = ((x - mu.to(x.dtype)) * mult.to(x.dtype)
-             * params.scale.to(x.dtype) + params.bias.to(x.dtype))
+             * wide(params.scale) + wide(params.bias))
     return y.to(x.dtype)
 
 
@@ -93,7 +98,8 @@ def apply_rope(x, positions, theta: float):
     """Rotate-half RoPE in f32.  x: [..., S, H, D]; positions: [..., S]."""
     d = x.shape[-1]
     inv = rope_freqs(d, theta, x.device)                # [D/2]
-    ang = positions[..., :, None].to(f32) * inv         # [..., S, D/2]
+    pos = positions[..., :, None].to(f32)               # [..., S, 1]
+    ang = pos * inv.view((1,) * (pos.dim() - 1) + (-1,))  # [..., S, D/2]
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x.to(f32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -205,7 +211,10 @@ class MoE(nn.Module):
 def _positions_in_segment(sorted_ids, length: int):
     """Rank of each element of the (last-axis) sorted expert ids within its
     run of equal ids."""
-    idx = torch.arange(length, device=sorted_ids.device)
+    # the positions at the ids' rank, as the JAX package's per-row (vmap)
+    # code has them (rank clean under --sanitize)
+    idx = torch.arange(length, device=sorted_ids.device).expand(
+        sorted_ids.shape)
     is_start = torch.ones_like(sorted_ids, dtype=torch.bool)
     is_start[..., 1:] = sorted_ids[..., 1:] != sorted_ids[..., :-1]
     starts = torch.where(is_start, idx, torch.zeros_like(idx))
@@ -305,8 +314,9 @@ def moe_apply(params, x, cfg: ModelConfig, *, hidden_mask=None,
     # dispatch: [R, E, C] source tokens from the sort order
     slots = torch.arange(C, device=x.device)
     starts = torch.cumsum(counts, dim=-1) - counts              # [R, E]
-    slot_idx = torch.clamp(starts[:, :, None] + slots, 0, S * K - 1)
-    slot_valid = slots < torch.clamp(counts, max=C)[:, :, None]
+    slot_idx = torch.clamp(starts[:, :, None] + slots[None, None, :], 0,
+                           S * K - 1)
+    slot_valid = slots[None, None, :] < torch.clamp(counts, max=C)[:, :, None]
     src_tok = torch.gather(order, 1, slot_idx.reshape(R, E * C)) // K
     disp = torch.gather(xr, 1, src_tok[..., None].expand(-1, -1, d))
     disp = disp.reshape(R, E, C, d) * slot_valid[..., None].to(x.dtype)

@@ -679,11 +679,12 @@ class Engine:
         # the one deliberate host pull of a tick (a verify tick's two
         # outputs in one transfer)
         if spec_units:
-            both = np.asarray(  # hornlint: sync-ok
-                torch.stack([sampled, accepted]).cpu())
+            both = np.asarray(torch.stack(  # hornlint: sync-ok
+                [sampled, accepted]).cpu())
             sampled, accepted = both[0], both[1]
         else:
             sampled = np.asarray(sampled.cpu())  # hornlint: sync-ok
+            accepted = None                      # no verify verdicts
         m_dev = pc()
         decode = build.LAUNCHES[NAME_DECODE] - decode0
         self.stats.decode_launches += decode
