@@ -8,7 +8,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
               turns TF32 off for matmuls and cuDNN (f32 stays f32).
   2. build    builds every kernel of the serving and training paths from
               ``csrc/`` with nvcc (one process per source, all at once),
-              and prints each source's own nvcc time.
+              and prints each source's own nvcc time; meanwhile this
+              process takes phase 19(c)'s fake traces (CPU work).
   3. kernels  each kernel against its plain PyTorch version on the card.
               Paged chunk attention: qwen3-1.7b and gemma2-27b geometries,
               chunk widths 1/7/64/256, ragged starts, idle slots, poisoned
@@ -284,6 +285,28 @@ Phases, each of which fails the script (non-zero exit, no result line):
               guard).  (d) the sanitized tick's wall against phase 5's,
               and the hornlint and hornshape CLIs' walls (their ``main``
               in this process; each exits 0).
+ 19. dryrun   the dry run's steps and cost model, over one NCCL process
+              group of one rank (as phase 17).  (a) ``make_prefill_step``
+              and ``make_decode_step`` on a 1 x 1 mesh (f32 parameters as
+              DTensors, gathered in bf16 each call) against the mesh-free
+              steps: qwen3-1.7b at full width, a prefill of 2 x 4096
+              through flash and 8 decode steps; mamba2-2.7b at full width
+              and all 64 layers, 4 x 2048 through ``ssd_chunk_scan`` and 8
+              decode steps: every logit bit-equal, the launches of each
+              run counted from 0, by route, and equal.  (b) phi3.5-moe, 2
+              layers, one train step of 2 x 1024 on the 1 x 1 mesh (the
+              load-balance loss's means all-reduced over the data rank)
+              bit-equal to the mesh-free step, every updated parameter
+              included.  (c) for (a)'s prefill and decode cells and phase
+              6's train step: FLOPs, bytes and the peak of live storage
+              from a fake trace of the same cell in this process
+              (``launch/dryrun.py::trace_cell``, taken during phase 2's
+              build), the wall from CUDA
+              events; t_compute, t_memory, the bound, the wall and
+              model_flops / (wall x peak) printed, a wall below t_compute
+              failing the phase; ``max_memory_allocated`` beside the
+              traced peak (the plain path holds S^2 scores that flash does
+              not, so no assertion on memory).
 Phase 3 also holds the SSD chunk scan against its plain version (y and the
 final state): the JAX sweep's shapes, S 257 (chunks of 1 token), two more
 shapes of the wgmma route and the full-width shape B 2, S 2048, H 80, P
@@ -5985,6 +6008,316 @@ def phase_analysis(torch, dev, build, kernel, ref, fkernel, fref, dkernel,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the steps on a mesh, the MoE router losses on a mesh, and the
+# dry run's cost model against the card
+# ---------------------------------------------------------------------------
+# 19(a)'s cells at full width and depth: batch, prompt
+MESH_CELLS = {"qwen3-1.7b": (2, 4096), "mamba2-2.7b": (4, 2048)}
+MESH_DECODES = 8
+MESH_MOE_LAYERS, MESH_MOE_BATCH, MESH_MOE_SEQ = 2, 2, 1024
+
+
+def mesh_cell_runs(arch):
+    """{"serve": the prefill run of 19(a) (cache buffers of prompt + the
+    decodes), "prefill": the prompt-long prefill cell, "decode": the
+    decode cell}, bf16 compute, f32 parameters, seed 0."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig, \
+        get_model_config
+    B, S = MESH_CELLS[arch]
+    cfg = get_model_config(arch)
+    return {name: RunConfig(model=cfg, shape=ShapeConfig(kind, kind, n, B),
+                            seed=0)
+            for name, kind, n in (("serve", "prefill", S + MESH_DECODES),
+                                  ("prefill", "prefill", S),
+                                  ("decode", "decode", S + MESH_DECODES))}
+
+
+def launch_counts(build):
+    return {k: v for k, v in list(build.LAUNCHES.items())
+            + list(build.ROUTE_LAUNCHES.items()) if v}
+
+
+def phase_mesh_serve(torch, dev, build, mesh, arch):
+    """19(a) one arch: a prefill of B x S seeded tokens and 8 decode steps
+    of seeded tokens, through the mesh-free steps (the parameters cast to
+    bf16 once) and then through the steps on the 1 x 1 mesh (the f32
+    parameters as DTensors, gathered in bf16 each call); every logit
+    bit-equal, the launches of each run counted from 0, by route, and
+    equal."""
+    from repro_torch.core import steps as S
+    from repro_torch.models.params import cast_params, init_params
+    from repro_torch.runtime.elastic import reshard
+
+    runs = mesh_cell_runs(arch)
+    run = runs["serve"]
+    B, P = MESH_CELLS[arch]
+    cfg = run.model
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=gen)
+    nxt = torch.randint(0, cfg.vocab_size, (MESH_DECODES, B, 1),
+                        generator=gen)
+    params = init_params(cfg, 0, device=dev)
+
+    def drive(p, mesh_or_none):
+        prefill = S.make_prefill_step(run, dev, mesh=mesh_or_none)
+        decode = S.make_decode_step(runs["decode"], dev, mesh=mesh_or_none)
+        build.reset_launches()
+        logits, cache = prefill(p, {"tokens": tokens})
+        outs = [logits]
+        for i in range(MESH_DECODES):
+            logits, cache = decode(p, cache, nxt[i], P + i)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        return outs, launch_counts(build)
+
+    p16 = cast_params(params, torch.bfloat16)
+    free, free_launches = drive(p16, None)
+    del p16
+    release(torch)
+    dparams = reshard(params, S.state_shardings(run, mesh)["params"])
+    meshed, mesh_launches = drive(dparams, mesh)
+    kinds = sorted({type(p.data).__name__ for p in dparams.parameters()})
+    del dparams, params
+    release(torch)
+    assert kinds == ["DTensor"], kinds
+    bad = [i for i, (a, b) in enumerate(zip(free, meshed))
+           if not torch.equal(a, b)]
+    assert not bad, (arch, bad)
+    assert all(bool(torch.isfinite(x).all()) for x in free), arch
+    assert free_launches == mesh_launches, (free_launches, mesh_launches)
+    L = cfg.num_layers
+    want = ({"flash_attention_fwd": L} if arch == "qwen3-1.7b"
+            else {"ssd_chunk_scan": L})
+    for k, v in want.items():
+        assert mesh_launches.get(k) == v, (arch, mesh_launches)
+    log(f"  (a) {arch}, {L} layers, bf16: prefill {B} x {P} + "
+        f"{MESH_DECODES} decode steps on the 1 x 1 mesh (parameters as "
+        f"{kinds}) == mesh-free, bit for bit, {len(free)} logits tensors; "
+        f"launches of each run {mesh_launches}")
+    return {"launches": mesh_launches, "launches_mesh_free": free_launches,
+            "layers": L, "batch": B, "prompt": P, "decodes": MESH_DECODES}
+
+
+def phase_mesh_moe(torch, dev, build, mesh):
+    """19(b): phi3.5-moe at full width, 2 layers, one train step (bf16
+    compute, f32 masters, AdamW, 2 x 1024) mesh-free and on the 1 x 1 mesh,
+    where the load-balance loss's means go through the all-reduce over the
+    data ranks (one NCCL rank): loss, router losses, dropped fraction,
+    grad norm and every updated parameter bit-equal, the flash launches of
+    each run equal."""
+    from repro_torch.configs.base import (HornConfig, RunConfig, ShapeConfig,
+                                          get_model_config)
+    from repro_torch.core import steps as S
+    from repro_torch.runtime.elastic import remesh_state
+
+    cfg = dataclasses.replace(get_model_config("phi3.5-moe-42b"),
+                              num_layers=MESH_MOE_LAYERS)
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "t", "train", MESH_MOE_SEQ, MESH_MOE_BATCH),
+        horn=HornConfig(enabled=False), optimizer="adamw",
+        learning_rate=3e-4, seed=0)
+    batch = scale_batches(run)(0)
+
+    def one(mesh_or_none):
+        state = S.init_state(run, dev)
+        if mesh_or_none is not None:
+            state = remesh_state(state, S.state_axes(run), S.make_ctx(
+                cfg, mesh_or_none, run.shape))
+        step = S.make_train_step(run, dev, mesh=mesh_or_none)
+        build.reset_launches()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        launches = launch_counts(build)
+        metrics = {k: v.item() for k, v in m.items()}
+        params = {n: (p.to_local() if hasattr(p, "to_local") else p)
+                  .detach().cpu() for n, p in
+                  state["params"].named_parameters()}
+        del state, step
+        release(torch)
+        return metrics, params, launches
+
+    a_m, a_p, a_l = one(None)
+    b_m, b_p, b_l = one(mesh)
+    assert a_m == b_m, (a_m, b_m)
+    bad = [n for n in a_p if not torch.equal(a_p[n], b_p[n])]
+    assert not bad, bad[:4]
+    assert a_l == b_l and a_l.get("flash_attention_fwd") == \
+        2 * MESH_MOE_LAYERS, (a_l, b_l)
+    assert a_m["load_balance_loss"] > 0 and math.isfinite(a_m["loss"]), a_m
+    log(f"  (b) phi3.5-moe, {MESH_MOE_LAYERS} layers, one train step of "
+        f"{MESH_MOE_BATCH} x {MESH_MOE_SEQ}: the 1 x 1 mesh (router means "
+        f"all-reduced over the data rank) == mesh-free, bit for bit: "
+        f"{', '.join(f'{k} {v:.6g}' for k, v in a_m.items())}; "
+        f"{len(a_p)} parameters equal; launches {b_l}")
+    return {"metrics": a_m, "launches": b_l}
+
+
+def cost_cells():
+    """19(c)'s cells in order, (name, run): 19(a)'s prefill and decode of
+    each arch, then phase 6's train step."""
+    cells = []
+    for arch, (B, P) in MESH_CELLS.items():
+        runs = mesh_cell_runs(arch)
+        cells += [(f"{arch} prefill {B} x {P}", runs["prefill"]),
+                  (f"{arch} decode {B} x 1 at {P + MESH_DECODES}",
+                   runs["decode"])]
+    run = scale_run()
+    return cells + [(f"qwen3-1.7b train {run.shape.global_batch} x "
+                     f"{run.shape.seq_len} (phase 6)", run)]
+
+
+def trace_cost_cells():
+    """The fake trace of each of 19(c)'s cells (``dryrun.trace_cell``, the
+    CPU's plain path), {name: its FLOPs, bytes, cast bytes, peak of live
+    storage and the trace's seconds}.  CPU work only: ``main`` runs it
+    while nvcc builds the kernels (phase 2)."""
+    from repro_torch.launch.dryrun import trace_cell
+
+    out = {}
+    for name, run in cost_cells():
+        t0 = time.perf_counter()
+        c = trace_cell(run)
+        out[name] = {"flops": c.flops, "bytes": c.bytes,
+                     "cast_bytes": c.cast_bytes, "peak_bytes": c.peak_bytes,
+                     "trace_s": time.perf_counter() - t0}
+    return out
+
+
+def build_while_tracing(build, sources):
+    """Phase 2: nvcc builds ``sources`` (one process each, all at once) in
+    a thread while this thread takes 19(c)'s fake traces; the traces, once
+    both are done.  Either's error is raised, the build's first."""
+    import threading
+
+    failed = []
+
+    def run_build():
+        try:
+            build.build(sources)
+        except BaseException as e:      # raised again below, on this thread
+            failed.append(e)
+
+    th = threading.Thread(target=run_build, name="nvcc")
+    th.start()
+    try:
+        traces = trace_cost_cells()
+    finally:
+        th.join()
+    if failed:
+        raise failed[0]
+    return traces
+
+
+def phase_cost_model(torch, dev, build, traces):
+    """19(c): the dry run's counter against the card.  For each cell of
+    ``cost_cells`` (19(a)'s prefill and decode of qwen3-1.7b and
+    mamba2-2.7b, phase 6's train step) ``traces`` holds the fake trace of
+    the same cell, taken in this process during phase 2
+    (``trace_cost_cells``): FLOPs, bytes and the peak of live storage; the
+    card runs the cell's mesh-free step on the same shapes (f32 parameters
+    cast each call, as traced), timed by CUDA events, with
+    ``max_memory_allocated`` over the timed calls.  A wall below t_compute
+    fails: the count would be too high."""
+    from repro_torch.core import steps as S
+    from repro_torch.launch import analysis as A
+    from repro_torch.models.params import init_params
+
+    out = {}
+    cells = dict(cost_cells())
+    assert sorted(cells) == sorted(traces), (sorted(cells), sorted(traces))
+
+    def measure(name, fn, iters):
+        run, tr = cells[name], traces[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(torch, fn, iters, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        mf = A.model_flops_estimate(run.model, run.shape)
+        t_c = tr["flops"] / A.PEAK_FLOPS
+        t_m = tr["bytes"] / A.HBM_BW
+        wall = ms / 1e3
+        row = {"flops": tr["flops"], "bytes": tr["bytes"],
+               "cast_bytes": tr["cast_bytes"],
+               "traced_peak_bytes": tr["peak_bytes"],
+               "max_memory_allocated": peak, "t_compute_s": t_c,
+               "t_memory_s": t_m, "bound_s": max(t_c, t_m), "wall_s": wall,
+               "model_flops": mf, "frac_of_peak": mf / (wall * A.PEAK_FLOPS),
+               "trace_s": tr["trace_s"]}
+        log(f"  (c) {name}: t_compute {t_c * 1e3:.3f} ms, t_memory "
+            f"{t_m * 1e3:.3f} ms, bound {row['bound_s'] * 1e3:.3f} ms, "
+            f"wall {ms:.3f} ms (CUDA events, {iters} calls), "
+            f"model_flops / (wall x peak) {row['frac_of_peak']:.4f}; peak "
+            f"traced {tr['peak_bytes'] / 2**30:.2f} GiB, "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB; trace "
+            f"{tr['trace_s']:.1f} s (during phase 2)")
+        assert wall >= t_c, (name, wall, t_c)
+        out[name] = row
+
+    names = iter(cells)
+    for arch in MESH_CELLS:
+        runs = mesh_cell_runs(arch)
+        B, P = MESH_CELLS[arch]
+        cfg = runs["prefill"].model
+        params = init_params(cfg, 0, device=dev)
+        gen = torch.Generator(device="cpu").manual_seed(19)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, P),
+                                         generator=gen).to(dev)}
+        prefill = S.make_prefill_step(runs["prefill"], dev)
+        measure(next(names), lambda i: prefill(params, batch), 3)
+        serve = S.make_prefill_step(runs["serve"], dev)
+        _, cache = serve(params, batch)
+        decode = S.make_decode_step(runs["decode"], dev)
+        tok = batch["tokens"][:, :1]
+        measure(next(names),
+                lambda i: decode(params, cache, tok, P + MESH_DECODES - 1),
+                10)
+        del params, cache, prefill, serve, decode
+        release(torch)
+    run = scale_run()
+    state = S.init_state(run, dev)
+    step = S.make_train_step(run, dev)
+    batch_at = scale_batches(run)
+    held = {"state": state}
+
+    def train_step(i):
+        held["state"], m = step(held["state"], batch_at(i))
+
+    measure(next(names), train_step, 2)
+    del held, state, step
+    release(torch)
+    return out
+
+
+def phase_dryrun(torch, dev, build, traces):
+    """Phase 19 over one NCCL process group of one rank (as phase 17): (a)
+    the prefill and decode steps on a 1 x 1 mesh, (b) the MoE train step
+    on it, (c) the cost model (``traces``, from phase 2) against the
+    card."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/pg",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = make_test_mesh(1, 1)
+        out = {arch: phase_mesh_serve(torch, dev, build, mesh, arch)
+               for arch in MESH_CELLS}
+        out["moe"] = phase_mesh_moe(torch, dev, build, mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    out["cost"] = phase_cost_model(torch, dev, build, traces)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 19: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6021,9 +6354,11 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = [kernel.SOURCE, kernel.SOURCE_DECODE, fkernel.SOURCE,
                dkernel.SOURCE, skernel.SOURCE]
-    build.build(sources)
+    cost_traces = build_while_tracing(build, sources)
     log(f"  {', '.join(str(s.relative_to(ROOT)) for s in sources)} built "
-        f"in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+        f"in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel; "
+        f"meanwhile phase 19(c)'s {len(cost_traces)} fake traces, "
+        f"{sum(t['trace_s'] for t in cost_traces.values()):.1f} s)")
     for src in sources:
         log(f"    nvcc {src.name}: "
             f"{build.BUILD_SECONDS.get(src.name, 0.0):.1f} s")
@@ -6142,6 +6477,12 @@ def main() -> int:
           "trace, guard bands, serve --sanitize, the CLIs")
     analysis = phase_analysis(torch, dev, build, kernel, ref, fkernel, fref,
                               dkernel, dref, skernel, sref, served)
+    release(torch)
+
+    phase("phase 19: the dry run's steps on a 1 x 1 mesh (prefill, decode, "
+          "MoE router losses) and its cost model against the card")
+    dry = phase_dryrun(torch, dev, build, cost_traces)
+    release(torch)
 
     # headline shapes: the prompt-chunk tick for the chunk kernel (decode
     # ticks go to the decode kernel), the decode tick for the decode kernel
@@ -6219,6 +6560,16 @@ def main() -> int:
             if run is trained:          # phase 15's runs at head dim 128
                 kernels[-1]["launches_phase15"] = {
                     "phi3.5-moe train": fam["train"]["launches"][name]}
+                if part == "fwd":       # 19(a)'s mesh prefill, 19(b)
+                    kernels[-1]["launches_phase19"] = {
+                        "qwen3-1.7b mesh prefill + decode": dry[
+                            "qwen3-1.7b"]["launches"][name],
+                        "phi3.5-moe mesh train": dry["moe"]["launches"][
+                            name]}
+                else:
+                    kernels[-1]["launches_phase19"] = {
+                        "phi3.5-moe mesh train": dry["moe"]["launches"][
+                            name]}
                 kernels[-1]["launches_phase17"] = {
                     "mesh train": scale["train"]["launches"][name],
                     "pipeline": scale["pipeline"]["launches"][name],
@@ -6274,6 +6625,8 @@ def main() -> int:
         "launches_by_kernel": ssm["launches_by_route"],
         "launches_phase15": {"jamba-1.5-large prefill": fam[
             "jamba-1.5-large-398b"]["launches"][skernel.NAME]},
+        "launches_phase19": {"mamba2-2.7b mesh prefill + decode": dry[
+            "mamba2-2.7b"]["launches"][skernel.NAME]},
         "shapes": {"prefill": ssd},
     })
     line = {"kernels": kernels, "card": card, "serve": served,
@@ -6281,6 +6634,7 @@ def main() -> int:
             "mnist": mnist, "new_archs": new_archs, "bank": bank,
             "spec": spec, "observability": obs, "families": fam,
             "encdec": encdec, "scaleout": scale, "analysis": analysis,
+            "dryrun": dry,
             "flash_host_us": flash["host_us"]}
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -64,6 +64,28 @@ def psum_mean(tree: Tree, group: Groups) -> Tree:
             for k, x in tree.items()}
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """``x`` summed over the ranks of ``group``; every rank's result reads
+    every rank's ``x``, so the backward sums the gradient over them too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad.clone(), ctx.group), None
+
+
+def mean_over_ranks(x: torch.Tensor, group: Groups) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of ``group``, differentiable: the
+    backward sums the gradient over the ranks, so the ranks' gradients,
+    averaged as a mesh step averages them, are the gradient of the
+    mean."""
+    return _SumOverRanks.apply(x, group) / float(group_size(group))
+
+
 def merge_grads(grads: Tree, group: Groups, topology: TopologyConfig,
                 residuals: Optional[Tree] = None
                 ) -> Tuple[Tree, Optional[Tree]]:

@@ -4,15 +4,20 @@ of circuits, with the speculative verify window), the draft step of
 speculative decoding and the device-side KV page copy.
 
 PyTorch runs eagerly, so a "step" is a plain function; nothing is traced
-or compiled per shape.  The train step also runs on a ``DeviceMesh``
-(``make_train_step(mesh=)``): the state as DTensors laid out by
-``state_shardings`` (the logical axes of ``launch/mesh.py``), each rank on
-its rows of the global batch, gradients averaged over the data ranks.  Serving casts the parameters to the compute dtype
-once, when the engine is built (``models/params.py::cast_params``); the
-prefill and decode steps cast on every call, which costs nothing when the
-caller passes compute-dtype parameters; the train step refreshes a compute-dtype copy from the f32 masters every step
-and differentiates that copy, as the JAX step differentiates
-``cast_tree(params, compute_dtype)``.
+or compiled per shape.  The train, prefill and decode steps also run on a
+``DeviceMesh`` (``mesh=``): the parameters (and the train state's
+moments) are DTensors laid out by the logical axes of
+``launch/mesh.py``, gathered whole in the compute dtype for each call;
+each rank computes its rows of the global batch (the "batch" rule over
+the data ranks), and the train step averages its gradients over the data
+ranks.  ``input_specs``/``decode_input_specs`` give every model input of
+a shape cell on the meta device.  Serving casts the parameters to the
+compute dtype once, when the engine is built
+(``models/params.py::cast_params``); the prefill and decode steps cast on
+every call, which costs nothing when the caller passes compute-dtype
+parameters; the train step refreshes a compute-dtype copy from the f32
+masters every step and differentiates that copy, as the JAX step
+differentiates ``cast_tree(params, compute_dtype)``.
 """
 from __future__ import annotations
 
@@ -99,6 +104,47 @@ def batch_shardings(run: RunConfig, mesh) -> Dict:
     return {k: ctx.sharding(*v) for k, v in ax.items()}
 
 
+def input_specs(run: RunConfig) -> Dict[str, torch.Tensor]:
+    """Every model input of the shape cell on the meta device (shapes and
+    dtypes, no memory), as the JAX package's ``input_specs``: "tokens" and
+    "labels" int32 [B, S - num_patches] ("labels" for a train cell only),
+    bf16 "frames" [B, encoder_seq, d] for an encoder-decoder and bf16
+    "patch_embeds" [B, num_patches, d] for a multimodal config."""
+    cfg, shape = run.model, run.shape
+    B, S = shape.global_batch, shape.seq_len
+    text = S - (cfg.num_patches if cfg.num_patches else 0)
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    specs = {"tokens": meta((B, text), torch.int32),
+             "labels": meta((B, text), torch.int32)}
+    if cfg.is_encoder_decoder:
+        specs["frames"] = meta((B, cfg.encoder_seq, cfg.d_model),
+                               torch.bfloat16)
+    if cfg.num_patches:
+        specs["patch_embeds"] = meta((B, cfg.num_patches, cfg.d_model),
+                                     torch.bfloat16)
+    if shape.kind != "train":
+        specs.pop("labels")
+    return specs
+
+
+def decode_input_specs(run: RunConfig) -> Dict[str, torch.Tensor]:
+    """A decode cell's inputs beside the cache on the meta device, as the
+    JAX package's ``decode_input_specs``: "tokens" int32 [B, 1], "pos"
+    int32 [] and, for an encoder-decoder, bf16 "encoder_out"
+    [B, encoder_seq, d].  (The port's decode step takes ``pos`` as a
+    Python int.)"""
+    cfg, B = run.model, run.shape.global_batch
+    out = {"tokens": torch.empty((B, 1), dtype=torch.int32, device="meta"),
+           "pos": torch.empty((), dtype=torch.int32, device="meta")}
+    if cfg.is_encoder_decoder:
+        out["encoder_out"] = torch.empty((B, cfg.encoder_seq, cfg.d_model),
+                                         dtype=torch.bfloat16, device="meta")
+    return out
+
+
 def state_to_jax_flat(state: Dict, run: RunConfig) -> Dict[str, np.ndarray]:
     """The train state in the JAX package's checkpoint layout, {keystr:
     numpy array}: ``['params']...`` as ``to_jax_flat`` lays out the model
@@ -146,6 +192,69 @@ def state_from_jax_flat(flat, run: RunConfig, device="cuda") -> Dict:
             "rng": (hi << 32) | lo}
 
 
+# ---------------------------------------------------------------------------
+# Steps on a mesh: the parameters gathered whole, each rank on its rows
+# ---------------------------------------------------------------------------
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+@torch.no_grad()
+def gather_compute_copy(params, into, cdtype):
+    """``into`` (a model of the same config in ``cdtype``) holding
+    ``params`` whole: a DTensor is cast to ``cdtype`` on its own shard,
+    then all-gathered in ``cdtype`` (the wire carries compute-dtype
+    bytes); a plain tensor is copied in."""
+    for c, p in zip(into.parameters(), params.parameters()):
+        if isinstance(p, DTensor):
+            p = DTensor.from_local(p.to_local().to(cdtype), p.device_mesh,
+                                   p.placements, run_check=False
+                                   ).full_tensor()
+        c.copy_(p)
+    return into
+
+
+def rank_rows(x, ctx: ShardingCtx):
+    """This rank's rows of ``x`` (dim 0 the global batch) by the "batch"
+    rule: a DTensor's local tensor, or a view of a plain tensor's rows
+    (equal rows a rank; ``local_range`` raises on an uneven split)."""
+    if isinstance(x, DTensor):
+        return x.to_local()
+    lo, hi = local_range(x.shape[0], ctx.mesh, ctx.placements("batch"), 0)
+    return x[lo:hi]
+
+
+def all_rows(x: torch.Tensor, ctx: ShardingCtx) -> torch.Tensor:
+    """Every rank's rows of ``x`` (this rank's, by the "batch" rule),
+    gathered whole on every rank."""
+    pl = ctx.placements("batch", *([None] * (x.ndim - 1)))
+    return DTensor.from_local(x, ctx.mesh, pl, run_check=False).full_tensor()
+
+
+def decode_cache_shardings(run: RunConfig, mesh) -> list:
+    """The layout of the decode cache on ``mesh``: one ``NamedSharding`` a
+    leaf of ``init_cache``'s list, from ``T.cache_logical_axes`` with its
+    "batch" entry kept and the others replicated.  A rank computes its
+    rows with every head, so it holds the whole cache of its rows; the
+    JAX package also shards KV heads over "model" (or, where they do not
+    divide it, the cache's sequence), so a model rank here holds
+    ``model`` times the cache the JAX layout gives it, and no gather of
+    the cache is needed (``PERF.md`` §7)."""
+    ctx = make_ctx(run.model, mesh, run.shape)
+    axes = T.cache_logical_axes(run.model, decode_cache_specs(run))
+    return [tuple(ctx.sharding(*(a if a == "batch" else None for a in ax))
+                  for ax in entry) for entry in axes]
+
+
+def cache_on_mesh(cache, shardings):
+    """Each rank's cache rows as DTensors of ``decode_cache_shardings``
+    (no communication)."""
+    return [tuple(DTensor.from_local(t, sh.mesh, sh.placements,
+                                     run_check=False)
+                  for t, sh in zip(entry, shs))
+            for entry, shs in zip(cache, shardings)]
+
+
 def make_train_step(run: RunConfig, device="cuda", mesh=None):
     """step(state, batch) -> (new state, metrics).
 
@@ -186,8 +295,9 @@ def make_train_step(run: RunConfig, device="cuda", mesh=None):
     moments.  Loss and grad norm are the global ones: every rank holds
     the same token count, so the mean of the ranks' losses is the batch's.
     A Horn row keeps its group by its global index; ``num_groups=0``
-    means one group a data shard, as in JAX.  An MoE config is refused on
-    more than one data rank: its router losses are not means over rows."""
+    means one group a data shard, as in JAX.  An MoE layer's load-balance
+    loss takes its two per-expert means over the data ranks
+    (``layers.moe_apply(dp_groups=)``), so it is the global batch's."""
     cfg = run.model
     dev = resolve_device(device)
     _, opt_update = make_optimizer(run.optimizer)
@@ -195,19 +305,14 @@ def make_train_step(run: RunConfig, device="cuda", mesh=None):
     ctx = None
     if mesh is not None:
         ctx = make_ctx(cfg, mesh, run.shape)
-        if mesh.device_type != dev.type:
-            raise ValueError(f"a {mesh.device_type} mesh for a step on "
-                             f"{dev}")
-        if cfg.num_experts and ctx.dp_size > 1:
-            raise NotImplementedError(
-                "MoE router losses over a batch split across data ranks "
-                "(ROADMAP item 32)")
+        _check_mesh(mesh, dev)
     held = {}                       # the masters and their compute copy
 
     def grads_of(cparams, batch, horn):
         leaves = list(cparams.parameters())
-        loss, metrics = api.model_loss(cparams, batch, cfg, horn=horn,
-                                       remat=run.remat != "none")
+        loss, metrics = api.model_loss(
+            cparams, batch, cfg, horn=horn, remat=run.remat != "none",
+            dp_groups=None if mesh is None else ctx.dp_groups)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
         return loss, metrics, list(grads)
@@ -242,25 +347,17 @@ def make_train_step(run: RunConfig, device="cuda", mesh=None):
                 p.requires_grad_(True)
         if mesh is None:
             return copy_into(held["cparams"], params)
-        with torch.no_grad():           # cast locally, gather in cdtype
-            for c, p in zip(held["cparams"].parameters(),
-                            params.parameters()):
-                if isinstance(p, DTensor):
-                    p = DTensor.from_local(
-                        p.to_local().to(cdtype), p.device_mesh,
-                        p.placements, run_check=False).full_tensor()
-                c.copy_(p)
-        return held["cparams"]
+        return gather_compute_copy(params, held["cparams"], cdtype)
 
-    def rank_rows(batch):
+    def batch_rows(batch):
         """(this rank's rows, (first row, global batch) or None)."""
         if mesh is None:
             return batch, None
         B = batch["tokens"].shape[0]
         # equal rows a rank (local_range raises on an uneven split): the
         # mean of the ranks' losses is then the batch's
-        lo, hi = local_range(B, mesh, ctx.placements("batch"), 0)
-        return {k: v[lo:hi] for k, v in batch.items()}, (lo, B)
+        lo, _ = local_range(B, mesh, ctx.placements("batch"), 0)
+        return {k: rank_rows(v, ctx) for k, v in batch.items()}, (lo, B)
 
     def merge(metrics, grads):
         """Means over the data ranks, each gradient's written back into it
@@ -275,16 +372,13 @@ def make_train_step(run: RunConfig, device="cuda", mesh=None):
                 g.copy_(merged[i])
         return psum_mean(metrics, groups), grads
 
-    def local(x):
-        return x.to_local() if isinstance(x, DTensor) else x
-
     def train_step(state, batch):
         params = state["params"]
         cparams = compute_copy(params)
         batch = {k: torch.as_tensor(batch[k], device=dev)
                  for k in ("tokens", "labels", "patch_embeds", "frames")
                  if k in batch}
-        batch, rows = rank_rows(batch)
+        batch, rows = batch_rows(batch)
         kw = {} if mesh is None else dict(dp_size=ctx.dp_size, rows=rows)
         horn = make_horn_state(state["rng"], run.horn, state["step"], dev,
                                **kw)
@@ -301,9 +395,9 @@ def make_train_step(run: RunConfig, device="cuda", mesh=None):
                                                   p.placements))
                      if isinstance(p, DTensor) else g
                      for g, p in zip(grads, masters)]
-            lopt = {k: ([local(x) for x in v] if isinstance(v, list) else v)
-                    for k, v in opt.items()}
-            lmasters = [local(p) for p in masters]
+            lopt = {k: ([_local(x) for x in v] if isinstance(v, list)
+                        else v) for k, v in opt.items()}
+            lmasters = [_local(p) for p in masters]
         if run.optimizer == "sgdm":
             opt_update(grads, lopt, lmasters, lr=run.learning_rate,
                        momentum=run.momentum,
@@ -318,10 +412,15 @@ def make_train_step(run: RunConfig, device="cuda", mesh=None):
     return train_step
 
 
+def _check_mesh(mesh, dev) -> None:
+    if mesh.device_type != dev.type:
+        raise ValueError(f"a {mesh.device_type} mesh for a step on {dev}")
+
+
 # ---------------------------------------------------------------------------
 # Serving steps
 # ---------------------------------------------------------------------------
-def make_prefill_step(run: RunConfig, device="cuda"):
+def make_prefill_step(run: RunConfig, device="cuda", mesh=None):
     """step(params, batch) -> (logits [B, vocab] at the last position, the
     decode cache of this shape cell), ``batch["tokens"]`` [B, S] (numpy or
     a tensor) behind ``batch["patch_embeds"]`` [B, num_patches, d] for a
@@ -336,22 +435,55 @@ def make_prefill_step(run: RunConfig, device="cuda"):
     chunked SSD through ``ssd_chunk_scan``.  Each attention layer's (k, v)
     is copied into buffers of ``run.shape.seq_len`` tokens
     (``T.decode_cache_of_prefill``), so ``make_decode_step`` continues the
-    cache at the position after the prompt (patches plus S)."""
+    cache at the position after the prompt (patches plus S).
+
+    ``mesh`` (a ``DeviceMesh`` on ``device``'s type): ``params`` are
+    DTensors (``state_shardings(run, mesh)["params"]``, or any layout), gathered
+    whole in the compute dtype on every call (``gather_compute_copy``).
+    Every rank passes the same global batch and runs its rows of it, by
+    the "batch" rule; ranks along "model" run the same rows.  The logits
+    come back whole on every rank (an all-gather of the rows), the cache
+    as DTensors of each rank's rows (``decode_cache_shardings``) and an
+    encoder output as a DTensor of its rows ("batch", None, None)."""
     cfg = run.model
     dev = resolve_device(device)
     cdtype = dtype_of(run.compute_dtype)
+    if mesh is None:
+        @torch.inference_mode()
+        def prefill_step(params, batch):
+            inputs = {k: torch.as_tensor(batch[k], device=dev)
+                      for k in ("tokens", "patch_embeds", "frames")
+                      if k in batch}
+            logits, cache, *enc = api.prefill(cast_params(params, cdtype),
+                                              inputs, cfg)
+            return (logits, T.decode_cache_of_prefill(cfg, cache,
+                                                      run.shape.seq_len),
+                    *enc)
+
+        return prefill_step
+
+    _check_mesh(mesh, dev)
+    ctx = make_ctx(cfg, mesh, run.shape)
+    cache_sh = decode_cache_shardings(run, mesh)
+    held = {}
 
     @torch.inference_mode()
-    def prefill_step(params, batch):
-        inputs = {k: torch.as_tensor(batch[k], device=dev)
+    def mesh_prefill_step(params, batch):
+        if "cparams" not in held:
+            held["cparams"] = empty_params(cfg, dev, cdtype)
+        cparams = gather_compute_copy(params, held["cparams"], cdtype)
+        inputs = {k: rank_rows(torch.as_tensor(batch[k], device=dev), ctx)
                   for k in ("tokens", "patch_embeds", "frames")
                   if k in batch}
-        logits, cache, *enc = api.prefill(cast_params(params, cdtype),
-                                          inputs, cfg)
-        return (logits, T.decode_cache_of_prefill(cfg, cache,
-                                                  run.shape.seq_len), *enc)
+        logits, cache, *enc = api.prefill(cparams, inputs, cfg)
+        cache = T.decode_cache_of_prefill(cfg, cache, run.shape.seq_len)
+        enc = [DTensor.from_local(e, mesh, ctx.placements("batch", None,
+                                                          None),
+                                  run_check=False) for e in enc]
+        return (all_rows(logits, ctx), cache_on_mesh(cache, cache_sh),
+                *enc)
 
-    return prefill_step
+    return mesh_prefill_step
 
 
 def decode_cache_specs(run: RunConfig):
@@ -362,25 +494,52 @@ def decode_cache_specs(run: RunConfig):
                         device="meta")
 
 
-def make_decode_step(run: RunConfig, device="cuda"):
+def make_decode_step(run: RunConfig, device="cuda", mesh=None):
     """step(params, cache, tokens [B, 1], pos, encoder_out=None) ->
     (logits [B, vocab], the new cache): one token at position ``pos`` (an
     int) for every sequence, under inference mode, on ``params`` cast to
     the compute dtype on every call as in ``make_prefill_step``.
     Attention buffers are written in place (``pos`` must lie inside them);
     mamba states are replaced.  An encoder-decoder needs ``encoder_out``,
-    its prefill step's third value."""
+    its prefill step's third value.
+
+    ``mesh``: as ``make_prefill_step``'s.  ``cache`` holds DTensors of
+    each rank's rows (the mesh prefill step's, or any tensors laid out by
+    ``decode_cache_shardings``), or the whole cache as plain tensors, of
+    which each rank updates its rows in place; ``encoder_out`` likewise.
+    ``tokens`` is the global batch's.  Returns the logits whole on every
+    rank and the cache as DTensors of each rank's rows."""
     cfg = run.model
     dev = resolve_device(device)
     cdtype = dtype_of(run.compute_dtype)
+    if mesh is None:
+        @torch.inference_mode()
+        def decode_step(params, cache, tokens, pos, encoder_out=None):
+            tokens = torch.as_tensor(tokens, device=dev)
+            return api.decode_step(cast_params(params, cdtype), cache,
+                                   tokens, pos, cfg, encoder_out=encoder_out)
+
+        return decode_step
+
+    _check_mesh(mesh, dev)
+    ctx = make_ctx(cfg, mesh, run.shape)
+    cache_sh = decode_cache_shardings(run, mesh)
+    held = {}
 
     @torch.inference_mode()
-    def decode_step(params, cache, tokens, pos, encoder_out=None):
-        tokens = torch.as_tensor(tokens, device=dev)
-        return api.decode_step(cast_params(params, cdtype), cache, tokens,
-                               pos, cfg, encoder_out=encoder_out)
+    def mesh_decode_step(params, cache, tokens, pos, encoder_out=None):
+        if "cparams" not in held:
+            held["cparams"] = empty_params(cfg, dev, cdtype)
+        cparams = gather_compute_copy(params, held["cparams"], cdtype)
+        tokens = rank_rows(torch.as_tensor(tokens, device=dev), ctx)
+        cache = [tuple(rank_rows(t, ctx) for t in entry) for entry in cache]
+        if encoder_out is not None:
+            encoder_out = rank_rows(encoder_out, ctx)
+        logits, cache = api.decode_step(cparams, cache, tokens, pos, cfg,
+                                        encoder_out=encoder_out)
+        return all_rows(logits, ctx), cache_on_mesh(cache, cache_sh)
 
-    return decode_step
+    return mesh_decode_step
 
 
 def _segment_sum(x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:

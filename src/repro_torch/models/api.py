@@ -125,12 +125,13 @@ def decode_step(params, cache, tokens, cache_index, cfg: ModelConfig, *,
 
 
 def forward_hidden(params, batch, cfg: ModelConfig, *, horn=None,
-                   remat: bool = True):
+                   remat: bool = True, dp_groups=None):
     """Train-mode (hidden states [B, S, d], final-normed, of
     ``batch["tokens"]`` [B, S] behind any ``batch["patch_embeds"]``; the
     MoE aux dict); ``horn`` as in ``lm_forward``.  An encoder-decoder
     encodes ``batch["frames"]`` first; its decoder gives the hidden
-    states."""
+    states.  ``dp_groups`` as in ``lm_forward`` (a mesh step's data
+    ranks)."""
     if cfg.is_encoder_decoder:
         hidden, aux, _ = ED.encdec_forward(
             params, batch["frames"], batch["tokens"], cfg, mode="train",
@@ -138,14 +139,15 @@ def forward_hidden(params, batch, cfg: ModelConfig, *, horn=None,
         return hidden, aux
     return T.lm_forward(params, batch["tokens"], cfg, mode="train",
                         horn=horn, remat=remat,
-                        patch_embeds=batch.get("patch_embeds"))
+                        patch_embeds=batch.get("patch_embeds"),
+                        dp_groups=dp_groups)
 
 
 LB_COEF, Z_COEF = 0.01, 1e-3     # the router losses' weights in the loss
 
 
 def model_loss(params, batch, cfg: ModelConfig, *, horn=None,
-               remat: bool = True):
+               remat: bool = True, dp_groups=None):
     """(scalar loss, metrics) of next-token prediction on ``batch``
     ({"tokens", "labels"} [B, S_text], and "patch_embeds" for a multimodal
     config, whose positions are dropped from the hidden state before the
@@ -154,8 +156,11 @@ def model_loss(params, batch, cfg: ModelConfig, *, horn=None,
     cross-entropy, plus ``LB_COEF * load_balance_loss + Z_COEF *
     router_z_loss`` (the JAX defaults) when the config has experts.
     metrics: "loss", "xent" and the three MoE aux values (zeros for a
-    dense model)."""
-    hidden, aux = forward_hidden(params, batch, cfg, horn=horn, remat=remat)
+    dense model).  ``dp_groups``: a mesh step's data-parallel process
+    groups, over which the load-balance loss's means are taken
+    (``layers.moe_apply``)."""
+    hidden, aux = forward_hidden(params, batch, cfg, horn=horn, remat=remat,
+                                 dp_groups=dp_groups)
     if cfg.num_patches and batch.get("patch_embeds") is not None:
         hidden = hidden[:, batch["patch_embeds"].shape[1]:]
     xent = T.chunked_xent(hidden, _decoder(params, cfg), batch["labels"],

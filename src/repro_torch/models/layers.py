@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.group_sync import mean_over_ranks
 from repro_torch.kernels.dropout_matmul.ops import dropout_matmul
 
 f32 = torch.float32
@@ -286,7 +287,7 @@ def moe_route(params, xr, cfg: ModelConfig) -> MoERouting:
 
 
 def moe_apply(params, x, cfg: ModelConfig, *, hidden_mask=None,
-              with_aux: bool = True):
+              with_aux: bool = True, dp_groups=None):
     """x [..., S, d] -> (out [..., S, d], aux dict, empty without
     ``with_aux``), the JAX package's ``moe_apply`` rule for rule.
 
@@ -300,7 +301,16 @@ def moe_apply(params, x, cfg: ModelConfig, *, hidden_mask=None,
     hidden units.  aux: ``load_balance_loss`` (E times the routed
     fractions dotted with the mean router mass), ``router_z_loss`` (mean
     squared logsumexp of the logits) and ``dropped_frac``, all f32
-    scalars; serving, which reads none of them, passes ``with_aux=False``."""
+    scalars; serving, which reads none of them, passes ``with_aux=False``.
+
+    On a mesh each data rank routes its own rows, and the load-balance
+    loss is a product of two means over the whole batch, not a mean over
+    rows.  So with ``dp_groups`` (a mesh step's data-parallel process
+    groups) the two per-expert means are averaged over the data ranks
+    first, by an all-reduce that carries the gradient
+    (``group_sync.mean_over_ranks``).  ``router_z_loss`` and
+    ``dropped_frac`` are means over equal rows already.  Without
+    ``dp_groups`` nothing changes."""
     orig_shape = x.shape
     d = orig_shape[-1]
     xr = x.reshape((-1,) + tuple(orig_shape[-2:]))      # [R, S, d] rows
@@ -343,6 +353,9 @@ def moe_apply(params, x, cfg: ModelConfig, *, hidden_mask=None,
 
     me = F.one_hot(rt.gate_e, E).to(f32).mean(dim=(0, 1, 2))  # frac routed
     ce = rt.probs.mean(dim=(0, 1))                             # router mass
+    if dp_groups is not None:
+        me = mean_over_ranks(me, dp_groups)
+        ce = mean_over_ranks(ce, dp_groups)
     aux = {"load_balance_loss": E * (me * ce).sum(),
            "router_z_loss": (torch.logsumexp(rt.logits, dim=-1) ** 2).mean(),
            "dropped_frac": 1.0 - keep.to(f32).mean()}

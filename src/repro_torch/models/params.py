@@ -307,9 +307,18 @@ def copy_into(dst: Model, src: Model) -> Model:
     return dst
 
 
+@torch.no_grad()
 def cast_params(model: Model, dtype) -> Model:
     """``model`` with floating parameters in ``dtype``: itself when they
-    already are, else a cast copy (the caller's model is left alone)."""
+    already are, else a cast copy (the caller's model is left alone).  The
+    copy is a ``deepcopy`` whose memo maps each parameter to its cast, so
+    every shape comes from ``model`` itself (a materialized draft's
+    narrowed FFN included), no module is ``_apply``-ed (that cannot swap a
+    fake tensor), and it holds for meta and fake tensors as for real ones,
+    rounded as ``Tensor.to`` rounds."""
     if all(p.dtype == dtype for p in model.parameters()):
         return model
-    return copy.deepcopy(model).to(dtype)
+    memo = {id(p): nn.Parameter(
+        p.detach().to(dtype) if p.is_floating_point() else p.detach().clone(),
+        requires_grad=p.requires_grad) for p in model.parameters()}
+    return copy.deepcopy(model, memo)

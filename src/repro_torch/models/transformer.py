@@ -120,6 +120,36 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return [mix_cache(kind) for kind in cfg.layer_kinds()]
 
 
+def cache_logical_axes(cfg: ModelConfig, cache):
+    """The logical axes of every leaf of ``cache`` (``init_cache``'s list),
+    in its own tree, by the JAX package's rule leaf for leaf: a KV buffer
+    [B, S, KH, D] ("batch", "kv_seq", "kv_heads", "kv_head_dim"), an SSM
+    state [B, H, P, N] ("batch", "ssm_heads", None, "ssm_state"), a conv
+    tail [B, W-1, d_in + 2N] ("batch", None, None), anything else None a
+    dim.  The JAX leaves stacked over a superblock's repeats add a leading
+    "layers"; the port's per-layer list has no such dim."""
+    if cfg.ssm_state:
+        d_in, H, P, N = ssm_dims(cfg)
+    else:
+        d_in = H = P = N = -1
+
+    def ax(x):
+        s = x.shape
+        if len(s) >= 4 and s[-1] == cfg.head_dim and s[-2] == cfg.num_kv_heads:
+            base = ("batch", "kv_seq", "kv_heads", "kv_head_dim")
+        elif len(s) >= 4 and s[-1] == N and s[-2] == P:
+            base = ("batch", "ssm_heads", None, "ssm_state")
+        elif len(s) >= 3 and s[-1] == d_in + 2 * N:
+            base = ("batch", None, None)
+        else:
+            return tuple(None for _ in s)
+        if x.ndim == len(base) + 1:
+            base = ("layers",) + base
+        return base
+
+    return [tuple(ax(t) for t in entry) for entry in cache]
+
+
 def decode_cache_of_prefill(cfg: ModelConfig, cache, max_len: int):
     """A prefill's per-layer cache, laid out for dense decode: each
     attention layer's (k, v) [B, S, KH, D] is copied into the front of
@@ -187,7 +217,7 @@ def _block_apply(bp, x, cfg: ModelConfig, *, kind: str, layer_idx: int,
                  is_moe: bool = False, with_aux: bool = False, horn=None,
                  positions, cache=None, cache_index=None, block_tables=None,
                  chunk_lens=None, decode_lengths=None, serve_masks=None,
-                 encoder_out=None, causal: bool = True):
+                 encoder_out=None, causal: bool = True, dp_groups=None):
     """One decoder layer; returns (x, the mixer's new cache, the MoE aux
     dict: empty on a dense layer or without ``with_aux``).  ``horn``
     (train only) draws this layer's head, channel and FFN (or expert
@@ -196,7 +226,9 @@ def _block_apply(bp, x, cfg: ModelConfig, *, kind: str, layer_idx: int,
     slots' circuit masks into the head and FFN (``"ffn"``) or expert
     (``"moe"``) hidden masks.  A block with ``cross_attn`` attends to
     ``encoder_out`` after its mixer (no head mask there, as in the JAX
-    package); ``causal`` is the self-attention's mask."""
+    package); ``causal`` is the self-attention's mask; ``dp_groups`` (the
+    data-parallel process groups of a mesh step) make the MoE router
+    losses the whole batch's (``layers.moe_apply``)."""
     B = x.shape[0]
     aux = {}
     h = L.norm_apply(bp.pre_norm, x, cfg)
@@ -231,7 +263,7 @@ def _block_apply(bp, x, cfg: ModelConfig, *, kind: str, layer_idx: int,
             if sm is not None:
                 mm = _mix_mask(mm, sm[:, None, None, :])
             out, aux = L.moe_apply(bp.moe, h, cfg, hidden_mask=mm,
-                                   with_aux=with_aux)
+                                   with_aux=with_aux, dp_groups=dp_groups)
         else:
             fm = pdrop.unit_mask(horn, layer_idx, B, cfg.d_ff, salt=5)
             sf = _serve_slice(serve_masks, "ffn", layer_idx)
@@ -253,7 +285,8 @@ def _remat_block(fn, x):
 def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
                horn=None, remat: bool = True, cache=None, cache_index=None,
                block_tables=None, chunk_lens=None, logit_index=None,
-               serve_masks=None, patch_embeds=None, encoder_out=None):
+               serve_masks=None, patch_embeds=None, encoder_out=None,
+               dp_groups=None):
     """Returns (hidden [B, S, d] final-normed, or [B, n, d] with
     ``logit_index``; in prefill and decode the new per-layer cache, in
     train mode the MoE aux instead: each of ``load_balance_loss``,
@@ -300,7 +333,11 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
     attention heads and "ffn" [B, L, d_ff] the MLP's hidden units, all
     binary {0, 1}, so each slot runs its own Horn circuit of the shared
     weights; "moe" [B, L, moe_ff] masks the experts' hidden units of the
-    MoE layers."""
+    MoE layers.
+
+    ``dp_groups`` (train mode on a mesh: the step's data-parallel process
+    groups, ``ShardingCtx.dp_groups``) average the MoE load-balance
+    statistics over the data ranks (``layers.moe_apply``)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"lm_forward: mode {mode!r} is not ported")
     x = L.embed_apply(params.embed, tokens, cfg)
@@ -344,7 +381,8 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
                      cache=cache[li] if mode == "decode" else None,
                      cache_index=cache_index, block_tables=block_tables,
                      chunk_lens=chunk_lens, decode_lengths=decode_lengths,
-                     serve_masks=serve_masks, encoder_out=encoder_out)
+                     serve_masks=serve_masks, encoder_out=encoder_out,
+                     dp_groups=dp_groups)
         if mode == "train" and remat:
             x, layer_aux = checkpoint(_remat_block, fn, x,
                                       use_reentrant=False)

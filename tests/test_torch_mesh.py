@@ -142,20 +142,20 @@ def test_state_axes_follow_the_parameters(optimizer):
     assert set(ax["opt"]) == set(state["opt"])
 
 
-def test_mesh_step_refuses_moe_on_data_ranks():
-    """The MoE router losses are not means over rows, so the mesh step
-    refuses an MoE config split over data ranks (naming its ROADMAP
-    item) and takes it on one data rank."""
-    mesh = FakeMesh({"data": 2, "model": 1})
-    mesh.device_type = "cpu"
+def test_mesh_step_takes_moe_on_data_ranks():
+    """The MoE router losses are products of batch means, not means over
+    rows.  The mesh step used to refuse an MoE config split over data
+    ranks (ROADMAP item 32); it now averages the two means over the data
+    ranks inside ``moe_apply`` (held on a 2 x 2 gloo mesh against the
+    one-process step by ``tests/test_torch_dryrun.py``), so it refuses
+    none: it takes the config on two data ranks and on one."""
     run = tbase.RunConfig(
         model=tbase.reduced(tbase.get_model_config("phi3.5-moe-42b")),
         shape=tbase.ShapeConfig("t", "train", 32, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 32"):
-        TS.make_train_step(run, "cpu", mesh=mesh)
-    one = FakeMesh({"data": 1, "model": 2})
-    one.device_type = "cpu"
-    assert callable(TS.make_train_step(run, "cpu", mesh=one))
+    for sizes in ({"data": 2, "model": 1}, {"data": 1, "model": 2}):
+        mesh = FakeMesh(sizes)
+        mesh.device_type = "cpu"
+        assert callable(TS.make_train_step(run, "cpu", mesh=mesh))
 
 
 def test_tree_shardings_off_mesh_and_axes_leaves():
