@@ -9,7 +9,11 @@ Phases, each of which fails the script (non-zero exit, no result line):
   2. build    builds every kernel of the serving and training paths from
               ``csrc/`` with nvcc (one process per source, all at once),
               and prints each source's own nvcc time; meanwhile this
-              process takes phase 19(c)'s fake traces (CPU work).
+              process takes phase 19(c)'s fake traces (CPU work), and a
+              spawned worker of 3 threads (``CpuWorker``) starts on the
+              CPU halves of phases 12(a), 13(a), 14(a) and 16(a), whose
+              results the phases read when they need them (a failed half
+              fails its phase).
   3. kernels  each kernel against its plain PyTorch version on the card.
               Paged chunk attention: qwen3-1.7b and gemma2-27b geometries,
               chunk widths 1/7/64/256, ragged starts, idle slots, poisoned
@@ -148,8 +152,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
               bit-equal; mean-logit and majority-vote ensembles against a
               plain dense-cache recompute of each circuit combined on the
               host; the card's threefry keys, bits and uniforms equal to
-              the CPU's.  (b) qwen3-1.7b at full width (28 layers, bf16),
-              4 circuits, ``least_loaded`` routing, a quarter of the
+              the CPU's (drawn by the worker).  (b) qwen3-1.7b at full
+              width and ``CUT_LAYERS`` (14) of its 28 layers, bf16, 4
+              circuits, ``least_loaded`` routing, a quarter of the
               requests mean-logit ensembles, phase 5's load at T 0 and at
               T 0.8: every sequence finishes, an ensemble's members share
               one stream, both paged kernels launch once a layer a tick on
@@ -163,12 +168,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
               speculative streams equal to the non-speculative engine's
               with more than one token a speculating slot-tick and fewer
               ticks; two T 0.8 runs bit-equal; the card's speculative
-              streams against the CPU plain path's (first parting token
-              and top-2 gap printed); both pools' invariants, the draft
+              streams against the CPU plain path's (the worker's; first
+              parting token and top-2 gap printed); both pools' invariants, the draft
               pool empty at the end; the verify tick's chunk launch (with
               its S_v = 5 window) and a draft step's decode launch (idle
-              rows exactly 0) against their plain versions.  (b) 28
-              layers, bf16, phase 5's load at T 0 and T 0.8: every
+              rows exactly 0) against their plain versions.  (b)
+              ``CUT_LAYERS`` layers, bf16, phase 5's load at T 0 and T 0.8: every
               request finishes, launches asserted by route and by parent
               against draft, the same two launches held in bf16 (T 0);
               tok/s, TTFT, latency, ticks, accept rate, accepted tokens a
@@ -178,17 +183,20 @@ Phases, each of which fails the script (non-zero exit, no result line):
               (``serving/observability``), over the three pinned traces
               under ``benchmarks/traces/``.  (a) qwen3-1.7b at full width,
               2 layers, f32: each trace replayed at its header's engine
-              settings on the card and on the CPU plain path; equal
+              settings on the card and on the CPU plain path (the
+              worker's); equal
               digests, ticks, TTFT and latency (a parting must be a tie:
               top-2 logit gap at most 1e-3, draft or parent, printed);
               both paged kernels' launches equal to the engine's counts.
-              (b) 28 layers, bf16: each trace replayed twice on one engine
+              (b) ``CUT_LAYERS`` layers, bf16: each trace replayed twice
+              on one engine
               with a timeline: the same digest, no compile after warm-up,
               a CUDA-event ``device_ms_p50`` for every step variant, a
               valid Chrome export; per variant calls, device ms p50, the
               tick wall p50 and the busy share printed; the serve CLI's
-              ``--record-trace`` then ``--replay`` twice, one digest.  (c)
-              phase 5's load with and without telemetry: tick wall p50 of
+              ``--record-trace`` then ``--replay`` twice (28 layers), one
+              digest.  (c) phase 5's load at ``CUT_LAYERS`` layers with and
+              without telemetry: tick wall p50 of
               each, and two warm decode ticks under
               ``torch.cuda.set_sync_debug_mode("warn")``: the same
               synchronising calls, none in the observability package.
@@ -222,8 +230,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
               broken result that each check must reject.
  16. encdec   whisper-base (encoder-decoder).  (a) 2 + 2 layers at full
               width, f32, the same weights and seeded frames on the card
-              and on the CPU plain path: the loss, a prefill's logits and
-              encoder output and 4 greedy decode steps' logits within
+              and on the CPU plain path (the worker's): the loss, a
+              prefill's logits and encoder output and 4 greedy decode
+              steps' logits (tokens chosen on the CPU, fed to both) within
               1e-4.  (b) ``launch.train`` at full size (6 + 6 layers),
               bf16 compute, f32 masters, Horn 4 groups, AdamW, 4 steps of
               16 x 448 decoder tokens beside 1536 seeded bf16 frames:
@@ -277,7 +286,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
               visible key) point at a NaN-filled null page; two controls
               must be rejected (a live entry at the NaN page, a pool view
               shifted so its last page lies in the band).  (c) ``serve
-              --sanitize`` at full width on phase 5's load: bf16 pools,
+              --sanitize`` at full width on ``CUT_SANITIZE_REQUESTS`` (8)
+              of phase 5's 16 requests: bf16 pools,
               int8 pools, speculation at K 4, each 0 alerts over its tick
               count; controls at 2 layers: a lost table (pool-leak), a
               stale device row (block-table), a NaN in one layer's wo
@@ -302,11 +312,20 @@ Phases, each of which fails the script (non-zero exit, no result line):
               from a fake trace of the same cell in this process
               (``launch/dryrun.py::trace_cell``, taken during phase 2's
               build), the wall from CUDA
-              events; t_compute, t_memory, the bound, the wall and
-              model_flops / (wall x peak) printed, a wall below t_compute
-              failing the phase; ``max_memory_allocated`` beside the
-              traced peak (the plain path holds S^2 scores that flash does
-              not, so no assertion on memory).
+              events; t_compute, t_memory (flash and the SSD counted at
+              their kernels' boundary) beside the unfused t_memory, the
+              bound, the wall and model_flops / (wall x peak) printed, a
+              wall below t_compute or t_memory failing the phase;
+              ``max_memory_allocated`` beside the traced peak (the plain
+              path holds S^2 scores that flash does not, so no assertion
+              on memory).
+ 20. scopes   ``benchmarks/hlo_profile.py``'s card attribution on 19(c)'s
+              qwen3-1.7b prefill (2 x 4096, 28 layers) and phase 6's train
+              step: each tagged scope's device time under torch.profiler
+              (forward ranges by tag, backward by the autograd node's
+              scope) beside its counted FLOPs, bytes and bound from 19(c)'s
+              trace; a scope's device time below its FLOPs over the bf16
+              peak fails the phase, its memory half is printed.
 Phase 3 also holds the SSD chunk scan against its plain version (y and the
 final state): the JAX sweep's shapes, S 257 (chunks of 1 token), two more
 shapes of the wgmma route and the full-width shape B 2, S 2048, H 80, P
@@ -330,9 +349,12 @@ import dataclasses
 import gc
 import json
 import math
+import pickle
 import subprocess
 import sys
 import time
+import traceback
+import types
 from pathlib import Path
 from unittest import mock
 
@@ -356,6 +378,13 @@ SSM_BATCH, SSM_SEQ, SSM_DECODE = 4, 2048, 32    # the ssm phase's prefill
 ENCDEC_FRAMES = 1536
 ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 16, 448
 ENCDEC_PREFILL_BATCH, ENCDEC_PROMPT, ENCDEC_DECODE = 8, 64, 32
+ENCDEC_PARITY_DECODES = 4       # 16(a)'s greedy steps after its prefill
+# depth and load cuts that keep the script inside its time limit: 12(b),
+# 13(b) and 14(b)-(c) serve qwen3-1.7b at CUT_LAYERS of its 28 layers,
+# 18(c) runs serve --sanitize on CUT_SANITIZE_REQUESTS of phase 5's 16
+# requests; widths, checks and tolerances are as at full depth
+CUT_LAYERS = 14
+CUT_SANITIZE_REQUESTS = 8
 # the int8 serve phase: phase 5's load on a bf16 pool of this many pages
 # (its peak is 49, so it preempts), against int8 pools of the same bytes
 INT8_SERVE_BF16_PAGES = 28
@@ -2384,6 +2413,8 @@ def phase_mnist_parity(torch, dev):
         return q, s, r
 
     out = {}
+    cpu_s = 0.0     # the CPU half runs here: its state would cost more
+                    # to send back from ``CpuWorker`` than to compute
     with mock.patch.object(CT, "horn_state", cpu_drawn_horn(torch)), \
             mock.patch.object(C, "ef_compress_tree", recording):
         for name, topo in (("allreduce", {}),
@@ -2402,7 +2433,9 @@ def phase_mnist_parity(torch, dev):
                 if name == "int8":      # the card steps from the CPU's state
                     card = [{k: v.to(dev) for k, v in t.items()}
                             for t in host]
+                t0 = time.perf_counter()
                 *host, hl = steps[cpu](*host, bt, step)
+                cpu_s += time.perf_counter() - t0
                 *card, cl = steps[dev](*card, bt, step)
                 assert math.isfinite(float(cl)), (name, step)
                 worst["loss"] = max(worst["loss"], abs(float(cl) - float(hl))
@@ -2440,6 +2473,11 @@ def phase_mnist_parity(torch, dev):
             if name == "int8":
                 assert flips < 1e-3 * n * MNIST_PARITY_STEPS, flips
             out[name] = dict(worst, int8_flips=flips)
+    n = sum(v.numel() for v in host[0].values())
+    log(f"  the CPU steps took {cpu_s:.1f} s of the phase; each step's "
+        f"state (parameters, momentum, residuals) is "
+        f"{3 * n * 4 / 2**20:.1f} MiB, which the comparison reads")
+    out["cpu_seconds"] = cpu_s
     return out
 
 
@@ -2816,7 +2854,23 @@ def compare_streams(torch, what, key, got, want, tap_got, tap_want,
     return j is None, d
 
 
-def phase_bank_parity(torch, dev):
+def threefry_draws(torch, d):
+    """Threefry keys, 8 x 151936 bits and uniforms, and 8 categorical draws
+    over seeded logits at T 0.8, all on device ``d``, on the host."""
+    from repro_torch.core import prng
+
+    keys = prng.fold_in(prng.fold_in(prng.key(2 ** 31 - 1, d),
+                                     torch.arange(8, device=d) * 7),
+                        torch.arange(8, device=d) + 3)
+    logits = torch.randn(8, 151936,
+                         generator=torch.Generator().manual_seed(0))
+    return {"keys": keys.cpu(),
+            "bits": prng.random_bits(keys, (151936,)).cpu(),
+            "uniforms": prng.uniform(keys, (151936,)).cpu(),
+            "categorical": prng.categorical(keys, logits.to(d) / 0.8).cpu()}
+
+
+def phase_bank_parity(torch, dev, cpu):
     """Phase 12(a): qwen3-1.7b at full width, 2 layers, f32 (TF32 off),
     a bank of 3 circuits at keep 0.5 in 16-unit blocks.  Routed streams
     (three circuits co-batched) against dedicated ``bank.subset([g])``
@@ -2824,9 +2878,8 @@ def phase_bank_parity(torch, dev):
     mean-logit and majority-vote ensembles against a plain recompute of
     each circuit (dense-cache decode through ``lm_forward(serve_masks=)``,
     no paged kernel), combined on the host; the card's threefry bits
-    against the CPU's."""
+    against the CPU's (``cpu``'s worker draws those)."""
     from repro_torch.configs.base import HornConfig, get_model_config
-    from repro_torch.core import prng
     from repro_torch.models import api
     from repro_torch.models import transformer as T
     from repro_torch.models.params import init_params
@@ -2834,19 +2887,10 @@ def phase_bank_parity(torch, dev):
 
     out = {}
     # the card's threefry against the CPU's: integer math, so exact
-    keys = {d: prng.fold_in(prng.fold_in(prng.key(2 ** 31 - 1, d),
-                                         torch.arange(8, device=d) * 7),
-                            torch.arange(8, device=d) + 3)
-            for d in ("cpu", dev)}
-    assert torch.equal(keys[dev].cpu(), keys["cpu"])
-    for what, fn in (("bits", prng.random_bits), ("uniforms", prng.uniform)):
-        got = {d: fn(keys[d], (151936,)) for d in keys}
-        assert torch.equal(got[dev].cpu(), got["cpu"]), what
-    logits = torch.randn(8, 151936,
-                         generator=torch.Generator().manual_seed(0))
-    draws = {d: prng.categorical(keys[d], logits.to(d) / 0.8).cpu()
-             for d in keys}
-    cat_equal = int((draws[dev] == draws["cpu"]).sum())
+    card, host = threefry_draws(torch, dev), cpu.get("threefry")
+    for what in ("keys", "bits", "uniforms"):
+        assert torch.equal(card[what], host[what]), what
+    cat_equal = int((card["categorical"] == host["categorical"]).sum())
     log(f"  threefry: keys, 8 x 151936 bits and uniforms on the card == the "
         f"CPU's; categorical draws equal {cat_equal}/8")
     out["threefry_card_eq_cpu"] = True
@@ -2980,7 +3024,8 @@ def phase_bank_parity(torch, dev):
 
 def phase_bank_serve(torch, dev, build, kernel, params, temperature,
                      cfg=None):
-    """Phase 12(b): qwen3-1.7b at full width (28 layers, bf16) as a bank
+    """Phase 12(b): ``cfg`` (qwen3-1.7b at full width and ``CUT_LAYERS``
+    layers from ``phase_bank``), bf16, as a bank
     of 4 circuits at keep 0.5 (16-unit blocks), ``least_loaded`` routing,
     a quarter of the requests mean-logit ensembles over all 4, serving
     phase 5's load (2 warm-up requests, then 16 at t=0, 32 new tokens
@@ -3067,20 +3112,28 @@ def phase_bank_serve(torch, dev, build, kernel, params, temperature,
     return r
 
 
-def phase_bank(torch, dev, build, kernel):
-    """Phase 12: 12(a) parity, then 12(b) at temperature 0 and 0.8."""
+def cut_qwen3():
+    """qwen3-1.7b at full width and ``CUT_LAYERS`` layers."""
     from repro_torch.configs.base import get_model_config
+
+    return dataclasses.replace(get_model_config("qwen3-1.7b"),
+                               num_layers=CUT_LAYERS)
+
+
+def phase_bank(torch, dev, build, kernel, cpu):
+    """Phase 12: 12(a) parity, then 12(b) at temperature 0 and 0.8, at
+    ``CUT_LAYERS`` layers."""
     from repro_torch.models.params import init_params
 
     t0 = time.perf_counter()
-    out = {"parity": phase_bank_parity(torch, dev)}
+    out = {"parity": phase_bank_parity(torch, dev, cpu)}
     gc.collect()
     torch.cuda.empty_cache()
-    params = init_params(get_model_config("qwen3-1.7b"), 0, device=dev,
-                         dtype=torch.bfloat16)
+    cfg = cut_qwen3()
+    params = init_params(cfg, 0, device=dev, dtype=torch.bfloat16)
     for temperature in (0.0, 0.8):
         out[f"serve_t{temperature}"] = phase_bank_serve(
-            torch, dev, build, kernel, params, temperature)
+            torch, dev, build, kernel, params, temperature, cfg=cfg)
         gc.collect()
         torch.cuda.empty_cache()
     del params
@@ -3246,62 +3299,99 @@ def spec_launch_checks(torch, kernel, build, eng, dev):
             "decode_route_draft": routes["draft"]}
 
 
-def phase_spec_parity(torch, dev, kernel, ref):
-    """Phase 13(a): qwen3-1.7b at full width, 2 layers, f32 (TF32 off), 8
-    slots, 6 requests (two slots stay idle), K 4; the draft a draft-only
-    bank's circuit at keep 0.875.  Greedy speculative streams equal the
-    non-speculative engine's, with more than one token a speculating
-    slot-tick and fewer ticks; two T 0.8 speculative runs bit-equal; the
-    card's speculative streams against the CPU plain path's (the first
-    parting token and the top-2 gap there printed); both pools' invariants
-    hold and the draft pool ends empty; the verify tick's chunk launch (an
-    S_v = 5 window) and a draft step's decode launch held against their
-    plain versions on the same inputs."""
-    from repro_torch.configs.base import HornConfig, get_model_config
-    from repro_torch.models.params import init_params
-    from repro_torch.serving import Engine, EngineConfig, ModelBank
+def spec_parity_setup():
+    """13(a)'s model, engine settings and prompts: qwen3-1.7b at full
+    width, 2 layers, f32; 8 slots, 6 requests of 12 new tokens."""
+    from repro_torch.configs.base import get_model_config
+    from repro_torch.serving import EngineConfig
 
     cfg = dataclasses.replace(get_model_config("qwen3-1.7b"), num_layers=2,
                               dtype="float32")
-    params = {"card": init_params(cfg, 1234, device=dev,
-                                  dtype=torch.float32)}
-    params["cpu"] = copy.deepcopy(params["card"]).to("cpu")
-    horn = HornConfig(**DRAFT_HORN)
-    drafts = {w: ModelBank(cfg, horn, 1, seed=0).draft_model(0, p)
-              for w, p in params.items()}
-    max_new = 12
     base = EngineConfig(num_slots=8, num_pages=128, page_size=16,
-                        max_prompt_len=64, max_new_tokens=max_new,
+                        max_prompt_len=64, max_new_tokens=12,
                         token_budget=64, policy="on_demand",
                         kv_dtype="float32", compute_dtype="float32")
     rng = np.random.default_rng(13)
     prompts = [rng.integers(1, cfg.vocab_size, (n,)).astype(np.int32)
                for n in (5, 17, 23, 31, 40, 61)]
+    return cfg, base, prompts
 
-    def serve(where, spec, temperature=0.0, capture=False):
-        ecfg = dataclasses.replace(base, temperature=temperature,
-                                   speculate_k=SPEC_K if spec else 0)
-        eng = Engine(cfg, params[where], ecfg,
-                     draft=drafts[where] if spec else None,
-                     device=dev if where == "card" else "cpu")
-        cap = KernelCapture(torch, kernel, eng, SPEC_K + 1) if capture \
-            else None
-        with LogitTap(eng) as tap, cap or contextlib.nullcontext():
-            for p in prompts:
-                eng.submit(p, max_new)
-            eng.run()
-        eng.pool.check_invariants()
-        if spec:
-            eng.spec.pool.check_invariants()
-            assert eng.spec.pool.num_seqs == 0
-        streams = {r.id: list(r.out_tokens) for r in eng.sched.finished}
-        assert all(len(t) == max_new for t in streams.values())
-        return eng, streams, tap.store, cap
+
+def spec_parity_params(torch, cfg, dev):
+    """13(a)'s weights (seed 1234, drawn on the CPU so the worker's copy
+    is the same) and its draft, on ``dev``."""
+    from repro_torch.configs.base import HornConfig
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import ModelBank
+
+    params = init_params(cfg, 1234, device="cpu", dtype=torch.float32)
+    params = params.to(dev)
+    draft = ModelBank(cfg, HornConfig(**DRAFT_HORN), 1, seed=0).draft_model(
+        0, params)
+    return params, draft
+
+
+def spec_serve(torch, kernel, cfg, params, draft, base, prompts, dev, spec,
+               temperature=0.0, capture=False):
+    """13(a)'s prompts through one engine on ``dev``, speculating at
+    ``SPEC_K`` when ``spec``: (engine, {request id: tokens}, the
+    LogitTap's store, the KernelCapture or None); both pools' invariants
+    hold and the draft pool ends empty."""
+    from repro_torch.serving import Engine
+
+    max_new = base.max_new_tokens
+    ecfg = dataclasses.replace(base, temperature=temperature,
+                               speculate_k=SPEC_K if spec else 0)
+    eng = Engine(cfg, params, ecfg, draft=draft if spec else None,
+                 device=dev)
+    cap = KernelCapture(torch, kernel, eng, SPEC_K + 1) if capture \
+        else None
+    with LogitTap(eng) as tap, cap or contextlib.nullcontext():
+        for p in prompts:
+            eng.submit(p, max_new)
+        eng.run()
+    eng.pool.check_invariants()
+    if spec:
+        eng.spec.pool.check_invariants()
+        assert eng.spec.pool.num_seqs == 0
+    streams = {r.id: list(r.out_tokens) for r in eng.sched.finished}
+    assert all(len(t) == max_new for t in streams.values())
+    return eng, streams, tap.store, cap
+
+
+def cpu_spec(torch):
+    """13(a)'s CPU half: greedy speculative streams on the CPU plain path
+    and the logits behind them."""
+    cfg, base, prompts = spec_parity_setup()
+    params, draft = spec_parity_params(torch, cfg, "cpu")
+    _, streams, store, _ = spec_serve(torch, None, cfg, params, draft, base,
+                                      prompts, "cpu", True)
+    return {"streams": streams, "tap": store}
+
+
+def phase_spec_parity(torch, dev, kernel, ref, cpu):
+    """Phase 13(a): qwen3-1.7b at full width, 2 layers, f32 (TF32 off), 8
+    slots, 6 requests (two slots stay idle), K 4; the draft a draft-only
+    bank's circuit at keep 0.875.  Greedy speculative streams equal the
+    non-speculative engine's, with more than one token a speculating
+    slot-tick and fewer ticks; two T 0.8 speculative runs bit-equal; the
+    card's speculative streams against the CPU plain path's (``cpu``'s
+    worker runs those; the first parting token and the top-2 gap there
+    printed); both pools' invariants hold and the draft pool ends empty;
+    the verify tick's chunk launch (an S_v = 5 window) and a draft step's
+    decode launch held against their plain versions on the same inputs."""
+    cfg, base, prompts = spec_parity_setup()
+    max_new = base.max_new_tokens
+    params, draft = spec_parity_params(torch, cfg, dev)
+
+    def serve(spec, temperature=0.0, capture=False):
+        return spec_serve(torch, kernel, cfg, params, draft, base, prompts,
+                          dev, spec, temperature, capture)
 
     out = {}
     t0 = time.perf_counter()
-    plain, want, _, _ = serve("card", False)
-    eng, got, tap, cap = serve("card", True, capture=True)
+    plain, want, _, _ = serve(False)
+    eng, got, tap, cap = serve(True, capture=True)
     s = eng.stats
     assert got == want, (got, want)
     assert s.accepted_tok_per_tick > 1 and s.steps < plain.stats.steps, \
@@ -3330,19 +3420,20 @@ def phase_spec_parity(torch, dev, kernel, ref):
     del plain, cap
 
     t0 = time.perf_counter()
-    runs = [serve("card", True, temperature=0.8)[1] for _ in range(2)]
+    runs = [serve(True, temperature=0.8)[1] for _ in range(2)]
     assert runs[0] == runs[1], runs
     out["t0.8_two_runs_equal"] = True
     log(f"  T 0.8: two speculative runs bit-equal "
         f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    _, cpu, cpu_tap, _ = serve("cpu", True)
+    host = cpu.get("spec")
     equal, worst = 0, 0.0
     for rid, p in enumerate(prompts):
         same, d = compare_streams(torch, f"request {rid} card vs CPU",
-                                  (rid, len(p), rid), got[rid], cpu[rid],
-                                  tap, cpu_tap, tol=None)
+                                  (rid, len(p), rid), got[rid],
+                                  host["streams"][rid], tap, host["tap"],
+                                  tol=None)
         equal += same
         worst = max(worst, d)
     out["card_vs_cpu"] = {"streams_equal": equal, "logit_max_abs_diff":
@@ -3350,7 +3441,7 @@ def phase_spec_parity(torch, dev, kernel, ref):
     log(f"  greedy speculative streams, card vs the CPU plain path: "
         f"{equal}/{len(prompts)} equal, logits max |d| {worst:.2e} on "
         f"shared prefixes ({time.perf_counter() - t0:.1f} s)")
-    del eng, params, drafts
+    del eng, params, draft
     gc.collect()
     return out
 
@@ -3402,7 +3493,8 @@ def phase_spec_tick_profile(torch, eng, kernel, n=2):
 
 def phase_spec_serve(torch, dev, build, kernel, ref, params, draft,
                      temperature):
-    """Phase 13(b): qwen3-1.7b at full width (28 layers, bf16), phase 5's
+    """Phase 13(b): qwen3-1.7b at full width (``CUT_LAYERS`` layers, bf16),
+    phase 5's
     load (2 warm-up requests, then 16 at t=0, prompts 5-203, 32 new tokens,
     8 slots, budget 256) with ``--speculate 4`` and a draft-only circuit
     at keep 0.875, at ``temperature``: every request finishes with 32
@@ -3411,11 +3503,10 @@ def phase_spec_serve(torch, dev, build, kernel, ref, params, draft,
     launches held against their plain versions (T 0), tok/s, TTFT,
     latency, ticks, accept rate, accepted tokens a tick and draft calls
     printed, and a speculating tick profiled."""
-    from repro_torch.configs.base import get_model_config
     from repro_torch.launch.serve import drive, make_requests, summarize
     from repro_torch.serving import Engine, EngineConfig
 
-    cfg = get_model_config("qwen3-1.7b")
+    cfg = cut_qwen3()
     gen = 32
     ecfg = EngineConfig(num_slots=8, num_pages=512, page_size=16,
                         max_prompt_len=256, max_new_tokens=gen,
@@ -3486,17 +3577,18 @@ def phase_spec_serve(torch, dev, build, kernel, ref, params, draft,
     return r
 
 
-def phase_spec(torch, dev, build, kernel, ref):
-    """Phase 13: 13(a) parity, then 13(b) at temperature 0 and 0.8."""
-    from repro_torch.configs.base import HornConfig, get_model_config
+def phase_spec(torch, dev, build, kernel, ref, cpu):
+    """Phase 13: 13(a) parity, then 13(b) at temperature 0 and 0.8, at
+    ``CUT_LAYERS`` layers."""
+    from repro_torch.configs.base import HornConfig
     from repro_torch.models.params import init_params
     from repro_torch.serving import ModelBank
 
     t0 = time.perf_counter()
-    out = {"parity": phase_spec_parity(torch, dev, kernel, ref)}
+    out = {"parity": phase_spec_parity(torch, dev, kernel, ref, cpu)}
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_model_config("qwen3-1.7b")
+    cfg = cut_qwen3()
     params = init_params(cfg, 0, device=dev, dtype=torch.bfloat16)
     draft = ModelBank(cfg, HornConfig(**DRAFT_HORN), 1, seed=0).draft_model(
         0, params)
@@ -3638,51 +3730,80 @@ def replay_tie_guard(torch, name, recs, card, cpu):
     return out
 
 
-def phase_replay_parity(torch, dev, build, kernel):
+def replay_parity_params(torch, dev):
+    """14(a)'s model and weights (seed 0, drawn on the CPU so the worker's
+    copy is the same) on ``dev``: qwen3-1.7b at full width, 2 layers,
+    f32."""
+    from repro_torch.configs.base import get_model_config
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(get_model_config("qwen3-1.7b"), num_layers=2,
+                              dtype="float32")
+    return cfg, init_params(cfg, 0, device="cpu", dtype=torch.float32).to(
+        dev)
+
+
+def cpu_replays(torch):
+    """14(a)'s CPU half: each pinned trace replayed through the plain path
+    on the CPU, {trace: (result, None, None, the draft's proposals or
+    None)}, the shape ``replay_tie_guard`` reads; no kernel launches."""
+    from repro_torch.kernels import build
+    from repro_torch.serving import Telemetry
+    from repro_torch.serving.observability import load_trace, replay
+
+    cfg, params = replay_parity_params(torch, "cpu")
+    out = {}
+    for name in PINNED:
+        recs, meta = load_trace(str(TRACES / f"{name}.jsonl"))
+        eng = trace_engine(torch, meta, cfg, params, "cpu",
+                           Telemetry(trace_maxlen=None))
+        dtap = DraftTap(eng) if eng.spec is not None else None
+        build.reset_launches()
+        with dtap or contextlib.nullcontext():
+            res = replay(eng, recs, tick_dt=float(meta.get("tick_dt", 0.01)))
+        assert sum(build.LAUNCHES.values()) == 0, dict(build.LAUNCHES)
+        eng.pool.check_invariants()
+        calls = None if dtap is None else \
+            types.SimpleNamespace(calls=dtap.calls)
+        out[name] = (res, None, None, calls)
+    return out
+
+
+def phase_replay_parity(torch, dev, build, kernel, cpu):
     """Phase 14(a): qwen3-1.7b at full width, 2 layers, f32 (TF32 off),
     weights from seed 0.  Each pinned trace replayed at its meta's engine
-    settings on the card and, in the same process, through the plain path
+    settings on the card and, in ``cpu``'s worker, through the plain path
     on the CPU: equal digests, ticks, TTFT and latency, or a named tie
     (``replay_tie_guard``); on the card, both paged kernels' launches
     (counted from 0 around the replay) equal the engine's own counts,
     parent and draft."""
-    from repro_torch.configs.base import get_model_config
-    from repro_torch.models.params import init_params
     from repro_torch.serving import Telemetry
     from repro_torch.serving.observability import load_trace, replay
 
-    cfg = dataclasses.replace(get_model_config("qwen3-1.7b"), num_layers=2,
-                              dtype="float32")
-    params = {"card": init_params(cfg, 0, device=dev, dtype=torch.float32)}
-    params["cpu"] = copy.deepcopy(params["card"]).to("cpu")
+    cfg, params = replay_parity_params(torch, dev)
+    host = cpu.get("replay")
     out = {}
     for name in PINNED:
         t0 = time.perf_counter()
         recs, meta = load_trace(str(TRACES / f"{name}.jsonl"))
         tick_dt = float(meta.get("tick_dt", 0.01))
-        runs = {}
-        for where in ("card", "cpu"):
-            eng = trace_engine(torch, meta, cfg, params[where],
-                               dev if where == "card" else "cpu",
-                               Telemetry(trace_maxlen=None))
-            dtap = DraftTap(eng) if eng.spec is not None else None
-            build.reset_launches()
-            with LogitTap(eng) as tap, dtap or contextlib.nullcontext():
-                res = replay(eng, recs, tick_dt=tick_dt)
-            counted = {n: build.LAUNCHES[n]
-                       for n in (kernel.NAME, kernel.NAME_DECODE)}
-            eng.pool.check_invariants()
-            runs[where] = (res, eng, tap, dtap)
-            if where == "cpu":
-                assert sum(counted.values()) == 0, counted
-                continue
-            launches, s = counted, eng.stats
-            assert launches[kernel.NAME] + launches[kernel.NAME_DECODE] == \
-                s.attn_launches + s.draft_attn_launches, (launches, s)
-            assert launches[kernel.NAME_DECODE] == \
-                s.decode_launches + s.draft_decode_launches, (launches, s)
-            assert s.attn_launches == cfg.num_layers * s.steps > 0
-            assert s.decode_launches == cfg.num_layers * s.decode_ticks
+        eng = trace_engine(torch, meta, cfg, params, dev,
+                           Telemetry(trace_maxlen=None))
+        dtap = DraftTap(eng) if eng.spec is not None else None
+        build.reset_launches()
+        with LogitTap(eng) as tap, dtap or contextlib.nullcontext():
+            res = replay(eng, recs, tick_dt=tick_dt)
+        launches = {n: build.LAUNCHES[n]
+                    for n in (kernel.NAME, kernel.NAME_DECODE)}
+        eng.pool.check_invariants()
+        runs = {"card": (res, eng, tap, dtap), "cpu": host[name]}
+        s = eng.stats
+        assert launches[kernel.NAME] + launches[kernel.NAME_DECODE] == \
+            s.attn_launches + s.draft_attn_launches, (launches, s)
+        assert launches[kernel.NAME_DECODE] == \
+            s.decode_launches + s.draft_decode_launches, (launches, s)
+        assert s.attn_launches == cfg.num_layers * s.steps > 0
+        assert s.decode_launches == cfg.num_layers * s.decode_ticks
         res = runs["card"][0]
         got = replay_tie_guard(torch, name, recs, runs["card"], runs["cpu"])
         got.update(ticks=res.ticks, cpu_ticks=runs["cpu"][0].ticks,
@@ -3700,14 +3821,15 @@ def phase_replay_parity(torch, dev, build, kernel):
             f"{res.accept_rate:.3f}; launches {launches[kernel.NAME]} "
             f"chunk + {launches[kernel.NAME_DECODE]} decode == the "
             f"engine's counts ({time.perf_counter() - t0:.1f} s)")
-        del runs
+        del runs, eng
         gc.collect()
     del params
     return out
 
 
 def phase_replay_serve(torch, dev, build, kernel, params):
-    """Phase 14(b): qwen3-1.7b at full width (28 layers, bf16), each pinned
+    """Phase 14(b): qwen3-1.7b at full width (``CUT_LAYERS`` layers, bf16),
+    each pinned
     trace on one engine with ``Telemetry(timeline=True)``, warmed as the
     JAX package's regression harness warms it (replayed until a replay
     mints no new compile cell: the prefix cache's hits change the chunk
@@ -3719,12 +3841,11 @@ def phase_replay_serve(torch, dev, build, kernel, params):
     over host tick wall)."""
     import tempfile
 
-    from repro_torch.configs.base import get_model_config
     from repro_torch.serving import Telemetry
     from repro_torch.serving.observability import (load_trace, replay,
                                                    validate_chrome_trace)
 
-    cfg = get_model_config("qwen3-1.7b")
+    cfg = cut_qwen3()
     out = {}
     for name in PINNED:
         t0 = time.perf_counter()
@@ -3887,7 +4008,8 @@ def sync_sites(torch, fn):
 
 
 def phase_telemetry_cost(torch, dev, params):
-    """Phase 14(c): phase 5's load (28 layers, bf16, 16 requests x 32
+    """Phase 14(c): phase 5's load (``CUT_LAYERS`` layers, bf16, 16
+    requests x 32
     tokens after 2 warm-up requests) with ``Telemetry()`` and with
     ``Telemetry(tracer=False, profiler=False, anomaly=False)``, three
     times each in alternation: the tick wall p50 of each run and of each
@@ -3897,11 +4019,10 @@ def phase_telemetry_cost(torch, dev, params):
     decode ticks under ``torch.cuda.set_sync_debug_mode("warn")`` with
     each setting, twice in alternation: the same synchronising calls from
     the same lines of the port, none in the observability package."""
-    from repro_torch.configs.base import get_model_config
     from repro_torch.launch.serve import make_requests
     from repro_torch.serving import Engine, EngineConfig, Telemetry
 
-    cfg = get_model_config("qwen3-1.7b")
+    cfg = cut_qwen3()
     ecfg = EngineConfig(num_slots=8, num_pages=512, page_size=16,
                         max_prompt_len=256, max_new_tokens=32,
                         token_budget=256, policy="on_demand",
@@ -4028,18 +4149,17 @@ def phase_telemetry_cost(torch, dev, params):
             "sync_sites": sorted(set(x for r in sites["on"] for x in r))}
 
 
-def phase_observability(torch, dev, build, kernel):
-    """Phase 14: 14(a) replay parity, 14(b) replays and the CLI round trip
-    at 28 layers, 14(c) what telemetry costs a tick."""
-    from repro_torch.configs.base import get_model_config
+def phase_observability(torch, dev, build, kernel, cpu):
+    """Phase 14: 14(a) replay parity, 14(b) replays at ``CUT_LAYERS``
+    layers and the CLI round trip at 28, 14(c) what telemetry costs a tick
+    at ``CUT_LAYERS``."""
     from repro_torch.models.params import init_params
 
     t0 = time.perf_counter()
-    out = {"parity": phase_replay_parity(torch, dev, build, kernel)}
+    out = {"parity": phase_replay_parity(torch, dev, build, kernel, cpu)}
     gc.collect()
     torch.cuda.empty_cache()
-    params = init_params(get_model_config("qwen3-1.7b"), 0, device=dev,
-                         dtype=torch.bfloat16)
+    params = init_params(cut_qwen3(), 0, device=dev, dtype=torch.bfloat16)
     out["replay"] = phase_replay_serve(torch, dev, build, kernel, params)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4567,69 +4687,101 @@ def encdec_batch(torch, dev, cfg, batch, prompt, seed, dtype, labels=False):
     return out
 
 
-def phase_encdec_parity(torch, dev, build, fkernel):
-    """Phase 16(a): whisper-base at full width, 2 + 2 layers, f32, the
-    same weights (seed 1234) and seeded frames on the card and on the CPU
-    plain path: the loss of a seeded batch, then a prefill of 2 x (1536
-    frames + 64 tokens) through ``make_prefill_step`` (logits and the
-    encoder output) and 4 greedy decode steps fed that output (tokens
-    chosen on the card, fed to both), all within 1e-4.  The card's
-    prefill launches flash once a layer (2 encoder, non-causal; 2
-    decoder) on its f32 kernel and its decode none."""
+def encdec_parity_setup(torch, dev):
+    """16(a)'s run, weights (seed 1234, drawn on the CPU so the worker's
+    copy is the same) and seeded batch (drawn on the CPU) on ``dev``:
+    whisper-base at full width, 2 + 2 layers, f32, B 2."""
     from repro_torch.configs.base import RunConfig, ShapeConfig
-    from repro_torch.core import steps
-    from repro_torch.models import api
     from repro_torch.models.params import init_params
 
     cfg = encdec_cfg(num_layers=2, num_encoder_layers=2, dtype="float32")
-    B, K = 2, 4
+    B = 2
     run = RunConfig(model=cfg, shape=ShapeConfig(
-        "p", "prefill", ENCDEC_PROMPT + K, B), compute_dtype="float32")
-    params = init_params(cfg, 1234, device=dev, dtype=torch.float32)
-    cpu_params = copy.deepcopy(params).to("cpu")
-    batch = encdec_batch(torch, dev, cfg, B, ENCDEC_PROMPT, 16,
+        "p", "prefill", ENCDEC_PROMPT + ENCDEC_PARITY_DECODES, B),
+        compute_dtype="float32")
+    params = init_params(cfg, 1234, device="cpu", dtype=torch.float32)
+    batch = encdec_batch(torch, "cpu", cfg, B, ENCDEC_PROMPT, 16,
                          torch.float32, labels=True)
+    return run, params.to(dev), {k: v.to(dev) for k, v in batch.items()}
+
+
+def encdec_parity_loss(torch, run, params, batch):
+    from repro_torch.models import api
+
+    with torch.no_grad():
+        return api.model_loss(params, batch, run.model,
+                              remat=False)[0].item()
+
+
+def encdec_parity_run(torch, run, params, batch, dev, fed=None):
+    """16(a)'s prefill on ``dev`` and ``ENCDEC_PARITY_DECODES`` greedy
+    decode steps, each fed ``fed[k]`` or, without ``fed``, the argmax of
+    the step before.  Returns ([logits on the host by step], the encoder
+    output, the tokens fed)."""
+    from repro_torch.core import steps
+
+    prefill = steps.make_prefill_step(run, dev)
+    decode = steps.make_decode_step(run, dev)
+    lg, cache, enc = prefill(params, {k: batch[k]
+                                      for k in ("tokens", "frames")})
+    rows = [lg.float().cpu()]
+    chosen = []
+    for k in range(ENCDEC_PARITY_DECODES):
+        tok = fed[k] if fed is not None else \
+            torch.argmax(rows[-1], -1)[:, None]
+        chosen.append(tok)
+        lg, cache = decode(params, cache, tok.to(dev), ENCDEC_PROMPT + k,
+                           enc)
+        rows.append(lg.float().cpu())
+    return rows, enc.float().cpu(), chosen
+
+
+def cpu_encdec(torch):
+    """16(a)'s CPU half: loss, prefill and greedy decode on the CPU plain
+    path; its argmax tokens feed the card's decode too."""
+    run, params, batch = encdec_parity_setup(torch, "cpu")
+    loss = encdec_parity_loss(torch, run, params, batch)
+    rows, enc, fed = encdec_parity_run(torch, run, params, batch, "cpu")
+    return {"loss": loss, "logits": rows, "encoder_out": enc, "fed": fed}
+
+
+def phase_encdec_parity(torch, dev, build, fkernel, cpu):
+    """Phase 16(a): whisper-base at full width, 2 + 2 layers, f32, the
+    same weights (seed 1234) and seeded frames on the card and on the CPU
+    plain path (``cpu``'s worker): the loss of a seeded batch, then a
+    prefill of 2 x (1536 frames + 64 tokens) through ``make_prefill_step``
+    (logits and the encoder output) and 4 greedy decode steps fed that
+    output (tokens chosen on the CPU, fed to both), all within 1e-4.  The
+    card's prefill launches flash once a layer (2 encoder, non-causal; 2
+    decoder) on its f32 kernel and its decode none."""
+    run, params, batch = encdec_parity_setup(torch, dev)
+    cfg, B = run.model, run.shape.global_batch
     n = cfg.num_layers + cfg.num_encoder_layers
     route = fkernel.route(torch.float32, cfg.head_dim)
-    losses, logits, encs = {}, {}, {}
-    for where, p, d in (("card", params, dev), ("cpu", cpu_params, "cpu")):
-        b = {k: v.to(d) for k, v in batch.items()}
-        with torch.no_grad():
-            losses[where] = api.model_loss(p, b, cfg, remat=False)[0].item()
-        prefill = steps.make_prefill_step(run, d)
-        decode = steps.make_decode_step(run, d)
-        build.reset_launches()
-        lg, cache, enc = prefill(p, {k: b[k] for k in ("tokens", "frames")})
-        rows = [lg.float().cpu()]
-        if where == "card":
-            assert build.LAUNCHES[fkernel.FWD] == build.ROUTE_LAUNCHES.get(
-                f"{fkernel.FWD}:{route}") == n, dict(build.ROUTE_LAUNCHES)
-            fed = []
-        for k in range(K):
-            if where == "card":
-                fed.append(torch.argmax(rows[-1], -1)[:, None])
-            lg, cache = decode(p, cache, fed[k].to(d), ENCDEC_PROMPT + k,
-                               enc)
-            rows.append(lg.float().cpu())
-        if where == "card":
-            assert build.LAUNCHES[fkernel.FWD] == n, "decode launched flash"
-        logits[where], encs[where] = rows, enc.float().cpu()
-        del cache, enc
+    host = cpu.get("encdec")
+    loss = encdec_parity_loss(torch, run, params, batch)
+    build.reset_launches()
+    rows, enc, _ = encdec_parity_run(torch, run, params, batch, dev,
+                                     fed=host["fed"])
+    assert build.LAUNCHES[fkernel.FWD] == build.ROUTE_LAUNCHES.get(
+        f"{fkernel.FWD}:{route}") == n, (dict(build.LAUNCHES),
+                                         dict(build.ROUTE_LAUNCHES))
+    losses = {"card": loss, "cpu": host["loss"]}
     loss_err = abs(losses["card"] - losses["cpu"])
-    enc_err = (encs["card"] - encs["cpu"]).abs().max().item()
+    enc_err = (enc - host["encoder_out"]).abs().max().item()
     errs = [(a - b).abs().max().item()
-            for a, b in zip(logits["card"], logits["cpu"])]
+            for a, b in zip(rows, host["logits"])]
     log(f"  (a) 2 + 2 layers, f32, B {B}: loss card {losses['card']:.6f} "
         f"CPU {losses['cpu']:.6f} (|d| {loss_err:.2e}); prefill {B} x "
-        f"({ENCDEC_FRAMES} frames + {ENCDEC_PROMPT} tokens) + {K} decode "
-        f"steps: encoder output max |d| {enc_err:.2e}, logits max |d| by "
-        f"step " + " ".join(f"{e:.2e}" for e in errs) + f" (tol "
-        f"{LOGIT_TOL:g}); flash at prefill: {n} on '{route}', none in "
-        f"decode")
+        f"({ENCDEC_FRAMES} frames + {ENCDEC_PROMPT} tokens) + "
+        f"{ENCDEC_PARITY_DECODES} decode steps: encoder output max |d| "
+        f"{enc_err:.2e}, logits max |d| by step "
+        + " ".join(f"{e:.2e}" for e in errs) + f" (tol {LOGIT_TOL:g}); "
+        f"flash at prefill: {n} on '{route}', none in decode")
     assert loss_err <= LOGIT_TOL and enc_err <= LOGIT_TOL, (loss_err,
                                                             enc_err)
     assert max(errs) <= LOGIT_TOL, errs
-    del params, cpu_params
+    del params
     return {"loss": losses, "loss_abs_diff": loss_err,
             "encoder_out_max_abs_diff": enc_err,
             "logit_max_abs_diff_by_step": errs}
@@ -4822,12 +4974,12 @@ def encdec_flash_calls(torch, dev, fref, params, batch):
     return {"flash_max_abs_err": errs, "control_max_abs": control_errs}
 
 
-def phase_encdec(torch, dev, build, fkernel, fref):
+def phase_encdec(torch, dev, build, fkernel, fref, cpu):
     """Phase 16: whisper-base on the card.  (a) 2 + 2 layers f32 against
     the CPU plain path; (b) training at full size; (c) prefill and greedy
     decode at full size; (d) (c)'s flash calls one by one."""
     t0 = time.perf_counter()
-    out = {"parity": phase_encdec_parity(torch, dev, build, fkernel)}
+    out = {"parity": phase_encdec_parity(torch, dev, build, fkernel, cpu)}
     release(torch)
     log(f"  (b) train whisper-base, 6 + 6 layers, {ENCDEC_TRAIN_BATCH} x "
         f"{ENCDEC_TRAIN_SEQ} decoder tokens beside {ENCDEC_FRAMES} seeded "
@@ -5241,11 +5393,12 @@ def kernel_base_name(name: str) -> str:
     return name.split("(")[0].split("<")[0].split("::")[-1].split()[-1]
 
 
-def trace_launches(torch, fn, names):
+def trace_launches(torch, fn, names, seen=None):
     """(kernel, grid, block, shared memory) of every launch of ``fn()``
     whose kernel is one of ``names``, in launch order, from the Chrome
     trace torch.profiler exports.  ``fn`` runs once as the schedule's
-    warm-up step and once profiled."""
+    warm-up step and once profiled.  ``seen`` (a dict) counts every
+    kernel of the trace by name."""
     import os
     import tempfile
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -5267,6 +5420,9 @@ def trace_launches(torch, fn, names):
         os.unlink(path)
     kernels = sorted((e for e in events if e.get("cat") == "kernel"),
                      key=lambda e: e["ts"])
+    for e in kernels if seen is not None else ():
+        name = kernel_base_name(e["name"])
+        seen[name] = seen.get(name, 0) + 1
     return [(kernel_base_name(e["name"]), list(e["args"]["grid"]),
              list(e["args"]["block"]), int(e["args"]["shared memory"]))
             for e in kernels if kernel_base_name(e["name"]) in names]
@@ -5460,12 +5616,20 @@ def phase_geometry_twin(torch, dev, kernel):
         def run_all(fns=fns):
             for fn in fns:
                 fn()
-        for attempt in range(1, PROFILE_TRIES + 1):
-            got = trace_launches(torch, run_all, names)
+        tries = PROFILE_TRIES
+        for attempt in range(1, 2 * PROFILE_TRIES + 1):
+            seen = {}
+            got = trace_launches(torch, run_all, names, seen)
             if len(got) == len(want):
                 break
+            if not seen:                # the profiler caught no kernel at
+                tries = 2 * PROFILE_TRIES   # all: a capture to take again
             log(f"  18(a) {family}: the trace holds {len(got)} launches of "
-                f"{len(want)}, try {attempt} of {PROFILE_TRIES}")
+                f"{len(want)}, try {attempt} of {tries}; the trace's "
+                f"kernels {dict(sorted(seen.items())[:12])}, the models' "
+                f"{sorted(names)}")
+            if attempt >= tries:
+                break
         assert len(got) == len(want), (family, len(got), len(want))
         for i, (g, w) in enumerate(zip(got, want)):
             assert g == w, (f"18(a) {labels[i][0]} ({labels[i][1]}): the "
@@ -5829,15 +5993,17 @@ def serve_sanitized(argv):
 
 
 SANITIZE_LOAD = ["--arch", "qwen3-1.7b", "--full-config", "--device", "cuda",
-                 "--stream", "batch", "--requests", "16", "--slots", "8",
+                 "--stream", "batch", "--requests",
+                 str(CUT_SANITIZE_REQUESTS), "--slots", "8",
                  "--pages", "512", "--page-size", "16", "--max-prompt",
                  "256", "--gen", "32", "--budget", "256", "--policy",
                  "on_demand", "--compute-dtype", "bfloat16", "--sanitize"]
 
 
 def phase_sanitize_runs(torch, dev, build, kernel):
-    """18(c): ``serve --sanitize`` at full width on phase 5's load, three
-    ways, then the in-process controls at 2 layers."""
+    """18(c): ``serve --sanitize`` at full width on
+    ``CUT_SANITIZE_REQUESTS`` of phase 5's requests, three ways, then the
+    in-process controls at 2 layers."""
     out = {}
     for label, extra in (("bf16", ["--kv-dtype", "bfloat16"]),
                          ("int8", ["--kv-dtype", "int8"]),
@@ -6179,9 +6345,112 @@ def trace_cost_cells():
         t0 = time.perf_counter()
         c = trace_cell(run)
         out[name] = {"flops": c.flops, "bytes": c.bytes,
+                     "unfused_bytes": c.unfused_bytes,
                      "cast_bytes": c.cast_bytes, "peak_bytes": c.peak_bytes,
+                     "by_tag": c.by_tag(), "untagged": c.untagged,
                      "trace_s": time.perf_counter() - t0}
     return out
+
+
+# the CPU halves of the card-against-CPU phases, in the order main reads
+# them; each returns what its phase compares with the card
+CPU_HALVES = (("threefry", lambda torch: threefry_draws(torch, "cpu")),
+              ("spec", lambda torch: cpu_spec(torch)),
+              ("replay", lambda torch: cpu_replays(torch)),
+              ("encdec", lambda torch: cpu_encdec(torch)))
+CPU_WORKER_THREADS = 3          # of the host's 8 cores: the card phases
+                                # (host-bound) and nvcc keep the rest
+CPU_WORKER_WAIT_S = 900
+
+
+def cpu_worker(conn, threads):
+    """The body of ``CpuWorker``'s process: each of ``CPU_HALVES`` in turn,
+    its result (or its traceback, after which the worker stops) sent on
+    ``conn`` as the bytes of a pickled (name, ok, value, seconds it took):
+    tensors go by value, not through shared memory."""
+    import torch
+
+    torch.set_num_threads(threads)
+    torch.set_num_interop_threads(1)
+    for name, fn in CPU_HALVES:
+        t0 = time.perf_counter()
+        try:
+            value, ok = fn(torch), True
+        except BaseException:
+            value, ok = traceback.format_exc(), False
+        conn.send_bytes(pickle.dumps((name, ok, value,
+                                      time.perf_counter() - t0)))
+        if not ok:
+            break
+    conn.close()
+
+
+class CpuWorker:
+    """The CPU halves of phases 12(a), 13(a), 14(a) and 16(a) in one
+    spawned process of ``CPU_WORKER_THREADS`` threads, started beside phase
+    2's build; ``get(name)`` waits for one.  A thread here reads each
+    result as it comes (a pipe holds 64 KiB: unread, a result would stop
+    the worker until its phase).  A failed half, a worker that died, or
+    one silent for ``CPU_WORKER_WAIT_S`` raises in ``get``; ``close`` ends
+    the process.  ``seconds`` holds each half's own time, ``ready`` when
+    it arrived (s after the start)."""
+
+    def __init__(self):
+        import multiprocessing
+        import threading
+
+        ctx = multiprocessing.get_context("spawn")
+        conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=cpu_worker,
+                                args=(child, CPU_WORKER_THREADS),
+                                name="chip_smoke_cpu", daemon=True)
+        self.proc.start()
+        child.close()
+        self.t0 = time.perf_counter()
+        self.ready, self.seconds, self._done = {}, {}, {}
+        self._cond = threading.Condition()
+        self._reader = threading.Thread(target=self._read, args=(conn,),
+                                        name="chip_smoke_cpu_reader",
+                                        daemon=True)
+        self._reader.start()
+
+    def _read(self, conn):
+        while True:
+            try:
+                got, ok, value, secs = pickle.loads(conn.recv_bytes())
+            except (EOFError, OSError):
+                break
+            with self._cond:
+                self._done[got] = (ok, value)
+                self.ready[got] = time.perf_counter() - self.t0
+                self.seconds[got] = secs
+                self._cond.notify_all()
+        conn.close()
+        with self._cond:
+            self._done[None] = (False, f"the worker ended (exit code "
+                                       f"{self.proc.exitcode})")
+            self._cond.notify_all()
+
+    def get(self, name):
+        with self._cond:
+            if not self._cond.wait_for(
+                    lambda: name in self._done or None in self._done,
+                    CPU_WORKER_WAIT_S):
+                raise TimeoutError(f"CPU worker: no result in "
+                                   f"{CPU_WORKER_WAIT_S} s waiting for "
+                                   f"{name}")
+            ok, value = self._done.pop(name, self._done.get(None))
+        if not ok:
+            raise RuntimeError(f"CPU worker: {name} failed:\n{value}")
+        return value
+
+    def close(self):
+        """End the process: it has ended by itself once every half was
+        read; after a failure it is killed."""
+        self.proc.join(5)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join(10)
 
 
 def build_while_tracing(build, sources):
@@ -6236,22 +6505,26 @@ def phase_cost_model(torch, dev, build, traces):
         mf = A.model_flops_estimate(run.model, run.shape)
         t_c = tr["flops"] / A.PEAK_FLOPS
         t_m = tr["bytes"] / A.HBM_BW
+        t_mu = tr["unfused_bytes"] / A.HBM_BW
         wall = ms / 1e3
         row = {"flops": tr["flops"], "bytes": tr["bytes"],
-               "cast_bytes": tr["cast_bytes"],
+               "unfused_bytes": tr["unfused_bytes"],
+               "t_memory_unfused_s": t_mu, "cast_bytes": tr["cast_bytes"],
                "traced_peak_bytes": tr["peak_bytes"],
                "max_memory_allocated": peak, "t_compute_s": t_c,
                "t_memory_s": t_m, "bound_s": max(t_c, t_m), "wall_s": wall,
                "model_flops": mf, "frac_of_peak": mf / (wall * A.PEAK_FLOPS),
                "trace_s": tr["trace_s"]}
         log(f"  (c) {name}: t_compute {t_c * 1e3:.3f} ms, t_memory "
-            f"{t_m * 1e3:.3f} ms, bound {row['bound_s'] * 1e3:.3f} ms, "
+            f"{t_m * 1e3:.3f} ms (kernels at their boundary; unfused "
+            f"{t_mu * 1e3:.3f} ms), bound {row['bound_s'] * 1e3:.3f} ms, "
             f"wall {ms:.3f} ms (CUDA events, {iters} calls), "
             f"model_flops / (wall x peak) {row['frac_of_peak']:.4f}; peak "
             f"traced {tr['peak_bytes'] / 2**30:.2f} GiB, "
             f"max_memory_allocated {peak / 2**30:.2f} GiB; trace "
             f"{tr['trace_s']:.1f} s (during phase 2)")
         assert wall >= t_c, (name, wall, t_c)
+        assert wall >= t_m, (name, wall, t_m)
         out[name] = row
 
     names = iter(cells)
@@ -6286,6 +6559,45 @@ def phase_cost_model(torch, dev, build, traces):
     measure(next(names), train_step, 2)
     del held, state, step
     release(torch)
+    return out
+
+
+def phase_scopes(torch, dev, traces):
+    """Phase 20: ``benchmarks/hlo_profile.py``'s ``--card`` on two of
+    19(c)'s cells at full width, qwen3-1.7b's 2 x 4096 prefill (28 layers)
+    and phase 6's train step: each tagged scope's device time (the
+    kernels launched in its ranges, its backward by the autograd node
+    that runs it) beside its counted FLOPs and bytes from 19(c)'s trace
+    of the same cell and its bound.  A scope's device time below its
+    FLOPs over the bf16 peak fails the phase; its memory half is printed
+    (an L2-resident working set can beat it)."""
+    from repro_torch.benchmarks import hlo_profile as H
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, run in (
+            (f"qwen3-1.7b prefill {MESH_CELLS['qwen3-1.7b'][0]} x "
+             f"{MESH_CELLS['qwen3-1.7b'][1]}",
+             mesh_cell_runs("qwen3-1.7b")["prefill"]),
+            (f"qwen3-1.7b train {scale_run().shape.global_batch} x "
+             f"{scale_run().shape.seq_len} (phase 6)", scale_run())):
+        tr = traces[name]
+        rows = H.card_scopes(run, dev, counted=tr)
+        for tag, r in rows.items():
+            log(f"  {name}: {tag or 'untagged'}: device {r['device_ms']:.3f}"
+                f" ms; counted {r['flops']:.4e} FLOPs, {r['bytes']:.4e} "
+                f"bytes; t_compute {r['t_compute_ms']:.3f} ms, t_memory "
+                f"{r['t_memory_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms"
+                + ("  (t_memory above the device time)"
+                   if r["t_memory_ms"] > r["device_ms"] else ""))
+        assert rows["total"]["device_ms"] > 0, (name, "no device time")
+        for tag in tr["by_tag"]:
+            assert rows[tag]["device_ms"] >= rows[tag]["t_compute_ms"], \
+                (name, tag, rows[tag])
+        out[name] = rows
+        release(torch)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 20: {out['seconds']:.1f} s")
     return out
 
 
@@ -6341,6 +6653,24 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
+    from repro_torch.kernels.dropout_matmul import kernel as dkernel
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.paged_attention import kernel
+    from repro_torch.kernels.ssd import kernel as skernel
+
+    phase("phase 2: build")
+    sources = [kernel.SOURCE, kernel.SOURCE_DECODE, fkernel.SOURCE,
+               dkernel.SOURCE, skernel.SOURCE]
+    cpu = CpuWorker()
+    try:
+        return run_phases(torch, card, dev, t_start, phase, sources, cpu)
+    finally:
+        cpu.close()
+
+
+def run_phases(torch, card, dev, t_start, phase, sources, cpu) -> int:
+    """Phases 2-19 (``main`` has run phase 1 and started ``cpu``'s
+    worker), the kernels line and the last line."""
     from repro_torch.kernels import build
     from repro_torch.kernels.dropout_matmul import kernel as dkernel
     from repro_torch.kernels.dropout_matmul import ref as dref
@@ -6350,10 +6680,7 @@ def main() -> int:
     from repro_torch.kernels.ssd import kernel as skernel
     from repro_torch.kernels.ssd import ref as sref
 
-    phase("phase 2: build")
     t0 = time.perf_counter()
-    sources = [kernel.SOURCE, kernel.SOURCE_DECODE, fkernel.SOURCE,
-               dkernel.SOURCE, skernel.SOURCE]
     cost_traces = build_while_tracing(build, sources)
     log(f"  {', '.join(str(s.relative_to(ROOT)) for s in sources)} built "
         f"in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel; "
@@ -6441,19 +6768,19 @@ def main() -> int:
 
     phase("phase 12: Horn multi-submodel serving, qwen3-1.7b: a bank of "
           "circuits, routing, on-device ensembles, sampling at T > 0")
-    bank = phase_bank(torch, dev, build, kernel)
+    bank = phase_bank(torch, dev, build, kernel, cpu)
     gc.collect()
     torch.cuda.empty_cache()
 
     phase("phase 13: speculative decoding, qwen3-1.7b: a Horn circuit "
           "drafts, the parent verifies a K + 1 window")
-    spec = phase_spec(torch, dev, build, kernel, ref)
+    spec = phase_spec(torch, dev, build, kernel, ref, cpu)
     gc.collect()
     torch.cuda.empty_cache()
 
     phase("phase 14: observability and deterministic replay of the pinned "
           "traces, qwen3-1.7b")
-    obs = phase_observability(torch, dev, build, kernel)
+    obs = phase_observability(torch, dev, build, kernel, cpu)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6465,7 +6792,10 @@ def main() -> int:
 
     phase("phase 16: the encoder-decoder family, whisper-base: card against "
           "CPU, training, prefill and decode, flash call by call")
-    encdec = phase_encdec(torch, dev, build, fkernel, fref)
+    encdec = phase_encdec(torch, dev, build, fkernel, fref, cpu)
+    log("  the CPU worker's halves: " + ", ".join(
+        f"{k} {cpu.seconds[k]:.1f} s, ready {cpu.ready[k]:.0f} s after "
+        f"phase 2 began" for k in cpu.seconds))
     release(torch)
 
     phase("phase 17: scale-out on torch.distributed (one NCCL rank): "
@@ -6482,6 +6812,11 @@ def main() -> int:
     phase("phase 19: the dry run's steps on a 1 x 1 mesh (prefill, decode, "
           "MoE router losses) and its cost model against the card")
     dry = phase_dryrun(torch, dev, build, cost_traces)
+    release(torch)
+
+    phase("phase 20: per-scope cost attribution on the card: each tagged "
+          "scope's device time against its counted FLOPs and bytes")
+    scopes = phase_scopes(torch, dev, cost_traces)
     release(torch)
 
     # headline shapes: the prompt-chunk tick for the chunk kernel (decode
@@ -6634,7 +6969,7 @@ def main() -> int:
             "mnist": mnist, "new_archs": new_archs, "bank": bank,
             "spec": spec, "observability": obs, "families": fam,
             "encdec": encdec, "scaleout": scale, "analysis": analysis,
-            "dryrun": dry,
+            "dryrun": dry, "scopes": scopes,
             "flash_host_us": flash["host_us"]}
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -2,9 +2,10 @@
 file walking.
 
 A copy of the reference's ``repro/analysis/core.py`` (pure ``ast``; the
-port imports nothing of ``repro``), with the pass list cut to the two
-families that carry over to a PyTorch package: host sync (HL2xx) and pool
-lifetime (HL4xx).  Findings, suppressions, fingerprints and baselines are
+port imports nothing of ``repro``), with the pass list cut to the
+families that carry over to a PyTorch package: import-time tensor work
+(HL101), host sync (HL2xx), pool lifetime (HL4xx) and the mesh's
+contracts (HL5xx).  Findings, suppressions, fingerprints and baselines are
 the reference's, so a finding fingerprints exactly as the reference's does.
 
 A *pass* is a module exposing ``RULES`` (rule id -> one-line description)
@@ -145,13 +146,32 @@ def qualname_map(tree: ast.AST) -> Dict[ast.AST, str]:
     return out
 
 
+def enclosing_function_ranges(tree: ast.AST) -> List[tuple]:
+    """[(start, end, qualname)] for every def, innermost resolvable last."""
+    spans = []
+    for node, q in qualname_map(tree).items():
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            spans.append((node.lineno, node.end_lineno or node.lineno, q))
+    spans.sort(key=lambda s: (s[0], -(s[1])))
+    return spans
+
+
+def qualname_at(spans: List[tuple], line: int) -> str:
+    best = ""
+    for start, end, q in spans:
+        if start <= line <= end:
+            best = q          # spans are sorted outer-first; keep innermost
+    return best
+
+
 # --------------------------------------------------------------------------
 # linting files and sources
 # --------------------------------------------------------------------------
 def _passes():
     # Imported lazily so `import repro_torch.analysis.core` never cycles.
-    from repro_torch.analysis import host_sync, pool_lifetime
-    return (host_sync, pool_lifetime)
+    from repro_torch.analysis import (host_sync, import_time, pool_lifetime,
+                                      sharding_contracts)
+    return (import_time, host_sync, pool_lifetime, sharding_contracts)
 
 
 def all_rules() -> Dict[str, str]:

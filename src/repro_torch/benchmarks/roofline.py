@@ -7,7 +7,10 @@
 The port of ``benchmarks/roofline.py``, line for line.  Its
 ``fmt_kernel_table`` renders ``BENCH_serving.json``'s ``kernel_bench``
 phase, the JAX package's serving benchmark, which the port has no
-counterpart of yet (ROADMAP §1 item 7): it is left out.
+counterpart of yet (ROADMAP §1 item 7): it is left out.  The port adds
+``fmt_bytes_table``: each cell's bytes with kernels counted at their
+boundary (``hlo_bytes``, what ``t_memory`` divides) beside the eager
+count of every op (``unfused_bytes``), printed after the two tables.
 """
 from __future__ import annotations
 
@@ -49,6 +52,19 @@ def fmt_table(rows, mesh="16x16"):
     return "\n".join(out)
 
 
+def fmt_bytes_table(rows, mesh="16x16"):
+    out = ["| arch | shape | hlo_bytes | unfused_bytes | t_memory | "
+           "t_memory unfused |", "|---|---|---|---|---|---|"]
+    for r in sorted(rows, key=lambda r: (r["arch"], r["shape"])):
+        if r["mesh"] != mesh or "unfused_bytes" not in r:
+            continue
+        out.append(
+            f"| {r['arch']} | {r['shape']} | {r['hlo_bytes']:.3e} "
+            f"| {r['unfused_bytes']:.3e} | {r['t_memory_s']:.3f}s "
+            f"| {r['t_memory_unfused_s']:.3f}s |")
+    return "\n".join(out)
+
+
 def run(paths=None):
     rows = load_rows(paths)
     csv = []
@@ -69,6 +85,9 @@ def main(argv=None) -> None:
     print(fmt_table(rows))
     print()
     print(fmt_table(rows, mesh="2x16x16"))
+    for mesh in ("16x16", "2x16x16"):
+        print()
+        print(fmt_bytes_table(rows, mesh))
 
 
 if __name__ == "__main__":

@@ -19,14 +19,26 @@ body once an iteration, so there is no trip count to recover):
     ops by theirs).  Elementwise ops count none: the reference's
     ``HloCost`` counts one FLOP an element of every elementwise op, so the
     two totals part by that much (``PERF.md`` names the products);
-  * an HBM-traffic proxy: the bytes of the operands plus the outputs of
-    every op other than views, metadata and allocations.  It is an
-    *unfused eager* count: each op reads its inputs from memory and writes
-    its outputs back, where XLA's count charges a fusion only its own
-    operands.  So it is an upper bound of what a fused program moves;
+  * an HBM-traffic proxy, ``bytes``: the bytes of the operands plus the
+    outputs of every op other than views, metadata and allocations, where
+    a kernel of the card's path counts at its boundary instead.  The CPU
+    runs a kernel's plain version, whose intermediates (flash's S^2 f32
+    scores, the SSD's per-chunk decays) the card's kernel never writes:
+    inside a ``scope.Boundary`` (the flash call, forward and backward; the
+    SSD chunk scan) the counter charges the bytes the kernel reads and
+    writes, once a call, and leaves the plain version's traffic out.
+    Elsewhere it is an *unfused eager* count: each op reads its inputs
+    from memory and writes its outputs back, where XLA's count charges a
+    fusion only its own operands.  ``unfused_bytes`` keeps the eager
+    count of every op, boundaries included (the count before boundaries
+    were charged);
   * cast bytes: the traffic of dtype casts (``_to_copy``, a ``copy_``
-    across dtypes), counted in the bytes (a cast runs on the card) and
-    also reported apart as ``cast_bytes``;
+    across dtypes) outside a kernel's boundary, counted in the bytes (a
+    cast runs on the card) and also reported apart as ``cast_bytes``;
+  * ``by_tag``: FLOPs and bytes by the innermost ``scope.TAGS`` tag an op
+    runs in (``repro_torch/scope.py``), the backward of a tagged region
+    included (found by the autograd node it runs), as the reference's
+    ``HloCost.by_tag`` reads XLA's ``op_name``;
   * collectives by kind: output bytes (``bytes_simple``, the reference's
     formula), ring bytes at the group's size (all-reduce twice), a count,
     and the simple bytes of groups that stay inside one node;
@@ -37,9 +49,7 @@ body once an iteration, so there is no trip count to recover):
 
 A rank's counts are per device; the ``Roofline`` row multiplies them by
 the chips, as the reference does, so every term divides by per-chip
-peaks.  The reference's ``by_tag`` (per named-scope attribution) serves
-only ``benchmarks/hlo_profile.py``, which has no counterpart yet (ROADMAP
-item 34).
+peaks.  ``by_tag`` serves ``benchmarks/hlo_profile.py``.
 """
 from __future__ import annotations
 
@@ -55,6 +65,8 @@ from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
+
+from repro_torch import scope
 
 # --- NVIDIA H100 SXM (data sheet: dense bf16, HBM3) --------------------------
 PEAK_FLOPS = 989.4e12      # bf16 FLOP/s per card, dense
@@ -162,11 +174,20 @@ class CostCounter(TorchDispatchMode):
 
     LINGER_EVERY = 256      # ops between checks of storages held from C++
 
-    def __init__(self, hold=()):
+    def __init__(self, hold=(), record: bool = False):
+        """``hold``: storages live for the whole count; ``record``: also
+        keep ``records``, {("op" or "coll", name, shape, tag): [bytes,
+        count]}, each op's charged traffic (a kernel's boundary as
+        "<tag> kernel") and each collective's bytes, summed over its
+        repeats (``benchmarks/hlo_profile.py`` ranks them)."""
         super().__init__()
+        self.records = {} if record else None
         self.flops = 0.0
-        self.bytes = 0.0
+        self.bytes = 0.0                # kernels at their boundary
+        self.unfused_bytes = 0.0        # every op, eagerly
         self.cast_bytes = 0.0
+        # tag (None: untagged) -> {"flops": x, "bytes": y}
+        self._tags: Dict[Optional[str], Dict[str, float]] = {}
         self.coll = CollectiveStats()
         self.live_bytes = 0
         self.peak_bytes = 0
@@ -253,6 +274,8 @@ class CostCounter(TorchDispatchMode):
             self._saved_hooks = torch.autograd.graph.saved_tensors_hooks(
                 self._pack, self._unpack)
             self._saved_hooks.__enter__()
+            self._scopes = scope.listen(self._on_scope)
+            self._scopes.__enter__()
         self._depth += 1
         return super().__enter__()
 
@@ -260,7 +283,40 @@ class CostCounter(TorchDispatchMode):
         super().__exit__(*exc)
         self._depth -= 1
         if self._depth == 0:
+            self._scopes.__exit__(*exc)
             self._saved_hooks.__exit__(*exc)
+
+    # -- scopes ----------------------------------------------------------
+    def _add(self, tag, flops=0.0, nbytes=0.0) -> None:
+        t = self._tags.setdefault(tag, {"flops": 0.0, "bytes": 0.0})
+        t["flops"] += flops
+        t["bytes"] += nbytes
+
+    def _record(self, key, nbytes) -> None:
+        if self.records is not None:
+            r = self.records.setdefault(key, [0.0, 0])
+            r[0] += nbytes
+            r[1] += 1
+
+    def _charge_boundary(self, tag, nbytes, what) -> None:
+        self.bytes += nbytes
+        self._add(tag, nbytes=nbytes)
+        self._record(("op", f"{tag} kernel {what}", "", tag), nbytes)
+
+    def _on_scope(self, sc) -> None:
+        """A kernel's forward call: its boundary's bytes, once."""
+        if sc.boundary is not None:
+            self._charge_boundary(scope.current()[0], sc.boundary.fwd_bytes,
+                                  "forward")
+
+    def by_tag(self) -> Dict[str, Dict[str, float]]:
+        """{tag: {"flops": x, "bytes": y}} of the tags seen, as the
+        reference's ``HloCost.by_tag``; ``untagged`` holds the rest."""
+        return {k: dict(v) for k, v in self._tags.items() if k is not None}
+
+    @property
+    def untagged(self) -> Dict[str, float]:
+        return dict(self._tags.get(None, {"flops": 0.0, "bytes": 0.0}))
 
     # -- dispatch --------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -289,8 +345,14 @@ class CostCounter(TorchDispatchMode):
         return out
 
     def _count(self, func, name, args, kwargs, out) -> None:
+        tag, boundary, backward = scope.current()
         if packet_flops := flop_registry.get(func._overloadpacket):
-            self.flops += float(packet_flops(*args, **kwargs, out_val=out))
+            flops = float(packet_flops(*args, **kwargs, out_val=out))
+            self.flops += flops
+            self._add(tag, flops=flops)
+        if backward and boundary is not None and not boundary.bwd_charged:
+            boundary.bwd_charged = True     # the kernel's backward call
+            self._charge_boundary(tag, boundary.bwd_bytes, "backward")
         if name in _NO_TRAFFIC or func.is_view:
             return
         ins = _tensors((args, kwargs))
@@ -303,7 +365,13 @@ class CostCounter(TorchDispatchMode):
         traffic = sum(map(tensor_bytes, ins))
         if not writes:                  # in place: the output is an input
             traffic += sum(map(tensor_bytes, outs))
+        self.unfused_bytes += traffic
+        if boundary is not None:        # inside a kernel: not on the card
+            return
         self.bytes += traffic
+        self._add(tag, nbytes=traffic)
+        if self.records is not None:
+            self._record(("op", name, _shape_of(outs or ins), tag), traffic)
         if (name == "_to_copy" and outs and ins
                 and outs[0].dtype != ins[0].dtype) or (
                 name == "copy_" and len(ins) > 1
@@ -321,10 +389,23 @@ class CostCounter(TorchDispatchMode):
         if ranks is None:
             raise ValueError(f"{name}: no process group among its arguments")
         if name.endswith("_"):          # c10d in place: the first argument
-            nbytes = sum(map(tensor_bytes, _tensors(args[0])))
+            moved = _tensors(args[0])
         else:
-            nbytes = sum(map(tensor_bytes, _tensors(out)))
+            moved = _tensors(out)
+        nbytes = sum(map(tensor_bytes, moved))
         self.coll.add(kind, nbytes, ranks)
+        if self.records is not None:
+            self._record(("coll", f"{kind} x{len(ranks)}", _shape_of(moved),
+                          scope.current()[0]), nbytes)
+
+
+def _shape_of(tensors) -> str:
+    """"bf16[8,1024,2048]": the first tensor's dtype and shape."""
+    if not tensors:
+        return ""
+    t = tensors[0]
+    return f"{str(t.dtype).replace('torch.', '')}{list(t.shape)}".replace(
+        " ", "")
 
 
 class _Saved:
@@ -354,6 +435,8 @@ class Roofline:
     raw_cost_bytes: Optional[float] = None
     cast_bytes: float = 0.0           # cast traffic, inside hlo_bytes
     coll_nvlink_bytes: float = 0.0    # coll_bytes of groups inside a node
+    unfused_bytes: float = 0.0        # every op's eager traffic, kernels'
+                                      # plain versions included
 
     @property
     def t_compute(self) -> float:
@@ -362,6 +445,10 @@ class Roofline:
     @property
     def t_memory(self) -> float:
         return self.hlo_bytes / (self.chips * HBM_BW)
+
+    @property
+    def t_memory_unfused(self) -> float:
+        return self.unfused_bytes / (self.chips * HBM_BW)
 
     @property
     def t_collective(self) -> float:
@@ -395,10 +482,12 @@ class Roofline:
             "arch": self.arch, "shape": self.shape, "mesh": self.mesh,
             "chips": self.chips,
             "hlo_flops": self.hlo_flops, "hlo_bytes": self.hlo_bytes,
+            "unfused_bytes": self.unfused_bytes,
             "coll_bytes": self.coll_bytes, "coll_ring": self.coll_ring,
             "coll_count": self.coll_count, "coll_by_kind": self.coll_by_kind,
             "model_flops": self.model_flops,
             "t_compute_s": self.t_compute, "t_memory_s": self.t_memory,
+            "t_memory_unfused_s": self.t_memory_unfused,
             "t_collective_s": self.t_collective, "dominant": self.dominant,
             "useful_flops_ratio": self.useful_flops_ratio,
             "roofline_fraction": self.roofline_fraction,
@@ -425,7 +514,8 @@ def analyze(arch: str, shape: str, mesh_name: str, chips: int,
                     model_flops=model_flops,
                     per_device_mem=float(counter.peak_bytes),
                     cast_bytes=counter.cast_bytes * chips,
-                    coll_nvlink_bytes=st.bytes_nvlink * chips)
+                    coll_nvlink_bytes=st.bytes_nvlink * chips,
+                    unfused_bytes=counter.unfused_bytes * chips)
 
 
 def model_flops_estimate(cfg, shape) -> float:

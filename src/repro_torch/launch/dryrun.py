@@ -114,14 +114,16 @@ def _zeros(spec: torch.Tensor) -> torch.Tensor:
     return torch.zeros(spec.shape, dtype=spec.dtype)
 
 
-def trace_cell(run: RunConfig, mesh=None) -> analysis.CostCounter:
+def trace_cell(run: RunConfig, mesh=None,
+               record: bool = False) -> analysis.CostCounter:
     """One step of the cell on ``mesh`` (a CPU ``DeviceMesh`` of the
     current, fake, world; None: the mesh-free step) traced under fake
     tensors: the counter of this rank's FLOPs, bytes, collectives and
     peak (the counterpart of the reference's ``lower_cell``).  A train
     cell takes one train step from the state; prefill a prompt of the
     shape's length; decode one token at the last position of a cache of
-    the shape's length."""
+    the shape's length.  ``record``: the counter keeps its per-op
+    records."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     kind = run.shape.kind
@@ -134,13 +136,15 @@ def trace_cell(run: RunConfig, mesh=None) -> analysis.CostCounter:
                      "step": 0, "rng": run.seed}
             batch = {k: _zeros(v) for k, v in steps.input_specs(run).items()}
             step = steps.make_train_step(run, "cpu", mesh=mesh)
-            counter = analysis.CostCounter(hold=(state, batch))
+            counter = analysis.CostCounter(hold=(state, batch),
+                                           record=record)
             with counter:
                 step(state, batch)
         elif kind == "prefill":
             batch = {k: _zeros(v) for k, v in steps.input_specs(run).items()}
             step = steps.make_prefill_step(run, "cpu", mesh=mesh)
-            counter = analysis.CostCounter(hold=(params, batch))
+            counter = analysis.CostCounter(hold=(params, batch),
+                                           record=record)
             with counter:
                 step(params, batch)
         else:
@@ -163,7 +167,8 @@ def trace_cell(run: RunConfig, mesh=None) -> analysis.CostCounter:
                         enc, mesh, ctx.placements("batch", None, None),
                         run_check=False)
             step = steps.make_decode_step(run, "cpu", mesh=mesh)
-            counter = analysis.CostCounter(hold=(params, cache, tokens, enc))
+            counter = analysis.CostCounter(hold=(params, cache, tokens, enc),
+                                           record=record)
             with counter:
                 step(params, cache, tokens, S - 1, enc)
     return counter
@@ -198,6 +203,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             print(f"[{arch} x {shape_name} x {mesh_name}] OK "
                   f"trace={row['compile_s']:.1f}s "
                   f"flops={row['hlo_flops']:.3e} bytes={row['hlo_bytes']:.3e} "
+                  f"(unfused {row['unfused_bytes']:.3e}) "
                   f"coll={row['coll_bytes']:.3e} ({row['coll_count']} ops) "
                   f"peak={counter.peak_bytes / 1e9:.1f}GB/rank "
                   f"dominant={row['dominant']}", flush=True)

@@ -36,6 +36,7 @@ from repro_torch.kernels.paged_attention.ops import (
     paged_attention, paged_chunk_attention, paged_pool_append,
     paged_pool_append_quant)
 from repro_torch.models.layers import Norm, apply_rope, mm, norm_apply
+from repro_torch.scope import Scope
 
 f32 = torch.float32
 NEG_INF = -1e30
@@ -184,10 +185,11 @@ def attn_apply(params, x, cfg: ModelConfig, *, kind: str, positions,
                                q_positions=positions)
         new_kv = None
     elif cache is None:
-        out = flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            scale=scale, causal=causal, window=window,
-            softcap=cfg.attn_logit_softcap).transpose(1, 2)
+        with Scope("flash_attn"):
+            out = flash_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                scale=scale, causal=causal, window=window,
+                softcap=cfg.attn_logit_softcap).transpose(1, 2)
         new_kv = (k, v)
     elif block_tables is None:
         k_buf = cache_update(cache[0], k, cache_index)

@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.scope import remat_contexts
 
 
 def encoder_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -73,7 +74,8 @@ def encode(params: Encoder, frames, cfg: ModelConfig, *,
         fn = partial(T._block_apply, bp, cfg=ecfg, kind=ATTN, layer_idx=0,
                      positions=positions, causal=False)
         if remat and train:
-            x, _ = checkpoint(T._remat_block, fn, x, use_reentrant=False)
+            x, _ = checkpoint(T._remat_block, fn, x, use_reentrant=False,
+                              context_fn=remat_contexts)
         else:
             x = fn(x)[0]
     return L.norm_apply(params.final_norm, x, cfg)

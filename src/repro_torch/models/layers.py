@@ -27,6 +27,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.group_sync import mean_over_ranks
+from repro_torch.scope import Scope
 from repro_torch.kernels.dropout_matmul.ops import dropout_matmul
 
 f32 = torch.float32
@@ -140,14 +141,15 @@ def mlp_apply(params, x, cfg: ModelConfig, *, hidden_mask=None,
     act = ACTS[cfg.act]
     if mask_blocks is not None:
         return _mlp_blocks(params, x, cfg, act, mask_blocks)
-    up = mm("...d,df->...f", x, params.wi)
-    if cfg.mlp_gated:
-        h = act(mm("...d,df->...f", x, params.wg)) * up
-    else:
-        h = act(up)
-    if hidden_mask is not None:
-        h = h * hidden_mask.to(h.dtype)
-    return mm("...f,fd->...d", h, params.wo, x.dtype)
+    with Scope("mlp_block"):
+        up = mm("...d,df->...f", x, params.wi)
+        if cfg.mlp_gated:
+            h = act(mm("...d,df->...f", x, params.wg)) * up
+        else:
+            h = act(up)
+        if hidden_mask is not None:
+            h = h * hidden_mask.to(h.dtype)
+        return mm("...f,fd->...d", h, params.wo, x.dtype)
 
 
 def _mlp_blocks(params, x, cfg: ModelConfig, act, mask_blocks):
@@ -331,7 +333,7 @@ def moe_apply(params, x, cfg: ModelConfig, *, hidden_mask=None,
     disp = torch.gather(xr, 1, src_tok[..., None].expand(-1, -1, d))
     disp = disp.reshape(R, E, C, d) * slot_valid[..., None].to(x.dtype)
 
-    with torch.profiler.record_function("moe_ffn"):
+    with Scope("moe_ffn"):
         up = mm("recd,edf->recf", disp, params.wi)
         if cfg.mlp_gated:
             h = act(mm("recd,edf->recf", disp, params.wg)) * up

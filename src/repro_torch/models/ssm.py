@@ -27,6 +27,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd.ops import ssd_chunk_scan
 from repro_torch.models.layers import mm
+from repro_torch.scope import Scope
 
 f32 = torch.float32
 
@@ -108,9 +109,10 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int):
     in x.dtype, final_state [B, H, P, N] f32), both from one
     ``ssd_chunk_scan`` call.  The JAX function also takes an initial
     state; no caller passes one, and the kernel starts from zero."""
-    y, final = ssd_chunk_scan(x.contiguous(), dt.contiguous(),
-                              A.contiguous(), Bm.contiguous(),
-                              Cm.contiguous(), chunk=chunk)
+    with Scope("ssd_chunk"):
+        y, final = ssd_chunk_scan(x.contiguous(), dt.contiguous(),
+                                  A.contiguous(), Bm.contiguous(),
+                                  Cm.contiguous(), chunk=chunk)
     return y.to(x.dtype), final
 
 

@@ -34,6 +34,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.attention import (Attention, attn_apply,
                                          paged_decode_lengths)
 from repro_torch.models.ssm import Mamba, mamba_apply, ssm_dims
+from repro_torch.scope import Scope, remat_contexts
 
 
 def layer_moe_flags(cfg: ModelConfig) -> List[bool]:
@@ -385,7 +386,8 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, mode: str = "train",
                      dp_groups=dp_groups)
         if mode == "train" and remat:
             x, layer_aux = checkpoint(_remat_block, fn, x,
-                                      use_reentrant=False)
+                                      use_reentrant=False,
+                                      context_fn=remat_contexts)
         else:
             x, layer_cache, layer_aux = fn(x)
             if mode != "train":
@@ -408,10 +410,11 @@ def lm_logits(params, hidden, cfg: ModelConfig):
 
 
 def _xent_chunk(embed, cfg: ModelConfig, h, labels):
-    logits = L.unembed_apply(embed, h, cfg).to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    return (lse - gold).sum()
+    with Scope("xent_chunk"):
+        logits = L.unembed_apply(embed, h, cfg).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return (lse - gold).sum()
 
 
 def chunked_xent(hidden, params, labels, cfg: ModelConfig, *,
@@ -429,5 +432,6 @@ def chunked_xent(hidden, params, labels, cfg: ModelConfig, *,
     for c0 in range(0, S, chunk):
         total = total + checkpoint(
             _xent_chunk, params.embed, cfg, hidden[:, c0:c0 + chunk],
-            labels[:, c0:c0 + chunk], use_reentrant=False)
+            labels[:, c0:c0 + chunk], use_reentrant=False,
+            context_fn=remat_contexts)
     return total / float(B * S)

@@ -22,6 +22,7 @@ CPU.
   ones, a bank's narrowed draft included.
 """
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -257,6 +258,17 @@ GAP_CELLS = [(a, k) for a in ("qwen3-1.7b", "gemma2-27b")
              for k in ("prefill", "train")]
 
 
+@functools.lru_cache(maxsize=None)
+def gap_hlo(arch, kind):
+    """The reference's compiled HLO text of a gap cell on a 1-device mesh,
+    lowered once for this module's tests."""
+    from repro.configs import base as jbase
+    from repro.launch.dryrun import lower_cell
+    from repro.launch.mesh import make_test_mesh as jax_mesh
+
+    return lower_cell(gap_run(jbase, arch, kind), jax_mesh(1, 1))[1].as_text()
+
+
 def gap_run(lib, arch, kind):
     cfg = lib.reduced(lib.get_model_config(arch))
     return lib.RunConfig(model=cfg, shape=lib.ShapeConfig("x", kind, 256, 4),
@@ -276,14 +288,9 @@ def test_flop_gap_against_hlocost(arch, kind, monkeypatch):
     forward with its rematerialisation: 2 * B * S * d * vocab.  What is
     left is within 1 %."""
     pytest.importorskip("jax")
-    from repro.configs import base as jbase
     from repro.launch import analysis as JA
-    from repro.launch.dryrun import lower_cell
-    from repro.launch.mesh import make_test_mesh as jax_mesh
 
-    jrun = gap_run(jbase, arch, kind)
-    _, compiled = lower_cell(jrun, jax_mesh(1, 1))
-    text = compiled.as_text()
+    text = gap_hlo(arch, kind)
     jax_total = JA.HloCost(text).flops
     monkeypatch.setattr(JA, "_ELEMWISE", set())
     jax_dots = JA.HloCost(text).flops
@@ -311,6 +318,128 @@ def test_flop_gap_against_hlocost(arch, kind, monkeypatch):
           f"{xent_twice:.6e}; remainder {remainder:.6e}")
     assert abs(remainder) <= 0.01 * jax_total, (jax_total, counter.flops,
                                                 elementwise, xent_twice)
+
+
+# ---------------------------------------------------------------------------
+# kernel boundaries and by_tag
+# ---------------------------------------------------------------------------
+def _flash_inputs(requires_grad):
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 4, 16, 8, generator=g)          # 4 KiB
+    k, v = (torch.randn(2, 2, 16, 8, generator=g) for _ in range(2))
+    return [t.requires_grad_(requires_grad) for t in (q, k, v)]
+
+
+def test_flash_boundary_bytes_by_hand():
+    """Inference: q, k, v read and the output written, 4 + 2 + 2 + 4 KiB;
+    the plain version's f32 scores and softmax are left out of ``bytes``
+    and kept in ``unfused_bytes``, which equals the plain version's count
+    without a boundary.  The FLOPs are the plain version's either way."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q, k, v = _flash_inputs(False)
+    counts = []
+    for fn in (flash_attention, attention_ref):
+        with A.CostCounter(hold=(q, k, v)) as counter:
+            fn(q, k, v, scale=0.35, causal=True)
+        counts.append(counter)
+    kernel, plain = counts
+    assert kernel.bytes == 4096 + 2048 + 2048 + 4096
+    assert kernel.unfused_bytes == plain.unfused_bytes == plain.bytes
+    assert plain.bytes > 4 * kernel.bytes
+    assert kernel.flops == plain.flops == 2 * (2 * 2 * 2 * 2 * 16 * 16 * 8)
+
+
+def test_flash_boundary_bytes_in_training_by_hand():
+    """Forward and backward: the forward also writes the f32 row
+    log-sum-exp (2 x 4 x 16 x 4 B); the backward reads q, k, v, the
+    output, its cotangent and the log-sum-exp and writes dq, dk, dv, each
+    once, whatever the plain version's autograd moves.  The ``flash_attn``
+    tag holds exactly those bytes and the six products (two forward, four
+    backward)."""
+    from repro_torch import scope
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    q, k, v = _flash_inputs(True)
+    qkv, out, lse = 4096 + 2048 + 2048, 4096, 2 * 4 * 16 * 4
+    with A.CostCounter(hold=(q, k, v)) as counter:
+        with scope.Scope("flash_attn"):
+            o = flash_attention(q, k, v, scale=0.35, causal=True)
+        o.sum().backward()
+    got = counter.by_tag()["flash_attn"]
+    assert got["bytes"] == (qkv + out + lse) + (2 * qkv + 2 * out + lse)
+    assert got["flops"] == 6 * (2 * 2 * 2 * 2 * 16 * 16 * 8)
+    assert q.grad is not None and k.grad is not None
+
+
+def test_ssd_boundary_bytes_by_hand():
+    """x, dt, A, Bm, Cm read, y and the final state (both f32) written."""
+    from repro_torch.kernels.ssd.ops import ssd_chunk_scan
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 8, 2, 4, generator=g)
+    dt = torch.rand(1, 8, 2, generator=g) + 0.1
+    A_ = -torch.rand(2, generator=g)
+    Bm, Cm = (torch.randn(1, 8, 3, generator=g) for _ in range(2))
+    with torch.no_grad(), A.CostCounter(hold=(x, dt, A_, Bm, Cm)) as counter:
+        ssd_chunk_scan(x, dt, A_, Bm, Cm, chunk=4)
+    ins = (64 + 16 + 2 + 24 + 24) * 4
+    assert counter.bytes == ins + (64 + 2 * 4 * 3) * 4
+    assert counter.unfused_bytes > counter.bytes
+
+
+def test_unfused_bytes_keep_the_eager_count():
+    """With no kernel in the program both counts are the eager one
+    (``test_bytes_and_casts_by_hand``'s program)."""
+    x = torch.zeros(256, dtype=torch.float32)
+    with A.CostCounter(hold=x) as counter:
+        y = x * 2
+        y.to(torch.bfloat16)
+        x.add_(1)
+    assert counter.unfused_bytes == counter.bytes == 2048 + 1536 + 1024
+
+
+def gap_counter(arch, kind):
+    run = gap_run(tbase, arch, kind)
+    state = TS.init_state(run, "cpu")
+    B, S = run.shape.global_batch, run.shape.seq_len
+    toks = np.zeros((B, S), np.int32)
+    with A.CostCounter(hold=state) as counter:
+        if kind == "train":
+            TS.make_train_step(run, "cpu")(state, {"tokens": toks,
+                                                   "labels": toks})
+        else:
+            TS.make_prefill_step(run, "cpu")(state["params"],
+                                             {"tokens": toks})
+    return run, counter
+
+
+@pytest.mark.parametrize("arch,kind", GAP_CELLS)
+def test_by_tag_against_hlocost(arch, kind):
+    """Each tag's product FLOPs against the reference's
+    ``HloCost.by_tag`` (which counts products only) within 1 %; in
+    training ``xent_chunk`` also holds the named term of the flop gap,
+    2 * B * S * d * vocab (the logits product again in the recompute).
+    The tags and the untagged rest sum to the totals, FLOPs and bytes."""
+    pytest.importorskip("jax")
+    from repro.launch import analysis as JA
+
+    want = JA.HloCost(gap_hlo(arch, kind)).by_tag()
+    run, counter = gap_counter(arch, kind)
+    got = counter.by_tag()
+    assert set(got) == set(want)
+    B, S, cfg = run.shape.global_batch, run.shape.seq_len, run.model
+    for tag in want:
+        extra = (2.0 * B * S * cfg.d_model * cfg.vocab_size
+                 if tag == "xent_chunk" and kind == "train" else 0.0)
+        print(f"{arch} {kind} {tag}: HloCost {want[tag]['flops']:.6e}, "
+              f"port {got[tag]['flops']:.6e} (named term {extra:.6e})")
+        assert abs(got[tag]["flops"] - extra - want[tag]["flops"]) <= \
+            0.01 * want[tag]["flops"], (tag, got[tag], want[tag])
+    for what in ("flops", "bytes"):
+        total = sum(t[what] for t in got.values()) + counter.untagged[what]
+        assert total == pytest.approx(getattr(counter, what), rel=1e-12)
 
 
 def two_rows():

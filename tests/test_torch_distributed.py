@@ -109,6 +109,9 @@ def block_fn(w, h):
 # the spawned jobs (module level: spawn pickles them by name)
 # ---------------------------------------------------------------------------
 def _init(rank, world, tmp, tag):
+    # one intra-op thread a rank: the tensors are tiny, and ranks that each
+    # take every core of a shared host slow one another several times over
+    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/{tag}.store",
                             rank=rank, world_size=world)
 
@@ -250,7 +253,7 @@ JAX_PROG = textwrap.dedent("""
     from repro.runtime.pipeline import pipelined_apply
 
     tmp = sys.argv[1]
-    with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
+    with open(os.path.join(tmp, "merge_inputs.pkl"), "rb") as f:
         inp = pickle.load(f)
     mesh = Mesh(np.array(jax.devices()), ("data",))
     int8 = TopologyConfig(grad_compression="int8")
@@ -377,14 +380,12 @@ def port_runs(flat, table):
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    """Every job's results: the JAX subprocess runs beside job A."""
+    """Every job's results.  The JAX subprocess needs only the merge and
+    pipeline inputs, so it starts first and runs beside JAX's and the
+    port's one-process steps and job A."""
     pytest.importorskip("jax")
     tmp = tmp_path_factory.mktemp("dist")
     rng = np.random.default_rng(0)
-    flat = {}
-    jax_ref = jax_runs(flat)            # fills flat with JAX's init state
-    table = JaxTable()
-    port = port_runs(flat, table)       # fills table with every draw
     p = PIPE
     inputs = {
         "g_w": rng.normal(size=(4, 8, 16)).astype(np.float32),
@@ -393,15 +394,21 @@ def results(tmp_path_factory):
         "r_b": (rng.normal(size=(4, 16)) * 0.01).astype(np.float32),
         "ws": (rng.normal(size=(p["S"], p["L"], p["d"], p["d"]))
                * p["d"] ** -0.5).astype(np.float32),
-        "x": rng.normal(size=(p["M"], p["mb"], p["d"])).astype(np.float32),
-        "flat": flat, "table": dict(table)}
-    with open(tmp / "inputs.pkl", "wb") as f:
+        "x": rng.normal(size=(p["M"], p["mb"], p["d"])).astype(np.float32)}
+    with open(tmp / "merge_inputs.pkl", "wb") as f:
         pickle.dump(inputs, f)
     jax_proc = subprocess.Popen(
         [sys.executable, "-c", JAX_PROG, str(tmp)], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True,
         env={**os.environ, "PYTHONPATH": "src"})
     try:
+        flat = {}
+        jax_ref = jax_runs(flat)        # fills flat with JAX's init state
+        table = JaxTable()
+        port = port_runs(flat, table)   # fills table with every draw
+        inputs.update(flat=flat, table=dict(table))
+        with open(tmp / "inputs.pkl", "wb") as f:
+            pickle.dump(inputs, f)
         a = spawn(job_a, 4, tmp)
         b = spawn(job_b, 2, tmp)
         stdout, stderr = jax_proc.communicate(timeout=JOIN_TIMEOUT)

@@ -6,6 +6,7 @@ reference's, each rule on its seeded fixture, the suppression scopes, the
 CLI's exit codes, and the port linting clean against its committed
 baseline.
 """
+import ast
 import json
 import textwrap
 from pathlib import Path
@@ -90,19 +91,54 @@ def test_fingerprint_survives_line_drift_as_jax():
 # ---------------------------------------------------------------------------
 # each rule on its fixture
 # ---------------------------------------------------------------------------
+# the mesh contract (HL5xx) and import-time (HL101) fixtures: each seeded
+# line carries a "# HLnnn" marker, and each has a clean twin
+MESH_FIXTURES = {"import_time": "HL101", "placements": "HL501",
+                 "mesh_axis": "HL502", "placement_rank": "HL503",
+                 "collective_group": "HL504"}
+
+
 @pytest.mark.parametrize("name,rules", [
     ("violation_sync.py", {"HL201", "HL202"}),
     ("violation_torch_sync.py", {"HL201", "HL202"}),
     ("violation_pool.py", {"HL401", "HL402"}),
-])
+] + [(f"violation_{k}.py", {r}) for k, r in MESH_FIXTURES.items()])
 def test_rules_fire_on_violation_fixture(name, rules):
     assert {f.rule for f in lint_fixture(name)} == rules
 
 
 @pytest.mark.parametrize("name", ["clean_sync.py", "clean_torch_sync.py",
-                                  "clean_pool.py"])
+                                  "clean_pool.py"]
+                         + [f"clean_{k}.py" for k in MESH_FIXTURES])
 def test_clean_twin_is_quiet(name):
     assert lint_fixture(name) == []
+
+
+@pytest.mark.parametrize("name", list(MESH_FIXTURES))
+def test_every_marked_line_of_the_mesh_fixtures_fires(name):
+    """Each "# HLnnn" line of the fixture, and no other, has a finding of
+    that rule."""
+    rule = MESH_FIXTURES[name]
+    src = (FIXTURES / f"violation_{name}.py").read_text().splitlines()
+    marked = {i for i, ln in enumerate(src, 1) if f"# {rule}" in ln}
+    got = {f.line for f in lint_fixture(f"violation_{name}.py")}
+    assert marked and got == marked
+
+
+def test_hl502_reads_the_mesh_and_rules_of_the_lint_root(tmp_path):
+    """The vocabulary comes from ``launch/mesh.py`` under the root: the
+    port's own names pass, and a root without that file falls back to the
+    production mesh's dims and checks no logical name."""
+    from repro_torch.analysis import sharding_contracts as sc
+    src = ('def f(ctx, mesh):\n    return mesh.get_group("data"), '
+           'ctx.spec("batch", "vocab", "kv_seq"), mesh["pod"]\n')
+    assert lint_source(src, root=REPO) == []
+    sc._cache.clear()
+    tree_names = sc._vocabulary(ast.parse(src),
+                                sc.PassContext(root=tmp_path))
+    assert tree_names == ({"pod", "data", "model"}, None)
+    bad = src.replace('"kv_seq"', '"kv_sequence"')
+    assert [f.rule for f in lint_source(bad, root=REPO)] == ["HL502"]
 
 
 def test_every_marked_line_of_the_torch_sinks_fixture_fires():
@@ -272,13 +308,15 @@ def test_port_lints_clean_against_committed_baseline():
 
 @pytest.mark.parametrize("name", ["violation_sync.py",
                                   "violation_torch_sync.py",
-                                  "violation_pool.py"])
+                                  "violation_pool.py"]
+                         + [f"violation_{k}.py" for k in MESH_FIXTURES])
 def test_cli_nonzero_on_violation_fixture(name):
     assert hornlint.main([str(FIXTURES / name), "--baseline", "none"]) == 1
 
 
 @pytest.mark.parametrize("name", ["clean_sync.py", "clean_torch_sync.py",
-                                  "clean_pool.py"])
+                                  "clean_pool.py"]
+                         + [f"clean_{k}.py" for k in MESH_FIXTURES])
 def test_cli_zero_on_clean_fixture(name):
     assert hornlint.main([str(FIXTURES / name), "--baseline", "none"]) == 0
 
@@ -307,6 +345,8 @@ def test_cli_github_and_json(capsys):
 
 def test_cli_lists_the_port_rules(capsys):
     assert hornlint.main(["--list-rules"]) == 0
-    assert set(all_rules()) == {"HL201", "HL202", "HL401", "HL402"}
+    assert set(all_rules()) == {"HL101", "HL201", "HL202", "HL401",
+                                "HL402", "HL501", "HL502", "HL503",
+                                "HL504"}
     out = capsys.readouterr().out
     assert all(r in out for r in all_rules())

@@ -1,0 +1,24 @@
+"""gemma3-4b's training path against the JAX package's on the same
+weights (``tests/torch_train_common.py`` says how): loss and gradients, and
+three AdamW steps.  Its three momentum-SGD steps, the longest cases, are in
+``tests/test_torch_train_gemma3_sgdm.py``, so that ``pytest --dist
+loadfile`` gives the two halves to two workers."""
+import pytest
+
+pytest.importorskip("jax")
+
+from torch_train_common import (OPT_MICRO, check_model_loss_and_grads,  # noqa: E402,E501
+                                check_three_train_steps)
+
+
+@pytest.mark.parametrize("horn", ["off", "on"])
+@pytest.mark.parametrize("arch", ["gemma3-4b"])
+def test_model_loss_and_grads_match_jax(arch, horn):
+    check_model_loss_and_grads(arch, horn)
+
+
+@pytest.mark.parametrize("optimizer,micro",
+                         [om for om in OPT_MICRO if om[0] == "adamw"])
+@pytest.mark.parametrize("arch", ["gemma3-4b"])
+def test_three_train_steps_match_jax(arch, optimizer, micro, monkeypatch):
+    check_three_train_steps(arch, optimizer, micro, monkeypatch)
