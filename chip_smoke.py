@@ -326,6 +326,22 @@ Phases, each of which fails the script (non-zero exit, no result line):
               scope) beside its counted FLOPs, bytes and bound from 19(c)'s
               trace; a scope's device time below its FLOPs over the bf16
               peak fails the phase, its memory half is printed.
+ 21. ssm train SSM and hybrid training.  (a) mamba2-2.7b at full width,
+              2 layers: loss and every gradient of one forward and backward
+              (remat) through the SSD kernels against the same with the
+              scan routed to the plain version, f32 at 2 x 512 (each leaf
+              within 1e-3 of its scale) and bf16 at 2 x 2048 (against an
+              f32 truth: the kernel path's error at most twice the plain
+              bf16 path's).  (b) ``launch.train --arch mamba2-2.7b`` at
+              full size (64 layers, f32 masters, bf16 compute, Horn 4
+              groups, AdamW at lr 3e-4), 4 x 2048, 4 steps: the SSD forward
+              2 x 64 and its backward 64 times a step, on the routes the
+              rules give; finite losses, the first near ln(vocab), grad
+              norms above 0; step wall, tok/s, peak memory, and a profiled
+              step with the SSD backward's device time.  (c) jamba-1.5-large
+              cut to its first layer (mamba and the dense FFN at full width;
+              layer 1's MoE is 9.7 B parameters, ~155 GB of AdamW state),
+              2 steps at 2 x 2048: one SSD backward a step at N 16, H 256.
 Phase 3 also holds the SSD chunk scan against its plain version (y and the
 final state): the JAX sweep's shapes, S 257 (chunks of 1 token), two more
 shapes of the wgmma route and the full-width shape B 2, S 2048, H 80, P
@@ -333,7 +349,12 @@ shapes of the wgmma route and the full-width shape B 2, S 2048, H 80, P
 gives it (bf16 at Q % 64 == 0 on the wgmma kernel, the rest on the
 CUDA-core one), printed and asserted by its launch count, and jamba-1.5-
 large's B 1, S 2048, H 256, P 64, N 16, chunk 256; then the wgmma kernel
-again with dt at 0, 1e-30 and -0.05 on some tokens.
+again with dt at 0, 1e-30 and -0.05 on some tokens.  Then the SSD
+backward against autograd through the plain version (``SSD_BWD_SWEEP``:
+f32 and bf16; mamba2's and jamba's geometries, a ragged P and N, chunks
+of 1, 7 and 256, S not a multiple of 64; zero and normal final-state
+cotangents), again with dt at 0, 1e-30 and -0.05, and two calls bit for
+bit; phase 8 times it at mamba2-2.7b's train shape.
 Phase 8 reads the paged kernels by device time over windows of 50 calls
 profiled after a warm-up run (``device_ms``): a window must hold 50
 launches of the timed kernel and read at least its bound, else it is
@@ -843,6 +864,116 @@ def phase_ssd_kernels(torch, dev, skernel, sref, build):
     return max([worst] + errs)
 
 
+# (B, S, H, P, N, chunk, final-state cotangent): the backward against
+# autograd through the plain version: the JAX sweep's first shape, a ragged
+# P and N at chunks of 7 (S 49: one short block), chunks of 1 (S 257, not a
+# multiple of the 64-token block), mamba2-2.7b's SSD (H 80, P 64, N 128) at
+# the train step's chunk and jamba-1.5-large's (H 256, P 64, N 16); a zero
+# cotangent of the final state (the train step's: the state feeds nothing)
+# and a nonzero one
+SSD_BWD_SWEEP = [(1, 64, 2, 16, 16, 16, True), (2, 49, 2, 20, 100, 7, False),
+                 (1, 257, 4, 64, 128, 256, True),
+                 (2, 2048, 80, 64, 128, 256, False),
+                 (1, 2048, 256, 64, 16, 256, True)]
+# each gradient's max |kernel - plain| over its max |plain|: f32 values
+# differ by summation order; dx, dBm and dCm in bf16 are rounded once to
+# x's type on both sides (2^-8 relative, two such steps where the two
+# round to neighbours)
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+SSD_GRADS = ("dx", "ddt", "dA", "dBm", "dCm")
+
+
+def ssd_bwd_inputs(torch, dev, dtype, B, S, H, P, N, seed):
+    """``ssd_inputs`` and normal cotangents dy [B, S, H, P] and dstate
+    [B, H, P, N], f32."""
+    args = list(ssd_inputs(torch, dev, dtype, B, S, H, P, N, seed))
+    gen = torch.Generator(dev).manual_seed(seed + 500)
+    dy = torch.randn(B, S, H, P, generator=gen, device=dev)
+    ds = torch.randn(B, H, P, N, generator=gen, device=dev)
+    return args, dy, ds
+
+
+def ssd_plain_grads(torch, sref, args, dy, ds, chunk):
+    """Autograd through the plain chunk scan: d/d(x, dt, A, Bm, Cm) of
+    <y, dy> + <state, ds> (ds None: zero)."""
+    ins = [t.detach().clone().requires_grad_(True) for t in args]
+    y, st = sref.ssd_chunk_scan_ref(*ins, chunk=chunk)
+    loss = (y * dy).sum() + (0 if ds is None else (st * ds).sum())
+    return torch.autograd.grad(loss, ins)
+
+
+def ssd_grad_errs(torch, got, want, what):
+    """Each gradient's (max |kernel - plain|, that over max |plain|),
+    asserted finite, of the plain version's type and shape, and within
+    ``SSD_BWD_TOL`` of its type."""
+    out = {}
+    for name, g, w in zip(SSD_GRADS, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, name)
+        assert torch.isfinite(g).all(), (what, name)
+        err = (g.float() - w.float()).abs().max().item()
+        rel = err / max(w.float().abs().max().item(), 1e-30)
+        tol = SSD_BWD_TOL[str(g.dtype).split(".")[-1]]
+        assert rel <= tol, (what, name, err, rel, tol)
+        out[name] = (err, rel)
+    return out
+
+
+def phase_ssd_bwd_kernels(torch, dev, skernel, sref, build):
+    """The backward kernel against autograd through the plain version on
+    the same inputs and cotangents (``SSD_BWD_SWEEP``, f32 and bf16, each
+    launch counted on its one route), then with dt at 0, 1e-30 and -0.05
+    on some tokens (mamba2-2.7b's SSD, bf16), then two calls on the same
+    inputs compared bit for bit.  Returns the largest absolute error."""
+    key = f"{skernel.NAME_BWD}:{skernel.ROUTE_BWD}"
+    worst, rel_worst = 0.0, 0.0
+
+    def check(args, dy, ds, chunk, what):
+        nonlocal worst, rel_worst
+        before = build.ROUTE_LAUNCHES.get(key, 0)
+        got = skernel.ssd_chunk_scan_bwd(*args, dy, ds)
+        assert build.ROUTE_LAUNCHES.get(key, 0) == before + 1, key
+        want = ssd_plain_grads(torch, sref, args, dy, ds, chunk)
+        torch.cuda.synchronize()
+        errs = ssd_grad_errs(torch, got, want, what)
+        worst = max([worst] + [e for e, _ in errs.values()])
+        rel_worst = max([rel_worst] + [r for _, r in errs.values()])
+        return errs
+
+    for dtype in ("float32", "bfloat16"):
+        for i, (B, S, H, P, N, chunk, with_ds) in enumerate(SSD_BWD_SWEEP):
+            args, dy, ds = ssd_bwd_inputs(torch, dev, getattr(torch, dtype),
+                                          B, S, H, P, N, seed=60 + i)
+            errs = check(args, dy, ds if with_ds else None, chunk,
+                         (dtype, B, S, H, P, N, chunk))
+            log(f"    {dtype:8s} {(B, S, H, P, N, chunk)} dstate "
+                f"{'normal' if with_ds else 'zero  '}: max |kernel - plain| "
+                f"/ max |plain| " + " ".join(
+                    f"{n} {r:.2g}" for n, (_, r) in errs.items()))
+            del args, dy, ds
+    B, S, H, P, N, chunk, _ = SSD_BWD_SWEEP[3]
+    args, dy, ds = ssd_bwd_inputs(torch, dev, torch.bfloat16, B, S, H, P, N,
+                                  seed=70)
+    dt = args[1]
+    dt[:, 0::5] = 0.0
+    dt[:, 3::7] = 1e-30
+    dt[:, 1::11] = -0.05
+    errs = check(args, dy, ds, chunk, "edge dt")
+    log(f"  {skernel.NAME_BWD} bfloat16 {(B, S, H, P, N)}, dt 0 / 1e-30 / "
+        f"-0.05 on some tokens: " + " ".join(
+            f"{n} {r:.2g}" for n, (_, r) in errs.items()))
+    a = skernel.ssd_chunk_scan_bwd(*args, dy, None)
+    b = skernel.ssd_chunk_scan_bwd(*args, dy, None)
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, v) for u, v in zip(a, b))
+    assert same, "two backward calls on the same inputs differ"
+    log(f"  {skernel.NAME_BWD}: {2 * len(SSD_BWD_SWEEP) + 1} cases on "
+        f"'{skernel.ROUTE_BWD}' against autograd through the plain "
+        f"version, largest max |kernel - plain| / max |plain| "
+        f"{rel_worst:.3g} (tol f32 1e-4, bf16 outputs 1e-2), absolute "
+        f"{worst:.3g}; two calls bit-equal")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 4: paged engine vs a plain non-paged recompute
 # ---------------------------------------------------------------------------
@@ -1180,6 +1311,7 @@ def engine_decode_route(kernel, eng, dev):
 
 
 PROFILE_TRIES = 3
+SPIN_HZ = 1.98e9                 # torch.cuda._sleep's cycles a second
 # device symbols of the paged kernels, by wrapper name: the chunk source's
 # ``paged_chunk_attention_kernel`` (CUDA cores) and ``paged_chunk_tc_kernel``
 # (tensor cores), the decode source's ``paged_attention_kernel``
@@ -1298,13 +1430,22 @@ def phase_train(torch, build, fkernel, arch="qwen3-1.7b", batch=8,
                 prepare=None):
     """``launch.train`` on ``arch`` at full width (f32 masters, bf16
     compute, Horn on with 4 groups, lr 3e-4), ``steps`` steps of batch x
-    seq: launch counts (remat: the forward twice an attention layer a
-    step, an encoder's layers included, the backward once, every launch
-    at the arch's head dim on the bf16 kernels), finite losses, the first
-    near its random-init value; then one profiled step.  ``prepare(sess)``
-    may change the session before the steps (phase 16 feeds seeded
-    frames)."""
+    seq: launch counts (remat: each layer's kernel forward twice a step,
+    an encoder's layers included, the backward once; flash for an
+    attention layer, every launch at the arch's head dim on the bf16
+    kernels; the SSD chunk scan for a mamba layer, its forward on the
+    route ``kernel.route`` gives the shape and its backward on the
+    backward's one), finite losses, the first near its random-init value;
+    then one profiled step, its device activity alone (``device_events``
+    with ``cpu=False``: every reading here is a kernel's device time, and
+    the host trace costs much on a step of many thousand launches).
+    ``prepare(sess)`` may change the session before the steps (phase 16
+    feeds seeded frames)."""
+    from repro_torch.configs.base import MAMBA
+    from repro_torch.kernels.ssd import kernel as skernel
+    from repro_torch.kernels.ssd.ref import chunk_len
     from repro_torch.launch import train
+    from repro_torch.models.ssm import ssm_dims
 
     argv = ["--arch", arch, "--full-config", "--steps", str(steps),
             "--batch", str(batch), "--seq", str(seq), "--horn-groups", "4",
@@ -1329,13 +1470,25 @@ def phase_train(torch, build, fkernel, arch="qwen3-1.7b", batch=8,
     build.reset_launches()
     recs = train.run_steps(sess, steps, log=lambda m: log("  " + m))
     fwd, bwd = build.LAUNCHES[fkernel.FWD], build.LAUNCHES[fkernel.BWD]
-    route = fkernel.route(torch.bfloat16, cfg.head_dim)
+    peak = torch.cuda.max_memory_allocated()
+    n_ssm = cfg.layer_kinds().count(MAMBA)
+    L = cfg.num_layers - n_ssm + cfg.num_encoder_layers
+    route = fkernel.route(torch.bfloat16, cfg.head_dim) if L else None
     on_route = [build.ROUTE_LAUNCHES.get(f"{n}:{route}", 0)
                 for n in (fkernel.FWD, fkernel.BWD)]
-    peak = torch.cuda.max_memory_allocated()
-    L = cfg.num_layers + cfg.num_encoder_layers
     assert fwd == 2 * L * steps and bwd == L * steps, (fwd, bwd, L)
     assert on_route == [fwd, bwd], (route, on_route, fwd, bwd)
+    ssd = {n: build.LAUNCHES[n] for n in (skernel.NAME, skernel.NAME_BWD)}
+    ssd_routes = {}
+    if n_ssm:
+        _, _, P, N = ssm_dims(cfg)
+        ssd_routes = {
+            skernel.NAME: skernel.route(torch.bfloat16, P, N, chunk_len(
+                cfg.ssm_chunk, a.seq)), skernel.NAME_BWD: skernel.ROUTE_BWD}
+    assert ssd == {skernel.NAME: 2 * n_ssm * steps,
+                   skernel.NAME_BWD: n_ssm * steps}, (ssd, n_ssm)
+    for n, r in ssd_routes.items():
+        assert build.ROUTE_LAUNCHES.get(f"{n}:{r}", 0) == ssd[n], (n, r)
     for r in recs:
         assert math.isfinite(r["loss"]) and r["grad_norm"] > 0, r
     # at random init the final norm's unit-RMS rows meet an unembedding of
@@ -1348,9 +1501,16 @@ def phase_train(torch, build, fkernel, arch="qwen3-1.7b", batch=8,
     steady = recs[1:]
     step_s = sum(r["step_s"] for r in steady) / len(steady)
     tok_s = a.batch * a.seq / step_s
-    log(f"  {fkernel.FWD} launches: {fwd} = 2 x {L} layers x "
-        f"{steps} steps (remat); {fkernel.BWD} launches: {bwd} = "
-        f"{L} x {steps}; all on '{route}'")
+    if L or not n_ssm:
+        log(f"  {fkernel.FWD} launches: {fwd} = 2 x {L} layers x "
+            f"{steps} steps (remat); {fkernel.BWD} launches: {bwd} = "
+            f"{L} x {steps}; all on '{route}'")
+    if n_ssm:
+        log(f"  {skernel.NAME} launches: {ssd[skernel.NAME]} = 2 x {n_ssm} "
+            f"mamba layers x {steps} steps (remat), all on "
+            f"'{ssd_routes[skernel.NAME]}'; {skernel.NAME_BWD} launches: "
+            f"{ssd[skernel.NAME_BWD]} = {n_ssm} x {steps}, all on "
+            f"'{skernel.ROUTE_BWD}'")
     log(f"  step wall {step_s * 1e3:.1f} ms (mean of steps 2-{steps})"
         f", {tok_s:,.0f} tok/s, peak memory "
         f"{peak / 2**30:.2f} GiB allocated of "
@@ -1361,14 +1521,14 @@ def phase_train(torch, build, fkernel, arch="qwen3-1.7b", batch=8,
                                      sess.batch_at(sess.state["step"]))
         float(m["loss"])
 
-    events = device_events(torch, one_step)
+    events = device_events(torch, one_step, cpu=False)
     busy = sum(e.self_device_time_total for e in events) / 1e3
     out = {"arch": cfg.name, "batch": a.batch, "seq": a.seq,
            "optimizer": optimizer, "params": n_params, "steps": recs,
            "step_ms": step_s * 1e3, "tok_s": tok_s,
            "peak_bytes": peak, "launches": {fkernel.FWD: fwd,
-                                            fkernel.BWD: bwd},
-           "route": route,
+                                            fkernel.BWD: bwd, **ssd},
+           "route": route, "ssd_routes": ssd_routes,
            "device_busy_ms": busy or None, "busy_share": None,
            "top_kernels": []}
     if busy <= 0:
@@ -1379,10 +1539,18 @@ def phase_train(torch, build, fkernel, arch="qwen3-1.7b", batch=8,
                            if n in e.key) / 1e3
                     for n in ("flash_fwd", "flash_bwd")}
         out["flash_ms"] = flash_ms
+        # the SSD's device symbols: ssd_chunk_scan{,_wgmma}_kernel forward,
+        # ssd_bwd_kernel and ssd_bwd_reduce_kernel backward
+        ssd_ms = {n: sum(e.self_device_time_total for e in events
+                         if n in e.key) / 1e3
+                  for n in ("ssd_chunk_scan", "ssd_bwd")}
+        out["ssd_ms"] = ssd_ms
         log(f"  profiled step: device busy {busy:.1f} ms = "
             f"{out['busy_share']:.1%} of the unprofiled step wall; flash "
             f"forward {flash_ms['flash_fwd']:.1f} ms, backward "
-            f"{flash_ms['flash_bwd']:.1f} ms")
+            f"{flash_ms['flash_bwd']:.1f} ms" + (
+                f"; SSD forward {ssd_ms['ssd_chunk_scan']:.1f} ms, backward "
+                f"{ssd_ms['ssd_bwd']:.1f} ms" if n_ssm else ""))
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
             out["top_kernels"].append(
                 [e.key[:90], e.self_device_time_total / 1e3, e.count])
@@ -2073,6 +2241,71 @@ def phase_ssd_timing(torch, dev, skernel, sref):
         f"at the f32 rate), {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB;"
         f" {out['tflops']:.1f} TFLOP/s counted; max err wgmma "
         f"{errs['wgmma']:.3g}, cuda_core {errs['cuda_core']:.3g}")
+    return out
+
+
+def ssd_bwd_work(B, S, H, P, N, itemsize, L=64):
+    """(bytes, flops) of the backward: x, dt, A, Bm, Cm and dy (f32) read
+    once, dx, ddt, dA, dBm and dCm written once (dstate is zero in
+    training); per (b, 64-token block) C.B^T on its causal triangle once
+    (2 N flops a pair), and per (b, h, block) the triangle's dy.x^T, dx, dC
+    and dB products (2 (2 P + 2 N) a pair) and five [P, N] x L products
+    (G B, s^T dy, G^T x, the next G and the block-start state: 2 L P N
+    each)."""
+    flops = 0
+    for c0 in range(0, S, L):
+        n = min(L, S - c0)
+        pairs = n * (n + 1) // 2
+        flops += B * (2 * N * pairs + H * (2 * (2 * P + 2 * N) * pairs
+                                           + 5 * 2 * n * P * N))
+    nbytes = (2 * B * S * H * P * itemsize + B * S * H * P * 4
+              + 2 * B * S * H * 4 + 2 * H * 4 + 4 * B * S * N * itemsize)
+    return nbytes, flops
+
+
+def phase_ssd_bwd_timing(torch, dev, skernel, sref):
+    """The backward at the train step's shape (B 4, S 2048, H 80, P 64, N
+    128, bf16 x/B/C, f32 dy, no final-state cotangent): the kernel by CUDA
+    events, autograd's backward through the plain version (its graph built
+    once, ``torch.autograd.grad`` timed), no library call (none computes
+    an SSD backward).  ``bound_ms`` is at the bf16 tensor-core rate, the
+    card's peak for these bf16 inputs, as the forward's is; the log also
+    gives it at the f32 CUDA-core rate, the one this simple kernel's
+    arithmetic runs at."""
+    B, S, H, P, N, chunk = SSM_BATCH, SSM_SEQ, 80, 64, 128, 256
+    args, dy, _ = ssd_bwd_inputs(torch, dev, torch.bfloat16, B, S, H, P, N,
+                                 seed=22)
+    ins = [t.detach().clone().requires_grad_(True) for t in args]
+    y, _ = sref.ssd_chunk_scan_ref(*ins, chunk=chunk)
+    want = torch.autograd.grad(y, ins, dy, retain_graph=True)
+    got = skernel.ssd_chunk_scan_bwd(*args, dy, None)
+    torch.cuda.synchronize()
+    errs = ssd_grad_errs(torch, got, want, "timing shape")
+    del got, want
+    ms = cuda_ms(torch, lambda i: skernel.ssd_chunk_scan_bwd(*args, dy),
+                 10, warmup=2)
+    plain_ms = cuda_ms(torch, lambda i: torch.autograd.grad(
+        y, ins, dy, retain_graph=True), 3, warmup=1)
+    del y, ins
+    nbytes, flops = ssd_bwd_work(B, S, H, P, N, 2)
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    cc_ms, _ = bound(nbytes, flops, "float32")
+    out = {"B": B, "S": S, "H": H, "P": P, "N": N, "dtype": "bfloat16",
+           "route": skernel.ROUTE_BWD, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bound_ms_f32_rate": cc_ms, "bytes": nbytes, "flops": flops,
+           "max_abs_err": max(e for e, _ in errs.values()),
+           "max_rel_err": max(r for _, r in errs.values()),
+           "tflops": flops / (ms * 1e-3) / 1e12}
+    log(f"  {skernel.NAME_BWD} train shape (B {B}, S {S}, H {H}, P {P}, N "
+        f"{N}, bf16): kernel {ms:7.3f} ms  plain (autograd) "
+        f"{plain_ms:7.3f} ms  library: none  bound {b_ms:.3f} ms ({b_by} "
+        f"at the bf16 tensor-core rate; {cc_ms:.3f} ms at the f32 "
+        f"CUDA-core rate), "
+        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; "
+        f"{out['tflops']:.1f} TFLOP/s counted, {b_ms / ms:.1%} of the "
+        f"bound; max |kernel - plain| / max |plain| "
+        f"{out['max_rel_err']:.3g}")
     return out
 
 
@@ -5397,8 +5630,11 @@ def trace_launches(torch, fn, names, seen=None):
     """(kernel, grid, block, shared memory) of every launch of ``fn()``
     whose kernel is one of ``names``, in launch order, from the Chrome
     trace torch.profiler exports.  ``fn`` runs once as the schedule's
-    warm-up step and once profiled.  ``seen`` (a dict) counts every
-    kernel of the trace by name."""
+    warm-up step and once profiled.  The profiled step opens with a 20 ms
+    spin kernel that the host waits for: a trace may lose the launches at
+    the start of its window (one lost the first 24 of flash's 48), and
+    these are not ``fn``'s.  ``seen`` (a dict) counts every kernel of the
+    trace by name."""
     import os
     import tempfile
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -5408,6 +5644,8 @@ def trace_launches(torch, fn, names, seen=None):
         fn()
         torch.cuda.synchronize()
         prof.step()
+        torch.cuda._sleep(int(0.02 * SPIN_HZ))
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     fd, path = tempfile.mkstemp(suffix=".json")
@@ -5496,6 +5734,10 @@ def launch_call(torch, dev, call, nan_page=False):
         x, dtv, A, Bm, Cm = ssd_inputs(torch, dev, dt, B, S, H, P, N, 18)
         return lambda: skernel.ssd_chunk_scan(x, dtv, A, Bm, Cm,
                                               chunk=c["chunk"])
+    if m == "ssd.bwd":
+        args, dy, _ = ssd_bwd_inputs(torch, dev, c["dtype"], *(
+            c[k] for k in ("B", "S", "H", "P", "N")), 18)
+        return lambda: skernel.ssd_chunk_scan_bwd(*args, dy)
     raise ValueError(f"no call for model {m!r}")
 
 
@@ -5516,7 +5758,8 @@ def model_geometries(call, sms):
             "flash.fwd": lambda: [fgeo.fwd_geometry(**c)],
             "flash.bwd": lambda: fgeo.bwd_geometries(**c),
             "dropout": lambda: [dgeo.geometry(**c)],
-            "ssd": lambda: [sgeo.geometry(**c)]}[m]()
+            "ssd": lambda: [sgeo.geometry(**c)],
+            "ssd.bwd": lambda: sgeo.bwd_geometries(**c)}[m]()
 
 
 def geometry_calls(torch, sms):
@@ -5590,6 +5833,13 @@ def geometry_calls(torch, sms):
         B, S, H, P_, N_, chunk = shape
         out.append((label, dict(model="ssd", B=B, S=S, H=H, P=P_, N=N_,
                                 dtype=bf, chunk=chunk)))
+    # the backward at phase 8's timing shape and phase 21's jamba step
+    for label, (B, S, H, P_, N_) in (
+            ("phase8/ssd-bwd", (SSM_BATCH, SSM_SEQ, 80, 64, 128)),
+            ("phase21/ssd-bwd-jamba", (JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ,
+                                       256, 64, 16))):
+        out.append((label, dict(model="ssd.bwd", B=B, S=S, H=H, P=P_, N=N_,
+                                dtype=bf)))
     return out
 
 
@@ -5616,20 +5866,17 @@ def phase_geometry_twin(torch, dev, kernel):
         def run_all(fns=fns):
             for fn in fns:
                 fn()
-        tries = PROFILE_TRIES
-        for attempt in range(1, 2 * PROFILE_TRIES + 1):
+        # a capture that lost launches (or caught none) is taken again
+        tries = 2 * PROFILE_TRIES
+        for attempt in range(1, tries + 1):
             seen = {}
             got = trace_launches(torch, run_all, names, seen)
             if len(got) == len(want):
                 break
-            if not seen:                # the profiler caught no kernel at
-                tries = 2 * PROFILE_TRIES   # all: a capture to take again
             log(f"  18(a) {family}: the trace holds {len(got)} launches of "
                 f"{len(want)}, try {attempt} of {tries}; the trace's "
                 f"kernels {dict(sorted(seen.items())[:12])}, the models' "
                 f"{sorted(names)}")
-            if attempt >= tries:
-                break
         assert len(got) == len(want), (family, len(got), len(want))
         for i, (g, w) in enumerate(zip(got, want)):
             assert g == w, (f"18(a) {labels[i][0]} ({labels[i][1]}): the "
@@ -6630,6 +6877,156 @@ def phase_dryrun(torch, dev, build, traces):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: SSM and hybrid training
+# ---------------------------------------------------------------------------
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 4, 2048  # 21(b): mamba2-2.7b's train batch
+SSM_TRAIN_STEPS = 4
+JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ = 2, 2048   # 21(c)
+JAMBA_TRAIN_STEPS = 2
+SSM_PARITY_TOL = 1e-3            # 21(a) f32: each leaf's max |d| / max |plain|
+
+
+def ssm_loss_and_grads(torch, params, cfg, batch):
+    """(loss, f32 gradients of every leaf) of ``model_loss`` (remat on, as
+    the train step runs it)."""
+    from repro_torch.models import api
+
+    loss, _ = api.model_loss(params, batch, cfg)
+    grads = torch.autograd.grad(loss, list(params.parameters()))
+    torch.cuda.synchronize()
+    return float(loss.detach()), [g.float() for g in grads]
+
+
+def ssm_parity_batch(torch, dev, cfg, B, S, seed):
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S + 1)).astype(np.int32)).to(dev)
+    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+
+def phase_ssm_train_parity(torch, dev, build, skernel, sref):
+    """21(a): mamba2-2.7b at full width, 2 layers: the loss and every
+    leaf's gradient of one forward and backward (remat) through the SSD
+    kernels, against the same with ``models/ssm.py``'s scan routed to the
+    plain version (autograd through it, on the card; no SSD kernel
+    launched).  f32 at 2 x 512: loss within 1e-5 and each gradient's max
+    |kernel - plain| within ``SSM_PARITY_TOL`` of its max |plain| (the two
+    differ by summation order).  bf16 at 2 x 2048: the loss within 2e-2
+    of the plain path's, and phase 11's rule against an f32 truth (the
+    same weights, f32 compute, plain path): each leaf's largest error of
+    the kernel path at most twice the plain bf16 path's."""
+    from repro_torch.configs.base import get_model_config
+    from repro_torch.models import ssm
+    from repro_torch.models.params import cast_params, init_params
+
+    out = {}
+    cfg = dataclasses.replace(get_model_config("mamba2-2.7b"), num_layers=2,
+                              dtype="float32")
+    params = init_params(cfg, 1234, device=dev, dtype=torch.float32)
+    for p in params.parameters():
+        p.requires_grad_(True)
+    names = [n for n, _ in params.named_parameters()]
+    plain = mock.patch.object(ssm, "ssd_chunk_scan", sref.ssd_chunk_scan_ref)
+    for dtype, B, S in (("float32", 2, 512), ("bfloat16", 2, 2048)):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        model = params if dtype == "float32" else cast_params(
+            params, torch.bfloat16)
+        batch = ssm_parity_batch(torch, dev, cfg, B, S, seed=21)
+        build.reset_launches()
+        loss, grads = ssm_loss_and_grads(torch, model, c, batch)
+        launches = {n: build.LAUNCHES[n] for n in (skernel.NAME,
+                                                   skernel.NAME_BWD)}
+        assert launches == {skernel.NAME: 4, skernel.NAME_BWD: 2}, launches
+        with plain:
+            build.reset_launches()
+            want_loss, want = ssm_loss_and_grads(torch, model, c, batch)
+            truth_loss, truth = (want_loss, want) if dtype == "float32" \
+                else ssm_loss_and_grads(torch, params, cfg, batch)
+            assert build.LAUNCHES[skernel.NAME] == 0 == \
+                build.LAUNCHES[skernel.NAME_BWD]
+        loss_err = abs(loss - want_loss) / abs(want_loss)
+        vs_plain, ratio = {}, {}
+        for n, g, w, t in zip(names, grads, want, truth):
+            assert torch.isfinite(g).all(), (dtype, n)
+            vs_plain[n] = float((g - w).abs().max()
+                                / w.abs().max().clamp_min(1e-30))
+            scale = t.abs().max().clamp_min(1e-30)
+            ratio[n] = float((g - t).abs().max() / scale) / max(
+                float((w - t).abs().max() / scale), 1e-6)
+        far = max(vs_plain, key=vs_plain.get)
+        res = {"B": B, "S": S, "loss": loss, "plain_loss": want_loss,
+               "loss_rel_err": loss_err, "launches": launches,
+               "grad_vs_plain_max": vs_plain[far], "grad_vs_plain_argmax": far}
+        if dtype == "float32":
+            log(f"  (a) 2 layers, f32, {B} x {S}: loss {loss:.6f} kernels, "
+                f"{want_loss:.6f} plain (rel {loss_err:.2e}, tol 1e-5); "
+                f"{len(names)} gradients, largest max |kernel - plain| / "
+                f"max |plain| {vs_plain[far]:.2e} ({far}; tol "
+                f"{SSM_PARITY_TOL:g}); launches {launches}")
+            assert loss_err <= 1e-5, (loss, want_loss)
+            assert vs_plain[far] <= SSM_PARITY_TOL, (far, vs_plain[far])
+        else:
+            worst = max(ratio, key=ratio.get)
+            res.update(f32_loss=truth_loss, grad_err_ratio_max=ratio[worst],
+                       grad_err_ratio_argmax=worst)
+            log(f"  (a) 2 layers, bf16, {B} x {S}: loss {loss:.5f} kernels, "
+                f"{want_loss:.5f} plain, {truth_loss:.5f} f32 (rel to plain "
+                f"{loss_err:.2e}, tol {SUPERBLOCK_TOL:g}); error against f32 "
+                f"of the kernel path over the plain bf16 path's: largest "
+                f"{ratio[worst]:.2f} ({worst}; limit 2); largest |kernel - "
+                f"plain| {vs_plain[far]:.2e} of the leaf's scale ({far}); "
+                f"launches {launches}")
+            assert loss_err <= SUPERBLOCK_TOL, (loss, want_loss)
+            assert ratio[worst] <= 2.0, (worst, ratio[worst])
+        out[dtype] = res
+        del model, grads, want, truth
+        release(torch)
+    del params
+    return out
+
+
+def phase_ssm_train(torch, dev, build, fkernel, skernel, sref):
+    """Phase 21: (a) ``phase_ssm_train_parity``; (b) ``launch.train
+    --arch mamba2-2.7b --full-config`` (64 layers, f32 masters, bf16
+    compute, Horn 4 groups, AdamW, lr 3e-4) at 4 x 2048 for
+    ``SSM_TRAIN_STEPS`` steps and a profiled one; (c) jamba-1.5-large cut
+    to its first layer (mamba and the dense FFN; layer 1's MoE alone
+    holds 9.7 B parameters, ~155 GB of AdamW state) at full width, the
+    same train step for ``JAMBA_TRAIN_STEPS`` steps at 2 x 2048."""
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    out = {"parity": phase_ssm_train_parity(torch, dev, build, skernel,
+                                            sref)}
+    release(torch)
+    log(f"  (b) train mamba2-2.7b, 64 layers, {SSM_TRAIN_BATCH} x "
+        f"{SSM_TRAIN_SEQ} (at {time.perf_counter() - t0:.1f} s of the "
+        f"phase)")
+    out["train"] = phase_train(torch, build, fkernel, arch="mamba2-2.7b",
+                               batch=SSM_TRAIN_BATCH, seq=SSM_TRAIN_SEQ,
+                               steps=SSM_TRAIN_STEPS)
+    release(torch)
+    log(f"  (c) train jamba-1.5-large, its first layer at full width, "
+        f"{JAMBA_TRAIN_BATCH} x {JAMBA_TRAIN_SEQ} (at "
+        f"{time.perf_counter() - t0:.1f} s)")
+    real = train.get_model_config
+
+    def one_layer(arch):
+        return dataclasses.replace(real(arch), num_layers=1)
+
+    with mock.patch.object(train, "get_model_config", one_layer):
+        out["jamba"] = phase_train(torch, build, fkernel,
+                                   arch="jamba-1.5-large-398b",
+                                   batch=JAMBA_TRAIN_BATCH,
+                                   seq=JAMBA_TRAIN_SEQ,
+                                   steps=JAMBA_TRAIN_STEPS)
+    release(torch)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 21: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6660,7 +7057,7 @@ def main() -> int:
 
     phase("phase 2: build")
     sources = [kernel.SOURCE, kernel.SOURCE_DECODE, fkernel.SOURCE,
-               dkernel.SOURCE, skernel.SOURCE]
+               dkernel.SOURCE, skernel.SOURCE, skernel.SOURCE_BWD]
     cpu = CpuWorker()
     try:
         return run_phases(torch, card, dev, t_start, phase, sources, cpu)
@@ -6669,7 +7066,7 @@ def main() -> int:
 
 
 def run_phases(torch, card, dev, t_start, phase, sources, cpu) -> int:
-    """Phases 2-19 (``main`` has run phase 1 and started ``cpu``'s
+    """Phases 2-21 (``main`` has run phase 1 and started ``cpu``'s
     worker), the kernels line and the last line."""
     from repro_torch.kernels import build
     from repro_torch.kernels.dropout_matmul import kernel as dkernel
@@ -6696,6 +7093,8 @@ def run_phases(torch, card, dev, t_start, phase, sources, cpu) -> int:
     flash_sweep_err = phase_flash_kernels(torch, dev, fkernel, fref)
     dm_sweep_err = phase_dropout_kernels(torch, dev, dkernel, dref, build)
     ssd_sweep_err = phase_ssd_kernels(torch, dev, skernel, sref, build)
+    ssd_bwd_sweep_err = phase_ssd_bwd_kernels(torch, dev, skernel, sref,
+                                              build)
 
     phase("phase 4: paged engine against a dense recompute")
     parity = phase_parity(torch, dev)
@@ -6731,6 +7130,7 @@ def run_phases(torch, card, dev, t_start, phase, sources, cpu) -> int:
     flash = phase_flash_timing(torch, dev, fkernel, fref)
     dm = phase_dropout_timing(torch, dev, dkernel, dref)
     ssd = phase_ssd_timing(torch, dev, skernel, sref)
+    ssd_bwd = phase_ssd_bwd_timing(torch, dev, skernel, sref)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6818,6 +7218,11 @@ def run_phases(torch, card, dev, t_start, phase, sources, cpu) -> int:
           "scope's device time against its counted FLOPs and bytes")
     scopes = phase_scopes(torch, dev, cost_traces)
     release(torch)
+
+    phase("phase 21: SSM and hybrid training: mamba2-2.7b gradients "
+          "against the plain path, 64 layers through the train CLI, "
+          "jamba-1.5-large's first layer")
+    ssm_train = phase_ssm_train(torch, dev, build, fkernel, skernel, sref)
 
     # headline shapes: the prompt-chunk tick for the chunk kernel (decode
     # ticks go to the decode kernel), the decode tick for the decode kernel
@@ -6962,14 +7367,40 @@ def run_phases(torch, card, dev, t_start, phase, sources, cpu) -> int:
             "jamba-1.5-large-398b"]["launches"][skernel.NAME]},
         "launches_phase19": {"mamba2-2.7b mesh prefill + decode": dry[
             "mamba2-2.7b"]["launches"][skernel.NAME]},
+        "launches_phase21": {
+            "mamba2-2.7b train (64 layers)": ssm_train["train"]["launches"][
+                skernel.NAME],
+            "jamba-1.5-large train (1 layer)": ssm_train["jamba"][
+                "launches"][skernel.NAME]},
         "shapes": {"prefill": ssd},
+    })
+    kernels.append({
+        "name": skernel.NAME_BWD, "route": "cuda",
+        "source": str(skernel.SOURCE_BWD.relative_to(ROOT)),
+        "replaces": SSD_TPU_KERNEL,
+        "replaces_note": "the TPU kernel has no backward; the JAX package "
+                         "differentiates its plain chunked form",
+        "launches": ssm_train["train"]["launches"][skernel.NAME_BWD],
+        "max_abs_err": max(ssd_bwd_sweep_err, ssd_bwd["max_abs_err"]),
+        "ms": ssd_bwd["ms"], "kernel_ms": ssd_bwd["ms"],
+        "plain_ms": ssd_bwd["plain_ms"], "bound_ms": ssd_bwd["bound_ms"],
+        "bound_by": ssd_bwd["bound_by"], "library_ms": None,
+        "library": "none: no single PyTorch call computes an SSD backward",
+        "launches_by_kernel": {skernel.ROUTE_BWD: ssm_train["train"][
+            "launches"][skernel.NAME_BWD]},
+        "launches_phase21": {
+            "jamba-1.5-large train (1 layer)": ssm_train["jamba"][
+                "launches"][skernel.NAME_BWD],
+            "parity 2 layers": {k: v["launches"][skernel.NAME_BWD]
+                                for k, v in ssm_train["parity"].items()}},
+        "shapes": {"train": ssd_bwd},
     })
     line = {"kernels": kernels, "card": card, "serve": served,
             "train": trained, "horn_mlp": horn_mlp, "ssm": ssm,
             "mnist": mnist, "new_archs": new_archs, "bank": bank,
             "spec": spec, "observability": obs, "families": fam,
             "encdec": encdec, "scaleout": scale, "analysis": analysis,
-            "dryrun": dry, "scopes": scopes,
+            "dryrun": dry, "scopes": scopes, "ssm_train": ssm_train,
             "flash_host_us": flash["host_us"]}
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -7,7 +7,9 @@ the cases the reference's hornshape instantiates (its ``_paged_entries``,
 tails, GQA, int8 pools, a verify window with ``logit_index``), taken at
 shapes the port's wrappers accept (head dims that are multiples of 32,
 pages of 8 to 64 tokens, ``block_n`` a multiple of 64), plus windows,
-every decode split count 1-8 and flash at head dim 256.  Paged cases run
+every decode split count 1-8, flash at head dim 256 and the SSD backward
+(which the reference lacks: a short last block, ragged P and N, a
+reduction whose grid strides).  Paged cases run
 over several slot contents each (full, ragged and empty slots, dead
 block-table entries that point outside the pool), and
 ``launch_geometry.verify`` enumerates every block of every launch.  Exit 0
@@ -210,6 +212,14 @@ def registry() -> List[Tuple[str, Callable[[], List[LaunchGeometry]]]]:
                       lambda B=B, S=S, H=H, P=P, N=N, chunk=chunk, dt=dt: [
                           sgeo.geometry(B=B, S=S, H=H, P=P, N=N, dtype=dt,
                                         chunk=chunk)]))
+    # ssd-bwd: a short last block, a ragged P and N, and a reduction whose
+    # grid strides (more elements than its blocks' threads)
+    for B, S, H, P, N, dt in ((2, 24, 3, 4, 8, f32), (2, 130, 3, 20, 100, bf),
+                              (3, 700, 2, 8, 128, bf)):
+        cases.append((f"ssd-bwd/S{S}-P{P}-N{N}",
+                      lambda B=B, S=S, H=H, P=P, N=N, dt=dt:
+                      sgeo.bwd_geometries(B=B, S=S, H=H, P=P, N=N,
+                                          dtype=dt)))
     return cases + _splits_cases()
 
 

@@ -49,7 +49,8 @@ MAX_GRID_DIMS = (2 ** 31 - 1, 65535, 65535)
 MAX_DYNAMIC_SMEM = 232448           # sm_90 opt-in ceiling (227 KiB)
 # without cudaFuncSetAttribute: the launchers opt in above it
 # (kernels/csrc/hopper.cuh:413, paged_chunk_attention.cu:383,
-# paged_attention.cu:569, always in ssd_chunk_scan.cu:349)
+# paged_attention.cu:569, always in ssd_chunk_scan.cu:349 and
+# ssd_chunk_scan_bwd.cu:610)
 DEFAULT_DYNAMIC_SMEM = 48 * 1024
 MAX_CLUSTER = 8                     # the portable cluster size
 ENUM_BUDGET = 200_000               # blocks ``verify`` will enumerate

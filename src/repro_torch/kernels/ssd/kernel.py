@@ -1,11 +1,14 @@
-"""The CUDA SSD chunk scan: ctypes binding and wrapper.
+"""The CUDA SSD chunk scan: ctypes bindings, wrappers, autograd.
 
-The kernels are ``csrc/ssd_chunk_scan.cu`` (they replace the TPU kernel
-``src/repro/kernels/ssd/kernel.py:65``).  ``ssd_chunk_scan`` takes CUDA
-tensors only: it checks them, picks a kernel by ``route``, allocates the
-f32 outputs, launches on the current stream and raises when a launch is
-refused.  Like the TPU kernel it is forward-only.  CPU tensors go to the
-plain version through ``ops.py``.
+The forward kernels are ``csrc/ssd_chunk_scan.cu`` (they replace the TPU
+kernel ``src/repro/kernels/ssd/kernel.py:65``); the backward is
+``csrc/ssd_chunk_scan_bwd.cu``, which the TPU kernel lacks (the JAX
+package differentiates its plain chunked form).  ``ssd_chunk_scan`` and
+``ssd_chunk_scan_bwd`` take CUDA tensors only: they check them, pick a
+kernel, allocate outputs and scratch, launch on the current stream and
+raise when a launch is refused.  ``SSDChunkScan`` is the
+``torch.autograd.Function`` whose forward and backward are the two.  CPU
+tensors go to the plain version through ``ops.py``.
 """
 from __future__ import annotations
 
@@ -14,20 +17,33 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.analysis.launch_geometry import cu_constants
 from repro_torch.kernels import build
-from repro_torch.kernels.ssd.ref import chunk_len, refuse_grad
+from repro_torch.kernels.ssd.ref import chunk_len
 
 NAME = "ssd_chunk_scan"
+NAME_BWD = "ssd_chunk_scan_bwd"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_chunk_scan.cu"
+SOURCE_BWD = SOURCE.with_name("ssd_chunk_scan_bwd.cu")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 P_MAX, N_MAX, Q_MAX = 64, 128, 8192     # the kernel's PMAX, NMAX, QMAX
 BLOCK = 64                              # tokens of the wgmma kernel's block
 # the kernels of the source, by the number the C entry point takes
 ROUTES = ("cuda_core", "wgmma")
 
+# the backward's one kernel (CUDA cores, f32), its 64-token block, the
+# most blocks of its reduction over heads and that reduction's threads a
+# block (read from the source, which launches with them)
+ROUTE_BWD = "cuda_core"
+BLOCK_BWD = 64
+REDUCE_BLOCKS = 1024
+(RTHREADS,) = cu_constants(SOURCE_BWD, "RTHREADS")
+
 build.LAUNCHES.setdefault(NAME, 0)
+build.LAUNCHES.setdefault(NAME_BWD, 0)
 
 _fn = None
+_fn_bwd = None
 
 
 def _entry():
@@ -42,34 +58,46 @@ def _entry():
     return _fn
 
 
-def _check(x, dt, A, Bm, Cm, Q):
-    refuse_grad(NAME, x, dt, A, Bm, Cm)
-    for tname, t in dict(x=x, dt=dt, A=A, Bm=Bm, Cm=Cm).items():
+def _entry_bwd():
+    """The bound C entry point of the backward (built from ``SOURCE_BWD``
+    at first use)."""
+    global _fn_bwd
+    if _fn_bwd is None:
+        fn = build.load(SOURCE_BWD).ssd_chunk_scan_bwd
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn_bwd = fn
+    return _fn_bwd
+
+
+def _check(x, dt, A, Bm, Cm, Q, name=NAME, **more):
+    for tname, t in dict(x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, **more).items():
         if t.device != x.device or not t.is_cuda:
-            raise ValueError(f"{NAME}: {tname} is on {t.device}, expected "
+            raise ValueError(f"{name}: {tname} is on {t.device}, expected "
                              f"the CUDA device of x ({x.device})")
         if not t.is_contiguous():
-            raise ValueError(f"{NAME}: {tname} must be contiguous")
+            raise ValueError(f"{name}: {tname} must be contiguous")
     if x.dtype not in DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
-        raise TypeError(f"{NAME}: x, Bm and Cm are {x.dtype}, {Bm.dtype} "
+        raise TypeError(f"{name}: x, Bm and Cm are {x.dtype}, {Bm.dtype} "
                         f"and {Cm.dtype}; the kernel takes float32 or "
                         f"bfloat16, all three of one type")
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
-        raise TypeError(f"{NAME}: dt and A must be float32, got {dt.dtype} "
+        raise TypeError(f"{name}: dt and A must be float32, got {dt.dtype} "
                         f"and {A.dtype}")
     if x.dim() != 4:
-        raise ValueError(f"{NAME}: x must be [B, S, H, P], got "
+        raise ValueError(f"{name}: x must be [B, S, H, P], got "
                          f"{tuple(x.shape)}")
     B, S, H, P = x.shape
     N = Bm.shape[-1] if Bm.dim() == 3 else -1
     if (dt.shape != (B, S, H) or A.shape != (H,) or Bm.shape != (B, S, N)
             or Cm.shape != (B, S, N)):
-        raise ValueError(f"{NAME}: with x {tuple(x.shape)} expected dt "
+        raise ValueError(f"{name}: with x {tuple(x.shape)} expected dt "
                          f"[B, S, H], A [H], Bm and Cm [B, S, N]; got "
                          f"{tuple(dt.shape)}, {tuple(A.shape)}, "
                          f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")
     if not (1 <= P <= P_MAX and 1 <= N <= N_MAX and Q <= Q_MAX):
-        raise ValueError(f"{NAME}: the kernel takes P <= {P_MAX}, N <= "
+        raise ValueError(f"{name}: the kernel takes P <= {P_MAX}, N <= "
                          f"{N_MAX} and chunks of up to {Q_MAX} tokens; got "
                          f"P {P}, N {N}, Q {Q}")
 
@@ -123,3 +151,74 @@ def ssd_chunk_scan(x, dt, A, Bm, Cm, *, chunk: int):
     Q = chunk_len(chunk, S)
     _check(x, dt, A, Bm, Cm, Q)
     return _launch(x, dt, A, Bm, Cm, Q, route(x.dtype, P, Bm.shape[-1], Q))
+
+
+def ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, dstate=None):
+    """Launch the backward: the forward's inputs, dy [B, S, H, P] f32 (the
+    cotangent of y) and dstate [B, H, P, N] f32 (of the final state, or
+    None for zero) -> (dx, ddt, dA, dBm, dCm), dx/dBm/dCm in x's type and
+    ddt/dA f32.  Same contract as ``ref.ssd_chunk_scan_bwd_ref``; the
+    result does not depend on the forward's chunk.  Deterministic: the
+    per-head partials of dBm and dCm are summed in a fixed order."""
+    more = dict(dy=dy) if dstate is None else dict(dy=dy, dstate=dstate)
+    _check(x, dt, A, Bm, Cm, 1, NAME_BWD, **more)
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if dy.shape != x.shape or dy.dtype != torch.float32 or (
+            dstate is not None and (dstate.shape != (B, H, P, N)
+                                    or dstate.dtype != torch.float32)):
+        raise ValueError(f"{NAME_BWD}: dy must be f32 {tuple(x.shape)} and "
+                         f"dstate f32 {(B, H, P, N)} or None")
+    dev = x.device
+    f32 = torch.float32
+    dx, dBm, dCm = (torch.empty_like(t) for t in (x, Bm, Cm))
+    ddt = torch.empty_like(dt)
+    dA = torch.empty_like(A)
+    nblk = -(-S // BLOCK_BWD)
+    states = torch.empty((B, H, nblk, P, N), dtype=f32, device=dev)
+    dBp, dCp = (torch.empty((B, H, S, N), dtype=f32, device=dev)
+                for _ in range(2))
+    dAp = torch.empty((B, H), dtype=f32, device=dev)
+    err = _entry_bwd()(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), dy.data_ptr(),
+        None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(),
+        states.data_ptr(), dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(),
+        B, S, H, P, N, DTYPES[x.dtype], reduce_blocks(B, S, N),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{NAME_BWD}: kernel launch failed with CUDA "
+                           f"error {err}")
+    build.count_launch(NAME_BWD, ROUTE_BWD)
+    return dx, ddt, dA, dBm, dCm
+
+
+def reduce_blocks(B: int, S: int, N: int) -> int:
+    """The grid of the backward's reduction over heads: one thread an
+    element of dBm (and dCm), up to ``REDUCE_BLOCKS`` blocks that stride
+    over the rest."""
+    return max(1, min(REDUCE_BLOCKS, -(-B * S * N // RTHREADS)))
+
+
+class SSDChunkScan(torch.autograd.Function):
+    """The chunk scan whose forward and backward are the CUDA kernels:
+    returns (y, final state); saves the inputs (the backward recomputes
+    the block-start states itself)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        y, state = ssd_chunk_scan(x, dt, A, Bm, Cm, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, Bm, Cm = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        grads = ssd_chunk_scan_bwd(
+            x, dt, A, Bm, Cm, dy.contiguous(),
+            None if dstate is None else dstate.contiguous())
+        return (*grads, None)

@@ -21,8 +21,14 @@ overflows f32 once a chunk is long (from Q ~ 64 at unit dt and A), so
 inf * 0 gives NaN there; this version exponentiates ``-inf`` instead and
 stays finite at the published chunk of 256.
 
-Like the TPU kernel, both are forward-only: ``refuse_grad`` raises when
-autograd would need their gradient, on either device.
+``ssd_ref`` and ``ssd_chunk_scan_ref`` are differentiable: autograd runs
+through the plain chunked form, and its gradient is finite at Q 256 for
+the same reason its output is.  ``ssd_chunk_scan_bwd_ref`` is the CUDA
+backward kernel's arithmetic and schedule written plainly (block-start
+states, then a reverse walk over 64-token blocks); the tests hold it
+against autograd through ``ssd_chunk_scan_ref``.  ``ssd_split_ref`` stays
+forward-only (``refuse_grad``): it checks the wgmma kernel's rounding,
+which has no backward of its own.
 """
 from __future__ import annotations
 
@@ -31,14 +37,21 @@ import torch
 f32 = torch.float32
 
 
+def _wide(t):
+    """t in f32, or in f64 when it is f64 (for ``gradcheck``)."""
+    return t if t.dtype == torch.float64 else t.to(f32)
+
+
 def refuse_grad(name: str, *tensors) -> None:
-    """Raise when grad mode is on and any input requires a gradient: the
-    kernel has no backward (the TPU kernel has none either)."""
+    """Raise when grad mode is on and any input requires a gradient: a
+    check of the forward kernel's rounding, not a function to train
+    through (the training path is ``ssd_chunk_scan_ref`` on the CPU and
+    the backward kernel on a card)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name} is forward-only, like the TPU kernel it ports: no "
-            f"backward exists (ROADMAP section 2 item 5; training mamba2 "
-            f"needs an SSD backward kernel).  Call it under torch.no_grad()")
+            f"{name} is forward-only: it restates the wgmma kernel's "
+            f"rounding; differentiate ssd_chunk_scan_ref instead.  Call it "
+            f"under torch.no_grad()")
 
 
 def chunk_len(chunk: int, S: int) -> int:
@@ -55,12 +68,10 @@ def ssd_ref(x, dt, A, Bm, Cm):
 
     x: [B, S, H, P]; dt: [B, S, H]; A: [H]; Bm, Cm: [B, S, N] ->
     (y [B, S, H, P] f32, state [B, H, P, N] f32)."""
-    refuse_grad("ssd_ref", x, dt, A, Bm, Cm)
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
-    xf, dtf, Af = x.to(f32), dt.to(f32), A.to(f32)
-    Bf, Cf = Bm.to(f32), Cm.to(f32)
-    state = torch.zeros(Bsz, H, P, N, dtype=f32, device=x.device)
+    xf, dtf, Af, Bf, Cf = map(_wide, (x, dt, A, Bm, Cm))
+    state = xf.new_zeros(Bsz, H, P, N)
     ys = []
     for t in range(S):
         decay = torch.exp(dtf[:, t] * Af)[..., None, None]      # [B,H,1,1]
@@ -77,14 +88,12 @@ def ssd_chunk_scan_ref(x, dt, A, Bm, Cm, *, chunk: int):
 
     x: [B, S, H, P]; dt: [B, S, H] (post-softplus, > 0); A: [H]
     (negative); Bm, Cm: [B, S, N] (one group) -> (y [B, S, H, P] f32, the
-    [B, H, P, N] f32 state after the last chunk)."""
-    refuse_grad("ssd_chunk_scan", x, dt, A, Bm, Cm)
+    [B, H, P, N] f32 state after the last chunk; f64 for f64 inputs)."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = chunk_len(chunk, S)
-    xf, dtf, Af = x.to(f32), dt.to(f32), A.to(f32)
-    Bf, Cf = Bm.to(f32), Cm.to(f32)
-    state = torch.zeros(Bsz, H, P, N, dtype=f32, device=x.device)
+    xf, dtf, Af, Bf, Cf = map(_wide, (x, dt, A, Bm, Cm))
+    state = xf.new_zeros(Bsz, H, P, N)
     idx = torch.arange(Q, device=x.device)
     causal = (idx[:, None] >= idx[None, :])[None, :, :, None]   # [1,Q,Q,1]
     ys = []
@@ -108,6 +117,99 @@ def ssd_chunk_scan_ref(x, dt, A, Bm, Cm, *, chunk: int):
         ys.append(y)
     y = torch.cat(ys, dim=1) if ys else xf.new_zeros(x.shape)
     return y, state
+
+
+def _block_states(xf, dtf, Af, Bf, block):
+    """The [B, H, P, N] f32 state entering each block of ``block`` tokens
+    (the first is zero): the backward kernel's first sweep."""
+    Bsz, S, H, P = xf.shape
+    state = xf.new_zeros(Bsz, H, P, Bf.shape[-1])
+    states = []
+    for c0 in range(0, S, block):
+        states.append(state)
+        xq, dtq, Bq = (t[:, c0:c0 + block] for t in (xf, dtf, Bf))
+        cum = torch.cumsum(dtq * Af, dim=1)                      # [B,L,H]
+        w = torch.exp(cum[:, -1:] - cum) * dtq
+        state = (state * torch.exp(cum[:, -1])[..., None, None]
+                 + torch.einsum("bjh,bjhp,bjn->bhpn", w, xq, Bq))
+    return states
+
+
+def ssd_chunk_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dstate=None, *,
+                           block: int = 64):
+    """The gradient of ``ssd_chunk_scan_ref`` (at any chunk: the function
+    does not depend on it) as the backward kernel computes it.  dy:
+    [B, S, H, P], the cotangent of y; dstate: [B, H, P, N] of the final
+    state, or None for zero.  Returns f32 (dx, ddt, dA, dBm, dCm).
+
+    Per (b, h) the blocks of ``block`` tokens (the last may be short) are
+    walked last to first.  In a block, with cum the in-block cumsum of
+    a_t = dt_t A, s the state entering it, G the cotangent of the state
+    leaving it, decay_ij = exp(cum_i - cum_j) on j <= i (else 0), w_j =
+    exp(cum_L - cum_j) dt_j, e_ij = dy_i . x_j and M_ij = (C_i . B_j)
+    decay_ij dt_j:
+
+        dx_j   = sum_i M_ij dy_i + w_j G B_j
+        dC_i   = sum_j D_ij B_j + exp(cum_i) s^T dy_i,  D_ij = decay_ij dt_j e_ij
+        dB_j   = sum_i D_ij C_i + w_j G^T x_j
+        ddt_j  = sum_i (C_i . B_j) decay_ij e_ij + exp(cum_L - cum_j) x_j^T G B_j
+                 + A da_j
+        G     <- exp(cum_L) G + sum_i exp(cum_i) dy_i C_i^T
+
+    where da_k = sum_{i >= k} dcum_i, and dcum gathers the quadratic form
+    (+sum_j M_ij e_ij at row i, -M_ij e_ij at column j), the carried state
+    (+exp(cum_i) dy_i^T s C_i) and the state out (+exp(cum_L) <G, s> +
+    sum_j h_j at the last token, -h_j at j, h_j = w_j x_j^T G B_j).  dA
+    sums dt_k da_k over tokens and batch rows; dBm and dCm sum over
+    heads (ngroups = 1).  f64 inputs are computed in f64."""
+    xf, dtf, Af, Bf, Cf, dyf = map(_wide, (x, dt, A, Bm, Cm, dy))
+    states = _block_states(xf, dtf, Af, Bf, block)
+    G = (torch.zeros_like(states[0]) if dstate is None
+         else _wide(dstate).clone()) if states else None
+    dx, ddt = torch.zeros_like(xf), torch.zeros_like(dtf)
+    dB, dC = torch.zeros_like(Bf), torch.zeros_like(Cf)
+    dA = torch.zeros_like(Af)
+    for k in reversed(range(len(states))):
+        c0, s = k * block, states[k]
+        xq, dtq, Bq, Cq, dyq = (t[:, c0:c0 + block]
+                                for t in (xf, dtf, Bf, Cf, dyf))
+        L = xq.shape[1]
+        idx = torch.arange(L, device=x.device)
+        causal = (idx[:, None] >= idx[None, :])[None, :, :, None]
+        cum = torch.cumsum(dtq * Af, dim=1)                      # [B,L,H]
+        cum_l = cum[:, -1]                                       # [B,H]
+        seg = cum[:, :, None] - cum[:, None, :]                  # [B,i,j,H]
+        decay = torch.exp(torch.where(causal, seg, float("-inf")))
+        CB = torch.einsum("bin,bjn->bij", Cq, Bq)
+        e = torch.einsum("bihp,bjhp->bijh", dyq, xq)             # [B,i,j,H]
+        K = CB[..., None] * decay
+        M = K * dtq[:, None]
+        D = decay * dtq[:, None] * e
+        keep = torch.exp(cum_l[:, None] - cum)                   # [B,L,H]
+        w = keep * dtq
+        ecum = torch.exp(cum)
+        GB = torch.einsum("bhpn,bjn->bjhp", G, Bq)               # [B,L,H,P]
+        sdy = torch.einsum("bhpn,bihp->bihn", s, dyq)            # [B,L,H,N]
+        Gx = torch.einsum("bhpn,bjhp->bjhn", G, xq)              # [B,L,H,N]
+        gbx = (xq * GB).sum(-1)                                  # [B,L,H]
+        dx[:, c0:c0 + L] = (torch.einsum("bijh,bihp->bjhp", M, dyq)
+                            + w[..., None] * GB)
+        dC[:, c0:c0 + L] = (torch.einsum("bijh,bjn->bin", D, Bq)
+                            + torch.einsum("bih,bihn->bin", ecum, sdy))
+        dB[:, c0:c0 + L] = (torch.einsum("bijh,bin->bjn", D, Cq)
+                            + torch.einsum("bjh,bjhn->bjn", w, Gx))
+        Z = M * e
+        h = w * gbx
+        dcum = (Z.sum(2) - Z.sum(1) - h
+                + ecum * torch.einsum("bin,bihn->bih", Cq, sdy))
+        dcum[:, -1] += torch.exp(cum_l) * (G * s).sum((-1, -2)) + h.sum(1)
+        da = torch.flip(torch.cumsum(torch.flip(dcum, (1,)), 1), (1,))
+        ddt[:, c0:c0 + L] = ((K * e).sum(1) + keep * gbx
+                             + Af * da)
+        dA = dA + (dtq * da).sum((0, 1))
+        G = (G * torch.exp(cum_l)[..., None, None]
+             + torch.einsum("bih,bihp,bin->bhpn", ecum, dyq, Cq))
+    return dx, ddt, dA, dB, dC
 
 
 def bf16_split(v):

@@ -33,7 +33,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from repro_torch.configs.base import (MAMBA, SHAPES, HornConfig, RunConfig,
+from repro_torch.configs.base import (SHAPES, HornConfig, RunConfig,
                                       get_model_config, list_archs)
 from repro_torch.core import steps
 from repro_torch.launch import analysis
@@ -49,16 +49,11 @@ LONG_OK = {"mamba2-2.7b", "jamba-1.5-large-398b", "gemma2-27b", "gemma3-4b"}
 
 
 def applicable(arch: str, shape_name: str):
-    """The reference's rule, plus the port's one gap: a train cell of an
-    arch with Mamba layers needs an SSD backward neither package has."""
+    """The reference's rule."""
     if shape_name == "long_500k" and arch not in LONG_OK:
         return False, "pure full-attention arch: 500k ctx skipped (DESIGN.md)"
     if arch == "whisper-base" and shape_name == "long_500k":
         return False, "enc-dec audio: 500k decoder ctx is architecturally moot"
-    if (SHAPES[shape_name].kind == "train"
-            and MAMBA in get_model_config(arch).layer_kinds()):
-        return False, ("SSM training: the SSD chunk scan has no backward "
-                       "(ROADMAP §1 item 18)")
     return True, ""
 
 

@@ -48,8 +48,10 @@ on zero f32 ``frames`` [batch, encoder_seq, d_model] beside ``--seq``
 decoder tokens, as the JAX launcher feeds it; an MoE arch adds its router
 losses to the loss and logs them with the dropped fraction each step.
 
-Not ported yet, and refused with the ROADMAP item that ports it:
-training archs with Mamba layers (mamba2-2.7b, jamba-1.5-large-398b).
+An arch with Mamba layers (mamba2-2.7b, jamba-1.5-large-398b) trains
+through the same step: on the card each layer's SSD runs the chunk-scan
+kernel forward (twice a step: remat recomputes the block) and its
+backward kernel once.
 """
 from __future__ import annotations
 
@@ -65,7 +67,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import (MAMBA, HornConfig, RunConfig,
+from repro_torch.configs.base import (HornConfig, RunConfig,
                                       ShapeConfig, TopologyConfig,
                                       get_model_config, list_archs, reduced)
 from repro_torch.checkpoint.checkpointer import (Checkpointer, flatten,
@@ -77,17 +79,11 @@ from repro_torch.data.pipeline import (SyntheticTokenPipeline,
                                        TokenPipelineConfig)
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import kernel as flash
+from repro_torch.kernels.ssd import kernel as ssd
 from repro_torch.launch.mesh import ensure_process_group, make_test_mesh
 from repro_torch.models.layers import MOE_AUX
 from repro_torch.runtime.elastic import remesh_state, reshard
 from repro_torch.runtime.fault_tolerance import fault_tolerant_loop
-
-NOT_PORTED = {
-    "mamba": "ROADMAP slice 4, item 18: training through SSM layers needs "
-             "an SSD backward kernel; the ported ssd_chunk_scan is "
-             "forward-only, for prefill",
-}
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.train")
@@ -113,12 +109,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     return ap.parse_args(argv)
-
-
-def refuse_unported(args: argparse.Namespace) -> None:
-    if MAMBA in get_model_config(args.arch).layer_pattern:
-        raise NotImplementedError(
-            f"mamba is not ported yet ({NOT_PORTED['mamba']})")
 
 
 @dataclass
@@ -154,7 +144,6 @@ def setup(argv=None) -> Session:
     if args.arch == "horn-mnist":
         raise ValueError("horn-mnist is a classifier: main() trains it "
                          "through core/collective_trainer.py")
-    refuse_unported(args)
     topo = topology.validate(TopologyConfig(kind=args.topology))
     dev = torch.device(args.device)
     mesh = None
@@ -342,7 +331,7 @@ def main(argv=None) -> Dict:
         say(f"loss: first={first:.4f} last={last:.4f} "
             f"({'improved' if last < first else 'NOT improved'})")
     if say:
-        for name in (flash.FWD, flash.BWD):
+        for name in (flash.FWD, flash.BWD, ssd.NAME, ssd.NAME_BWD):
             say(f"{name} launches: {build.LAUNCHES[name]}")
     return {"steps": recs, "launches": dict(build.LAUNCHES),
             "mesh": sess.mesh_shape}

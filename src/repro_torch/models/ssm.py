@@ -1,11 +1,15 @@
 """Mamba2 (SSD: state-space duality) mixer, the port of
 ``repro/models/ssm.py``.
 
-Prefill runs the chunked SSD through ``kernels/ssd/ops.ssd_chunk_scan``:
-the CUDA kernel on a card, the plain version on the CPU, each returning
-y and the state after the last chunk in one pass.  Decode steps one token
-with plain tensor code (``conv_decode_step``, ``ssd_decode_step``), as the
-JAX package does.  ngroups = 1 (the public mamba2 configs), so B and C are
+Training and prefill run the chunked SSD through
+``kernels/ssd/ops.ssd_chunk_scan``: the CUDA kernel on a card, the plain
+version on the CPU, each returning y and the state after the last chunk
+in one pass.  Both are differentiable: on a card the gradient is the
+backward kernel's (``kernel.SSDChunkScan``), on the CPU autograd through
+the plain version; Horn's ``channel_mask`` and the train step's remat
+(``models/transformer.py``) wrap them as they wrap attention.  Decode
+steps one token with plain tensor code (``conv_decode_step``,
+``ssd_decode_step``), as the JAX package does.  ngroups = 1 (the public mamba2 configs), so B and C are
 shared across heads.
 
 The conv tail that prefill leaves in the cache holds the last W - 1 rows
@@ -107,8 +111,9 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int):
     x: [B, S, H, P]; dt: [B, S, H] f32 (post-softplus, > 0); A: [H] f32
     (negative); Bm, Cm: [B, S, N] in x's dtype.  Returns (y [B, S, H, P]
     in x.dtype, final_state [B, H, P, N] f32), both from one
-    ``ssd_chunk_scan`` call.  The JAX function also takes an initial
-    state; no caller passes one, and the kernel starts from zero."""
+    ``ssd_chunk_scan`` call, differentiable in every input.  The JAX
+    function also takes an initial state; no caller passes one, and the
+    kernel starts from zero."""
     with Scope("ssd_chunk"):
         y, final = ssd_chunk_scan(x.contiguous(), dt.contiguous(),
                                   A.contiguous(), Bm.contiguous(),

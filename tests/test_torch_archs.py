@@ -37,7 +37,7 @@ from test_torch_parallel_dropout import jax_uniform_horn  # noqa: E402
 
 ARCHS = ["phi3.5-moe-42b", "llama4-maverick-400b", "llava-next-34b",
          "jamba-1.5-large-398b"]
-TRAINED = ARCHS[:3]                     # jamba's training stays refused
+TRAINED = ARCHS[:3]      # jamba: tests/test_torch_train_jamba*.py
 B, S_TEXT = 2, 20
 HORN = dict(num_groups=2, block_size=32, mask_attention_heads=True)
 LOGIT_TOL = 1e-4

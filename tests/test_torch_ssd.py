@@ -129,23 +129,6 @@ def test_bf16_inputs_run_in_f32():
         assert g.dtype == torch.float32 and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("which", ["x", "dt", "Bm"])
-def test_gradient_is_refused(which):
-    """Forward-only on the CPU as on the card: a gradient request raises
-    and names ROADMAP; without grad mode the same call runs."""
-    x, dt, A, Bm, Cm = torch_case(GEOMS[0], seed=1)
-    {"x": x, "dt": dt, "Bm": Bm}[which].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="ROADMAP"):
-        ops.ssd_chunk_scan(x, dt, A, Bm, Cm, chunk=16)
-    with pytest.raises(RuntimeError, match="ROADMAP"):
-        ref.ssd_ref(x, dt, A, Bm, Cm)
-    with torch.no_grad():
-        y, state = ops.ssd_chunk_scan(x, dt, A, Bm, Cm, chunk=16)
-    assert y.shape == x.shape and state.shape == (*x.shape[:1],
-                                                  *x.shape[2:],
-                                                  Bm.shape[-1])
-
-
 def test_cpu_tensors_never_reach_the_kernel():
     """The CPU path is the plain version; the CUDA wrapper refuses CPU
     tensors."""
@@ -207,9 +190,6 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match=r"\[B, S, N\]"):
         kernel.ssd_chunk_scan(x, dt, A, Bm[:, :-1].contiguous(), Cm,
                               chunk=16)
-    x.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="ROADMAP"):
-        kernel.ssd_chunk_scan(x, dt, A, Bm, Cm, chunk=16)
 
 
 @pytest.mark.cuda
