@@ -92,11 +92,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
               time per call with and without tensor maps; dropout matmul:
               the Horn MLP's at keep 1, 0.5 and 0.25, beside cuBLAS on
               the kept columns only; SSD chunk scan: mamba2-2.7b's
-              prefill on the wgmma kernel, beside the CUDA-core kernel on
-              the same inputs, where no single PyTorch call computes the
-              same function), beside the least time the card could take
-              (for the SSD: bf16 rate for the wgmma kernel, f32 for the
-              CUDA-core one).
+              prefill on the wgmma kernel, and its backward at the train
+              shape on the wgmma kernels, each beside the CUDA-core kernel
+              on the same inputs, where no single PyTorch call computes
+              the same function), beside the least time the card could
+              take (for the SSD: the bf16 rate, and the f32 rate in the
+              log).
   9. ssm      mamba2-2.7b through ``make_prefill_step``/``make_decode_step``.
               First 2 layers at full width in f32: the kernel path against
               the plain path (logits, final SSM states), and prefill(S) + 4
@@ -353,8 +354,11 @@ again with dt at 0, 1e-30 and -0.05 on some tokens.  Then the SSD
 backward against autograd through the plain version (``SSD_BWD_SWEEP``:
 f32 and bf16; mamba2's and jamba's geometries, a ragged P and N, chunks
 of 1, 7 and 256, S not a multiple of 64; zero and normal final-state
-cotangents), again with dt at 0, 1e-30 and -0.05, and two calls bit for
-bit; phase 8 times it at mamba2-2.7b's train shape.
+cotangents), each on the route ``kernel.route_bwd`` gives it and each
+bf16 case of the wgmma route forced through the CUDA-core kernel too,
+again with dt at 0, 1e-30 and -0.05 and two calls bit for bit on the
+wgmma route; phase 8 times both routes at mamba2-2.7b's train shape in
+one call.
 Phase 8 reads the paged kernels by device time over windows of 50 calls
 profiled after a warm-up run (``device_ms``): a window must hold 50
 launches of the timed kernel and read at least its bound, else it is
@@ -919,58 +923,75 @@ def ssd_grad_errs(torch, got, want, what):
 
 
 def phase_ssd_bwd_kernels(torch, dev, skernel, sref, build):
-    """The backward kernel against autograd through the plain version on
-    the same inputs and cotangents (``SSD_BWD_SWEEP``, f32 and bf16, each
-    launch counted on its one route), then with dt at 0, 1e-30 and -0.05
-    on some tokens (mamba2-2.7b's SSD, bf16), then two calls on the same
-    inputs compared bit for bit.  Returns the largest absolute error."""
-    key = f"{skernel.NAME_BWD}:{skernel.ROUTE_BWD}"
-    worst, rel_worst = 0.0, 0.0
+    """The backward against autograd through the plain version on the
+    same inputs and cotangents (``SSD_BWD_SWEEP``, f32 and bf16, each on
+    the route ``route_bwd`` gives it, and each bf16 case that goes to the
+    wgmma kernels forced through the CUDA-core kernel too; every launch
+    counted on its route), then with dt at 0, 1e-30 and -0.05 on some
+    tokens (mamba2-2.7b's SSD, bf16, the wgmma route), then two calls on
+    the same inputs compared bit for bit.  Returns the largest absolute
+    error."""
+    worst, rel_worst, n_cases = 0.0, 0.0, 0
+    routes = {}
 
-    def check(args, dy, ds, chunk, what):
-        nonlocal worst, rel_worst
+    def check(args, dy, ds, chunk, what, how=None):
+        nonlocal worst, rel_worst, n_cases
+        x, Bm = args[0], args[3]
+        route = how or skernel.route_bwd(x.dtype, x.shape[-1], Bm.shape[-1])
+        key = f"{skernel.NAME_BWD}:{route}"
         before = build.ROUTE_LAUNCHES.get(key, 0)
-        got = skernel.ssd_chunk_scan_bwd(*args, dy, ds)
+        got = (skernel.ssd_chunk_scan_bwd(*args, dy, ds) if how is None
+               else skernel._launch_bwd(*args, dy, ds, how))
         assert build.ROUTE_LAUNCHES.get(key, 0) == before + 1, key
         want = ssd_plain_grads(torch, sref, args, dy, ds, chunk)
         torch.cuda.synchronize()
-        errs = ssd_grad_errs(torch, got, want, what)
+        errs = ssd_grad_errs(torch, got, want, what + (route,))
         worst = max([worst] + [e for e, _ in errs.values()])
         rel_worst = max([rel_worst] + [r for _, r in errs.values()])
-        return errs
+        n_cases += 1
+        routes[route] = routes.get(route, 0) + 1
+        return route, errs
 
     for dtype in ("float32", "bfloat16"):
         for i, (B, S, H, P, N, chunk, with_ds) in enumerate(SSD_BWD_SWEEP):
             args, dy, ds = ssd_bwd_inputs(torch, dev, getattr(torch, dtype),
                                           B, S, H, P, N, seed=60 + i)
-            errs = check(args, dy, ds if with_ds else None, chunk,
-                         (dtype, B, S, H, P, N, chunk))
-            log(f"    {dtype:8s} {(B, S, H, P, N, chunk)} dstate "
-                f"{'normal' if with_ds else 'zero  '}: max |kernel - plain| "
-                f"/ max |plain| " + " ".join(
-                    f"{n} {r:.2g}" for n, (_, r) in errs.items()))
+            hows = [None]
+            if skernel.route_bwd(getattr(torch, dtype), P, N) == "wgmma":
+                hows.append("cuda_core")
+            for how in hows:
+                route, errs = check(args, dy, ds if with_ds else None,
+                                    chunk, (dtype, B, S, H, P, N, chunk),
+                                    how)
+                log(f"    {dtype:8s} {(B, S, H, P, N, chunk)} dstate "
+                    f"{'normal' if with_ds else 'zero  '} {route:9s}: max "
+                    f"|kernel - plain| / max |plain| " + " ".join(
+                        f"{n} {r:.2g}" for n, (_, r) in errs.items()))
             del args, dy, ds
     B, S, H, P, N, chunk, _ = SSD_BWD_SWEEP[3]
     args, dy, ds = ssd_bwd_inputs(torch, dev, torch.bfloat16, B, S, H, P, N,
                                   seed=70)
+    assert skernel.route_bwd(torch.bfloat16, P, N) == "wgmma"
     dt = args[1]
     dt[:, 0::5] = 0.0
     dt[:, 3::7] = 1e-30
     dt[:, 1::11] = -0.05
-    errs = check(args, dy, ds, chunk, "edge dt")
-    log(f"  {skernel.NAME_BWD} bfloat16 {(B, S, H, P, N)}, dt 0 / 1e-30 / "
-        f"-0.05 on some tokens: " + " ".join(
+    route, errs = check(args, dy, ds, chunk, ("edge dt",))
+    log(f"  {skernel.NAME_BWD} bfloat16 {(B, S, H, P, N)} on '{route}', dt "
+        f"0 / 1e-30 / -0.05 on some tokens: " + " ".join(
             f"{n} {r:.2g}" for n, (_, r) in errs.items()))
+    key = f"{skernel.NAME_BWD}:wgmma"
+    before = build.ROUTE_LAUNCHES.get(key, 0)
     a = skernel.ssd_chunk_scan_bwd(*args, dy, None)
     b = skernel.ssd_chunk_scan_bwd(*args, dy, None)
     torch.cuda.synchronize()
+    assert build.ROUTE_LAUNCHES.get(key, 0) == before + 2, key
     same = all(torch.equal(u, v) for u, v in zip(a, b))
     assert same, "two backward calls on the same inputs differ"
-    log(f"  {skernel.NAME_BWD}: {2 * len(SSD_BWD_SWEEP) + 1} cases on "
-        f"'{skernel.ROUTE_BWD}' against autograd through the plain "
-        f"version, largest max |kernel - plain| / max |plain| "
-        f"{rel_worst:.3g} (tol f32 1e-4, bf16 outputs 1e-2), absolute "
-        f"{worst:.3g}; two calls bit-equal")
+    log(f"  {skernel.NAME_BWD}: {n_cases} cases (by route {routes}) against "
+        f"autograd through the plain version, largest max |kernel - plain| "
+        f"/ max |plain| {rel_worst:.3g} (tol f32 1e-4, bf16 outputs 1e-2), "
+        f"absolute {worst:.3g}; two calls on 'wgmma' bit-equal")
     return worst
 
 
@@ -1484,7 +1505,8 @@ def phase_train(torch, build, fkernel, arch="qwen3-1.7b", batch=8,
         _, _, P, N = ssm_dims(cfg)
         ssd_routes = {
             skernel.NAME: skernel.route(torch.bfloat16, P, N, chunk_len(
-                cfg.ssm_chunk, a.seq)), skernel.NAME_BWD: skernel.ROUTE_BWD}
+                cfg.ssm_chunk, a.seq)),
+            skernel.NAME_BWD: skernel.route_bwd(torch.bfloat16, P, N)}
     assert ssd == {skernel.NAME: 2 * n_ssm * steps,
                    skernel.NAME_BWD: n_ssm * steps}, (ssd, n_ssm)
     for n, r in ssd_routes.items():
@@ -1510,7 +1532,7 @@ def phase_train(torch, build, fkernel, arch="qwen3-1.7b", batch=8,
             f"mamba layers x {steps} steps (remat), all on "
             f"'{ssd_routes[skernel.NAME]}'; {skernel.NAME_BWD} launches: "
             f"{ssd[skernel.NAME_BWD]} = {n_ssm} x {steps}, all on "
-            f"'{skernel.ROUTE_BWD}'")
+            f"'{ssd_routes[skernel.NAME_BWD]}'")
     log(f"  step wall {step_s * 1e3:.1f} ms (mean of steps 2-{steps})"
         f", {tok_s:,.0f} tok/s, peak memory "
         f"{peak / 2**30:.2f} GiB allocated of "
@@ -1539,8 +1561,9 @@ def phase_train(torch, build, fkernel, arch="qwen3-1.7b", batch=8,
                            if n in e.key) / 1e3
                     for n in ("flash_fwd", "flash_bwd")}
         out["flash_ms"] = flash_ms
-        # the SSD's device symbols: ssd_chunk_scan{,_wgmma}_kernel forward,
-        # ssd_bwd_kernel and ssd_bwd_reduce_kernel backward
+        # the SSD's device symbols: ssd_chunk_scan{,_wgmma}_kernel forward;
+        # backward ssd_bwd_{fwd,rev}_kernel (wgmma) or ssd_bwd_kernel (CUDA
+        # cores), then ssd_bwd_reduce_kernel
         ssd_ms = {n: sum(e.self_device_time_total for e in events
                          if n in e.key) / 1e3
                   for n in ("ssd_chunk_scan", "ssd_bwd")}
@@ -2263,49 +2286,72 @@ def ssd_bwd_work(B, S, H, P, N, itemsize, L=64):
     return nbytes, flops
 
 
-def phase_ssd_bwd_timing(torch, dev, skernel, sref):
+def phase_ssd_bwd_timing(torch, dev, skernel, sref, card):
     """The backward at the train step's shape (B 4, S 2048, H 80, P 64, N
-    128, bf16 x/B/C, f32 dy, no final-state cotangent): the kernel by CUDA
-    events, autograd's backward through the plain version (its graph built
-    once, ``torch.autograd.grad`` timed), no library call (none computes
-    an SSD backward).  ``bound_ms`` is at the bf16 tensor-core rate, the
-    card's peak for these bf16 inputs, as the forward's is; the log also
-    gives it at the f32 CUDA-core rate, the one this simple kernel's
-    arithmetic runs at."""
+    128, bf16 x/B/C, f32 dy, no final-state cotangent): the wgmma route
+    (the one ``route_bwd`` gives) and the CUDA-core kernel on the same
+    inputs (``kernel._launch_bwd`` with its route named) by CUDA events in
+    one call, in turns (wgmma, CUDA cores, wgmma); autograd's backward
+    through the plain version (its graph built once,
+    ``torch.autograd.grad`` timed); no library call (none computes an SSD
+    backward).  ``bound_ms`` is at the bf16 tensor-core rate, the card's
+    peak for these bf16 inputs, as the forward's is; the log also gives it
+    at the f32 CUDA-core rate."""
     B, S, H, P, N, chunk = SSM_BATCH, SSM_SEQ, 80, 64, 128, 256
     args, dy, _ = ssd_bwd_inputs(torch, dev, torch.bfloat16, B, S, H, P, N,
                                  seed=22)
+    how = skernel.route_bwd(torch.bfloat16, P, N)
+    assert how == "wgmma", how
     ins = [t.detach().clone().requires_grad_(True) for t in args]
     y, _ = sref.ssd_chunk_scan_ref(*ins, chunk=chunk)
     want = torch.autograd.grad(y, ins, dy, retain_graph=True)
-    got = skernel.ssd_chunk_scan_bwd(*args, dy, None)
-    torch.cuda.synchronize()
-    errs = ssd_grad_errs(torch, got, want, "timing shape")
-    del got, want
-    ms = cuda_ms(torch, lambda i: skernel.ssd_chunk_scan_bwd(*args, dy),
-                 10, warmup=2)
+    errs = {}
+    for name, run in (
+            ("wgmma", lambda: skernel.ssd_chunk_scan_bwd(*args, dy, None)),
+            ("cuda_core", lambda: skernel._launch_bwd(*args, dy, None,
+                                                       "cuda_core"))):
+        got = run()
+        torch.cuda.synchronize()
+        errs[name] = ssd_grad_errs(torch, got, want, ("timing shape", name))
+        del got
+    del want
+    ms_runs = [cuda_ms(torch, lambda i: skernel.ssd_chunk_scan_bwd(
+        *args, dy), 20, warmup=3)]
+    cc_ms = cuda_ms(torch, lambda i: skernel._launch_bwd(
+        *args, dy, None, "cuda_core"), 5, warmup=1)
+    ms_runs.append(cuda_ms(torch, lambda i: skernel.ssd_chunk_scan_bwd(
+        *args, dy), 20, warmup=1))
+    ms = min(ms_runs)
     plain_ms = cuda_ms(torch, lambda i: torch.autograd.grad(
         y, ins, dy, retain_graph=True), 3, warmup=1)
     del y, ins
     nbytes, flops = ssd_bwd_work(B, S, H, P, N, 2)
     b_ms, b_by = bound(nbytes, flops, "bfloat16")
-    cc_ms, _ = bound(nbytes, flops, "float32")
+    f32_ms, _ = bound(nbytes, flops, "float32")
+    scratch = sum(4 * math.prod(v) for v in skernel.bwd_scratch(
+        B, S, H, P, N, how).values())
     out = {"B": B, "S": S, "H": H, "P": P, "N": N, "dtype": "bfloat16",
-           "route": skernel.ROUTE_BWD, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-           "bound_ms_f32_rate": cc_ms, "bytes": nbytes, "flops": flops,
-           "max_abs_err": max(e for e, _ in errs.values()),
-           "max_rel_err": max(r for _, r in errs.values()),
+           "route": how, "ms": ms, "ms_runs": ms_runs, "cuda_core_ms": cc_ms,
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+           "bound_by": b_by, "bound_ms_f32_rate": f32_ms, "bytes": nbytes,
+           "flops": flops, "scratch_bytes": scratch,
+           "cluster": skernel.cluster_bwd(H), "card": card,
+           "max_abs_err": max(e for e, _ in errs["wgmma"].values()),
+           "max_rel_err": max(r for _, r in errs["wgmma"].values()),
+           "cuda_core_max_abs_err": max(
+               e for e, _ in errs["cuda_core"].values()),
            "tflops": flops / (ms * 1e-3) / 1e12}
     log(f"  {skernel.NAME_BWD} train shape (B {B}, S {S}, H {H}, P {P}, N "
-        f"{N}, bf16): kernel {ms:7.3f} ms  plain (autograd) "
+        f"{N}, bf16; {card}): wgmma {ms:7.3f} ms (runs " + ", ".join(
+            f"{m:.3f}" for m in ms_runs) + f") [the CUDA-core kernel "
+        f"{cc_ms:.3f} ms, {cc_ms / ms:.1f}x]  plain (autograd) "
         f"{plain_ms:7.3f} ms  library: none  bound {b_ms:.3f} ms ({b_by} "
-        f"at the bf16 tensor-core rate; {cc_ms:.3f} ms at the f32 "
-        f"CUDA-core rate), "
-        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; "
+        f"at the bf16 tensor-core rate; {f32_ms:.3f} ms at the f32 "
+        f"CUDA-core rate), {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; "
         f"{out['tflops']:.1f} TFLOP/s counted, {b_ms / ms:.1%} of the "
-        f"bound; max |kernel - plain| / max |plain| "
-        f"{out['max_rel_err']:.3g}")
+        f"bound; scratch {scratch / 1e6:.1f} MB (clusters of "
+        f"{out['cluster']} heads); max |kernel - plain| / max |plain| "
+        f"wgmma {out['max_rel_err']:.3g}, cuda_core " + f"{max(r for _, r in errs['cuda_core'].values()):.3g}")
     return out
 
 
@@ -7130,7 +7176,7 @@ def run_phases(torch, card, dev, t_start, phase, sources, cpu) -> int:
     flash = phase_flash_timing(torch, dev, fkernel, fref)
     dm = phase_dropout_timing(torch, dev, dkernel, dref)
     ssd = phase_ssd_timing(torch, dev, skernel, sref)
-    ssd_bwd = phase_ssd_bwd_timing(torch, dev, skernel, sref)
+    ssd_bwd = phase_ssd_bwd_timing(torch, dev, skernel, sref, card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -7386,8 +7432,10 @@ def run_phases(torch, card, dev, t_start, phase, sources, cpu) -> int:
         "plain_ms": ssd_bwd["plain_ms"], "bound_ms": ssd_bwd["bound_ms"],
         "bound_by": ssd_bwd["bound_by"], "library_ms": None,
         "library": "none: no single PyTorch call computes an SSD backward",
-        "launches_by_kernel": {skernel.ROUTE_BWD: ssm_train["train"][
-            "launches"][skernel.NAME_BWD]},
+        "launches_by_kernel": {
+            ssm_train["train"]["ssd_routes"][skernel.NAME_BWD]: ssm_train[
+                "train"]["launches"][skernel.NAME_BWD]},
+        "cuda_core_ms": ssd_bwd["cuda_core_ms"],
         "launches_phase21": {
             "jamba-1.5-large train (1 layer)": ssm_train["jamba"][
                 "launches"][skernel.NAME_BWD],

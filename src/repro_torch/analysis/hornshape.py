@@ -213,9 +213,15 @@ def registry() -> List[Tuple[str, Callable[[], List[LaunchGeometry]]]]:
                           sgeo.geometry(B=B, S=S, H=H, P=P, N=N, dtype=dt,
                                         chunk=chunk)]))
     # ssd-bwd: a short last block, a ragged P and N, and a reduction whose
-    # grid strides (more elements than its blocks' threads)
+    # grid strides (more elements than its blocks' threads); the wgmma
+    # route at clusters of 8, 2, 4 and 1 heads, 64- and 128-column states,
+    # with and without kept states, short last blocks
     for B, S, H, P, N, dt in ((2, 24, 3, 4, 8, f32), (2, 130, 3, 20, 100, bf),
-                              (3, 700, 2, 8, 128, bf)):
+                              (3, 700, 2, 8, 128, bf),
+                              (2, 130, 16, 32, 48, bf),
+                              (1, 300, 6, 64, 128, bf),
+                              (1, 700, 4, 16, 16, bf),
+                              (2, 64, 3, 64, 64, bf)):
         cases.append((f"ssd-bwd/S{S}-P{P}-N{N}",
                       lambda B=B, S=S, H=H, P=P, N=N, dt=dt:
                       sgeo.bwd_geometries(B=B, S=S, H=H, P=P, N=N,

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
 // (flash_attention.cu, dropout_matmul.cu, paged_chunk_attention.cu,
-// ssd_chunk_scan.cu):
-// mbarriers, TMA copies (loads into shared memory, stores out of it), wgmma
+// ssd_chunk_scan.cu, ssd_chunk_scan_bwd.cu):
+// mbarriers, TMA copies (loads into shared memory, stores out of it),
+// clusters' distributed shared memory, wgmma
 // shared-memory descriptors and products, and the host-side tensor maps.
 // The swizzled tile layout, the K-major and the transposed (MN-major) B
 // operand and the register A operand built from an accumulator are the
@@ -101,6 +102,15 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3), "r"(c4) : "memory");
 }
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
 // Store a box from shared memory; the part outside the tensor is dropped.
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
                                              const void* src, int c0, int c1,
@@ -109,6 +119,15 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
       " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -131,6 +150,57 @@ __device__ __forceinline__ void fence_proxy_async() {
 // __syncthreads)
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread-block clusters: a block's rank, another block's shared memory
+// (distributed shared memory), and mbarriers that peers arrive on.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+// every thread of every block of the cluster, with release / acquire
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the address of this block's shared variable ``p`` in block ``rank``
+__device__ __forceinline__ uint32_t peer_u32(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+// arrive on block ``rank``'s copy of ``bar``, releasing this thread's
+// (and, after a barrier, its block's) earlier writes at cluster scope
+__device__ __forceinline__ void mbar_arrive_peer(uint64_t* bar, int rank) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          peer_u32(bar, rank)) : "memory");
+}
+// mbar_wait with acquire at cluster scope: the peers' writes released by
+// their arrivals are visible after it
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (polls == (1u << 24)) __trap();
+  }
+}
+// store (a, b) at this block's shared address ``p`` in block ``rank``
+__device__ __forceinline__ void st_peer_f2(float* p, int rank, float a,
+                                           float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(
+                   peer_u32(p, rank)), "f"(a), "f"(b) : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -1,12 +1,13 @@
 """The CUDA SSD chunk scan: ctypes bindings, wrappers, autograd.
 
 The forward kernels are ``csrc/ssd_chunk_scan.cu`` (they replace the TPU
-kernel ``src/repro/kernels/ssd/kernel.py:65``); the backward is
+kernel ``src/repro/kernels/ssd/kernel.py:65``); the backward's are
 ``csrc/ssd_chunk_scan_bwd.cu``, which the TPU kernel lacks (the JAX
-package differentiates its plain chunked form).  ``ssd_chunk_scan`` and
-``ssd_chunk_scan_bwd`` take CUDA tensors only: they check them, pick a
-kernel, allocate outputs and scratch, launch on the current stream and
-raise when a launch is refused.  ``SSDChunkScan`` is the
+package differentiates its plain chunked form).  Each direction has two
+routes, picked by a rule of the shapes (``route``, ``route_bwd``).
+``ssd_chunk_scan`` and ``ssd_chunk_scan_bwd`` take CUDA tensors only:
+they check them, pick a kernel, allocate outputs and scratch, launch on
+the current stream and raise when a launch is refused.  ``SSDChunkScan`` is the
 ``torch.autograd.Function`` whose forward and backward are the two.  CPU
 tensors go to the plain version through ``ops.py``.
 """
@@ -31,13 +32,15 @@ BLOCK = 64                              # tokens of the wgmma kernel's block
 # the kernels of the source, by the number the C entry point takes
 ROUTES = ("cuda_core", "wgmma")
 
-# the backward's one kernel (CUDA cores, f32), its 64-token block, the
-# most blocks of its reduction over heads and that reduction's threads a
-# block (read from the source, which launches with them)
-ROUTE_BWD = "cuda_core"
+# the backward's routes, by the number the C entry point takes: the
+# CUDA-core kernel (f32, ragged P or N) and the wgmma kernels (two sweeps);
+# their 64-token block, the most blocks of the head reduction and that
+# reduction's threads a block, and the wgmma route's kept-state stride
+# (read from the source, which launches with them)
+ROUTES_BWD = ("cuda_core", "wgmma")
 BLOCK_BWD = 64
 REDUCE_BLOCKS = 1024
-(RTHREADS,) = cu_constants(SOURCE_BWD, "RTHREADS")
+RTHREADS, CKPT = cu_constants(SOURCE_BWD, "RTHREADS", "CKPT")
 
 build.LAUNCHES.setdefault(NAME, 0)
 build.LAUNCHES.setdefault(NAME_BWD, 0)
@@ -64,7 +67,7 @@ def _entry_bwd():
     global _fn_bwd
     if _fn_bwd is None:
         fn = build.load(SOURCE_BWD).ssd_chunk_scan_bwd
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn_bwd = fn
@@ -153,13 +156,93 @@ def ssd_chunk_scan(x, dt, A, Bm, Cm, *, chunk: int):
     return _launch(x, dt, A, Bm, Cm, Q, route(x.dtype, P, Bm.shape[-1], Q))
 
 
+def route_bwd(dtype: torch.dtype, P: int, N: int) -> str:
+    """Which backward takes head dim ``P`` and state ``N`` in ``dtype``:
+    bf16 with P a multiple of 16 up to 64 and N a multiple of 16 up to 128
+    goes to the wgmma kernels; f32 and ragged P or N to the CUDA-core
+    kernel.  Any S: the last block may be short.  A pure function of the
+    shape, as ``route`` is: nothing is tried and retried."""
+    if dtype not in DTYPES:
+        raise TypeError(f"{NAME_BWD}: no kernel for {dtype}")
+    if (dtype == torch.bfloat16 and P % 16 == 0 and P <= P_MAX
+            and N % 16 == 0 and N <= N_MAX):
+        return "wgmma"
+    return "cuda_core"
+
+
+def cluster_bwd(H: int) -> int:
+    """Heads a cluster of the wgmma backward sums dB and dC over in
+    distributed shared memory: the largest of 8, 4, 2, 1 that divides H
+    (8 for mamba2-2.7b's 80 heads and jamba's 256)."""
+    return next(c for c in (8, 4, 2, 1) if H % c == 0)
+
+
+def bwd_scratch(B: int, S: int, H: int, P: int, N: int, how: str) -> dict:
+    """The f32 scratch of one backward call on route ``how``, by name:
+    shape.  cuda_core: the state entering every block and per-head
+    partials of dBm and dCm.  wgmma: the state entering every CKPT-th
+    block (from block CKPT to the last but one, in the state warpgroup's
+    register order: 64 rows x N rounded up to 64), carrE per token, delta
+    per (b, h), and partials a cluster of ``cluster_bwd(H)`` heads."""
+    nblk = -(-S // BLOCK_BWD)
+    if how == "cuda_core":
+        return {"states": (B, H, nblk, P, N), "dBp": (B, H, S, N),
+                "dCp": (B, H, S, N), "dAp": (B, H)}
+    NP = 64 if N <= 64 else 128
+    nck = (nblk - 2) // CKPT if nblk >= 2 else 0
+    HC = H // cluster_bwd(H)
+    return {"states": (B, H, nck, 64 * NP), "dBp": (B, HC, S, N),
+            "dCp": (B, HC, S, N), "dAp": (B, H), "carrE": (B, H, S),
+            "delta": (B, H)}
+
+
+def _launch_bwd(x, dt, A, Bm, Cm, dy, dstate, how: str):
+    """Launch the backward of route ``how`` on checked inputs and count
+    the launch.  ``ssd_chunk_scan_bwd`` passes ``route_bwd(...)``; callers
+    go through it, and only a timing harness names a route itself."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if how == "wgmma":
+        if route_bwd(x.dtype, P, N) != "wgmma":
+            raise ValueError(f"{NAME_BWD}: the wgmma route takes bf16 with "
+                             f"P and N multiples of 16; got {x.dtype}, P "
+                             f"{P}, N {N}")
+        for tname, t in dict(x=x, Bm=Bm, Cm=Cm).items():
+            if t.data_ptr() % 16:
+                raise ValueError(f"{NAME_BWD}: {tname} must start on a "
+                                 f"16-byte boundary (the wgmma kernels copy "
+                                 f"its tiles by TMA)")
+    dev = x.device
+    dx, dBm, dCm = (torch.empty_like(t) for t in (x, Bm, Cm))
+    ddt = torch.empty_like(dt)
+    dA = torch.empty_like(A)
+    scratch = {k: torch.empty(v, dtype=torch.float32, device=dev)
+               for k, v in bwd_scratch(B, S, H, P, N, how).items()}
+    ptr = {k: v.data_ptr() for k, v in scratch.items()}
+    err = _entry_bwd()(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), dy.data_ptr(),
+        None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(),
+        ptr["states"], ptr["dBp"], ptr["dCp"], ptr["dAp"],
+        ptr.get("carrE"), ptr.get("delta"), B, S, H, P, N,
+        DTYPES[x.dtype], ROUTES_BWD.index(how), cluster_bwd(H),
+        reduce_blocks(B, S, N), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{NAME_BWD}: kernel launch ({how}) failed with "
+                           f"CUDA error {err}")
+    build.count_launch(NAME_BWD, how)
+    return dx, ddt, dA, dBm, dCm
+
+
 def ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, dstate=None):
     """Launch the backward: the forward's inputs, dy [B, S, H, P] f32 (the
     cotangent of y) and dstate [B, H, P, N] f32 (of the final state, or
     None for zero) -> (dx, ddt, dA, dBm, dCm), dx/dBm/dCm in x's type and
     ddt/dA f32.  Same contract as ``ref.ssd_chunk_scan_bwd_ref``; the
     result does not depend on the forward's chunk.  Deterministic: the
-    per-head partials of dBm and dCm are summed in a fixed order."""
+    partials of dBm and dCm are summed in a fixed order.  The kernels are
+    ``route_bwd``'s."""
     more = dict(dy=dy) if dstate is None else dict(dy=dy, dstate=dstate)
     _check(x, dt, A, Bm, Cm, 1, NAME_BWD, **more)
     B, S, H, P = x.shape
@@ -169,29 +252,8 @@ def ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, dstate=None):
                                     or dstate.dtype != torch.float32)):
         raise ValueError(f"{NAME_BWD}: dy must be f32 {tuple(x.shape)} and "
                          f"dstate f32 {(B, H, P, N)} or None")
-    dev = x.device
-    f32 = torch.float32
-    dx, dBm, dCm = (torch.empty_like(t) for t in (x, Bm, Cm))
-    ddt = torch.empty_like(dt)
-    dA = torch.empty_like(A)
-    nblk = -(-S // BLOCK_BWD)
-    states = torch.empty((B, H, nblk, P, N), dtype=f32, device=dev)
-    dBp, dCp = (torch.empty((B, H, S, N), dtype=f32, device=dev)
-                for _ in range(2))
-    dAp = torch.empty((B, H), dtype=f32, device=dev)
-    err = _entry_bwd()(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), dy.data_ptr(),
-        None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
-        ddt.data_ptr(), dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(),
-        states.data_ptr(), dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(),
-        B, S, H, P, N, DTYPES[x.dtype], reduce_blocks(B, S, N),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"{NAME_BWD}: kernel launch failed with CUDA "
-                           f"error {err}")
-    build.count_launch(NAME_BWD, ROUTE_BWD)
-    return dx, ddt, dA, dBm, dCm
+    return _launch_bwd(x, dt, A, Bm, Cm, dy, dstate,
+                       route_bwd(x.dtype, P, N))
 
 
 def reduce_blocks(B: int, S: int, N: int) -> int:

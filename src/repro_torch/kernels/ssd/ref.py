@@ -215,8 +215,8 @@ def ssd_chunk_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dstate=None, *,
 def bf16_split(v):
     """v (f32) as hi = bf16(v) and lo = bf16(v - hi), both returned in f32:
     hi + lo holds v to about 2^-16 relative."""
-    hi = v.to(torch.bfloat16).to(f32)
-    return hi, (v - hi).to(torch.bfloat16).to(f32)
+    hi, lo = bf16_terms(v, 2)
+    return hi, lo
 
 
 def ssd_split_ref(x, dt, A, Bm, Cm, *, block: int = 64):
@@ -266,3 +266,182 @@ def ssd_split_ref(x, dt, A, Bm, Cm, *, block: int = 64):
         ys.append(y)
     y = torch.cat(ys, dim=1) if ys else xf.new_zeros(x.shape)
     return y, state
+
+
+
+# How many bf16 terms each f32 operand of the backward's wgmma route takes
+# to the tensor cores: 3 (hi, mid, lo: about 2^-24 relative), 2 (hi, lo:
+# 2^-16) or 1 (bf16 of the value).  ``ssd_chunk_scan_bwd_split_ref``
+# decided it on the CPU: dA sums dt da over every token of a batch row and
+# cancels to a few units out of terms in the thousands, so the products
+# that reach it through the carried state, G and delta need f32's own
+# precision (``SSD_BWD_TOL`` in ``chip_smoke.py``: 1e-4 of its scale).
+#   s_carr  s in s C^T (carr_i = dy_i . (s C^T)_i: ddt, dA)
+#   wx_s    w x in the update of s (s, above)
+#   G_gb    G in G B^T (x^T G B: ddt, dA, delta)
+#   E_G     exp(cum) dy in the update of G (G, above; in two terms dA
+#           keeps to the tolerance against the f32 backward but drifts to
+#           0.5-0.8 of it against the f64 one at S 2048 with a dstate,
+#           where three terms keep it at 0.14)
+#   dy_e    dy in e = dy x^T (ddt through K e and the quadratic form)
+# The bf16 outputs dx, dBm and dCm are held to 1e-2 of their scale, about
+# one bf16 step at their largest values, so what reaches them is taken to
+# 2^-16 where one term would cost a step:
+#   M, dy_dx  M and dy in M^T dy (dx);  D  in D B (dC) and D^T C (dB)
+# and one term where it does not:
+#   E_dC, s_dC  exp(cum) dy and s in dC's state term E s;
+#   wx_dB, G_dB  w x and G in (w x) G (dB)
+BWD_TERMS = {"s_carr": 3, "wx_s": 3, "G_gb": 3, "E_G": 3, "dy_e": 2,
+             "M": 2, "dy_dx": 2, "D": 2, "E_dC": 1, "s_dC": 1, "wx_dB": 1,
+             "G_dB": 1}
+# the state entering every BWD_CKPT-th block is kept (f32) between the
+# sweeps; the reverse sweep takes delta from it there (see below): against
+# the f64 backward at S 2048 with a dstate, dA drifts to 0.6-0.7 of its
+# tolerance when delta runs its recurrence over the whole row, 0.14 with
+# a restart every 4 blocks
+BWD_CKPT = 4
+
+
+def bf16_terms(v, n: int):
+    """v (f32) as n bf16 terms, each returned in f32: hi = bf16(v), then
+    bf16 of what is left; their sum holds v to about 2^(-8 n)
+    relative."""
+    out = []
+    for _ in range(n):
+        t = v.to(torch.bfloat16).to(f32)
+        out.append(t)
+        v = v - t
+    return out
+
+
+def _mm(eq, a, b):
+    """A product of an operand in ``len(a)`` terms by one in ``len(b)``:
+    einsum(eq, a_i, b_j) summed in f32 over the term pairs with i + j <
+    max(len(a), len(b)), the pairs whose scale is above the finer
+    operand's last term (3 x 1: three products; 2 x 2: hi hi, lo hi, hi
+    lo)."""
+    n = max(len(a), len(b))
+    return sum(torch.einsum(eq, u, v) for i, u in enumerate(a)
+               for j, v in enumerate(b) if i + j < n)
+
+
+def ssd_chunk_scan_bwd_split_ref(x, dt, A, Bm, Cm, dy, dstate=None, *,
+                                 block: int = 64, terms=None,
+                                 ckpt: int = BWD_CKPT):
+    """The backward's wgmma route written plainly: its two sweeps, its
+    rounding and its order of the gradient's terms.  Same contract and
+    outputs as ``ssd_chunk_scan_bwd_ref`` (dx, dBm and dCm rounded to x's
+    type, as the kernel stores them; ddt, dA f32).  ``terms`` overrides
+    ``BWD_TERMS``, the number of bf16 terms of each f32 operand.
+
+    Sweep F walks the blocks first to last with the carried state s in
+    f32 and computes what does not depend on G: dC = D B + E s (E =
+    exp(cum) dy) and carrE_i = exp(cum_i) dy_i . (s C^T)_i, and keeps the
+    state entering every ``ckpt``-th block.  Sweep R walks last to first
+    with G: dx = M^T dy + w G B, dB = D^T C + (w x) G, ddt and dA.  The
+    state-out term of dcum at a block's last token, exp(cum_L) <G, s> +
+    sum_j h_j, is the inner product delta_k of the state leaving block k
+    with its cotangent, which obeys
+
+        delta_{k-1} = delta_k - sum_j h_j + sum_i carrE_i,
+        delta_last  = <dstate, final state>
+
+    Sweep R runs that recurrence down from each block where it has the
+    state (the last, block 0 and every ``ckpt``-th), taking delta there
+    from the state directly: in f32 the recurrence compounds the rounding
+    of h and carrE over the blocks it spans, and dA, a sum that cancels,
+    feels it (``BWD_CKPT``).  x, Bm and Cm are taken as given (exact when they are
+    bf16)."""
+    refuse_grad("ssd_chunk_scan_bwd_split_ref", x, dt, A, Bm, Cm, dy)
+    n_terms = dict(BWD_TERMS, **(terms or {}))
+    if set(n_terms) != set(BWD_TERMS) or not all(
+            v in (1, 2, 3) for v in n_terms.values()):
+        raise ValueError(f"ssd_chunk_scan_bwd_split_ref: terms must map "
+                         f"operands of {sorted(BWD_TERMS)} to 1, 2 or 3; "
+                         f"got {terms}")
+
+    def T(v, name):
+        return bf16_terms(v, n_terms[name])
+
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    xf, dtf, Af, Bf, Cf, dyf = (t.to(f32) for t in (x, dt, A, Bm, Cm, dy))
+    nblk = -(-S // block)
+
+    def blk(k):
+        c0 = k * block
+        xq, dtq, Bq, Cq, dyq = (t[:, c0:c0 + block]
+                                for t in (xf, dtf, Bf, Cf, dyf))
+        L = xq.shape[1]
+        idx = torch.arange(L, device=x.device)
+        causal = (idx[:, None] >= idx[None, :])[None, :, :, None]
+        cum = torch.cumsum(dtq * Af, dim=1)                      # [B,L,H]
+        seg = cum[:, :, None] - cum[:, None, :]                  # [B,i,j,H]
+        decay = torch.exp(torch.where(causal, seg, float("-inf")))
+        e = _mm("bihp,bjhp->bijh", T(dyq, "dy_e"), [xq])
+        keep = torch.exp(cum[:, -1:] - cum)
+        return dict(c0=c0, L=L, xq=xq, dtq=dtq, Bq=Bq, Cq=Cq, dyq=dyq,
+                    cum_l=cum[:, -1], ecum=torch.exp(cum), decay=decay,
+                    CB=torch.einsum("bin,bjn->bij", Cq, Bq), e=e,
+                    keep=keep, w=keep * dtq, D=decay * dtq[:, None] * e)
+
+    # sweep F: dC and carrE, the state in f32
+    s = torch.zeros(Bsz, H, P, N, dtype=f32, device=x.device)
+    kept = {}
+    dC = torch.zeros_like(Cf)
+    carrE = torch.zeros_like(dtf)
+    for k in range(nblk):
+        q = blk(k)
+        c0, L = q["c0"], q["L"]
+        if k % ckpt == 0:
+            kept[k] = s
+        E = q["ecum"][..., None] * q["dyq"]
+        sc = _mm("bhpn,bin->bhpi", T(s, "s_carr"), [q["Cq"]])
+        carrE[:, c0:c0 + L] = q["ecum"] * torch.einsum(
+            "bihp,bhpi->bih", q["dyq"], sc)
+        dC[:, c0:c0 + L] = (
+            _mm("bihp,bhpn->bihn", T(E, "E_dC"), T(s, "s_dC"))
+            + _mm("bijh,bjn->bihn", T(q["D"], "D"), [q["Bq"]])).sum(2)
+        wx = q["w"][..., None] * q["xq"]
+        s = (s * torch.exp(q["cum_l"])[..., None, None]
+             + _mm("bjhp,bjn->bhpn", T(wx, "wx_s"), [q["Bq"]]))
+    delta = (torch.zeros(Bsz, H, dtype=f32, device=x.device)
+             if dstate is None else (dstate.to(f32) * s).sum((-1, -2)))
+
+    # sweep R: G, dx, dB, ddt, dA
+    G = (torch.zeros_like(s) if dstate is None
+         else dstate.to(f32).clone())
+    dx, ddt = torch.zeros_like(xf), torch.zeros_like(dtf)
+    dB = torch.zeros_like(Bf)
+    dA = torch.zeros_like(Af)
+    for k in reversed(range(nblk)):
+        q = blk(k)
+        c0, L = q["c0"], q["L"]
+        K = q["CB"][..., None] * q["decay"]
+        M = K * q["dtq"][:, None]
+        Z = M * q["e"]
+        GB = _mm("bjn,bhpn->bjhp", [q["Bq"]], T(G, "G_gb"))
+        gbx = (q["xq"] * GB).sum(-1)                             # [B,L,H]
+        h = q["w"] * gbx
+        dx[:, c0:c0 + L] = (
+            _mm("bijh,bihp->bjhp", T(M, "M"), T(q["dyq"], "dy_dx"))
+            + q["w"][..., None] * GB)
+        wx = q["w"][..., None] * q["xq"]
+        dB[:, c0:c0 + L] = (
+            _mm("bijh,bin->bjhn", T(q["D"], "D"), [q["Cq"]])
+            + _mm("bjhp,bhpn->bjhn", T(wx, "wx_dB"), T(G, "G_dB"))).sum(2)
+        cE = carrE[:, c0:c0 + L]
+        dcum = Z.sum(2) - Z.sum(1) - h + cE
+        if k % ckpt == 0 and k < nblk - 1:
+            delta = (torch.exp(q["cum_l"]) * (G * kept[k]).sum((-1, -2))
+                     + h.sum(1))
+        dcum[:, -1] += delta
+        da = torch.flip(torch.cumsum(torch.flip(dcum, (1,)), 1), (1,))
+        ddt[:, c0:c0 + L] = ((K * q["e"]).sum(1) + q["keep"] * gbx
+                             + Af * da)
+        dA = dA + (q["dtq"] * da).sum((0, 1))
+        delta = delta - h.sum(1) + cE.sum(1)
+        E = q["ecum"][..., None] * q["dyq"]
+        G = (G * torch.exp(q["cum_l"])[..., None, None]
+             + _mm("bihp,bin->bhpn", T(E, "E_G"), [q["Cq"]]))
+    return (dx.to(x.dtype), ddt, dA, dB.to(Bm.dtype), dC.to(Cm.dtype))

@@ -163,7 +163,8 @@ def test_registry_covers_every_route():
         "dropout_matmul:wgmma", "dropout_matmul:mma_sync",
         "dropout_matmul:f32", "ssd_chunk_scan:cuda_core",
         "ssd_chunk_scan:wgmma", "ssd_chunk_scan_bwd:cuda_core",
-        "ssd_chunk_scan_bwd:cuda_core:reduce"} - {
+        "ssd_chunk_scan_bwd:cuda_core:reduce", "ssd_chunk_scan_bwd:wgmma:fwd",
+        "ssd_chunk_scan_bwd:wgmma", "ssd_chunk_scan_bwd:wgmma:reduce"} - {
         f"flash_attention_bwd:{r}_d{d}" for r in ("wgmma", "cuda_core")
         for d in (32, 64, 256)}
 

@@ -11,9 +11,11 @@
 * ``torch.autograd.gradcheck`` in f64 on a tiny case, of the plain version
   and of ``ssd_chunk_scan_bwd_ref`` as the backward of an
   ``autograd.Function``.
-* ``cuda`` cases (the kernel against autograd through the plain version
-  on the card, bit-equality of two calls) that skip without a card; they
-  need no JAX, which the parity tests import inside.
+* ``route_bwd``, the cluster rule and the wgmma route's scratch.
+* ``cuda`` cases (each backward route against autograd through the plain
+  version on the card, every wgmma-routed case also forced through the
+  CUDA-core kernel; bit-equality of two calls) that skip without a card;
+  they need no JAX, which the parity tests import inside.
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_ssd_grad.py
 """
@@ -200,6 +202,44 @@ def test_boundary_bytes_in_training_by_hand():
     assert x.grad is not None and A_.grad is not None
 
 
+@pytest.mark.parametrize("dtype,P,N,want", [
+    ("bfloat16", 64, 128, "wgmma"), ("bfloat16", 64, 16, "wgmma"),
+    ("bfloat16", 16, 16, "wgmma"), ("bfloat16", 48, 96, "wgmma"),
+    ("bfloat16", 20, 100, "cuda_core"), ("bfloat16", 64, 120, "cuda_core"),
+    ("bfloat16", 8, 16, "cuda_core"), ("float32", 64, 128, "cuda_core"),
+    ("float32", 16, 16, "cuda_core")])
+def test_route_bwd_rule(dtype, P, N, want):
+    """bf16 with P and N multiples of 16 goes to the wgmma kernels, any S;
+    f32 and ragged P or N to the CUDA-core kernel."""
+    assert kernel.route_bwd(getattr(torch, dtype), P, N) == want
+
+
+def test_route_bwd_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="no kernel"):
+        kernel.route_bwd(torch.float16, 64, 128)
+
+
+@pytest.mark.parametrize("H,cl", [(80, 8), (256, 8), (24, 8), (12, 4),
+                                  (4, 4), (6, 2), (2, 2), (3, 1), (1, 1)])
+def test_cluster_bwd_is_the_largest_of_8_4_2_1_dividing_H(H, cl):
+    assert kernel.cluster_bwd(H) == cl
+    assert H % cl == 0
+
+
+def test_bwd_scratch_at_the_train_shape():
+    """The wgmma route's scratch at mamba2-2.7b's train shape: the state
+    entering blocks 4, 8, ..., 28 (7 of 32), carrE and delta, and the head
+    partials of 10 clusters of 8; a tenth of the CUDA-core route's."""
+    tc = kernel.bwd_scratch(4, 2048, 80, 64, 128, "wgmma")
+    cc = kernel.bwd_scratch(4, 2048, 80, 64, 128, "cuda_core")
+    assert tc == {"states": (4, 80, 7, 64 * 128), "dBp": (4, 10, 2048, 128),
+                  "dCp": (4, 10, 2048, 128), "dAp": (4, 80),
+                  "carrE": (4, 80, 2048), "delta": (4, 80)}
+    nbytes = {k: 4 * sum(int(np.prod(v)) for v in d.values())
+              for k, d in (("tc", tc), ("cc", cc))}
+    assert nbytes == {"tc": 159_910_400, "cc": 1_006_634_240}
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -233,31 +273,50 @@ def close_to_plain(got, want, dtype):
             (name, dtype, err)
 
 
+# (geom, dtype, route): every card case on the route ``route_bwd`` gives
+# it ("routed"), and each that goes to the wgmma kernels also forced
+# through the CUDA-core kernel; decided by the shape alone
+KERNEL_CASES = [
+    (geom, dtype, how)
+    for geom in BWD_GEOMS + [(1, 512, 4, 64, 128, 256)]
+    for dtype in ("float32", "bfloat16")
+    for how in ("routed", "cuda_core")
+    if how == "routed" or kernel.route_bwd(getattr(torch, dtype), geom[3],
+                                           geom[4]) == "wgmma"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("geom", BWD_GEOMS + [(1, 512, 4, 64, 128, 256)],
-                         ids=gid)
-def test_kernel_bwd_matches_autograd_through_plain(cuda, geom, dtype):
+@pytest.mark.parametrize("geom,dtype,how", KERNEL_CASES,
+                         ids=[f"{gid(g)}-{d}-{h}" for g, d, h in KERNEL_CASES])
+def test_kernel_bwd_matches_autograd_through_plain(cuda, geom, dtype, how):
     dtype = getattr(torch, dtype)
     inputs, dy, ds = torch_inputs(geom, 3, cuda, dtype)
     want = autograd_grads(
         lambda *a: ref.ssd_chunk_scan_ref(*a, chunk=geom[5]), inputs, dy, ds)
-    before = build.ROUTE_LAUNCHES.get(f"{kernel.NAME_BWD}:cuda_core", 0)
-    got = kernel.ssd_chunk_scan_bwd(*inputs, dy, ds)
+    route = (kernel.route_bwd(dtype, geom[3], geom[4]) if how == "routed"
+             else how)
+    key = f"{kernel.NAME_BWD}:{route}"
+    before = build.ROUTE_LAUNCHES.get(key, 0)
+    got = (kernel.ssd_chunk_scan_bwd(*inputs, dy, ds) if how == "routed"
+           else kernel._launch_bwd(*inputs, dy, ds, how))
     torch.cuda.synchronize()
-    assert build.ROUTE_LAUNCHES[f"{kernel.NAME_BWD}:cuda_core"] == before + 1
+    assert build.ROUTE_LAUNCHES[key] == before + 1
     close_to_plain(got, want, dtype)
 
 
 @pytest.mark.cuda
 def test_kernel_bwd_is_deterministic(cuda):
     """Two calls on the same inputs give the same bits (the head sums run
-    in a fixed order)."""
+    in a fixed order, in the clusters' shared memory and then over the
+    cluster partials), on the wgmma route this shape takes."""
     inputs, dy, ds = torch_inputs((2, 1000, 16, 64, 128, 256), 4, cuda,
                                   torch.bfloat16)
+    key = f"{kernel.NAME_BWD}:wgmma"
+    before = build.ROUTE_LAUNCHES.get(key, 0)
     a = kernel.ssd_chunk_scan_bwd(*inputs, dy, ds)
     b = kernel.ssd_chunk_scan_bwd(*inputs, dy, ds)
     torch.cuda.synchronize()
+    assert build.ROUTE_LAUNCHES[key] == before + 2
     assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
